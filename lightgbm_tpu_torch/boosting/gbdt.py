@@ -1,0 +1,378 @@
+"""GBDT boosting loop.
+
+Port of ``lightgbm_tpu/boosting/gbdt.py`` (reference: src/boosting/
+gbdt.cpp; Init at :52, TrainOneIter at :334). Gradients, tree growth and
+the score update run on the learner's device; the host keeps the model
+(a list of host ``Tree``s) and evaluates metrics. The training score
+update gathers the new tree's leaf values over the learner's final
+row->leaf partition instead of re-walking the tree (the reference's
+CUDADataPartition::UpdateTrainScore trick); validation scores walk the
+binned validation rows on the device.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..io.binning import MissingType
+from ..io.dataset import BinnedDataset
+from ..metric import Metric, create_metric, resolve_metric_names
+from ..models.tree import Tree, kDefaultLeftMask, parse_tree_blocks
+from ..objective import (ObjectiveFunction, create_objective,
+                         load_objective_from_string)
+from ..treelearner import create_tree_learner
+from ..utils import log
+
+kEpsilon = 1e-15
+
+
+def tree_outputs_by_bin(tree: Tree, bins: torch.Tensor,
+                        bin_meta) -> Optional[torch.Tensor]:
+    """[n] f32 output of one tree over binned rows ``bins`` [n, F]
+    (uint8, any device): a lockstep walk, one level per pass (the
+    reference's ops/predict.py device traversal). ``bin_meta`` is
+    (nan_bins, zero_bins, missing_types) per inner feature. Returns None
+    for a zero-valued stump."""
+    n = bins.shape[0]
+    dev = bins.device
+    ni = tree.num_internal
+    if ni == 0:
+        if tree.leaf_value[0] != 0.0:
+            return torch.full((n,), float(np.float32(tree.leaf_value[0])),
+                              dtype=torch.float32, device=dev)
+        return None
+    nan_bins, zero_bins, missing_types = bin_meta
+    f = tree.split_feature_inner[:ni]
+    dt = tree.decision_type[:ni]
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+    feat = t(f, np.int64)
+    tbin = t(tree.threshold_in_bin[:ni], np.int32)
+    dl = t((dt & kDefaultLeftMask) != 0, np.bool_)
+    nb = t(np.where(missing_types[f] == MissingType.NAN, nan_bins[f], -1),
+           np.int32)
+    zb = t(np.where(missing_types[f] == MissingType.ZERO, zero_bins[f], -1),
+           np.int32)
+    left = t(tree.left_child[:ni], np.int32)
+    right = t(tree.right_child[:ni], np.int32)
+    lv = t(tree.leaf_value[:tree.num_leaves], np.float32)
+    rows = torch.arange(n, device=dev)
+    node = torch.zeros(n, dtype=torch.int32, device=dev)
+    for _ in range(int(tree.leaf_depth[:tree.num_leaves].max())):
+        nd = node.clamp(min=0).long()
+        b = bins[rows, feat[nd]].to(torch.int32)
+        gl = b <= tbin[nd]
+        gl = torch.where(b == nb[nd], dl[nd], gl)
+        gl = torch.where(b == zb[nd], dl[nd], gl)
+        node = torch.where(node >= 0,
+                           torch.where(gl, left[nd], right[nd]), node)
+    return lv[(~node).long()]
+
+
+class ValidData:
+    """One validation set: binned rows aligned with the training mappers
+    and incrementally maintained f32 scores, both on the device
+    (reference: GBDT::AddValidDataset, gbdt.cpp:182)."""
+
+    def __init__(self, dataset: BinnedDataset, metrics: List[Metric],
+                 device: torch.device):
+        self.dataset = dataset
+        self.metrics = metrics
+        self.bins = torch.from_numpy(dataset.bins).to(device)
+        scores = np.zeros((dataset.num_data, 1), dtype=np.float32)
+        if dataset.metadata.init_score is not None:
+            scores[:, 0] += np.asarray(dataset.metadata.init_score,
+                                       dtype=np.float64)
+        self.scores_dev = torch.from_numpy(scores).to(device)
+
+    @property
+    def scores(self) -> np.ndarray:
+        return self.scores_dev.cpu().numpy().astype(np.float64)
+
+    def add_tree(self, tree: Tree, bin_meta) -> None:
+        delta = tree_outputs_by_bin(tree, self.bins, bin_meta)
+        if delta is not None:
+            self.scores_dev[:, 0] += delta
+
+    def add_const(self, val: float) -> None:
+        self.scores_dev[:, 0] += float(np.float32(val))
+
+
+class GBDT:
+    """reference: src/boosting/gbdt.cpp."""
+
+    submodel_name = "tree"
+
+    def __init__(self, config: Config,
+                 train_data: Optional[BinnedDataset] = None,
+                 device: Optional[torch.device] = None):
+        self.config = config
+        self.train_data = train_data
+        self.device = device
+        self.objective: Optional[ObjectiveFunction] = None
+        self.models: List[Tree] = []
+        self.iter = 0
+        self.num_init_iteration = 0
+        self.best_iteration = -1
+        self.shrinkage_rate = float(config.learning_rate)
+        self.num_class = 1
+        self.num_tree_per_iteration = 1
+        if train_data is not None:
+            self._init_train(train_data)
+        else:
+            # prediction-only booster (model loaded from text)
+            self.max_feature_idx = 0
+            self.feature_names: List[str] = []
+            self.feature_infos: List[str] = []
+            self.label_idx = 0
+
+    # ------------------------------------------------------------------
+    def _init_train(self, train_data: BinnedDataset) -> None:
+        config = self.config
+        config.check_slice()
+        self.objective = create_objective(config.objective, config)
+        self.objective.init(train_data.metadata, train_data.num_data,
+                            self.device)
+        self.num_data = train_data.num_data
+        self.max_feature_idx = train_data.num_total_features - 1
+        self.feature_names = list(train_data.feature_names)
+        self.feature_infos = train_data.feature_infos()
+        self.label_idx = 0
+        self.learner = create_tree_learner(config, train_data, self.device)
+        self._has_init_score = train_data.metadata.init_score is not None
+        score = np.zeros((self.num_data, 1), dtype=np.float32)
+        if self._has_init_score:
+            score[:, 0] += np.asarray(train_data.metadata.init_score,
+                                      dtype=np.float64).astype(np.float32)
+        self.train_score = torch.from_numpy(score).to(self.device)
+        self.class_need_train = self.objective.class_need_train(0)
+        self.train_metrics: List[Metric] = []
+        self.valid_data: List[ValidData] = []
+        self._bin_meta = (
+            np.asarray([m.num_bin - 1 for m in train_data.bin_mappers],
+                       dtype=np.int32),
+            np.asarray([m.default_bin for m in train_data.bin_mappers],
+                       dtype=np.int32),
+            np.asarray([m.missing_type for m in train_data.bin_mappers],
+                       dtype=np.int32))
+
+    def add_valid_data(self, valid_data: BinnedDataset) -> None:
+        """reference: GBDT::AddValidDataset (gbdt.cpp:182)."""
+        metrics = []
+        for name in resolve_metric_names(self.config, self.config.objective):
+            m = create_metric(name, self.config)
+            m.init(valid_data.metadata, valid_data.num_data)
+            metrics.append(m)
+        vd = ValidData(valid_data, metrics, self.device)
+        for tree in self.models:
+            vd.add_tree(tree, self._bin_meta)
+        self.valid_data.append(vd)
+
+    # ------------------------------------------------------------------
+    def _boost_from_average(self) -> float:
+        """reference: GBDT::BoostFromAverage (gbdt.cpp:309)."""
+        if self.models or self._has_init_score:
+            return 0.0
+        if self.config.boost_from_average:
+            init_score = self.objective.boost_from_score(0)
+            if abs(init_score) > kEpsilon:
+                self._add_const_score(init_score)
+                log.info("Start training from score %f" % init_score)
+                return init_score
+        return 0.0
+
+    def _add_const_score(self, val: float) -> None:
+        self.train_score[:, 0] += float(np.float32(val))
+        for vd in self.valid_data:
+            vd.add_const(val)
+
+    def train_one_iter(self) -> bool:
+        """One boosting iteration (reference: GBDT::TrainOneIter,
+        gbdt.cpp:334). Returns True when training should stop (no leaf
+        could be split)."""
+        init_score = self._boost_from_average()
+        grad, hess = self.objective.get_gradients(self.train_score[:, 0])
+        tree: Optional[Tree] = None
+        if self.class_need_train:
+            tree, leaf_of_row = self.learner.train(grad, hess)
+        if tree is not None and tree.num_leaves > 1:
+            tree.apply_shrinkage(self.shrinkage_rate)
+            self._update_score(tree, leaf_of_row)
+            if abs(init_score) > kEpsilon:
+                tree.add_bias(init_score)
+            self.models.append(tree)
+            self.iter += 1
+            return False
+        log.warning("Stopped training because there are no more leaves "
+                    "that meet the split requirements")
+        if self.models:
+            return True
+        # keep a constant tree the first iteration (reference:
+        # gbdt.cpp:407-418)
+        if not self.config.boost_from_average and not self._has_init_score:
+            init_score = self.objective.boost_from_score(0)
+            self._add_const_score(init_score)
+        tree = Tree(1)
+        tree.leaf_value[0] = init_score
+        self.models.append(tree)
+        self.iter += 1
+        return True
+
+    def _update_score(self, tree: Tree, leaf_of_row: torch.Tensor) -> None:
+        """Device gather of the tree's f32 leaf outputs over the
+        learner's final partition (reference: GBDT::UpdateScore,
+        gbdt.cpp:475; leaf values cast to f32 as at gbdt.py:722-727)."""
+        lv = torch.from_numpy(
+            tree.leaf_value[:tree.num_leaves].astype(np.float32)).to(
+            self.device)
+        self.train_score[:, 0] += lv[leaf_of_row.long()]
+        for vd in self.valid_data:
+            vd.add_tree(tree, self._bin_meta)
+
+    # ------------------------------------------------------------------
+    # Prediction over raw feature matrices (host walk)
+    # ------------------------------------------------------------------
+    def _used_models(self, start_iteration: int = 0,
+                     num_iteration: int = -1) -> List[Tree]:
+        total_iter = len(self.models)
+        start = max(0, min(start_iteration, total_iter))
+        end = total_iter if num_iteration <= 0 \
+            else min(start + num_iteration, total_iter)
+        return self.models[start:end]
+
+    def predict_raw(self, X: np.ndarray, start_iteration: int = 0,
+                    num_iteration: int = -1,
+                    pred_early_stop: Optional[bool] = None,
+                    pred_early_stop_freq: Optional[int] = None,
+                    pred_early_stop_margin: Optional[float] = None
+                    ) -> np.ndarray:
+        X = np.asarray(X, dtype=np.float64)
+        out = np.zeros(X.shape[0], dtype=np.float64)
+        models = self._used_models(start_iteration, num_iteration)
+        if pred_early_stop is None:
+            pred_early_stop = bool(self.config.pred_early_stop)
+        if pred_early_stop and self.objective is not None \
+                and self.objective.name == "binary":
+            # margin-based per-row early exit (reference:
+            # src/boosting/prediction_early_stop.cpp: binary margin
+            # 2|score|, checked every round_period iterations)
+            freq = max(int(pred_early_stop_freq
+                           if pred_early_stop_freq is not None
+                           else self.config.pred_early_stop_freq), 1)
+            margin_thr = float(pred_early_stop_margin
+                               if pred_early_stop_margin is not None
+                               else self.config.pred_early_stop_margin)
+            active = np.arange(X.shape[0])
+            for it, tree in enumerate(models):
+                if len(active) == 0:
+                    break
+                out[active] += tree.predict(X[active])
+                if (it + 1) % freq == 0 and it + 1 < len(models):
+                    active = active[2.0 * np.abs(out[active]) < margin_thr]
+        else:
+            for tree in models:
+                out += tree.predict(X)
+        return out
+
+    def predict(self, X: np.ndarray, raw_score: bool = False,
+                start_iteration: int = 0, num_iteration: int = -1,
+                **kwargs) -> np.ndarray:
+        raw = self.predict_raw(X, start_iteration, num_iteration, **kwargs)
+        if raw_score or self.objective is None:
+            return raw
+        return self.objective.convert_output(raw)
+
+    def predict_leaf_index(self, X: np.ndarray, start_iteration: int = 0,
+                           num_iteration: int = -1) -> np.ndarray:
+        X = np.asarray(X, dtype=np.float64)
+        models = self._used_models(start_iteration, num_iteration)
+        out = np.zeros((X.shape[0], len(models)), dtype=np.int32)
+        for i, tree in enumerate(models):
+            out[:, i] = tree.predict_leaf_index(X)
+        return out
+
+    def feature_importance(self, importance_type: str = "split",
+                           num_iteration: int = -1) -> np.ndarray:
+        """reference: GBDT::FeatureImportance."""
+        imp = np.zeros(self.max_feature_idx + 1, dtype=np.float64)
+        for tree in self._used_models(0, num_iteration):
+            for j in range(tree.num_internal):
+                f = tree.split_feature[j]
+                if importance_type == "split":
+                    imp[f] += 1.0
+                else:
+                    imp[f] += max(tree.split_gain[j], 0.0)
+        return imp
+
+    # ------------------------------------------------------------------
+    # Model text I/O (reference: src/boosting/gbdt_model_text.cpp)
+    # ------------------------------------------------------------------
+    def save_model_to_string(self, start_iteration: int = 0,
+                             num_iteration: int = -1) -> str:
+        """reference: GBDT::SaveModelToString (gbdt_model_text.cpp:311)."""
+        lines = [self.submodel_name, "version=v3",
+                 "num_class=%d" % self.num_class,
+                 "num_tree_per_iteration=%d" % self.num_tree_per_iteration,
+                 "label_index=%d" % self.label_idx,
+                 "max_feature_idx=%d" % self.max_feature_idx]
+        if self.objective is not None:
+            lines.append("objective=%s" % self.objective.to_string())
+        lines.append("feature_names=" + " ".join(self.feature_names))
+        lines.append("feature_infos=" + " ".join(self.feature_infos))
+        models = self._used_models(start_iteration, num_iteration)
+        tree_strs = ["Tree=%d\n%s\n" % (i, tree.to_string())
+                     for i, tree in enumerate(models)]
+        lines.append("tree_sizes=" + " ".join(str(len(s))
+                                              for s in tree_strs))
+        lines.append("")
+        out = "\n".join(lines) + "\n" + "".join(tree_strs)
+        out += "end of trees\n"
+        imp_type = ("gain" if int(self.config.saved_feature_importance_type)
+                    == 1 else "split")
+        imp = self.feature_importance(imp_type, num_iteration)
+        pairs = [(imp[i], self.feature_names[i])
+                 for i in range(len(imp)) if imp[i] > 0]
+        pairs.sort(key=lambda p: -p[0])
+        out += "\nfeature_importances:\n"
+        for v, name in pairs:
+            out += ("%s=%d\n" % (name, int(v)) if imp_type == "split"
+                    else "%s=%s\n" % (name, repr(float(v))))
+        out += "\nparameters:\n%s\nend of parameters\n" % \
+            self.config.to_param_string()
+        return out
+
+    def load_model_from_string(self, s: str) -> None:
+        """reference: GBDT::LoadModelFromString
+        (gbdt_model_text.cpp:421)."""
+        lines = s.splitlines()
+        kv: Dict[str, str] = {}
+        i = 0
+        while i < len(lines) and not lines[i].startswith("Tree="):
+            if "=" in lines[i]:
+                k, v = lines[i].split("=", 1)
+                kv[k] = v
+            elif lines[i].strip() == "average_output":
+                log.unsupported("average_output models (random forest)",
+                                "item 16")
+            i += 1
+        if int(kv.get("num_tree_per_iteration", 1)) != 1:
+            log.unsupported("multiclass models", "item 10")
+        self.label_idx = int(kv.get("label_index", 0))
+        self.max_feature_idx = int(kv.get("max_feature_idx", 0))
+        self.feature_names = kv.get("feature_names", "").split()
+        self.feature_infos = kv.get("feature_infos", "").split()
+        if "objective" in kv:
+            self.objective = load_objective_from_string(kv["objective"],
+                                                        self.config)
+        self.models = parse_tree_blocks("\n".join(lines[i:]))
+        self.num_init_iteration = len(self.models)
+        self.iter = 0
+
+    @property
+    def current_iteration(self) -> int:
+        return len(self.models)

@@ -1,0 +1,372 @@
+"""Feature quantization (BinMapper) for lightgbm_tpu_torch.
+
+Host-side NumPy port of ``lightgbm_tpu/io/binning.py`` (reference:
+include/LightGBM/bin.h:61 ``BinMapper``; src/io/bin.cpp:78
+``GreedyFindBin``, :256 ``FindBinWithZeroAsOneBin``, :336
+``BinMapper::FindBin``, bin.h:492 ``ValueToBin``). Binning runs once at
+load time on the host; the resulting uint8 bin matrix is what lives in
+device memory.
+
+The greedy bin search is the NumPy loop of the reference; the reference
+dispatches columns with more than 512 distinct values to a native
+``GreedyFindBin``, which its own tests hold bit-identical to this loop.
+``value_to_bin`` is one ``np.searchsorted`` per column.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import numpy as np
+
+# reference: include/LightGBM/meta.h:56
+kZeroThreshold = 1e-35
+# reference: include/LightGBM/bin.h:39
+kSparseThreshold = 0.7
+
+
+class MissingType:
+    NONE = 0
+    ZERO = 1
+    NAN = 2
+
+    _NAMES = {0: "none", 1: "zero", 2: "nan"}
+
+    @staticmethod
+    def name(v: int) -> str:
+        return MissingType._NAMES[v]
+
+
+class BinType:
+    NUMERICAL = 0
+    CATEGORICAL = 1
+
+
+def _next_after_up(a: np.ndarray | float):
+    """Common::GetDoubleUpperBound (reference: utils/common.h:850)."""
+    return np.nextafter(a, np.inf)
+
+
+def _greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
+                     max_bin: int, total_cnt: int,
+                     min_data_in_bin: int) -> List[float]:
+    """Greedy equal-count bin boundary search
+    (reference: src/io/bin.cpp:78-152). A Python loop over distinct
+    values: about 80 ms per continuous feature at a 200k sample."""
+    assert max_bin > 0
+    num_distinct = len(distinct_values)
+    bin_upper_bound: List[float] = []
+    if num_distinct <= max_bin:
+        cur_cnt_inbin = 0
+        for i in range(num_distinct - 1):
+            cur_cnt_inbin += int(counts[i])
+            if cur_cnt_inbin >= min_data_in_bin:
+                val = _next_after_up((distinct_values[i] + distinct_values[i + 1]) / 2.0)
+                if not bin_upper_bound or val > _next_after_up(bin_upper_bound[-1]):
+                    bin_upper_bound.append(float(val))
+                    cur_cnt_inbin = 0
+        bin_upper_bound.append(math.inf)
+        return bin_upper_bound
+
+    if min_data_in_bin > 0:
+        max_bin = min(max_bin, int(total_cnt // min_data_in_bin))
+        max_bin = max(max_bin, 1)
+    mean_bin_size = total_cnt / max_bin
+
+    # values with count >= mean get a dedicated bin (bin.cpp:105-116)
+    is_big = counts >= mean_bin_size
+    rest_bin_cnt = max_bin - int(is_big.sum())
+    rest_sample_cnt = int(total_cnt - counts[is_big].sum())
+    mean_bin_size = rest_sample_cnt / max(rest_bin_cnt, 1)
+
+    upper_bounds = [math.inf] * max_bin
+    lower_bounds = [math.inf] * max_bin
+    bin_cnt = 0
+    lower_bounds[0] = float(distinct_values[0])
+    cur_cnt_inbin = 0
+    for i in range(num_distinct - 1):
+        if not is_big[i]:
+            rest_sample_cnt -= int(counts[i])
+        cur_cnt_inbin += int(counts[i])
+        if (is_big[i] or cur_cnt_inbin >= mean_bin_size or
+                (is_big[i + 1] and cur_cnt_inbin >= max(1.0, mean_bin_size * 0.5))):
+            upper_bounds[bin_cnt] = float(distinct_values[i])
+            bin_cnt += 1
+            lower_bounds[bin_cnt] = float(distinct_values[i + 1])
+            if bin_cnt >= max_bin - 1:
+                break
+            cur_cnt_inbin = 0
+            if not is_big[i]:
+                rest_bin_cnt -= 1
+                mean_bin_size = rest_sample_cnt / max(rest_bin_cnt, 1)
+    bin_cnt += 1
+    for i in range(bin_cnt - 1):
+        val = _next_after_up((upper_bounds[i] + lower_bounds[i + 1]) / 2.0)
+        if not bin_upper_bound or val > _next_after_up(bin_upper_bound[-1]):
+            bin_upper_bound.append(float(val))
+    bin_upper_bound.append(math.inf)
+    return bin_upper_bound
+
+
+def _find_bin_zero_as_one_bin(distinct_values: np.ndarray, counts: np.ndarray,
+                              max_bin: int, total_sample_cnt: int,
+                              min_data_in_bin: int) -> List[float]:
+    """Split negative / zero / positive value ranges so that zero sits in its
+    own bin (reference: src/io/bin.cpp:256-310 FindBinWithZeroAsOneBin)."""
+    num_distinct = len(distinct_values)
+    left_cnt_data = int(counts[distinct_values <= -kZeroThreshold].sum())
+    cnt_zero = int(counts[(distinct_values > -kZeroThreshold)
+                          & (distinct_values <= kZeroThreshold)].sum())
+    right_cnt_data = int(counts[distinct_values > kZeroThreshold].sum())
+
+    nonneg = np.nonzero(distinct_values > -kZeroThreshold)[0]
+    left_cnt = int(nonneg[0]) if len(nonneg) else num_distinct
+
+    bin_upper_bound: List[float] = []
+    if left_cnt > 0 and max_bin > 1:
+        denom = max(total_sample_cnt - cnt_zero, 1)
+        left_max_bin = int(left_cnt_data / denom * (max_bin - 1))
+        left_max_bin = max(1, left_max_bin)
+        bin_upper_bound = _greedy_find_bin(
+            distinct_values[:left_cnt], counts[:left_cnt], left_max_bin,
+            left_cnt_data, min_data_in_bin)
+        if bin_upper_bound:
+            bin_upper_bound[-1] = -kZeroThreshold
+
+    pos = np.nonzero(distinct_values[left_cnt:] > kZeroThreshold)[0]
+    right_start = int(pos[0]) + left_cnt if len(pos) else -1
+
+    right_max_bin = max_bin - 1 - len(bin_upper_bound)
+    if right_start >= 0 and right_max_bin > 0:
+        right_bounds = _greedy_find_bin(
+            distinct_values[right_start:], counts[right_start:],
+            right_max_bin, right_cnt_data, min_data_in_bin)
+        bin_upper_bound.append(kZeroThreshold)
+        bin_upper_bound.extend(right_bounds)
+    else:
+        bin_upper_bound.append(math.inf)
+    assert len(bin_upper_bound) <= max_bin
+    return bin_upper_bound
+
+
+def _find_bin_with_predefined(distinct_values: np.ndarray, counts: np.ndarray,
+                              max_bin: int, total_sample_cnt: int,
+                              min_data_in_bin: int,
+                              forced_upper_bounds: List[float]) -> List[float]:
+    """Binning with user-forced boundaries
+    (reference: src/io/bin.cpp:155-254 FindBinWithPredefinedBin)."""
+    num_distinct = len(distinct_values)
+    bin_upper_bound: List[float] = []
+    nonneg = np.nonzero(distinct_values > -kZeroThreshold)[0]
+    left_cnt = int(nonneg[0]) if len(nonneg) else num_distinct
+    pos = np.nonzero(distinct_values[left_cnt:] > kZeroThreshold)[0]
+    right_start = int(pos[0]) + left_cnt if len(pos) else -1
+
+    if max_bin == 2:
+        bin_upper_bound.append(kZeroThreshold if left_cnt == 0 else -kZeroThreshold)
+    elif max_bin >= 3:
+        if left_cnt > 0:
+            bin_upper_bound.append(-kZeroThreshold)
+        if right_start >= 0:
+            bin_upper_bound.append(kZeroThreshold)
+    bin_upper_bound.append(math.inf)
+
+    max_to_insert = max_bin - len(bin_upper_bound)
+    num_inserted = 0
+    for ub in forced_upper_bounds:
+        if num_inserted >= max_to_insert:
+            break
+        if abs(ub) > kZeroThreshold:
+            bin_upper_bound.append(float(ub))
+            num_inserted += 1
+    bin_upper_bound.sort()
+
+    free_bins = max_bin - len(bin_upper_bound)
+    bounds_to_add: List[float] = []
+    value_ind = 0
+    n_fixed = len(bin_upper_bound)
+    for i, ub in enumerate(bin_upper_bound):
+        cnt_in_bin = 0
+        bin_start = value_ind
+        while value_ind < num_distinct and distinct_values[value_ind] < ub:
+            cnt_in_bin += int(counts[value_ind])
+            value_ind += 1
+        bins_remaining = max_bin - n_fixed - len(bounds_to_add)
+        num_sub_bins = int(round(cnt_in_bin * free_bins / max(total_sample_cnt, 1)))
+        num_sub_bins = min(num_sub_bins, bins_remaining) + 1
+        if i == n_fixed - 1:
+            num_sub_bins = bins_remaining + 1
+        if value_ind > bin_start:
+            new_bounds = _greedy_find_bin(
+                distinct_values[bin_start:value_ind], counts[bin_start:value_ind],
+                num_sub_bins, cnt_in_bin, min_data_in_bin)
+            bounds_to_add.extend(new_bounds[:-1])  # last bound is inf
+    bin_upper_bound.extend(bounds_to_add)
+    bin_upper_bound.sort()
+    assert len(bin_upper_bound) <= max_bin
+    return bin_upper_bound
+
+
+def _need_filter(cnt_in_bin: List[int], total_cnt: int, filter_cnt: int,
+                 bin_type: int) -> bool:
+    """reference: src/io/bin.cpp:55-76 NeedFilter."""
+    if bin_type == BinType.NUMERICAL:
+        sum_left = 0
+        for i in range(len(cnt_in_bin) - 1):
+            sum_left += cnt_in_bin[i]
+            if sum_left >= filter_cnt and total_cnt - sum_left >= filter_cnt:
+                return False
+        return True
+    if len(cnt_in_bin) <= 2:
+        for i in range(len(cnt_in_bin) - 1):
+            if cnt_in_bin[i] >= filter_cnt and total_cnt - cnt_in_bin[i] >= filter_cnt:
+                return False
+        return True
+    return False
+
+
+class BinMapper:
+    """Per-feature value→bin quantizer (reference: include/LightGBM/bin.h:61)."""
+
+    def __init__(self) -> None:
+        self.num_bin: int = 1
+        self.missing_type: int = MissingType.NONE
+        self.is_trivial: bool = True
+        self.sparse_rate: float = 1.0
+        self.bin_type: int = BinType.NUMERICAL
+        self.bin_upper_bound: np.ndarray = np.array([math.inf])
+        self.min_val: float = 0.0
+        self.max_val: float = 0.0
+        self.default_bin: int = 0
+        self.most_freq_bin: int = 0
+
+    # ------------------------------------------------------------------
+    def find_bin(self, sample_values: np.ndarray, total_sample_cnt: int,
+                 max_bin: int, min_data_in_bin: int = 3,
+                 min_split_data: int = 20, pre_filter: bool = False,
+                 bin_type: int = BinType.NUMERICAL, use_missing: bool = True,
+                 zero_as_missing: bool = False,
+                 forced_upper_bounds: Optional[List[float]] = None) -> None:
+        """Build bin boundaries from a sampled column
+        (reference: src/io/bin.cpp:336 BinMapper::FindBin).
+
+        ``sample_values`` is the full sampled column *including* zeros and NaNs
+        (the reference receives non-zero values plus a zero count; equivalent).
+        ``total_sample_cnt`` may exceed ``len(sample_values)`` when the caller
+        pre-dropped zeros (sparse input).
+        """
+        values = np.asarray(sample_values, dtype=np.float64)
+        na_mask = np.isnan(values)
+        na_cnt = int(na_mask.sum())
+        values = values[~na_mask]
+
+        if not use_missing:
+            self.missing_type = MissingType.NONE
+        elif zero_as_missing:
+            self.missing_type = MissingType.ZERO
+        else:
+            self.missing_type = MissingType.NAN if na_cnt > 0 else MissingType.NONE
+        if self.missing_type != MissingType.NAN:
+            # NaN samples count as zeros when not tracked as missing
+            # (reference: bin.cpp:356-366 — na_cnt stays 0, so
+            # zero_cnt = total - non_na absorbs them)
+            na_cnt = 0
+
+        zero_mask = np.abs(values) <= kZeroThreshold
+        zero_cnt = int(zero_mask.sum()) + int(
+            total_sample_cnt - len(sample_values)) + (int(na_mask.sum()) - na_cnt)
+        nonzero = values[~zero_mask]
+
+        self.bin_type = bin_type
+        self.default_bin = 0
+
+        # distinct values with zero spliced into sorted position
+        # (reference: bin.cpp:371-407)
+        if len(nonzero):
+            distinct, counts = np.unique(nonzero, return_counts=True)
+        else:
+            distinct = np.empty(0)
+            counts = np.empty(0, dtype=np.int64)
+        if zero_cnt > 0 or len(distinct) == 0:
+            pos = int(np.searchsorted(distinct, 0.0))
+            distinct = np.insert(distinct, pos, 0.0)
+            counts = np.insert(counts, pos, zero_cnt)
+        self.min_val = float(distinct[0])
+        self.max_val = float(distinct[-1])
+        counts = counts.astype(np.int64)
+
+        def _find(max_b: int, total: int) -> List[float]:
+            # dispatch on forced bounds (reference: bin.cpp:312-322)
+            if forced_upper_bounds:
+                return _find_bin_with_predefined(
+                    distinct, counts, max_b, total, min_data_in_bin,
+                    list(forced_upper_bounds))
+            return _find_bin_zero_as_one_bin(
+                distinct, counts, max_b, total, min_data_in_bin)
+
+        cnt_in_bin: List[int] = []
+        if bin_type == BinType.NUMERICAL:
+            if self.missing_type == MissingType.NAN:
+                bounds = _find(max_bin - 1, total_sample_cnt - na_cnt)
+                bounds.append(math.nan)
+            else:
+                bounds = _find(max_bin, total_sample_cnt)
+                if self.missing_type == MissingType.ZERO and len(bounds) == 2:
+                    self.missing_type = MissingType.NONE
+            self.bin_upper_bound = np.asarray(bounds, dtype=np.float64)
+            self.num_bin = len(bounds)
+            # count per bin (bin.cpp:409-422)
+            n_search = self.num_bin - (1 if self.missing_type == MissingType.NAN else 0)
+            idx = np.searchsorted(self.bin_upper_bound[:max(n_search - 1, 0)],
+                                  distinct, side="left")
+            cnt_arr = np.zeros(self.num_bin, dtype=np.int64)
+            np.add.at(cnt_arr, idx, counts)
+            if self.missing_type == MissingType.NAN:
+                cnt_arr[self.num_bin - 1] = na_cnt
+            cnt_in_bin = cnt_arr.tolist()
+        else:
+            from ..utils.log import unsupported
+            unsupported("categorical features", "item 11")
+
+        self.is_trivial = self.num_bin <= 1
+        if not self.is_trivial and pre_filter and _need_filter(
+                cnt_in_bin, total_sample_cnt, min_split_data, bin_type):
+            self.is_trivial = True
+
+        if not self.is_trivial:
+            self.default_bin = int(self.value_to_bin(0.0))
+            self.most_freq_bin = int(np.argmax(cnt_in_bin))
+            max_sparse_rate = cnt_in_bin[self.most_freq_bin] / max(total_sample_cnt, 1)
+            if self.most_freq_bin != self.default_bin and max_sparse_rate < kSparseThreshold:
+                self.most_freq_bin = self.default_bin
+            self.sparse_rate = cnt_in_bin[self.most_freq_bin] / max(total_sample_cnt, 1)
+        else:
+            self.sparse_rate = 1.0
+
+    # ------------------------------------------------------------------
+    def value_to_bin(self, value) -> np.ndarray:
+        """Vectorized ValueToBin (reference: include/LightGBM/bin.h:492)."""
+        v = np.asarray(value, dtype=np.float64)
+        scalar = v.ndim == 0
+        v = np.atleast_1d(v)
+        nan_mask = np.isnan(v)
+        if self.missing_type != MissingType.NAN:
+            v = np.where(nan_mask, 0.0, v)
+        n_search = self.num_bin - (1 if self.missing_type == MissingType.NAN else 0)
+        out = np.searchsorted(self.bin_upper_bound[:max(n_search - 1, 0)],
+                              v, side="left").astype(np.int32)
+        if self.missing_type == MissingType.NAN:
+            out = np.where(nan_mask, self.num_bin - 1, out)
+        return out[0] if scalar else out
+
+    def bin_to_value(self, bin_idx: int) -> float:
+        """Upper bound of a bin — the real-valued threshold stored in trees
+        (reference: include/LightGBM/bin.h:115 BinToValue)."""
+        return float(self.bin_upper_bound[bin_idx])
+
+    def feature_info(self) -> str:
+        """String for the model file 'feature_infos' section
+        (reference: src/io/dataset.cpp DumpModel feature_infos format)."""
+        if self.is_trivial:
+            return "none"
+        return f"[{self.min_val}:{self.max_val}]"

@@ -1,0 +1,1 @@
+"""models subpackage of lightgbm_tpu_torch."""

@@ -1,0 +1,23 @@
+"""Tree-learner factory (port of ``lightgbm_tpu/treelearner``).
+
+The reference promotes ``tree_learner=serial`` on an accelerator to its
+1-device-mesh data learner (``lightgbm_tpu/treelearner/__init__.py:41``),
+which its tests pin to the same trees as the serial learner. The port
+keeps the serial learner on every device; the mesh learners are ROADMAP
+item 22.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..utils.log import unsupported
+from .serial import SerialTreeLearner
+
+
+def create_tree_learner(config, dataset, device: torch.device):
+    if config.tree_learner != "serial":
+        unsupported("tree_learner=%s" % config.tree_learner, "item 22")
+    return SerialTreeLearner(config, dataset, device)
+
+
+__all__ = ["SerialTreeLearner", "create_tree_learner"]

@@ -1,0 +1,76 @@
+"""The CUDA histogram kernel and the slice on the card.
+
+These need an NVIDIA GPU and nvcc; elsewhere they skip. Run them on the
+card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu_torch as lgb
+from lightgbm_tpu_torch.ops import histogram as H
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _inputs(S, F, B, seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    bins = torch.randint(0, B, (S, F), generator=g, device="cuda",
+                         dtype=torch.int32).to(torch.uint8)
+    gh = torch.randn(S, 4, generator=g, device="cuda")
+    gh[:, 2:] = 1.0
+    gh8 = torch.randint(-127, 128, (S, 4), generator=g, device="cuda",
+                        dtype=torch.int32).to(torch.int8)
+    idx = torch.randperm(S, generator=g, device="cuda")[:S // 3]
+    return bins, gh, gh8, idx.sort().values.to(torch.int32)
+
+
+@pytest.mark.parametrize("with_idx", [False, True])
+def test_f32_kernel_matches_plain_sum(cuda, with_idx):
+    """Counts exact; grad/hess within 1e-5 x the bin's sum of |x| (f32
+    atomics add in an undefined order)."""
+    bins, gh, _, idx = _inputs(1 << 16, 16, 256, seed=1)
+    idx = idx if with_idx else None
+    H.reset_launch_counts()
+    got = H.build_histogram(bins, gh, 256, idx).double()
+    assert H.launch_counts["histogram_f32"] == 1
+    ref = H.histogram_plain(bins, gh.double(), 256, idx)
+    mag = H.histogram_plain(bins, gh.double().abs(), 256, idx)
+    assert torch.equal(got[..., 2:], ref[..., 2:])
+    assert bool(((got - ref).abs() <= 1e-5 * mag).all())
+
+
+@pytest.mark.parametrize("with_idx", [False, True])
+def test_int8_kernel_byte_equal(cuda, with_idx):
+    bins, _, gh8, idx = _inputs(1 << 16, 24, 100, seed=2)
+    idx = idx if with_idx else None
+    got = H.build_histogram(bins, gh8, 100, idx)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, H.histogram_plain(bins, gh8, 100, idx))
+
+
+def test_training_on_cuda_goes_through_the_kernel(cuda):
+    rng = np.random.RandomState(0)
+    X = rng.randn(20000, 12)
+    y = (X[:, 0] + 0.5 * X[:, 1] ** 2 + rng.randn(20000) * 0.3 > 0.5)
+    params = {"objective": "binary", "num_leaves": 31, "verbose": -1}
+    H.reset_launch_counts()
+    gpu = lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=3)
+    launches = H.launch_counts["histogram_f32"]
+    cpu = lgb.train(dict(params, device_type="cpu"),
+                    lgb.Dataset(X, label=y), num_boost_round=3)
+    trees = gpu.inner.models
+    assert launches == sum(t.num_leaves for t in trees)
+    a, b = trees[0], cpu.inner.models[0]
+    ni = a.num_internal
+    assert a.num_leaves == b.num_leaves
+    assert a.split_feature[:ni].tolist() == b.split_feature[:ni].tolist()
+    assert a.threshold[:ni].tolist() == b.threshold[:ni].tolist()

@@ -1,0 +1,150 @@
+"""Import hygiene and device rules of the PyTorch/CUDA port.
+
+- ``lightgbm_tpu_torch`` and ``chip_smoke.py`` import neither jax nor any
+  module of ``lightgbm_tpu`` (checked in a fresh interpreter and by a
+  source scan);
+- ``device_type="cuda"`` (the default) without a visible GPU raises
+  instead of running on the CPU;
+- every setting outside this slice raises and names its ROADMAP item;
+- ``chip_smoke.py`` fails without a GPU and prints no result.
+"""
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu_torch as lgb
+from lightgbm_tpu_torch.config import Config
+from lightgbm_tpu_torch.utils.log import LightGBMError
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "lightgbm_tpu_torch")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_fresh_import_loads_no_jax_and_no_reference_module():
+    code = (
+        "import sys, runpy\n"
+        "import lightgbm_tpu_torch, lightgbm_tpu_torch.convert\n"
+        "import lightgbm_tpu_torch.csrc\n"
+        "runpy.run_path(%r, run_name='chip_smoke_imported')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'lightgbm_tpu' or m.startswith('lightgbm_tpu.'))\n"
+        "print('BAD', bad)\n" % os.path.join(ROOT, "chip_smoke.py"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=_env(), cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.MULTILINE)
+
+
+def test_sources_import_no_jax_and_no_reference_package():
+    offenders = []
+    for path in _sources():
+        with open(path) as fh:
+            for mod in _IMPORT.findall(fh.read()):
+                top = mod.split(".")[0]
+                if top in ("jax", "jaxlib", "lightgbm_tpu"):
+                    offenders.append((os.path.relpath(path, ROOT), mod))
+    assert offenders == []
+
+
+def _tiny():
+    rng = np.random.RandomState(0)
+    X = rng.randn(300, 4)
+    return X, (X[:, 0] > 0).astype(float)
+
+
+@pytest.mark.parametrize("params", [{}, {"device_type": "cuda"},
+                                    {"device": "gpu"}])
+def test_cuda_without_a_gpu_raises(params):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: cuda is allowed here")
+    X, y = _tiny()
+    with pytest.raises(LightGBMError, match="no CUDA device"):
+        lgb.train(dict(params, objective="binary", verbose=-1),
+                  lgb.Dataset(X, label=y), num_boost_round=1)
+
+
+def test_cpu_runs_only_when_asked():
+    X, y = _tiny()
+    bst = lgb.train({"objective": "binary", "device_type": "cpu",
+                     "verbose": -1}, lgb.Dataset(X, label=y),
+                    num_boost_round=2)
+    assert bst.inner.device.type == "cpu"
+    assert bst.inner.learner.bins.device.type == "cpu"
+    assert Config.from_params({}).device_type == "cuda"
+    assert Config.from_params({"device": "gpu"}).device_type == "cuda"
+
+
+@pytest.mark.parametrize("params,item", [
+    ({"bagging_fraction": 0.5, "bagging_freq": 1}, "item 14"),
+    ({"data_sample_strategy": "goss"}, "item 14"),
+    ({"feature_fraction": 0.5}, "item 14"),
+    ({"extra_trees": True}, "item 14"),
+    ({"feature_fraction_bynode": 0.5}, "item 15"),
+    ({"use_quantized_grad": True}, "item 13"),
+    ({"categorical_feature": "0"}, "item 11"),
+    ({"monotone_constraints": "1,0,0,0"}, "item 15"),
+    ({"interaction_constraints": "0,1"}, "item 15"),
+    ({"cegb_penalty_split": 0.1}, "item 15"),
+    ({"linear_tree": True}, "item 15"),
+    ({"forcedsplits_filename": "splits.json"}, "item 15"),
+    ({"boosting": "dart"}, "item 16"),
+    ({"objective": "huber"}, "item 10"),
+    ({"metric": "rmse"}, "item 10"),
+    ({"max_bin": 511}, "item 26"),
+    ({"tpu_use_f64_hist": True}, "item 26"),
+    ({"tpu_batch_iterations": 4}, "item 17"),
+    ({"tree_learner": "data"}, "item 22"),
+])
+def test_settings_outside_the_slice_raise(params, item):
+    X, y = _tiny()
+    with pytest.raises(LightGBMError, match=item):
+        lgb.train(dict({"objective": "binary", "device_type": "cpu",
+                        "verbose": -1}, **params),
+                  lgb.Dataset(X, label=y), num_boost_round=1)
+
+
+@pytest.mark.parametrize("backend", ["scatter", "onehot"])
+def test_hist_backend_other_than_the_kernel_raises(backend):
+    with pytest.raises(LightGBMError, match="hist_backend"):
+        Config.from_params({"hist_backend": backend})
+
+
+def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    for cwd, script in ((ROOT, os.path.join(ROOT, "chip_smoke.py")),
+                        (str(tmp_path), str(tmp_path / "chip_smoke.py"))):
+        if cwd != ROOT:
+            shutil.copy(os.path.join(ROOT, "chip_smoke.py"), script)
+        out = subprocess.run([sys.executable, script], capture_output=True,
+                             text=True, cwd=cwd, timeout=120,
+                             env={k: v for k, v in os.environ.items()
+                                  if k != "PYTHONPATH"})
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
