@@ -25,6 +25,7 @@ from ..objective import (ObjectiveFunction, create_objective,
                          load_objective_from_string)
 from ..treelearner import create_tree_learner
 from ..utils import log
+from .sample_strategy import create_sample_strategy
 
 kEpsilon = 1e-15
 
@@ -144,6 +145,9 @@ class GBDT:
         self.feature_infos = train_data.feature_infos()
         self.label_idx = 0
         self.learner = create_tree_learner(config, train_data, self.device)
+        self.sample_strategy = create_sample_strategy(
+            config, train_data.num_data, self.device)
+        self.sample_strategy.reset_metadata(train_data.metadata)
         self._has_init_score = train_data.metadata.init_score is not None
         score = np.zeros((self.num_data, 1), dtype=np.float32)
         if self._has_init_score:
@@ -197,9 +201,10 @@ class GBDT:
         could be split)."""
         init_score = self._boost_from_average()
         grad, hess = self.objective.get_gradients(self.train_score[:, 0])
+        grad, hess, bag = self.sample_strategy.bagging(self.iter, grad, hess)
         tree: Optional[Tree] = None
         if self.class_need_train:
-            tree, leaf_of_row = self.learner.train(grad, hess)
+            tree, leaf_of_row = self.learner.train(grad, hess, bag)
         if tree is not None and tree.num_leaves > 1:
             tree.apply_shrinkage(self.shrinkage_rate)
             self._update_score(tree, leaf_of_row)

@@ -345,9 +345,9 @@ class Config:
     # gpu_device_id picks the CUDA card; the fields below the reference
     # build added for the TPU are accepted by name so parameter dicts
     # interchange. check_slice raises for those that need a later slice
-    # (f64 histograms, quantized gradients, batched iterations); the
-    # fused/stepped loop switch and the out-of-core frontier width give
-    # the same trees in the reference and have no effect here.
+    # (f64 histograms, batched iterations); the fused/stepped loop
+    # switch and the out-of-core frontier width give the same trees in
+    # the reference and have no effect here.
     gpu_platform_id: int = -1
     gpu_device_id: int = -1
     gpu_use_dp: bool = False
@@ -483,19 +483,12 @@ class Config:
             unsupported("boosting=%s" % self.boosting, "item 16")
         if self.data_sample_strategy == "goss":
             unsupported("data_sample_strategy=goss", "item 14")
-        if (self.bagging_freq > 0 and (
-                self.bagging_fraction < 1.0
-                or self.pos_bagging_fraction < 1.0
-                or self.neg_bagging_fraction < 1.0)):
-            unsupported("bagging", "item 14")
         if self.feature_fraction < 1.0:
             unsupported("feature_fraction < 1", "item 14")
         if self.extra_trees:
             unsupported("extra_trees", "item 14")
         if self.feature_fraction_bynode < 1.0:
             unsupported("feature_fraction_bynode < 1", "item 15")
-        if self.use_quantized_grad:
-            unsupported("use_quantized_grad", "item 13")
         if self.categorical_feature:
             unsupported("categorical features", "item 11")
         if any(int(v) != 0 for v in self.monotone_constraints):

@@ -29,7 +29,11 @@
 // re-read of each row's gh by every feature group's block.
 //
 // Templated on (gh type, accumulator type): f32 -> f32 for the learner,
-// int8 -> int32 for quantized gradients (exact, so order-independent).
+// int8 -> int32 and int16 -> int32 for quantized gradients (exact, so
+// order-independent). The TPU package has no kernel for int16 rows (it
+// sends them through an einsum); here a CUDA tensor must reach a kernel,
+// so 16-bit rows get their own instance of the same template. The caller
+// keeps |row| * rows below 2^31 (ops/quantize.py effective_quant_max).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -142,6 +146,13 @@ int lgbm_histogram_i8(const void* bins, const void* gh, const void* idx,
                       void* out, long long S, int Fp, int B, int C,
                       void* stream) {
   return launch<int8_t, int>(bins, gh, idx, out, S, Fp, B, C, stream);
+}
+
+// int16 gh -> int32 histogram (16-bit quantized gradients).
+int lgbm_histogram_i16(const void* bins, const void* gh, const void* idx,
+                       void* out, long long S, int Fp, int B, int C,
+                       void* stream) {
+  return launch<int16_t, int>(bins, gh, idx, out, S, Fp, B, C, stream);
 }
 
 const char* lgbm_cuda_error_string(int code) {

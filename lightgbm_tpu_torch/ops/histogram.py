@@ -18,15 +18,19 @@ from typing import Dict, Optional
 import torch
 
 from ..utils.log import LightGBMError
+from .quantize import acc_dtype as quant_acc_dtype
 
 #: kernel launches per instance since the last :func:`reset_launch_counts`
 #: (the wrapper adds one exactly where it launches its kernel)
-launch_counts: Dict[str, int] = {"histogram_f32": 0, "histogram_i8": 0}
+launch_counts: Dict[str, int] = {"histogram_f32": 0, "histogram_i8": 0,
+                                 "histogram_i16": 0}
 
 _KERNEL_OF = {torch.float32: ("histogram_f32", "lgbm_histogram_f32",
                               torch.float32),
               torch.int8: ("histogram_i8", "lgbm_histogram_i8",
-                           torch.int32)}
+                           torch.int32),
+              torch.int16: ("histogram_i16", "lgbm_histogram_i16",
+                            torch.int32)}
 _MAX_C = 8
 _MAX_B = 256
 
@@ -37,13 +41,11 @@ def reset_launch_counts() -> None:
 
 
 def acc_dtype(gh_dtype: torch.dtype) -> torch.dtype:
-    """Accumulator per gh dtype: int8 -> int32, int16 -> int64 (the
-    reference's ops/quantize.py overflow discipline), floats keep f32
-    unless they are f64."""
-    if gh_dtype == torch.int8:
-        return torch.int32
-    if gh_dtype in (torch.int16, torch.int32, torch.int64):
-        return torch.int64
+    """Accumulator per gh dtype: integer rows sum in int32 (the
+    reference's default; ops/quantize.py caps the rows so the sums fit),
+    floats keep f32 unless they are f64."""
+    if not gh_dtype.is_floating_point:
+        return quant_acc_dtype(gh_dtype)
     return torch.float64 if gh_dtype == torch.float64 else torch.float32
 
 
@@ -72,8 +74,8 @@ def _check_cuda_args(bins, gh, num_bins, idx) -> None:
         raise LightGBMError("histogram kernel takes uint8 bins, got %s"
                             % bins.dtype)
     if gh.dtype not in _KERNEL_OF:
-        raise LightGBMError("histogram kernel takes float32 or int8 gh "
-                            "rows, got %s" % gh.dtype)
+        raise LightGBMError("histogram kernel takes float32 or int8/int16 "
+                            "gh rows, got %s" % gh.dtype)
     if bins.dim() != 2 or gh.dim() != 2 or gh.shape[0] != bins.shape[0]:
         raise LightGBMError("histogram kernel needs bins [N, F] and gh "
                             "[N, C]; got %s and %s"
@@ -151,9 +153,9 @@ def build_histogram(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
     """Accumulate (grad, hess, counts) per (feature, bin).
 
     bins : uint8 [N, F] (F a multiple of 8 on CUDA)
-    gh : f32 or int8 [N, C], C <= 8
+    gh : f32, int8 or int16 [N, C], C <= 8
     idx : optional int32 [S] row-index list; only those rows are summed
-    Returns [F, num_bins, C] f32 (int32 for int8 gh).
+    Returns [F, num_bins, C] f32 (int32 for integer gh).
     """
     if bins.device.type == "cpu":
         return histogram_plain(bins, gh, num_bins, idx)
@@ -167,11 +169,3 @@ def subtract_histogram(parent: torch.Tensor,
     """Sibling histogram by subtraction (reference:
     serial_tree_learner.cpp ``larger.Subtract(smaller)``)."""
     return parent - child
-
-
-def sum_gh(gh: torch.Tensor) -> torch.Tensor:
-    """Channel sums: integer rows in their overflow-safe accumulator,
-    float rows in their own dtype."""
-    if not gh.dtype.is_floating_point:
-        return gh.sum(dim=0, dtype=acc_dtype(gh.dtype))
-    return gh.sum(dim=0)

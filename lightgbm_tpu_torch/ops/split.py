@@ -24,12 +24,13 @@ Categorical scans and monotone bounds are later slices (ROADMAP items
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..io.binning import MissingType
+from .quantize import dequantize_hist
 
 _NEG_INF = float("-inf")
 kSmoothEps = 1e-15
@@ -138,11 +139,16 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
                     sum_hess: torch.Tensor, sum_count: torch.Tensor,
                     sum_total_count: torch.Tensor, meta: FeatureMeta,
                     params: SplitParams, feature_mask: torch.Tensor,
-                    parent_output: torch.Tensor) -> torch.Tensor:
+                    parent_output: torch.Tensor,
+                    hist_scale: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """Scan one leaf histogram for its best (feature, threshold).
 
-    hist : f32 [F, B, 4] sums of (grad, hess, in-bag count, total count)
-    sum_* : the leaf's f32 0-d totals
+    hist : f32 [F, B, 4] sums of (grad, hess, in-bag count, total count);
+        int32 in quantized-gradient mode, dequantized once here by
+        ``hist_scale`` (f32 [2], the tree's (g_scale, h_scale)) so each
+        bin sum carries one rounding; the count channels convert exactly
+    sum_* : the leaf's f32 0-d totals (already dequantized)
     feature_mask : bool [F]
     parent_output : f32 0-d, the leaf's own output (path smoothing)
 
@@ -151,6 +157,7 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
     """
     F, B, _ = hist.shape
     dev = hist.device
+    hist = dequantize_hist(hist, hist_scale)
     g, h, c, tc = hist[..., 0], hist[..., 1], hist[..., 2], hist[..., 3]
 
     def bounded_output(sg, sh, n):

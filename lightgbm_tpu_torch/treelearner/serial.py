@@ -21,10 +21,18 @@ per host step:
 
 Each step syncs with the host twice (the record read-back and the
 ``nonzero``); a device-resident whole-tree loop is a later PR.
+
+Quantized-gradient mode (``use_quantized_grad``; reference:
+``CapabilityMixin._init_quantization`` / ``_quantize_stage``,
+lightgbm_tpu/treelearner/capabilities.py:109-162) stages each tree's
+rows as int8/int16 ``(q_grad, q_hess, in_bag, 1)`` under the tree's
+stochastic-rounding key, keeps int32 histograms (the sibling
+subtraction is exact), takes exact integer root sums and dequantizes
+them once, and hands the tree's scales to every split scan.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,10 +41,14 @@ from ..io.binning import MissingType
 from ..io.dataset import BinnedDataset
 from ..models.tree import Tree
 from ..ops import split as S
-from ..ops.histogram import build_histogram, subtract_histogram, sum_gh
+from ..ops.histogram import build_histogram, subtract_histogram
+from ..ops.quantize import (dequantize_sums, effective_quant_max,
+                            quant_dtype, quant_warn_capped, quantize_gh,
+                            sum_gh, tree_key)
 from ..ops.split import (FeatureMeta, SplitParams, calculate_leaf_output,
                          find_best_split, pad_feature_meta)
 from ..utils import log, next_pow2
+from ..utils.prng import PRNGKey
 
 
 class SplitRecord(NamedTuple):
@@ -67,8 +79,9 @@ class SplitRecord(NamedTuple):
 class GrowState(NamedTuple):
     """Per-tree device state."""
     leaf_of_row: torch.Tensor     # [N] int32
-    gh: torch.Tensor              # [N, 4] f32 (grad, hess, in-bag, total)
-    hists: torch.Tensor           # [L, Fp, B, 4] f32
+    gh: torch.Tensor              # [N, 4] (grad, hess, in-bag, total):
+    #                               f32, or int8/int16 when quantized
+    hists: torch.Tensor           # [L, Fp, B, 4] f32 (int32 quantized)
     cand: torch.Tensor            # [L, RECORD_WIDTH] f32 best candidates
 
 
@@ -143,6 +156,40 @@ class SerialTreeLearner:
         mask[:F] = True
         self.feature_mask = mask
         self._ones = torch.ones(N, dtype=torch.float32, device=device)
+        self._tree_idx = 0
+        self._init_quantization(config)
+
+    def _init_quantization(self, config) -> None:
+        """Quantized-gradient state: the per-row magnitude cap (overflow
+        discipline against the int32 accumulator), the row dtype, the
+        base stochastic-rounding key and the tree counter.
+        ``self._qscale`` holds the current tree's (g, h) scales, None in
+        exact mode."""
+        self._quantized = bool(config.use_quantized_grad)
+        self._qscale: Optional[torch.Tensor] = None
+        if not self._quantized:
+            return
+        bits = int(config.quant_grad_bits)
+        self._qmax = effective_quant_max(bits, self.N)
+        self._qdtype = quant_dtype(bits)
+        quant_warn_capped(bits, self._qmax, self.N)
+        self._quant_base_key = PRNGKey(int(config.seed) & 0x7FFFFFFF,
+                                       self.device)
+        self._quant_ctr = 0
+
+    def _quantize_stage(self, grad: torch.Tensor, hess: torch.Tensor,
+                        ind: torch.Tensor, tree_no: int):
+        """Discretize one tree's rows under ``fold_in(base, tree_no)``.
+        The counter advances once per call; the assert pins it to the
+        caller's tree numbering (1, 2, ...), since a call off that
+        cadence would shift every later stochastic draw."""
+        self._quant_ctr += 1
+        assert self._quant_ctr == tree_no, \
+            "quantize tree counter desynced from tree numbering " \
+            "(%d != %d)" % (self._quant_ctr, tree_no)
+        return quantize_gh(grad, hess, ind,
+                           tree_key(self._quant_base_key, tree_no),
+                           self._qmax, self._qdtype)
 
     def _splittable(self, depth: int) -> bool:
         return self.max_depth <= 0 or depth < self.max_depth
@@ -154,14 +201,22 @@ class SerialTreeLearner:
             info[S.GAIN] = float("-inf")
         cand[leaf] = info
 
-    def train(self, grad: torch.Tensor, hess: torch.Tensor
+    def train(self, grad: torch.Tensor, hess: torch.Tensor,
+              bag: Optional[torch.Tensor] = None
               ) -> Tuple[Tree, torch.Tensor]:
-        """Grow one tree from f32 [N] gradients. Returns the host Tree
-        and the final [N] int32 row->leaf partition (on the device) for
-        the score update (reference: GBDT::UpdateScore uses the
-        learner's partition, gbdt.cpp:475)."""
-        ind = self._ones
-        gh = torch.stack([grad * ind, hess * ind, ind, self._ones], dim=1)
+        """Grow one tree from f32 [N] gradients; ``bag`` is an optional
+        f32 [N] in-bag indicator (0/1). Returns the host Tree and the
+        final [N] int32 row->leaf partition (on the device) for the
+        score update (reference: GBDT::UpdateScore uses the learner's
+        partition, gbdt.cpp:475)."""
+        ind = self._ones if bag is None else bag
+        self._tree_idx += 1
+        if self._quantized:
+            gh, self._qscale = self._quantize_stage(grad, hess, ind,
+                                                    self._tree_idx)
+        else:
+            gh = torch.stack([grad * ind, hess * ind, ind, self._ones],
+                             dim=1)
         state = self._root(gh)
         tree = Tree(self.L)
         for new_leaf in range(1, self.L):
@@ -178,16 +233,17 @@ class SerialTreeLearner:
         return tree, state.leaf_of_row
 
     def _root(self, gh: torch.Tensor) -> GrowState:
-        sums = sum_gh(gh)
+        # exact integer sums in quantized mode, dequantized once
+        sums = dequantize_sums(sum_gh(gh), self._qscale)
         hist = build_histogram(self.bins, gh, self.B)
         # root "parent" output: its own unsmoothed output (reference:
         # SerialTreeLearner::GetParentOutput)
         parent_out = calculate_leaf_output(sums[0], sums[1], self.params)
         info = find_best_split(hist, sums[0], sums[1], sums[2], sums[3],
                                self.meta, self.params, self.feature_mask,
-                               parent_out)
+                               parent_out, self._qscale)
         hists = torch.zeros((self.L, self.Fp, self.B, 4),
-                            dtype=torch.float32, device=self.device)
+                            dtype=hist.dtype, device=self.device)
         hists[0] = hist
         cand = torch.full((self.L, S.RECORD_WIDTH), float("-inf"),
                           dtype=torch.float32, device=self.device)
@@ -227,5 +283,5 @@ class SerialTreeLearner:
             info = find_best_split(
                 hist, row[side], row[side + 1], row[side + 2],
                 row[side + 3], self.meta, self.params, self.feature_mask,
-                row[side + 4])
+                row[side + 4], self._qscale)
             self._store(state.cand, child, info, allowed)

@@ -9,6 +9,8 @@ import torch
 
 import lightgbm_tpu_torch as lgb
 from lightgbm_tpu_torch.ops import histogram as H
+from lightgbm_tpu_torch.ops import quantize as Q
+from lightgbm_tpu_torch.utils import prng
 
 pytestmark = pytest.mark.cuda
 
@@ -74,3 +76,61 @@ def test_training_on_cuda_goes_through_the_kernel(cuda):
     assert a.num_leaves == b.num_leaves
     assert a.split_feature[:ni].tolist() == b.split_feature[:ni].tolist()
     assert a.threshold[:ni].tolist() == b.threshold[:ni].tolist()
+
+
+@pytest.mark.parametrize("with_idx", [False, True])
+def test_int16_kernel_byte_equal(cuda, with_idx):
+    """int16 rows -> int32, |q| at the 16-bit cap for S rows."""
+    S = 1 << 16
+    bins, _, _, idx = _inputs(S, 16, 256, seed=3)
+    q = (2 ** 31 - 1) // S
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    gh16 = torch.randint(-q, q + 1, (S, 4), generator=g, device="cuda",
+                         dtype=torch.int32).to(torch.int16)
+    idx = idx if with_idx else None
+    H.reset_launch_counts()
+    got = H.build_histogram(bins, gh16, 256, idx)
+    assert H.launch_counts["histogram_i16"] == 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, H.histogram_plain(bins, gh16, 256, idx))
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_quantize_gh_card_equals_cpu(cuda, bits):
+    """Integer threefry and IEEE f32 division are exact on both devices:
+    the quantized rows and scales are byte-equal."""
+    rng = np.random.RandomState(5)
+    n = 100_003
+    host = [(rng.randn(n) * 0.4).astype(np.float32),
+            (rng.rand(n) * 0.25).astype(np.float32),
+            (rng.rand(n) < 0.8).astype(np.float32)]
+    qmax = Q.effective_quant_max(bits, n)
+    out = []
+    for dev in ("cuda", "cpu"):
+        key = Q.tree_key(prng.PRNGKey(17, dev), 3)
+        gh, qs = Q.quantize_gh(*[torch.from_numpy(a).to(dev) for a in host],
+                               key, qmax, Q.quant_dtype(bits))
+        out.append((gh.cpu(), qs.cpu().view(torch.int32),
+                    prng.uniform(key, (n, 2)).cpu().view(torch.int32)))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_quantized_training_on_cuda_is_repeatable(cuda):
+    """Integer histograms do not depend on the order of the atomics: two
+    quantized runs on the card give the same model text, every
+    histogram through the int8 instance."""
+    rng = np.random.RandomState(6)
+    X = rng.randn(30000, 12)
+    y = (X[:, 0] + 0.5 * X[:, 1] ** 2 + rng.randn(30000) * 0.3 > 0.5)
+    params = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+              "use_quantized_grad": True, "bagging_fraction": 0.8,
+              "bagging_freq": 1}
+    H.reset_launch_counts()
+    a = lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=4)
+    assert H.launch_counts["histogram_i8"] == sum(
+        t.num_leaves for t in a.inner.models)
+    assert H.launch_counts["histogram_f32"] == 0
+    b = lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=4)
+    assert a.model_to_string() == b.model_to_string()

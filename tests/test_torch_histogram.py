@@ -17,6 +17,7 @@ from jax.experimental import pallas as pl
 
 from lightgbm_tpu.ops.histogram import _hist_kernel_body, _segment_histogram
 from lightgbm_tpu_torch.ops import histogram as H
+from lightgbm_tpu_torch.ops.quantize import sum_gh
 from lightgbm_tpu_torch.utils.log import LightGBMError
 
 torch.set_num_threads(1)
@@ -107,7 +108,10 @@ def test_cpu_tensors_never_launch_the_kernel():
     bins, gh = _inputs(256, 8, 16, 4, seed=1)
     H.reset_launch_counts()
     H.build_histogram(torch.from_numpy(bins), torch.from_numpy(gh), 16)
-    assert H.launch_counts == {"histogram_f32": 0, "histogram_i8": 0}
+    H.build_histogram(torch.from_numpy(bins),
+                      torch.from_numpy(gh).to(torch.int16), 16)
+    assert H.launch_counts == {"histogram_f32": 0, "histogram_i8": 0,
+                               "histogram_i16": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -151,6 +155,6 @@ def test_subtract_and_sum_gh():
     right = H.build_histogram(tb[400:], tg[400:], 32)
     np.testing.assert_allclose(H.subtract_histogram(parent, left).numpy(),
                                right.numpy(), rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(H.sum_gh(tg).numpy(), gh.sum(0), rtol=1e-5)
+    np.testing.assert_allclose(sum_gh(tg).numpy(), gh.sum(0), rtol=1e-5)
     g8 = torch.from_numpy(_inputs(900, 8, 32, 4, 4, np.int8)[1])
-    assert H.sum_gh(g8).dtype == torch.int32
+    assert sum_gh(g8).dtype == torch.int32

@@ -79,7 +79,8 @@ def _tiny():
 
 
 @pytest.mark.parametrize("params", [{}, {"device_type": "cuda"},
-                                    {"device": "gpu"}])
+                                    {"device": "gpu"},
+                                    {"use_quantized_grad": True}])
 def test_cuda_without_a_gpu_raises(params):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible: cuda is allowed here")
@@ -89,11 +90,12 @@ def test_cuda_without_a_gpu_raises(params):
                   lgb.Dataset(X, label=y), num_boost_round=1)
 
 
-def test_cpu_runs_only_when_asked():
+@pytest.mark.parametrize("quantized", [False, True])
+def test_cpu_runs_only_when_asked(quantized):
     X, y = _tiny()
     bst = lgb.train({"objective": "binary", "device_type": "cpu",
-                     "verbose": -1}, lgb.Dataset(X, label=y),
-                    num_boost_round=2)
+                     "use_quantized_grad": quantized, "verbose": -1},
+                    lgb.Dataset(X, label=y), num_boost_round=2)
     assert bst.inner.device.type == "cpu"
     assert bst.inner.learner.bins.device.type == "cpu"
     assert Config.from_params({}).device_type == "cuda"
@@ -101,12 +103,12 @@ def test_cpu_runs_only_when_asked():
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"bagging_fraction": 0.5, "bagging_freq": 1}, "item 14"),
+    ({"boosting": "goss"}, "item 14"),
     ({"data_sample_strategy": "goss"}, "item 14"),
     ({"feature_fraction": 0.5}, "item 14"),
     ({"extra_trees": True}, "item 14"),
     ({"feature_fraction_bynode": 0.5}, "item 15"),
-    ({"use_quantized_grad": True}, "item 13"),
+    ({"use_quantized_grad": True, "feature_fraction": 0.5}, "item 14"),
     ({"categorical_feature": "0"}, "item 11"),
     ({"monotone_constraints": "1,0,0,0"}, "item 15"),
     ({"interaction_constraints": "0,1"}, "item 15"),
