@@ -8,17 +8,27 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases (each one fails the run if it fails):
 1. print the card and its power limit; build every CUDA kernel of the
    port from ``lightgbm_tpu_torch/csrc`` (one ``nvcc`` per source, all
-   started together) and print the build seconds;
-2. hold every kernel against its plain PyTorch version on the card
-   (f32 histogram with and without a row-index list, int8 -> int32);
+   started together) and print the build seconds; count each kernel's
+   atomic instructions in its SASS and fail if the f32 instance holds a
+   compare-and-swap;
+2. hold every kernel instance (f32, int8 -> int32, int16 -> int32)
+   against its plain PyTorch version on the card: random rows with and
+   without row-index lists (of half the rows, 1, 31, 1000 and 100k
+   rows), every row in one bin of every feature, Fp = 8, 40 and 64
+   beside 32; two f32 calls on the same inputs must give the same bytes;
 3. train the binary slice at a small size on ``cuda`` and on ``cpu`` and
    compare the first tree and the held-out AUC;
 4. train the full-size slice (10.5M Higgs-shaped rows x 28 features,
    255 leaves, 5 rounds) through ``lightgbm_tpu_torch.train``, predict a
    500k held-out set, and check that every histogram went through the
-   kernel (launches == 1 + splits);
-5. time every kernel at the main path's root shape against its plain
-   version, one library call and its memory bound;
+   kernel (launches == 1 + splits); print the kernel's ms summed by rows
+   per launch, ms per split and per scan; a second run of 2 rounds must
+   give the same two trees, text for text (f32 histograms and scans are
+   deterministic);
+5. time every kernel at the main path's root shape, and with row-index
+   lists of 10k, 100k and 1M rows (L2 flushed), against its plain
+   version, one library call and its memory bound; time a split scan
+   with its prefix sums in the reference's order and with a cumsum;
 6. draw the quantized-gradient rows (threefry ``uniform`` and
    ``quantize_gh``) at 10.5M rows on the card and on the CPU from the
    same inputs: they must be byte-equal;
@@ -26,8 +36,7 @@ Phases (each one fails the run if it fails):
    (``quant_grad_bits=8``, 5 rounds): every histogram must go through the
    int8 instance (launches == 1 + splits, no f32 launch), the held-out
    AUC must pass 0.7, and a second run of 2 rounds must give the same
-   two trees, text for text (integer histograms do not depend on the
-   order of the atomics);
+   two trees, text for text;
 8. train 200k rows with ``quant_grad_bits=16`` and bagging on ``cuda``
    and on ``cpu``: tree 1 must make the same splits, through the int16
    instance on the card;
@@ -61,7 +70,8 @@ INT8_OPS_PER_S = 1979e12        # H100 SXM int8 rate (the table's int8 row;
 #                                 integer row, so int16 rows use it too)
 
 # tolerance of the f32 kernel against an f64 plain sum: the kernel adds
-# f32 values with atomics in an undefined order. The rounding error of
+# f32 values in a fixed order of its own (lanes, rows, blocks), not the
+# plain version's row order. The rounding error of
 # an f32 sum in any order is bounded by a multiple of eps * sum(|x|)
 # over the summed values, not of |sum(x)| (which cancels for signed
 # gradients), so each grad/hess bin is held to REL_TOL times the f64 sum
@@ -142,27 +152,44 @@ def phase_device_and_build(csrc):
     for src, out in outputs.items():
         log("nvcc %s.cu:\n%s" % (src, "\n".join(
             ln for ln in out.splitlines()
-            if "registers" in ln or "spill" in ln)))
+            if "registers" in ln or "spill" in ln or "Compiling" in ln)))
+    for src in sources:
         log_atomics(csrc, csrc.library_path(src))
     return card, name
 
 
 def log_atomics(csrc, lib_path: str) -> None:
-    """Count the atomic instructions in a built kernel library's SASS:
-    shared-memory adds compile to ATOMS.ADD for int32 and to a
-    compare-and-swap loop (ATOMS.CAS*) for f32 on this card."""
+    """Count the atomic instructions of each kernel in a built library's
+    SASS, and fail if a function of the f32 instance (mangled template
+    arguments ``<float, float>`` / ``<float>``) holds a compare-and-swap
+    atomic (``ATOMS.CAS*``, ``ATOMS.CAST.SPIN``: the loop an f32 add in
+    shared memory compiles to on this card)."""
     cuobjdump = os.path.join(os.path.dirname(csrc._nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
         log("cuobjdump not found; atomic instructions not counted")
         return
     sass = subprocess.run([cuobjdump, "-sass", lib_path],
                           capture_output=True, text=True, timeout=120).stdout
-    counts = {}
-    for tok in sass.split():
-        if tok.startswith(("ATOMS", "ATOMG", "RED")):
-            counts[tok.rstrip(";")] = counts.get(tok.rstrip(";"), 0) + 1
-    log("atomic instructions in %s: %s" % (os.path.basename(lib_path),
-                                          json.dumps(counts, sort_keys=True)))
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = {}
+            continue
+        for tok in line.split():
+            tok = tok.rstrip(";")
+            if fn is not None and tok.startswith(("ATOM", "RED")):
+                counts[fn][tok] = counts[fn].get(tok, 0) + 1
+    check(bool(counts), "no kernel function in the SASS of %s" % lib_path)
+    for fn, c in sorted(counts.items()):
+        log("atomic instructions in %s: %s" % (fn, json.dumps(c,
+                                                             sort_keys=True)))
+        if "IffE" in fn or "IfE" in fn:
+            check(not any(".CAS" in t for t in c),
+                  "the f32 instance %s still holds a CAS atomic: %s"
+                  % (fn, c))
+    log("no compare-and-swap atomic in the f32 instance (%d functions)"
+        % len(counts))
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +208,27 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(fn, reps: int = 10, warm: int = 1) -> float:
+    """Mean ms of ``fn`` with the L2 cache flushed before each call (by
+    zeroing 128 MB), as a child's histogram finds it in training; the
+    flush is outside the timed events."""
+    import torch
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warm):
+        fn()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 # ---------------------------------------------------------------------------
@@ -244,24 +292,59 @@ def compare_int(hist_mod, bins, gh_int, B, idx):
     return 0.0
 
 
+def sub_index(S: int, n: int, seed: int):
+    """A sorted int32 list of n distinct rows of S (a child's rows)."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return torch.randperm(S, generator=g, device="cuda")[:n].sort().values \
+        .to(torch.int32)
+
+
 def phase_kernels(hist_mod):
+    """Every instance against its plain version on random and adversarial
+    inputs: every row in one bin of every feature (one group of 32
+    lanes, every row on one address), row-index lists of 1, 31, 1000 and
+    100k rows, Fp = 8, 40 (two groups) and 64 beside the main path's 32;
+    and two f32 calls on the same inputs must give the same bytes."""
+    import torch
     S, Fp, B = 1 << 20, 32, 256
     bins, gh, gh8, gh16, idx = make_hist_inputs(S, Fp, B, seed=1)
+    hot = torch.full_like(bins, 7)
+    cases = [("random", bins, gh, gh8, gh16, B, None),
+             ("random, idx S/2", bins, gh, gh8, gh16, B, idx)]
+    cases += [("random, idx %d" % n, bins, gh, gh8, gh16, B,
+               sub_index(S, n, seed=n)) for n in (1, 31, 1000, 100_000)]
+    cases += [("one bin", hot, gh, gh8, gh16, B, None),
+              ("one bin, idx S/2", hot, gh, gh8, gh16, B, idx)]
+    # Fp = 40: two feature groups of 32 and 8 (the last one narrower)
+    for fp, b, seed in ((8, 64, 2), (40, 128, 4), (64, 256, 3)):
+        wb, wgh, wgh8, wgh16, widx = make_hist_inputs(S, fp, b, seed=seed)
+        cases += [("Fp=%d B=%d" % (fp, b), wb, wgh, wgh8, wgh16, b, None),
+                  ("Fp=%d B=%d, idx S/2" % (fp, b), wb, wgh, wgh8, wgh16, b,
+                   widx)]
     errs = dict.fromkeys(hist_mod.launch_counts, 0.0)
-    for use_idx in (None, idx):
-        e = compare_f32(hist_mod, bins, gh, B, use_idx)
+    for label, cb, cgh, cgh8, cgh16, cB, cidx in cases:
+        e = compare_f32(hist_mod, cb, cgh, cB, cidx)
         errs["histogram_f32"] = max(errs["histogram_f32"], e)
-        compare_int(hist_mod, bins, gh8, B, use_idx)
-        compare_int(hist_mod, bins, gh16, B, use_idx)
-        log("kernel check S=%d Fp=%d B=%d C=4 idx=%s: f32 max_abs_err "
-            "%.3g (tol %.0e x sum|x| per bin, counts exact), int8 and "
-            "int16 byte-equal" % (S, Fp, B, use_idx is not None, e,
-                                  REL_TOL))
+        compare_int(hist_mod, cb, cgh8, cB, cidx)
+        compare_int(hist_mod, cb, cgh16, cB, cidx)
+        log("kernel check [%s] S=%d Fp=%d B=%d C=4: f32 max_abs_err %.3g "
+            "(tol %.0e x sum|x| per bin, counts exact), int8 and int16 "
+            "byte-equal" % (label, S if cidx is None else cidx.shape[0],
+                            cb.shape[1], cB, e, REL_TOL))
+    for label, cb, cgh, _, _, cB, cidx in (cases[0], cases[1], cases[6]):
+        first = hist_mod.build_histogram(cb, cgh, cB, cidx)
+        second = hist_mod.build_histogram(cb, cgh, cB, cidx)
+        check(torch.equal(first.view(torch.int32), second.view(torch.int32)),
+              "two f32 calls on the same inputs differ [%s]" % label)
+    log("f32 determinism: two calls on the same inputs byte-equal [random, "
+        "random idx S/2, one bin]")
     return errs
 
 
 # ---------------------------------------------------------------------------
-# phase 5: timing at the main path's root shape
+# phase 5: timing at the main path's root shape and at child sizes
 # ---------------------------------------------------------------------------
 def hist_bound_ms(S: int, Fp: int, B: int, C: int, gh_bytes: int,
                   with_idx: bool):
@@ -275,25 +358,33 @@ def hist_bound_ms(S: int, Fp: int, B: int, C: int, gh_bytes: int,
                                  else "operations")
 
 
-def time_histogram(hist_mod, bins, gh, B, name):
+def time_histogram(hist_mod, bins, gh, B, name, idx=None):
+    """Kernel, plain and ``index_add_`` ms and the bound of one call:
+    all rows (warm repeats; 336 MB of bins exceed the L2 anyway), or a
+    child's row-index list with the L2 flushed before each call."""
     import torch
-    S, Fp = bins.shape
-    C = gh.shape[1]
-    kernel_ms = cuda_ms(lambda: hist_mod.build_histogram(bins, gh, B))
-    plain_ms = cuda_ms(lambda: hist_mod.histogram_plain(bins, gh, B),
-                       reps=3, warm=1)
+    Fp, C = bins.shape[1], gh.shape[1]
+    S = bins.shape[0] if idx is None else idx.shape[0]
+    timer = cuda_ms if idx is None else cuda_ms_cold
+    kernel_ms = timer(lambda: hist_mod.build_histogram(bins, gh, B, idx))
+    plain_ms = timer(lambda: hist_mod.histogram_plain(bins, gh, B, idx),
+                     reps=3, warm=1)
     acc = hist_mod.acc_dtype(gh.dtype)
+    rb, rg = (bins, gh) if idx is None else (bins[idx.long()],
+                                               gh[idx.long()])
     flat = (torch.arange(Fp, dtype=torch.int64, device="cuda")[None, :]
-            * B + bins.long()).reshape(-1)
-    vals = gh.to(acc)[:, None, :].expand(S, Fp, C).reshape(-1, C)
+            * B + rb.long()).reshape(-1)
+    vals = rg.to(acc)[:, None, :].expand(S, Fp, C).reshape(-1, C)
     out = torch.zeros(Fp * B, C, dtype=acc, device="cuda")
-    library_ms = cuda_ms(lambda: out.index_add_(0, flat, vals), reps=3,
-                         warm=1)
-    del flat, vals, out
-    bound, by = hist_bound_ms(S, Fp, B, C, gh.element_size(), False)
-    log("%s at S=%d Fp=%d B=%d C=%d: kernel %.4f ms, plain %.4f ms, "
+    library_ms = timer(lambda: out.index_add_(0, flat, vals), reps=3,
+                       warm=1)
+    del flat, vals, out, rb, rg
+    bound, by = hist_bound_ms(S, Fp, B, C, gh.element_size(),
+                              idx is not None)
+    log("%s at S=%d%s Fp=%d B=%d C=%d: kernel %.4f ms, plain %.4f ms, "
         "index_add_ %.4f ms, bound %.4f ms (%s)"
-        % (name, S, Fp, B, C, kernel_ms, plain_ms, library_ms, bound, by))
+        % (name, S, "" if idx is None else " (row-index list, L2 flushed)",
+           Fp, B, C, kernel_ms, plain_ms, library_ms, bound, by))
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound, bound_by=by)
 
@@ -325,6 +416,8 @@ def phase_timing(hist_mod, bins, B, errs, launches):
                 "histogram_i8": "lightgbm_tpu/ops/histogram.py:223",
                 "histogram_i16": "lightgbm_tpu/ops/histogram.py:202"}
     rows = []
+    children = [sub_index(S, n, seed=n) for n in (10_000, 100_000,
+                                                   1_000_000)]
     for name, rows_gh in (("histogram_f32", gh), ("histogram_i8", gh8),
                           ("histogram_i16", gh16)):
         t = time_histogram(hist_mod, bins, rows_gh, B, name)
@@ -333,7 +426,59 @@ def phase_timing(hist_mod, bins, B, errs, launches):
             source="lightgbm_tpu_torch/csrc/histogram.cu",
             replaces=replaces[name], launches=launches[name],
             max_abs_err=errs[name], **t))
+        for idx in children:
+            time_histogram(hist_mod, bins, rows_gh, B, name, idx)
     return rows
+
+
+def time_scan(B: int = 256, Fp: int = 32, calls: int = 200) -> None:
+    """Host-clock ms per ``find_best_split`` call on the card (a leaf
+    histogram of the main path's shape), with the prefix sums in the
+    reference's order (``prefix_sum``, ~35 small ops) and with one
+    ``torch.cumsum`` in their place, the order-free way to take them: the scan
+    is launch-bound, so this is what the order costs per split step."""
+    import torch
+    from lightgbm_tpu_torch import config as port_config
+    from lightgbm_tpu_torch.ops import split as S
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    hist = torch.stack([torch.randn(Fp, B, generator=g, device="cuda"),
+                        torch.rand(Fp, B, generator=g, device="cuda"),
+                        torch.randint(0, 50, (Fp, B), generator=g,
+                                      device="cuda").float(),
+                        torch.randint(0, 50, (Fp, B), generator=g,
+                                      device="cuda").float()], dim=2)
+    sums = hist[0].sum(dim=0)
+    dev = torch.device("cuda")
+    meta = S.FeatureMeta(
+        num_bin=torch.full((Fp,), B, dtype=torch.int32, device=dev),
+        missing_type=torch.zeros(Fp, dtype=torch.int32, device=dev),
+        zero_bin=torch.zeros(Fp, dtype=torch.int32, device=dev))
+    params = S.SplitParams.from_config(port_config.Config.from_params(
+        {"min_data_in_leaf": 100, "verbosity": -1}), dev)
+    mask = torch.ones(Fp, dtype=torch.bool, device=dev)
+    parent = torch.zeros((), device=dev)
+
+    def per_call_ms():
+        for _ in range(5):
+            S.find_best_split(hist, *sums, meta, params, mask, parent)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            S.find_best_split(hist, *sums, meta, params, mask, parent)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / calls
+
+    ordered = per_call_ms()
+    prefix_sum = S.prefix_sum
+    S.prefix_sum = lambda x: torch.cumsum(x, dim=-1)
+    try:
+        plain = per_call_ms()
+    finally:
+        S.prefix_sum = prefix_sum
+    log("split scan per call (host clock, %d calls, [%d, %d, 4]): %.3f ms "
+        "with prefix_sum (the reference's order), %.3f ms with one "
+        "torch.cumsum" % (calls, Fp, B, ordered, plain))
 
 
 # ---------------------------------------------------------------------------
@@ -404,15 +549,20 @@ def phase_small(lgb, hist_mod, extra, kernel, auc_tol):
 class _EventTimer:
     """CUDA events around every call of a function. ``patch`` is a plain
     function, so it can stand in for a module function or, set on a
-    class, for a method."""
+    class, for a method. ``size_of(*args)``, where given, records a size
+    per call (rows of a histogram)."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, size_of=None):
         self.fn = fn
+        self.size_of = size_of
         self.events = []
+        self.sizes = []
         self.patch = lambda *args, **kwargs: self(*args, **kwargs)
 
     def __call__(self, *args, **kwargs):
         import torch
+        if self.size_of is not None:
+            self.sizes.append(self.size_of(*args, **kwargs))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -426,6 +576,27 @@ class _EventTimer:
 
     def total_ms(self) -> float:
         return sum(self.each_ms())
+
+
+def hist_rows(bins, gh, num_bins, idx=None):
+    """Rows summed by one ``build_histogram`` call."""
+    return bins.shape[0] if idx is None else idx.shape[0]
+
+
+ROW_BUCKETS = (1_000, 10_000, 100_000, 1_000_000)
+
+
+def log_launch_sizes(timer: _EventTimer, kernel: str) -> None:
+    """Launches and kernel ms summed by rows per launch."""
+    edges = (0,) + ROW_BUCKETS + (float("inf"),)
+    parts = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        ms = [t for n, t in zip(timer.sizes, timer.each_ms())
+              if lo <= n < hi]
+        parts.append("[%s, %s): %d launches, %.3f ms"
+                     % (lo, "inf" if hi == float("inf") else int(hi),
+                        len(ms), sum(ms)))
+    log("%s by rows per launch: %s" % (kernel, "; ".join(parts)))
 
 
 def full_data(lgb):
@@ -454,7 +625,8 @@ def train_full(lgb, hist_mod, data, extra, kernel, rounds=5):
     from lightgbm_tpu_torch.treelearner import serial
     ds, valid, _, _ = data
     params = dict(SLICE_PARAMS, num_leaves=255, **extra)
-    hist_timer = _EventTimer(serial.build_histogram)
+    hist_timer = _EventTimer(serial.build_histogram, hist_rows)
+    scan_timer = _EventTimer(serial.find_best_split)
     quant_timer = _EventTimer(serial.SerialTreeLearner._quantize_stage)
     grow = serial.SerialTreeLearner.train
     tree_seconds = []
@@ -474,6 +646,7 @@ def train_full(lgb, hist_mod, data, extra, kernel, rounds=5):
     mark.before_iteration = True
     evals = {}
     serial.build_histogram = hist_timer.patch
+    serial.find_best_split = scan_timer.patch
     serial.SerialTreeLearner._quantize_stage = quant_timer.patch
     serial.SerialTreeLearner.train = timed_grow
     torch.cuda.reset_peak_memory_stats()
@@ -488,6 +661,7 @@ def train_full(lgb, hist_mod, data, extra, kernel, rounds=5):
         launches = dict(hist_mod.launch_counts)
     finally:
         serial.build_histogram = hist_timer.fn
+        serial.find_best_split = scan_timer.fn
         serial.SerialTreeLearner._quantize_stage = quant_timer.fn
         serial.SerialTreeLearner.train = grow
     peak = torch.cuda.max_memory_allocated()
@@ -517,6 +691,13 @@ def train_full(lgb, hist_mod, data, extra, kernel, rounds=5):
            sum(tree_seconds), launches[kernel], kernel, len(trees), splits,
            "; quantize stage ms per tree: " + " ".join(
                "%.3f" % v for v in quant_ms) if quant_ms else ""))
+    log_launch_sizes(hist_timer, kernel)
+    scan_ms = scan_timer.each_ms()
+    log("ms per split (tree seconds / splits): %s; split scan: %d calls, "
+        "%.3f ms each on average (CUDA events; the scan is launch-bound)"
+        % (" ".join("%.2f" % (1e3 * s / (t.num_leaves - 1))
+                    for s, t in zip(tree_seconds, trees)),
+           len(scan_ms), float(np.mean(scan_ms))))
     log("peak torch.cuda.max_memory_allocated: %.3f GiB"
         % (peak / 2 ** 30))
     return bst, launches, evals["held_out"]["auc"], per_iter, quant_ms
@@ -543,12 +724,27 @@ def check_predict(bst, data, device_auc):
     return a
 
 
+def check_rerun(lgb, hist_mod, data, extra, kernel, bst, what):
+    """A second run of 2 rounds must give the first run's first two
+    trees, text for text."""
+    again, _, _, _, _ = train_full(lgb, hist_mod, data, extra, kernel,
+                                   rounds=2)
+    first = [t.to_string() for t in bst.inner.models[:2]]
+    second = [t.to_string() for t in again.inner.models]
+    check(first == second, "a second %s run gave other trees" % what)
+    log("%s rerun (2 rounds): trees 1 and 2 text-equal to the first run's"
+        % what)
+
+
 def phase_full(lgb, hist_mod, data):
-    """The main path at full size (f32 gradients); returns (booster,
-    launches, held-out AUC)."""
+    """The main path at full size (f32 gradients), and a 2-round rerun
+    that must give the same trees (the f32 histograms and scans are
+    deterministic); returns (booster, launches, held-out AUC)."""
     bst, launches, aucs, _, _ = train_full(lgb, hist_mod, data, {},
                                            "histogram_f32")
-    return bst, launches, check_predict(bst, data, aucs)
+    a = check_predict(bst, data, aucs)
+    check_rerun(lgb, hist_mod, data, {}, "histogram_f32", bst, "f32")
+    return bst, launches, a
 
 
 # ---------------------------------------------------------------------------
@@ -614,13 +810,8 @@ def phase_full_quantized(lgb, hist_mod, data, f32_auc):
         % (a, "%.6f" % f32_auc if f32_auc is not None else "not run",
            "%+.6f" % (a - f32_auc) if f32_auc is not None else "n/a",
            float(np.mean(per_iter)), float(np.mean(quant_ms))))
-    again, _, _, _, _ = train_full(lgb, hist_mod, data, extra,
-                                   "histogram_i8", rounds=2)
-    first = [t.to_string() for t in bst.inner.models[:2]]
-    second = [t.to_string() for t in again.inner.models]
-    check(first == second, "a second quantized run gave other trees")
-    log("quantized rerun (2 rounds): trees 1 and 2 text-equal to the first "
-        "run's")
+    check_rerun(lgb, hist_mod, data, extra, "histogram_i8", bst,
+                "quantized")
     return launches
 
 
@@ -654,7 +845,7 @@ def main(argv=None) -> int:
     launches = dict.fromkeys(hist_mod.launch_counts, 0)
     if 3 in phases:
         phase_small(lgb, hist_mod, {}, "histogram_f32", 1e-3)
-    data = full_data(lgb) if phases & {4, 5, 7} else None
+    data = full_data(lgb) if phases & {4, 7} else None
     bins_root, f32_auc = None, None
     if 4 in phases:
         bst, run, f32_auc = phase_full(lgb, hist_mod, data)
@@ -670,6 +861,7 @@ def main(argv=None) -> int:
                                       device="cuda", dtype=torch.int32
                                       ).to(torch.uint8)
         rows = phase_timing(hist_mod, bins_root, 256, errs, launches)
+        time_scan()
     del bins_root
     if 6 in phases:
         phase_quantize()

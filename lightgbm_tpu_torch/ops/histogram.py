@@ -9,11 +9,16 @@ one runs depends only on where the tensors lie: a CUDA tensor reaches
 the kernel or an exception, never the plain version.
 
     hist[f, b, c] = sum_t [bins[t, f] == b] * gh[t, c]
+
+:func:`launch_plan` sizes the kernel's launch (feature groups, tile rows,
+blocks, shared memory, scratch) from the shapes alone, so the CPU tests
+can check it.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import functools
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,6 +38,98 @@ _KERNEL_OF = {torch.float32: ("histogram_f32", "lgbm_histogram_f32",
                             torch.int32)}
 _MAX_C = 8
 _MAX_B = 256
+
+#: shared memory one block may use on an H100 (bytes)
+MAX_SMEM = 232448
+#: warps per block (csrc/histogram.cu kWarps); each owns Fg / 16 features
+WARPS = 16
+#: features of one group: the kernel has instances for 1 and 2 features
+#: per warp
+GROUP_FEATURES = (16, 32)
+#: rows staged per tile: at most this, at least MIN_TILE_ROWS
+MAX_TILE_ROWS = 1024
+MIN_TILE_ROWS = 128
+#: a block takes at least this many rows (a child of a few thousand rows
+#: gets a few blocks; one block writes the output directly)
+MIN_ROWS_PER_BLOCK = 1024
+
+
+class LaunchPlan(NamedTuple):
+    """How one call of ``csrc/histogram.cu`` is laid out."""
+    groups: int                 # feature groups (blockIdx.y)
+    features_per_group: int     # Fg, 16 or 32; the last group may hold
+    #                             fewer features
+    warps: int                  # warps per block
+    tile_rows: int              # rows staged per tile (double-buffered)
+    blocks: int                 # row blocks (blockIdx.x)
+    rows_per_block: int
+    smem_bytes: int             # dynamic shared memory per block
+    scratch_shape: Optional[Tuple[int, int, int, int]]  # per-block
+    #                             partials [blocks, Fp, B, C]; None for one
+    #                             block (it writes the output itself)
+
+    def feature_ranges(self, Fp: int) -> List[Tuple[int, int]]:
+        """[begin, end) of each group's features."""
+        g = self.features_per_group
+        return [(k * g, min((k + 1) * g, Fp)) for k in range(self.groups)]
+
+
+def launch_plan(S: int, Fp: int, B: int, C: int, gh_dtype: torch.dtype,
+                num_sms: int) -> LaunchPlan:
+    """The kernel's launch for S rows of Fp features, B bins and C stats.
+
+    A block holds the [Fg, B, C] 4-byte accumulators of its feature group
+    and two tiles of ``tile_rows`` rows (Fg bin bytes and C gh values
+    each) in shared memory. Groups are as few as fit (one at the main
+    path's Fp = 32, B = 256, C = 4: 128 KB of accumulators beside 96 KB
+    of tiles); row blocks are at most one per SM across the groups and
+    take at least ``MIN_ROWS_PER_BLOCK`` rows each. Raises
+    ``LightGBMError`` for a shape the kernel does not take."""
+    if gh_dtype not in _KERNEL_OF:
+        raise LightGBMError("histogram kernel takes float32 or int8/int16 "
+                            "gh rows, got %s" % gh_dtype)
+    if Fp <= 0 or Fp % 8 != 0:
+        raise LightGBMError("histogram kernel needs the feature axis "
+                            "padded to a multiple of 8, got %d" % Fp)
+    if not (1 <= C <= _MAX_C):
+        raise LightGBMError("histogram kernel takes 1..%d stat columns, "
+                            "got %d" % (_MAX_C, C))
+    if not (1 <= B <= _MAX_B):
+        raise LightGBMError("histogram kernel takes at most %d bins, got "
+                            "%d" % (_MAX_B, B))
+    if S < 1 or num_sms < 1:
+        raise LightGBMError("histogram launch plan needs rows and SMs, got "
+                            "S=%d num_sms=%d" % (S, num_sms))
+    groups, fg, tile, smem = _group_plan(Fp, B, C, C * gh_dtype.itemsize)
+    blocks = max(1, min(num_sms // groups, -(-S // MIN_ROWS_PER_BLOCK)))
+    per_block = -(-S // blocks)
+    blocks = -(-S // per_block)
+    return LaunchPlan(groups=groups, features_per_group=fg, warps=WARPS,
+                      tile_rows=tile, blocks=blocks,
+                      rows_per_block=per_block, smem_bytes=smem,
+                      scratch_shape=(blocks, Fp, B, C) if blocks > 1
+                      else None)
+
+
+@functools.lru_cache(maxsize=None)
+def _group_plan(Fp: int, B: int, C: int, gh_bytes: int):
+    """(groups, features per group, tile rows, shared bytes) of a shape;
+    the learner asks for one shape per training run."""
+    per_feature = B * C * 4
+
+    def smem(fg, rows):
+        return fg * per_feature + 2 * rows * (fg + gh_bytes)
+
+    fits = [fg for fg in GROUP_FEATURES
+            if smem(fg, MIN_TILE_ROWS) <= MAX_SMEM]
+    if not fits:
+        raise LightGBMError("histogram kernel: B=%d C=%d does not fit in "
+                            "shared memory" % (B, C))
+    groups = -(-Fp // fits[-1])
+    fg = min(f for f in fits if f * groups >= Fp)
+    rows = (MAX_SMEM - fg * per_feature) // (2 * (fg + gh_bytes))
+    tile = min(MAX_TILE_ROWS, rows // 32 * 32)
+    return groups, fg, tile, smem(fg, tile)
 
 
 def reset_launch_counts() -> None:
@@ -107,20 +204,29 @@ def _check_cuda_args(bins, gh, num_bins, idx) -> None:
 
 def histogram_cuda(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
                    idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch ``csrc/histogram.cu`` on PyTorch's current stream. The
-    output is allocated zeroed here (the kernel adds into it)."""
+    """Launch ``csrc/histogram.cu`` on PyTorch's current stream, laid out
+    by :func:`launch_plan`. The kernel writes the whole output, so it is
+    allocated empty, as is the scratch for the per-block partials."""
     _check_cuda_args(bins, gh, num_bins, idx)
     name, symbol, out_dtype = _KERNEL_OF[gh.dtype]
     F, C = bins.shape[1], gh.shape[1]
     S = bins.shape[0] if idx is None else idx.shape[0]
-    out = torch.zeros((F, num_bins, C), dtype=out_dtype, device=bins.device)
     if S == 0:
-        return out
+        return torch.zeros((F, num_bins, C), dtype=out_dtype,
+                           device=bins.device)
+    plan = launch_plan(S, F, num_bins, C, gh.dtype, _num_sms(bins.device))
+    out = torch.empty((F, num_bins, C), dtype=out_dtype, device=bins.device)
+    scratch = (None if plan.scratch_shape is None else
+               torch.empty(plan.scratch_shape, dtype=out_dtype,
+                           device=bins.device))
     fn = _kernel_fn(symbol)
     stream = torch.cuda.current_stream(bins.device).cuda_stream
     code = fn(bins.data_ptr(), gh.data_ptr(),
               None if idx is None else idx.data_ptr(), out.data_ptr(),
-              S, F, num_bins, C, stream)
+              None if scratch is None else scratch.data_ptr(),
+              S, F, num_bins, C, plan.features_per_group, plan.groups,
+              plan.tile_rows, plan.blocks, plan.rows_per_block,
+              plan.smem_bytes, stream)
     launch_counts[name] += 1
     if code != 0:
         raise LightGBMError("histogram kernel launch failed: %s (cuda "
@@ -128,14 +234,19 @@ def histogram_cuda(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _kernel_fn(symbol: str):
     from .. import csrc
     lib = csrc.load("histogram")
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        fn.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, vp]
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32,
+                       i32, i32, i64, i32, vp]
         fn.restype = ctypes.c_int
     return fn
 

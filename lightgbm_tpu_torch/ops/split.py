@@ -16,7 +16,8 @@ Port of the numerical path of ``lightgbm_tpu/ops/split.py``
   default_left = (zero_bin <= threshold).
 
 Everything is one vectorized pass in f32 on the histogram's device:
-cumulative sums over the bin axis give the left-side stats of every
+cumulative sums over the bin axis (:func:`prefix_sum`, in the
+reference's own addition order) give the left-side stats of every
 (feature, threshold), and a flat argmax (first maximum on ties, like
 ``jnp.argmax``) picks the winner. Invalid candidates score ``-inf``.
 Categorical scans and monotone bounds are later slices (ROADMAP items
@@ -28,12 +29,14 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as TF
 
 from ..io.binning import MissingType
 from .quantize import dequantize_hist
 
 _NEG_INF = float("-inf")
 kSmoothEps = 1e-15
+_SCAN_BASE = 16
 
 # columns of a packed split record (one f32 row per leaf candidate)
 (GAIN, FEATURE, THRESHOLD_BIN, DEFAULT_LEFT,
@@ -135,6 +138,39 @@ def smooth_output(out, count, parent_output, p: SplitParams):
     return torch.where(p.path_smooth > kSmoothEps, smoothed, out)
 
 
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive f32 sum along the last axis of ``x [..., B]``, added in
+    the order of the reference's ``jnp.cumsum``.
+
+    XLA's CPU build rewrites that cumsum (a reduce-window;
+    ``ReduceWindowRewriter``, base length 16, as compiled by the JAX
+    version the tests pin) into two levels: pad the axis to a multiple of
+    16, take a sequential inclusive sum inside each block of 16, take the
+    exclusive sum of the block totals by the same rule (recursively once
+    there are more than 16 blocks), and add the two. An axis of at most
+    16 is summed sequentially. Every step here is an f32 add on a tensor
+    (no ``torch.cumsum``, whose CPU kernel accumulates in f64), so the
+    CPU and the card give the reference's bits for the same input.
+
+    The sequential steps run on ``[..., nb, 16]`` views: about 35 small
+    ops for B = 256, whatever the leading shape."""
+    B = x.shape[-1]
+    if B <= _SCAN_BASE:
+        out = x.clone()
+        for k in range(1, B):
+            out[..., k] += out[..., k - 1]
+        return out
+    nb = -(-B // _SCAN_BASE)
+    blocks = TF.pad(x, (0, nb * _SCAN_BASE - B)).view(*x.shape[:-1], nb,
+                                                       _SCAN_BASE)
+    for k in range(1, _SCAN_BASE):
+        blocks[..., k] += blocks[..., k - 1]
+    # exclusive sums of the block totals: 0, t0, t0 + t1, ...
+    offsets = TF.pad(prefix_sum(blocks[..., :-1, -1]), (1, 0))
+    out = blocks + offsets[..., None]
+    return out.view(*x.shape[:-1], nb * _SCAN_BASE)[..., :B]
+
+
 def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
                     sum_hess: torch.Tensor, sum_count: torch.Tensor,
                     sum_total_count: torch.Tensor, meta: FeatureMeta,
@@ -164,10 +200,8 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
         out = calculate_leaf_output(sg, sh, params)
         return smooth_output(out, n, parent_output, params)
 
-    left_g = torch.cumsum(g, dim=1)
-    left_h = torch.cumsum(h, dim=1)
-    left_c = torch.cumsum(c, dim=1)
-    left_tc = torch.cumsum(tc, dim=1)
+    # the four channels' prefix sums in one call: [4, F, B]
+    left_g, left_h, left_c, left_tc = prefix_sum(hist.permute(2, 0, 1))
 
     bin_ids = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
     num_bin = meta.num_bin[:, None]

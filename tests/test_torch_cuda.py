@@ -37,8 +37,8 @@ def _inputs(S, F, B, seed):
 
 @pytest.mark.parametrize("with_idx", [False, True])
 def test_f32_kernel_matches_plain_sum(cuda, with_idx):
-    """Counts exact; grad/hess within 1e-5 x the bin's sum of |x| (f32
-    atomics add in an undefined order)."""
+    """Counts exact; grad/hess within 1e-5 x the bin's sum of |x| (the
+    kernel adds f32 values in its own fixed order, not row order)."""
     bins, gh, _, idx = _inputs(1 << 16, 16, 256, seed=1)
     idx = idx if with_idx else None
     H.reset_launch_counts()
@@ -118,8 +118,8 @@ def test_quantize_gh_card_equals_cpu(cuda, bits):
 
 
 def test_quantized_training_on_cuda_is_repeatable(cuda):
-    """Integer histograms do not depend on the order of the atomics: two
-    quantized runs on the card give the same model text, every
+    """Integer histograms are exact in any order: two quantized runs on
+    the card give the same model text, every
     histogram through the int8 instance."""
     rng = np.random.RandomState(6)
     X = rng.randn(30000, 12)
@@ -134,3 +134,53 @@ def test_quantized_training_on_cuda_is_repeatable(cuda):
     assert H.launch_counts["histogram_f32"] == 0
     b = lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=4)
     assert a.model_to_string() == b.model_to_string()
+
+
+def test_f32_kernel_is_deterministic(cuda):
+    """Lanes, rows, tiles and blocks are added in a fixed order: two
+    calls on the same inputs give the same bytes, dense and through a
+    row-index list."""
+    bins, gh, _, idx = _inputs(1 << 18, 32, 256, seed=7)
+    for use_idx in (None, idx):
+        a = H.build_histogram(bins, gh, 256, use_idx)
+        b = H.build_histogram(bins, gh, 256, use_idx)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_hot_bin_every_row_in_one_bin(cuda, dtype):
+    """Every row in one bin of every feature: one 32-lane group per
+    __match_any_sync and every row on one address."""
+    bins, gh, gh8, idx = _inputs(1 << 18, 16, 256, seed=8)
+    bins = torch.full_like(bins, 200)
+    rows = gh if dtype == "f32" else gh8
+    for use_idx in (None, idx):
+        got = H.build_histogram(bins, rows, 256, use_idx)
+        if dtype == "int8":
+            assert torch.equal(got, H.histogram_plain(bins, rows, 256,
+                                                      use_idx))
+            continue
+        ref = H.histogram_plain(bins, rows.double(), 256, use_idx)
+        mag = H.histogram_plain(bins, rows.double().abs(), 256, use_idx)
+        got = got.double()
+        assert torch.equal(got[..., 2:], ref[..., 2:])
+        assert bool(((got - ref).abs() <= 1e-5 * mag).all())
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 33, 1023, 1025])
+def test_tiny_children(cuda, n):
+    """Row-index lists around a warp's 32 rows and the one-block limit
+    (MIN_ROWS_PER_BLOCK): counts exact, f32 sums within tolerance, int8
+    byte-equal."""
+    bins, gh, gh8, _ = _inputs(1 << 14, 24, 128, seed=9)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(n)
+    idx = torch.randperm(1 << 14, generator=g, device="cuda")[:n]
+    idx = idx.sort().values.to(torch.int32)
+    got = H.build_histogram(bins, gh, 128, idx).double()
+    ref = H.histogram_plain(bins, gh.double(), 128, idx)
+    mag = H.histogram_plain(bins, gh.double().abs(), 128, idx)
+    assert torch.equal(got[..., 2:], ref[..., 2:])
+    assert bool(((got - ref).abs() <= 1e-5 * mag).all())
+    assert torch.equal(H.build_histogram(bins, gh8, 128, idx),
+                       H.histogram_plain(bins, gh8, 128, idx))

@@ -158,3 +158,67 @@ def test_subtract_and_sum_gh():
     np.testing.assert_allclose(sum_gh(tg).numpy(), gh.sum(0), rtol=1e-5)
     g8 = torch.from_numpy(_inputs(900, 8, 32, 4, 4, np.int8)[1])
     assert sum_gh(g8).dtype == torch.int32
+
+
+@pytest.mark.parametrize("gh_dtype", [torch.float32, torch.int8,
+                                      torch.int16])
+def test_launch_plan_fits_every_learner_shape(gh_dtype):
+    """Every shape the learner can ask for (Fp a multiple of 8, B a power
+    of two up to 256, C <= 8) fits in a block's shared memory, and the
+    feature groups cover each feature exactly once; the row blocks cover
+    the rows, at most one per SM across the groups."""
+    for Fp in range(8, 257, 8):
+        for B in (2, 4, 8, 16, 32, 64, 128, 256):
+            for C in range(1, 9):
+                for S in (1, 31, 1000, 100_000, 10_500_000):
+                    p = H.launch_plan(S, Fp, B, C, gh_dtype, 132)
+                    assert p.smem_bytes <= H.MAX_SMEM == 232448
+                    fg = p.features_per_group
+                    assert fg in H.GROUP_FEATURES
+                    covered = [f for a, b in p.feature_ranges(Fp)
+                               for f in range(a, b)]
+                    assert covered == list(range(Fp))
+                    assert all(b > a for a, b in p.feature_ranges(Fp))
+                    assert p.tile_rows % 32 == 0
+                    assert H.MIN_TILE_ROWS <= p.tile_rows <= H.MAX_TILE_ROWS
+                    assert p.smem_bytes == fg * B * C * 4 + 2 * p.tile_rows \
+                        * (fg + C * torch.empty((), dtype=gh_dtype)
+                           .element_size())
+                    assert p.blocks * p.rows_per_block >= S
+                    assert (p.blocks - 1) * p.rows_per_block < S
+                    assert p.blocks == 1 or p.blocks * p.groups <= 132
+                    assert p.scratch_shape == (
+                        None if p.blocks == 1 else (p.blocks, Fp, B, C))
+
+
+@pytest.mark.parametrize("S,blocks,scratch", [
+    (1, 1, None), (31, 1, None), (1000, 1, None),
+    (10_000, 10, (10, 32, 256, 4)), (1_000_000, 132, (132, 32, 256, 4)),
+    (10_500_000, 132, (132, 32, 256, 4))])
+def test_launch_plan_main_path(S, blocks, scratch):
+    """The main path's shape (Fp 32, B 256, C 4, f32): one feature group,
+    128 KB of accumulators and two 1024-row tiles of 48 bytes a row; a
+    child below MIN_ROWS_PER_BLOCK rows takes one block and no scratch."""
+    p = H.launch_plan(S, 32, 256, 4, torch.float32, 132)
+    assert (p.groups, p.features_per_group, p.warps, p.tile_rows) == \
+        (1, 32, 16, 1024)
+    assert p.smem_bytes == 32 * 256 * 4 * 4 + 2 * 1024 * 48
+    assert p.blocks == blocks and p.scratch_shape == scratch
+
+
+def test_launch_plan_splits_wide_rows_into_groups():
+    p = H.launch_plan(10_500_000, 64, 256, 4, torch.float32, 132)
+    assert p.groups == 2 and p.feature_ranges(64) == [(0, 32), (32, 64)]
+    assert p.blocks == 66
+
+
+@pytest.mark.parametrize("args,match", [
+    ((100, 12, 256, 4, torch.float32), "multiple of 8"),
+    ((100, 32, 257, 4, torch.float32), "at most 256 bins"),
+    ((100, 32, 0, 4, torch.float32), "at most 256 bins"),
+    ((100, 32, 256, 9, torch.float32), "stat columns"),
+    ((100, 32, 256, 4, torch.float64), "float32 or int8"),
+    ((0, 32, 256, 4, torch.float32), "needs rows")])
+def test_launch_plan_rejects_what_the_kernel_does_not_take(args, match):
+    with pytest.raises(LightGBMError, match=match):
+        H.launch_plan(*args, num_sms=132)
