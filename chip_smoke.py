@@ -15,7 +15,9 @@ Phases (each one fails the run if it fails):
    against its plain PyTorch version on the card: random rows with and
    without row-index lists (of half the rows, 1, 31, 1000 and 100k
    rows), every row in one bin of every feature, Fp = 8, 40 and 64
-   beside 32; two f32 calls on the same inputs must give the same bytes;
+   beside 32, and Fp = 56 and 136 at the root shapes of phases 9 and 10
+   with children of 1, 1000 and 100k rows; two f32 calls on the same
+   inputs must give the same bytes;
 3. train the binary slice at a small size on ``cuda`` and on ``cpu`` and
    compare the first tree and the held-out AUC;
 4. train the full-size slice (10.5M Higgs-shaped rows x 28 features,
@@ -40,10 +42,30 @@ Phases (each one fails the run if it fails):
 8. train 200k rows with ``quant_grad_bits=16`` and bagging on ``cuda``
    and on ``cpu``: tree 1 must make the same splits, through the int16
    instance on the card;
+9. multiclass at UCI Covertype's shape (581,012 rows x 54 columns, 7
+   classes, synthetic from a seed; 255 leaves, 5 rounds = 35 trees,
+   ``enable_bundle=false``): held-out multi_logloss falls every round,
+   multi_error ends below the majority class's 0.512, the device
+   validation scores equal the host walk within 1e-4, f32 launches ==
+   roots + splits over the 35 trees; a 2-round rerun is text-equal; 2
+   rounds at 8 bits go through the int8 instance only, and an 8-bit
+   tree 1 at 50k rows is the same on cuda and cpu; softmax gradient ms
+   and memory;
+10. lambdarank at MSLR-WEB30K's shape (2,270,296 rows x 136 in 18,919
+   queries of at most 1,251 docs, synthetic from a seed; 255 leaves,
+   min_data_in_leaf 100, ndcg@1,3,5 on 2,000 held-out queries, 5
+   rounds): ndcg@5 rises, launches == roots + splits, a 2-round rerun
+   is text-equal; the gradient stage's ms and memory; then two 2-round
+   rank_xendcg runs must give the same trees;
+11. every other objective (l1, huber, fair, quantile, mape, poisson,
+   gamma, tweedie, cross_entropy, cross_entropy_lambda, multiclassova)
+   on phase 3's rows, 63 leaves, 3 rounds, cuda vs cpu: tree 1 the same
+   tree, renewed leaf values (l1, quantile, mape) equal; renewal ms;
 
-and print one ``{"kernels": [...]}`` line with the launches of each
-kernel on the path that runs it (f32: phase 4, int8: phase 7, int16:
-phase 8).
+then time every instance at Fp = 56 and 136 (the real bins of phases 9
+and 10), and print one ``{"kernels": [...]}`` line with the launches of
+each kernel on each path that runs it (``launches_by_path``; f32:
+phases 4, 9, 10, 11; int8: phases 7, 9; int16: phase 8).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a visible
@@ -83,6 +105,15 @@ REL_TOL = 1e-5
 FULL_ROWS = 10_500_000
 HELD_OUT_ROWS = 500_000
 SMALL_ROWS = 200_000
+# UCI Covertype: 581,012 rows x 54 columns, 7 classes (phase 9)
+COVERTYPE_ROWS = 581_012
+COVERTYPE_HELD_OUT = 50_000
+# Microsoft Learning to Rank, MSLR-WEB30K Fold1 train: 2,270,296 rows x
+# 136 features in 18,919 queries of at most 1,251 docs (phase 10)
+MSLR_ROWS = 2_270_296
+MSLR_QUERIES = 18_919
+MSLR_MAX_LEN = 1_251
+MSLR_HELD_OUT_QUERIES = 2_000
 
 
 def make_higgs_like(n_rows: int, n_features: int = 28, seed: int = 0):
@@ -305,8 +336,10 @@ def phase_kernels(hist_mod):
     """Every instance against its plain version on random and adversarial
     inputs: every row in one bin of every feature (one group of 32
     lanes, every row on one address), row-index lists of 1, 31, 1000 and
-    100k rows, Fp = 8, 40 (two groups) and 64 beside the main path's 32;
-    and two f32 calls on the same inputs must give the same bytes."""
+    100k rows, Fp = 8, 40 (two groups) and 64 beside the main path's 32,
+    and Fp = 56 and 136 at the root shapes of phases 9 and 10 with
+    children of 1, 1000 and 100k rows; and two f32 calls on the same
+    inputs must give the same bytes."""
     import torch
     S, Fp, B = 1 << 20, 32, 256
     bins, gh, gh8, gh16, idx = make_hist_inputs(S, Fp, B, seed=1)
@@ -323,6 +356,15 @@ def phase_kernels(hist_mod):
         cases += [("Fp=%d B=%d" % (fp, b), wb, wgh, wgh8, wgh16, b, None),
                   ("Fp=%d B=%d, idx S/2" % (fp, b), wb, wgh, wgh8, wgh16, b,
                    widx)]
+    # the widths of phases 9 and 10 at their root shapes: Fp = 56 (two
+    # groups) and Fp = 136 (five groups), and children of 1, 1000 and
+    # 100k rows
+    for rows, fp, seed in ((COVERTYPE_ROWS, 56, 5), (MSLR_ROWS, 136, 6)):
+        wb, wgh, wgh8, wgh16, _ = make_hist_inputs(rows, fp, B, seed=seed)
+        cases.append(("Fp=%d root" % fp, wb, wgh, wgh8, wgh16, B, None))
+        cases += [("Fp=%d, idx %d" % (fp, n), wb, wgh, wgh8, wgh16, B,
+                   sub_index(rows, n, seed=n + fp)) for n in
+                  (1, 1000, 100_000)]
     errs = dict.fromkeys(hist_mod.launch_counts, 0.0)
     for label, cb, cgh, cgh8, cgh16, cB, cidx in cases:
         e = compare_f32(hist_mod, cb, cgh, cB, cidx)
@@ -331,8 +373,9 @@ def phase_kernels(hist_mod):
         compare_int(hist_mod, cb, cgh16, cB, cidx)
         log("kernel check [%s] S=%d Fp=%d B=%d C=4: f32 max_abs_err %.3g "
             "(tol %.0e x sum|x| per bin, counts exact), int8 and int16 "
-            "byte-equal" % (label, S if cidx is None else cidx.shape[0],
-                            cb.shape[1], cB, e, REL_TOL))
+            "byte-equal" % (label, cb.shape[0] if cidx is None
+                            else cidx.shape[0], cb.shape[1], cB, e,
+                            REL_TOL))
     for label, cb, cgh, _, _, cB, cidx in (cases[0], cases[1], cases[6]):
         first = hist_mod.build_histogram(cb, cgh, cB, cidx)
         second = hist_mod.build_histogram(cb, cgh, cB, cidx)
@@ -389,7 +432,7 @@ def time_histogram(hist_mod, bins, gh, B, name, idx=None):
                 bound_ms=bound, bound_by=by)
 
 
-def phase_timing(hist_mod, bins, B, errs, launches):
+def phase_timing(hist_mod, bins, B, errs):
     import torch
     S = bins.shape[0]
     g = torch.Generator(device="cuda")
@@ -424,7 +467,7 @@ def phase_timing(hist_mod, bins, B, errs, launches):
         rows.append(dict(
             name=name, route="cuda",
             source="lightgbm_tpu_torch/csrc/histogram.cu",
-            replaces=replaces[name], launches=launches[name],
+            replaces=replaces[name], launches=0,
             max_abs_err=errs[name], **t))
         for idx in children:
             time_histogram(hist_mod, bins, rows_gh, B, name, idx)
@@ -617,17 +660,57 @@ def full_data(lgb):
 
 def train_full(lgb, hist_mod, data, extra, kernel, rounds=5):
     """Train the full-size data through ``lightgbm_tpu_torch.train``
-    with the launch counts set to 0 just before and read just after;
-    every histogram must go through ``kernel`` (launches == 1 + splits,
-    no other instance launched). Returns (booster, launches, held-out
-    AUC per round, seconds per iteration, quantize ms per tree)."""
+    (:func:`train_path`). Returns (booster, launches, held-out AUC per
+    round, seconds per iteration, quantize ms per tree)."""
+    ds, valid, _, _ = data
+    run = train_path(lgb, hist_mod, ds, valid,
+                     dict(SLICE_PARAMS, num_leaves=255, **extra), kernel,
+                     rounds)
+    return (run["booster"], run["launches"], run["evals"]["auc"],
+            run["per_iter"], run["quant_ms"])
+
+
+class _StageTimer(_EventTimer):
+    """An :class:`_EventTimer` that also reads the device memory a call
+    needs above what was allocated when it started (peak during the
+    call, from ``torch.cuda.max_memory_allocated``). The peak counter is
+    reset per call, so the caller's own peak is kept in ``outer_peak``."""
+
+    def __init__(self, fn):
+        super().__init__(fn)
+        self.peaks = []
+        self.outer_peak = 0
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        self.outer_peak = max(self.outer_peak,
+                              torch.cuda.max_memory_allocated())
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = super().__call__(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.peaks.append(torch.cuda.max_memory_allocated() - before)
+        return out
+
+
+def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
+               grad_cls=None, tag=None):
+    """Train through ``lightgbm_tpu_torch.train`` with the launch counts
+    set to 0 just before and read just after; every histogram must go
+    through ``kernel`` (launches == roots + splits summed over all trees,
+    K per iteration for multiclass; no other instance launched). CUDA
+    events time every histogram, scan and quantize call, and, when
+    ``grad_cls`` names the objective's class, every gradient call with
+    the device memory it needs. Returns a dict of the run's numbers."""
     import torch
     from lightgbm_tpu_torch.treelearner import serial
-    ds, valid, _, _ = data
-    params = dict(SLICE_PARAMS, num_leaves=255, **extra)
+    tag = tag or json.dumps({k: v for k, v in params.items()
+                             if k not in SLICE_PARAMS})
     hist_timer = _EventTimer(serial.build_histogram, hist_rows)
     scan_timer = _EventTimer(serial.find_best_split)
     quant_timer = _EventTimer(serial.SerialTreeLearner._quantize_stage)
+    grad_timer = (_StageTimer(grad_cls.get_gradients) if grad_cls
+                  else None)
     grow = serial.SerialTreeLearner.train
     tree_seconds = []
 
@@ -649,6 +732,8 @@ def train_full(lgb, hist_mod, data, extra, kernel, rounds=5):
     serial.find_best_split = scan_timer.patch
     serial.SerialTreeLearner._quantize_stage = quant_timer.patch
     serial.SerialTreeLearner.train = timed_grow
+    if grad_timer:
+        grad_cls.get_gradients = grad_timer.patch
     torch.cuda.reset_peak_memory_stats()
     hist_mod.reset_launch_counts()
     try:
@@ -664,13 +749,17 @@ def train_full(lgb, hist_mod, data, extra, kernel, rounds=5):
         serial.find_best_split = scan_timer.fn
         serial.SerialTreeLearner._quantize_stage = quant_timer.fn
         serial.SerialTreeLearner.train = grow
-    peak = torch.cuda.max_memory_allocated()
+        if grad_timer:
+            grad_cls.get_gradients = grad_timer.fn
+    peak = max(torch.cuda.max_memory_allocated(),
+               grad_timer.outer_peak if grad_timer else 0)
     iter_starts.append(time.perf_counter())
     per_iter = list(np.diff(iter_starts))
     trees = bst.inner.models
+    K = bst.inner.num_tree_per_iteration
     splits = sum(t.num_leaves - 1 for t in trees)
-    check(len(trees) == rounds, "expected %d trees, got %d"
-          % (rounds, len(trees)))
+    check(len(trees) == rounds * K, "expected %d trees, got %d"
+          % (rounds * K, len(trees)))
     check(all(t.num_leaves > 1 for t in trees), "a tree has one leaf")
     check(launches[kernel] == len(trees) + splits,
           "%s launches %d != 1 + splits summed over trees (%d)"
@@ -679,12 +768,13 @@ def train_full(lgb, hist_mod, data, extra, kernel, rounds=5):
           "another histogram instance was launched: %s" % launches)
     hist_ms = hist_timer.total_ms()
     quant_ms = quant_timer.each_ms()
-    log("train %s: %.3f s for %d rounds; seconds per tree: %s; seconds "
-        "per iteration (tree + gradients + held-out eval): %s; leaves per "
-        "tree: %s" % (json.dumps(extra), t_train, rounds,
-                      " ".join("%.3f" % v for v in tree_seconds),
-                      " ".join("%.3f" % v for v in per_iter),
-                      [t.num_leaves for t in trees]))
+    log("train %s: %.3f s for %d rounds (%d trees); seconds per tree: %s; "
+        "seconds per iteration (trees + gradients + held-out eval): %s; "
+        "leaves per tree: %s"
+        % (tag, t_train, rounds, len(trees),
+           " ".join("%.3f" % v for v in tree_seconds),
+           " ".join("%.3f" % v for v in per_iter),
+           [t.num_leaves for t in trees]))
     log("histogram kernel time %.1f ms = %.1f%% of tree time (%.3f s); "
         "%d launches of %s (= %d roots + %d splits)%s"
         % (hist_ms, 100.0 * hist_ms / 1e3 / sum(tree_seconds),
@@ -698,9 +788,19 @@ def train_full(lgb, hist_mod, data, extra, kernel, rounds=5):
         % (" ".join("%.2f" % (1e3 * s / (t.num_leaves - 1))
                     for s, t in zip(tree_seconds, trees)),
            len(scan_ms), float(np.mean(scan_ms))))
+    grad_ms = grad_timer.each_ms() if grad_timer else []
+    if grad_timer:
+        log("gradient stage (%s.get_gradients, CUDA events) ms per "
+            "iteration: %s; device memory it needs above its inputs: "
+            "%.3f GiB at most"
+            % (grad_cls.__name__, " ".join("%.3f" % v for v in grad_ms),
+               max(grad_timer.peaks) / 2 ** 30))
     log("peak torch.cuda.max_memory_allocated: %.3f GiB"
         % (peak / 2 ** 30))
-    return bst, launches, evals["held_out"]["auc"], per_iter, quant_ms
+    return dict(booster=bst, launches=launches,
+                evals=evals["held_out"], per_iter=per_iter,
+                tree_seconds=tree_seconds, quant_ms=quant_ms,
+                grad_ms=grad_ms, peak=peak)
 
 
 def check_predict(bst, data, device_auc):
@@ -815,9 +915,410 @@ def phase_full_quantized(lgb, hist_mod, data, f32_auc):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: multiclass at Covertype's shape
+# ---------------------------------------------------------------------------
+# Covertype's class shares (classes 1..7 as labels 0..6) and the order of
+# the classes along the synthetic elevation-like latent, as the forest
+# types lie along elevation: Cottonwood, Ponderosa, Douglas-fir, Aspen,
+# Lodgepole, Spruce/Fir, Krummholz
+COVERTYPE_SHARES = (0.365, 0.488, 0.062, 0.005, 0.016, 0.030, 0.035)
+COVERTYPE_ORDER = (3, 2, 5, 4, 1, 0, 6)
+
+
+def make_covertype_like(n: int, seed: int):
+    """Covertype-shaped synthetic rows: 10 numeric columns (elevation,
+    aspect, slope, distances and hillshades), 4 one-hot wilderness
+    columns and 40 one-hot soil columns; 7 classes with Covertype's
+    shares, cut from a noisy latent of the columns at the shares'
+    quantiles."""
+    rng = np.random.RandomState(seed)
+    X = np.zeros((n, 54), dtype=np.float32)
+    elev = rng.normal(0.0, 1.0, n)
+    X[:, 0] = 2960 + 280 * elev                          # elevation
+    X[:, 1] = rng.uniform(0, 360, n)                     # aspect
+    X[:, 2] = rng.gamma(3.0, 4.5, n)                     # slope
+    X[:, 3] = rng.gamma(1.5, 180, n)                     # to hydrology
+    X[:, 4] = rng.normal(46, 58, n)                      # vertical
+    X[:, 5] = rng.gamma(1.8, 1300, n)                    # to roadways
+    X[:, 6] = np.clip(rng.normal(212, 27, n), 0, 254)    # hillshade 9am
+    X[:, 7] = np.clip(rng.normal(223, 20, n), 0, 254)    # noon
+    X[:, 8] = np.clip(rng.normal(143, 38, n), 0, 254)    # 3pm
+    X[:, 9] = rng.gamma(2.0, 1000, n)                    # to fire points
+    wild = rng.choice(4, n, p=(0.45, 0.05, 0.44, 0.06))
+    soil_p = rng.dirichlet(np.full(40, 0.5))
+    soil = rng.choice(40, n, p=soil_p)
+    X[np.arange(n), 10 + wild] = 1.0
+    X[np.arange(n), 14 + soil] = 1.0
+    soil_effect = np.random.RandomState(seed + 1000).normal(0, 0.5, 40)
+    latent = (elev + np.array((0.3, -0.4, 0.1, -0.6))[wild]
+              + soil_effect[soil] + 0.2 * np.cos(np.radians(X[:, 1]))
+              - 0.01 * X[:, 2] + 0.0003 * (X[:, 5] - 2340)
+              + 0.4 * rng.randn(n))
+    cuts = np.quantile(latent, np.cumsum(
+        [COVERTYPE_SHARES[c] for c in COVERTYPE_ORDER])[:-1])
+    y = np.asarray(COVERTYPE_ORDER)[np.searchsorted(cuts, latent)]
+    return X, y.astype(np.float64)
+
+
+def phase_covertype(lgb, hist_mod):
+    """Multiclass (softmax, 7 classes, K = 7 trees per iteration) at
+    Covertype's shape: 581,012 training rows x 54 columns, 255 leaves,
+    5 rounds; EFB would bundle the one-hot columns (ROADMAP item 11), so
+    ``enable_bundle=false``. Then 2 rounds with 8-bit gradients, and an
+    8-bit run on a 50k-row subset on cuda and cpu. Returns the launches
+    by instance and the learner's bins for timing."""
+    from lightgbm_tpu_torch.objective.multiclass import MulticlassSoftmax
+    t0 = time.perf_counter()
+    X, y = make_covertype_like(COVERTYPE_ROWS + COVERTYPE_HELD_OUT, seed=9)
+    Xt, yt = X[:COVERTYPE_ROWS], y[:COVERTYPE_ROWS]
+    Xv, yv = X[COVERTYPE_ROWS:], y[COVERTYPE_ROWS:]
+    shares = np.bincount(yt.astype(int), minlength=7) / len(yt)
+    params = {"objective": "multiclass", "num_class": 7, "num_leaves": 255,
+              "learning_rate": 0.1, "max_bin": 255, "enable_bundle": False,
+              "metric": "multi_logloss,multi_error", "verbosity": -1}
+    ds = lgb.Dataset(Xt, label=yt, params=params).construct()
+    valid = lgb.Dataset(Xv, label=yv, reference=ds).construct()
+    log("covertype-like: %d + %d rows x %d, class shares %s; generated "
+        "and binned in %.1f s" % (len(yt), len(yv), X.shape[1],
+                                  " ".join("%.3f" % v for v in shares),
+                                  time.perf_counter() - t0))
+    run = train_path(lgb, hist_mod, ds, valid, params, "histogram_f32", 5,
+                     grad_cls=MulticlassSoftmax, tag="covertype multiclass")
+    bst, evals = run["booster"], run["evals"]
+    loss, err = evals["multi_logloss"], evals["multi_error"]
+    check(all(b < a for a, b in zip(loss, loss[1:])),
+          "held-out multi_logloss did not fall every round: %s" % loss)
+    majority_error = 1.0 - max(COVERTYPE_SHARES)
+    check(err[-1] < majority_error,
+          "held-out multi_error %.4f is not below the majority-class "
+          "error %.3f" % (err[-1], majority_error))
+    host = bst.predict(Xv, raw_score=True)
+    dev = bst.inner.valid_data[0].scores
+    check(host.shape == dev.shape == (len(yv), 7)
+          and bool(np.isfinite(host).all()),
+          "multiclass raw scores are not finite or of the wrong shape")
+    gap = float(np.abs(host - dev).max())
+    check(gap <= 1e-4, "host-walk scores differ from the device "
+          "validation scores by %.3g" % gap)
+    prob = bst.predict(Xv)
+    check(bool(np.allclose(prob.sum(axis=1), 1.0)),
+          "class probabilities do not sum to 1")
+    log("covertype multiclass: held-out multi_logloss %s; multi_error %s "
+        "(majority-class error %.3f); host walk vs device scores max "
+        "|diff| %.3g; mean seconds per iteration %.3f; softmax gradient "
+        "ms per iteration %s"
+        % (" ".join("%.6f" % v for v in loss),
+           " ".join("%.6f" % v for v in err), majority_error, gap,
+           float(np.mean(run["per_iter"])),
+           " ".join("%.3f" % v for v in run["grad_ms"])))
+    again = train_path(lgb, hist_mod, ds, valid, params, "histogram_f32", 2,
+                       tag="covertype multiclass rerun")["booster"]
+    check([t.to_string() for t in bst.inner.models[:14]]
+          == [t.to_string() for t in again.inner.models],
+          "a second covertype run gave other trees")
+    log("covertype rerun (2 rounds): all 14 trees text-equal to the first "
+        "run's")
+    launches = {"histogram_f32": run["launches"]["histogram_f32"]}
+    bins = bst.inner.learner.bins
+    del bst, again
+    q8 = dict(params, use_quantized_grad=True, quant_grad_bits=8)
+    qrun = train_path(lgb, hist_mod, ds, valid, q8, "histogram_i8", 2,
+                      tag="covertype multiclass 8-bit")
+    launches["histogram_i8"] = qrun["launches"]["histogram_i8"]
+    log("covertype 8-bit: held-out multi_logloss %s (f32 %s)"
+        % (" ".join("%.6f" % v for v in qrun["evals"]["multi_logloss"]),
+           " ".join("%.6f" % v for v in loss[:2])))
+    del qrun
+    sub = 50_000
+    first = {}
+    for dev_type in ("cuda", "cpu"):
+        sds = lgb.Dataset(Xt[:sub], label=yt[:sub])
+        b = lgb.train(dict(q8, device_type=dev_type), sds,
+                      num_boost_round=1)
+        first[dev_type] = tree_splits(b)[0]
+    check(first["cuda"] == first["cpu"],
+          "8-bit covertype tree 1 (class 0) differs between cuda and cpu "
+          "at %d rows" % sub)
+    log("covertype 8-bit at %d rows: tree 1 (class 0) splits equal on "
+        "cuda and cpu (%d splits)" % (sub, len(first["cuda"][0])))
+    return launches, bins
+
+
+# ---------------------------------------------------------------------------
+# phase 10: lambdarank at MSLR-WEB30K's shape
+# ---------------------------------------------------------------------------
+# MSLR-WEB30K's label shares (0..4)
+MSLR_SHARES = (0.51, 0.32, 0.13, 0.03, 0.01)
+MSLR_RELEVANCE_SEED = 20
+
+
+def make_mslr_like(num_queries: int, seed: int, total_rows=None):
+    """MSLR-WEB30K-shaped synthetic rows: query lengths log-normal with a
+    mean near 120, one query of the maximum length 1,251 (and, when
+    ``total_rows`` is given, lengths adjusted to sum to it); 136 dense
+    features, a third of them constant within a query (query-level
+    features); labels 0-4 with MSLR's shares, cut at the shares'
+    quantiles of a noisy function of the features."""
+    rng = np.random.RandomState(seed)
+    lengths = np.clip(np.round(rng.lognormal(np.log(90.0), 0.75,
+                                             num_queries)), 1,
+                      MSLR_MAX_LEN).astype(np.int64)
+    lengths[rng.randint(num_queries)] = MSLR_MAX_LEN
+    if total_rows is not None:
+        diff = total_rows - int(lengths.sum())
+        while diff != 0:
+            q = rng.randint(num_queries)
+            step = int(np.clip(diff, 1 - lengths[q],
+                               MSLR_MAX_LEN - lengths[q]))
+            if lengths[q] == MSLR_MAX_LEN and step > 0:
+                continue
+            lengths[q] += step
+            diff -= step
+    n = int(lengths.sum())
+    qid = np.repeat(np.arange(num_queries), lengths)
+    X = np.empty((n, 136), dtype=np.float32)
+    chunk = 1 << 19
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        X[lo:hi] = rng.randn(hi - lo, 136)
+    qfeat = rng.randn(num_queries, 45).astype(np.float32)
+    X[:, 91:] = qfeat[qid]
+    X[:, 1:91:3] = np.abs(X[:, 1:91:3]) ** 1.5          # heavy tails
+    # one relevance function for the training and the held-out queries
+    wrng = np.random.RandomState(MSLR_RELEVANCE_SEED)
+    w = np.zeros(136, dtype=np.float32)
+    w[wrng.choice(91, 24, replace=False)] = wrng.randn(24) * 0.6
+    w[91:96] = wrng.randn(5) * 0.3
+    latent = X @ w + rng.randn(n).astype(np.float32) * 0.8
+    cuts = np.quantile(latent, np.cumsum(MSLR_SHARES)[:-1])
+    y = np.searchsorted(cuts, latent).astype(np.float64)
+    return X, y, lengths
+
+
+def phase_mslr(lgb, hist_mod):
+    """lambdarank at MSLR-WEB30K's shape: 2,270,296 rows x 136 features
+    in 18,919 queries (at most 1,251 docs), 255 leaves,
+    min_data_in_leaf 100, ndcg@1,3,5 on 2,000 held-out queries, 5
+    rounds; a 2-round rerun must give the same trees; then 2 rounds of
+    rank_xendcg, twice, with equal trees. Returns the f32 launches and
+    the learner's bins for timing."""
+    from lightgbm_tpu_torch.objective.rank import LambdarankNDCG
+    t0 = time.perf_counter()
+    X, y, group = make_mslr_like(MSLR_QUERIES, seed=21, total_rows=MSLR_ROWS)
+    Xv, yv, gv = make_mslr_like(MSLR_HELD_OUT_QUERIES, seed=22)
+    t_gen = time.perf_counter() - t0
+    params = {"objective": "lambdarank", "num_leaves": 255,
+              "min_data_in_leaf": 100, "learning_rate": 0.1,
+              "max_bin": 255, "eval_at": "1,3,5", "metric": "ndcg",
+              "verbosity": -1}
+    ds = lgb.Dataset(X, label=y, group=group, params=params).construct()
+    valid = lgb.Dataset(Xv, label=yv, group=gv, reference=ds).construct()
+    del X
+    shares = np.bincount(y.astype(int), minlength=5) / len(y)
+    log("mslr-like: %d rows x 136 in %d queries (mean %.1f, max %d docs), "
+        "held out %d rows in %d queries; label shares %s; generated in "
+        "%.1f s, binned in %.1f s"
+        % (len(y), len(group), group.mean(), group.max(), len(yv), len(gv),
+           " ".join("%.3f" % v for v in shares), t_gen,
+           time.perf_counter() - t0 - t_gen))
+    run = train_path(lgb, hist_mod, ds, valid, params, "histogram_f32", 5,
+                     grad_cls=LambdarankNDCG, tag="mslr lambdarank")
+    bst, evals = run["booster"], run["evals"]
+    ndcg5 = evals["ndcg@5"]
+    check(ndcg5[-1] > ndcg5[0], "held-out ndcg@5 did not rise: %s" % ndcg5)
+    log("mslr lambdarank: held-out ndcg@1 %s; ndcg@3 %s; ndcg@5 %s; mean "
+        "seconds per iteration %.3f; lambdarank gradient stage ms per "
+        "iteration %s"
+        % tuple([" ".join("%.6f" % v for v in evals[k])
+                 for k in ("ndcg@1", "ndcg@3", "ndcg@5")]
+                + [float(np.mean(run["per_iter"])),
+                   " ".join("%.3f" % v for v in run["grad_ms"])]))
+    again = train_path(lgb, hist_mod, ds, valid, params, "histogram_f32", 2,
+                       tag="mslr lambdarank rerun")["booster"]
+    check([t.to_string() for t in bst.inner.models[:2]]
+          == [t.to_string() for t in again.inner.models],
+          "a second lambdarank run gave other trees")
+    log("mslr lambdarank rerun (2 rounds): trees 1 and 2 text-equal")
+    launches = run["launches"]["histogram_f32"]
+    bins = bst.inner.learner.bins
+    del bst, again
+    xe = dict(params, objective="rank_xendcg")
+    from lightgbm_tpu_torch.objective.rank import RankXENDCG
+    texts = []
+    for _ in range(2):
+        r = train_path(lgb, hist_mod, ds, valid, xe, "histogram_f32", 2,
+                       grad_cls=RankXENDCG, tag="mslr rank_xendcg")
+        texts.append([t.to_string() for t in r["booster"].inner.models])
+        launches += r["launches"]["histogram_f32"]
+    check(texts[0] == texts[1], "two rank_xendcg runs gave other trees")
+    log("mslr rank_xendcg: two 2-round runs text-equal; held-out ndcg@5 "
+        "%s" % " ".join("%.6f" % v for v in r["evals"]["ndcg@5"]))
+    return launches, bins
+
+
+# ---------------------------------------------------------------------------
+# phase 11: every other objective, small
+# ---------------------------------------------------------------------------
+def other_objective_labels(X: np.ndarray, seed: int):
+    """Labels for each remaining objective from the Higgs-shaped rows:
+    a noisy continuous target, positive ones for poisson, gamma and
+    tweedie, [0, 1] ones for the cross-entropies, 3 classes for
+    multiclassova."""
+    rng = np.random.RandomState(seed)
+    n = X.shape[0]
+    cont = (0.8 * X[:, 0] + X[:, 1] - 0.5 * X[:, 2] * X[:, 3]
+            + 0.3 * rng.randn(n))
+    counts = rng.poisson(np.exp(0.3 * cont)).astype(np.float64)
+    return {
+        "regression_l1": cont, "huber": cont, "fair": cont,
+        "quantile": cont, "mape": 10.0 + 3.0 * cont,
+        "poisson": counts,
+        "gamma": np.exp(0.3 * cont) * rng.gamma(2.0, 0.5, n),
+        "tweedie": counts * rng.gamma(2.0, 0.5, n),
+        "cross_entropy": 1.0 / (1.0 + np.exp(-cont)),
+        "cross_entropy_lambda": 1.0 / (1.0 + np.exp(-cont)),
+        "multiclassova": np.digitize(cont, np.quantile(cont, (0.3, 0.7))
+                                     ).astype(np.float64),
+    }
+
+
+def phase_other_objectives(lgb, hist_mod):
+    """Each remaining objective at phase 3's 200k Higgs-shaped rows
+    (binned once), 63 leaves, 3 rounds, on cuda and on cpu: tree 1 must
+    have the same structure (:func:`tree_structure`), the cuda run must
+    go through the f32 instance only, and for l1, quantile and mape the
+    renewed leaf values of tree 1 must be equal. Host-clock ms of each
+    renewal (its score-column and partition copies to the host
+    included). Returns the f32 launches."""
+    import torch
+    from lightgbm_tpu_torch.boosting import gbdt
+    X, _ = make_higgs_like(SMALL_ROWS, seed=7)
+    labels = other_objective_labels(X, seed=8)
+    base = {"num_leaves": 63, "min_data_in_leaf": 100,
+            "learning_rate": 0.1, "verbosity": -1}
+    ds = lgb.Dataset(X, label=labels["regression_l1"],
+                     params=base).construct()
+    renew = gbdt.GBDT._renew_tree_output
+    renew_ms = []
+
+    def timed_renew(self, *args):
+        t = time.perf_counter()
+        renew(self, *args)
+        renew_ms.append(1e3 * (time.perf_counter() - t))
+    threads = torch.get_num_threads()
+    total = 0
+    for name, y in labels.items():
+        ds.handle.metadata.set_label(y)
+        params = dict(base, objective=name)
+        if name == "multiclassova":
+            params["num_class"] = 3
+        res = {}
+        for dev in ("cuda", "cpu"):
+            torch.set_num_threads(1 if dev == "cpu" else threads)
+            renew_ms.clear()
+            gbdt.GBDT._renew_tree_output = timed_renew
+            hist_mod.reset_launch_counts()
+            try:
+                t0 = time.perf_counter()
+                b = lgb.train(dict(params, device_type=dev), ds,
+                              num_boost_round=3)
+                secs = time.perf_counter() - t0
+            finally:
+                gbdt.GBDT._renew_tree_output = renew
+            res[dev] = (b.inner.models, dict(hist_mod.launch_counts), secs,
+                        list(renew_ms))
+        torch.set_num_threads(threads)
+        cuda_trees, launches, secs, rms = res["cuda"]
+        a, c = cuda_trees[0], res["cpu"][0][0]
+        check(tree_structure(a) == tree_structure(c),
+              "%s: tree 1 differs between cuda and cpu" % name)
+        same_order = tree_splits_of(a) == tree_splits_of(c)
+        leaves = sum(t.num_leaves for t in cuda_trees)
+        check(launches["histogram_f32"] == leaves
+              and sum(launches.values()) == leaves,
+              "%s: launches %s, expected %d of histogram_f32 only"
+              % (name, launches, leaves))
+        check(sum(res["cpu"][1].values()) == 0,
+              "%s: the cpu run launched a kernel" % name)
+        renewed = b.inner.objective.is_renew_tree_output
+        if renewed:
+            check(np.array_equal(a.leaf_value[:a.num_leaves],
+                                 c.leaf_value[:c.num_leaves]),
+                  "%s: renewed leaf values of tree 1 differ between cuda "
+                  "and cpu" % name)
+        total += launches["histogram_f32"]
+        log("objective %s (63 leaves, 3 rounds, %d trees): tree 1 the same "
+            "tree on cuda and cpu (%s)%s; cuda %.3f s, cpu %.3f s; %d "
+            "launches of histogram_f32%s"
+            % (name, len(cuda_trees),
+               "splits in the same order" if same_order else
+               "the same splits, added in another order",
+               ", renewed leaf values equal" if renewed else "", secs,
+               res["cpu"][2], launches["histogram_f32"],
+               "; renewal ms per tree on cuda (host, copies included): "
+               + " ".join("%.2f" % v for v in rms) if rms else ""))
+    return total
+
+
+def tree_splits_of(tree):
+    ni = tree.num_internal
+    return (tree.num_leaves, list(tree.split_feature[:ni]),
+            list(tree.threshold[:ni]))
+
+
+def tree_structure(tree, node: int = 0):
+    """A tree as nested (feature, threshold, default left, left, right)
+    with leaves as their row counts: the same splits compare equal
+    whatever order the leaf-wise grower added them in (two leaves whose
+    best gains tie within f32 rounding may be split in either order)."""
+    if tree.num_leaves == 1:
+        return int(tree.leaf_count[0])
+    if node < 0:
+        return int(tree.leaf_count[~node])
+    return (int(tree.split_feature[node]), float(tree.threshold[node]),
+            int(tree.decision_type[node]),
+            tree_structure(tree, int(tree.left_child[node])),
+            tree_structure(tree, int(tree.right_child[node])))
+
+
+def time_widths(hist_mod, widths, rows_out):
+    """Every instance at the new widths' root shapes (the real bins of
+    phases 9 and 10) and at children of 10k, 100k and 1M rows (fewer
+    than the root), each beside its bound, plain and library times;
+    appended to each instance's row of the kernels line."""
+    import torch
+    for label, bins in widths:
+        S = bins.shape[0]
+        g = torch.Generator(device="cuda")
+        g.manual_seed(12)
+        gh = torch.stack([torch.randn(S, generator=g, device="cuda"),
+                          torch.rand(S, generator=g, device="cuda"),
+                          torch.ones(S, device="cuda"),
+                          torch.ones(S, device="cuda")], dim=1).contiguous()
+        gh8 = torch.randint(-127, 128, (S, 4), generator=g, device="cuda",
+                            dtype=torch.int32).to(torch.int8)
+        q16 = (2 ** 31 - 1) // S
+        gh16 = torch.randint(-q16, q16 + 1, (S, 4), generator=g,
+                             device="cuda", dtype=torch.int32).to(
+            torch.int16)
+        children = [sub_index(S, n, seed=n) for n in (10_000, 100_000,
+                                                       1_000_000) if n < S]
+        for row, rows_gh in zip(rows_out, (gh, gh8, gh16)):
+            times = [dict(width=label, S=S, Fp=bins.shape[1],
+                          **time_histogram(hist_mod, bins, rows_gh, 256,
+                                           row["name"]))]
+            for idx in children:
+                times.append(dict(width=label, S=idx.shape[0],
+                                  Fp=bins.shape[1], child=True,
+                                  **time_histogram(hist_mod, bins, rows_gh,
+                                                   256, row["name"], idx)))
+            row.setdefault("widths", []).extend(times)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
@@ -836,22 +1337,33 @@ def main(argv=None) -> int:
     from lightgbm_tpu_torch.ops import histogram as hist_mod
 
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(label: str) -> None:
+        now = time.perf_counter()
+        log("%s seconds: %.1f" % (label, now - t_lap[0]))
+        t_lap[0] = now
     card, name = phase_device_and_build(csrc)
+    lap("phase 1")
     errs = dict.fromkeys(hist_mod.launch_counts, 0.0)
     if 2 in phases:
         errs = phase_kernels(hist_mod)
+        lap("phase 2")
     import lightgbm_tpu_torch as lgb
-    # launches of each kernel on the path that runs it
-    launches = dict.fromkeys(hist_mod.launch_counts, 0)
+    # launches of each kernel on each path that runs it
+    by_path = {k: {} for k in hist_mod.launch_counts}
     if 3 in phases:
         phase_small(lgb, hist_mod, {}, "histogram_f32", 1e-3)
+        lap("phase 3")
     data = full_data(lgb) if phases & {4, 7} else None
     bins_root, f32_auc = None, None
     if 4 in phases:
         bst, run, f32_auc = phase_full(lgb, hist_mod, data)
-        launches["histogram_f32"] = run["histogram_f32"]
+        by_path["histogram_f32"]["phase4_higgs_binary"] = \
+            run["histogram_f32"]
         bins_root = bst.inner.learner.bins
         del bst
+        lap("phase 4 (with the full-size binning)")
     rows = None
     if 5 in phases:
         if bins_root is None:
@@ -860,23 +1372,53 @@ def main(argv=None) -> int:
             bins_root = torch.randint(0, 255, (FULL_ROWS, 32), generator=g,
                                       device="cuda", dtype=torch.int32
                                       ).to(torch.uint8)
-        rows = phase_timing(hist_mod, bins_root, 256, errs, launches)
+        rows = phase_timing(hist_mod, bins_root, 256, errs)
         time_scan()
+        lap("phase 5")
     del bins_root
     if 6 in phases:
         phase_quantize()
+        lap("phase 6")
     if 7 in phases:
         run = phase_full_quantized(lgb, hist_mod, data, f32_auc)
-        launches["histogram_i8"] = run["histogram_i8"]
+        by_path["histogram_i8"]["phase7_higgs_binary_8bit"] = \
+            run["histogram_i8"]
+        lap("phase 7")
+    del data
     if 8 in phases:
         run = phase_small(lgb, hist_mod,
                           {"use_quantized_grad": True, "quant_grad_bits": 16,
                            "bagging_fraction": 0.8, "bagging_freq": 1},
                           "histogram_i16", None)
-        launches["histogram_i16"] = run["histogram_i16"]
+        by_path["histogram_i16"]["phase8_small_16bit_bagging"] = \
+            run["histogram_i16"]
+        lap("phase 8")
+    widths = []
+    if 9 in phases:
+        run, bins = phase_covertype(lgb, hist_mod)
+        by_path["histogram_f32"]["phase9_covertype_multiclass"] = \
+            run["histogram_f32"]
+        by_path["histogram_i8"]["phase9_covertype_multiclass_8bit"] = \
+            run["histogram_i8"]
+        widths.append(("covertype Fp=56", bins))
+        lap("phase 9")
+    if 10 in phases:
+        n, bins = phase_mslr(lgb, hist_mod)
+        by_path["histogram_f32"]["phase10_mslr_lambdarank_xendcg"] = n
+        widths.append(("mslr Fp=136", bins))
+        lap("phase 10")
+    if rows is not None and widths:
+        time_widths(hist_mod, widths, rows)
+        lap("kernel timing at Fp 56 and 136")
+    del widths
+    if 11 in phases:
+        by_path["histogram_f32"]["phase11_other_objectives"] = \
+            phase_other_objectives(lgb, hist_mod)
+        lap("phase 11")
     if rows is not None:
         for row in rows:
-            row["launches"] = launches[row["name"]]
+            row["launches_by_path"] = by_path[row["name"]]
+            row["launches"] = sum(by_path[row["name"]].values())
         log(json.dumps({"kernels": rows}))
     log("chip_smoke seconds: %.1f" % (time.perf_counter() - t_start))
     log(card)

@@ -35,7 +35,8 @@ class Dataset:
     ``Dataset``, constructed at first use)."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, init_score=None, feature_name="auto",
+                 weight=None, group=None, init_score=None,
+                 feature_name="auto",
                  categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True):
@@ -43,6 +44,7 @@ class Dataset:
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -70,7 +72,8 @@ class Dataset:
             feature_names = [str(c) for c in self.data.columns]
         self._handle = BinnedDataset.from_matrix(
             data, config, label=self.label, weights=self.weight,
-            init_score=self.init_score, feature_names=feature_names,
+            group=self.group, init_score=self.init_score,
+            feature_names=feature_names,
             reference=(self.reference._handle
                        if self.reference is not None else None))
         if self.free_raw_data:
@@ -125,6 +128,9 @@ class Booster:
     def current_iteration(self) -> int:
         return self.inner.current_iteration
 
+    def num_model_per_iteration(self) -> int:
+        return self.inner.num_tree_per_iteration
+
     # ------------------------------------------------------------------
     def eval_train(self) -> List[Tuple]:
         inner = self.inner
@@ -132,25 +138,30 @@ class Booster:
             for mname in resolve_metric_names(inner.config,
                                               inner.config.objective):
                 m = create_metric(mname, inner.config)
-                m.init(inner.train_data.metadata, inner.num_data)
-                inner.train_metrics.append(m)
-        score = inner.train_score[:, 0].cpu().numpy().astype(np.float64)
-        return [("training", name, v, m.factor_to_bigger_better > 0)
-                for m in inner.train_metrics
-                for name, v in zip(m.name, m.eval(score, inner.objective))]
+                if m is not None:
+                    m.init(inner.train_data.metadata, inner.num_data)
+                    inner.train_metrics.append(m)
+        score = inner.train_score.cpu().numpy().astype(np.float64)
+        return self._eval("training", inner.train_metrics, score)
 
     def eval_valid(self) -> List[Tuple]:
         out = []
         for i, vd in enumerate(self.inner.valid_data):
             name = (self._valid_names[i] if i < len(self._valid_names)
                     else "valid_%d" % i)
-            score = vd.scores[:, 0]
-            for m in vd.metrics:
-                for mname, v in zip(m.name,
-                                    m.eval(score, self.inner.objective)):
-                    out.append((name, mname, v,
-                                m.factor_to_bigger_better > 0))
+            out.extend(self._eval(name, vd.metrics, vd.scores))
         return out
+
+    def _eval(self, name: str, metrics, score: np.ndarray) -> List[Tuple]:
+        """(data name, metric name, value, is_higher_better) of every
+        value of every metric; ``score`` is [n, K] (a single column is
+        passed on as [n])."""
+        if score.shape[1] == 1:
+            score = score[:, 0]
+        return [(name, mname, v, m.factor_to_bigger_better > 0)
+                for m in metrics
+                for mname, v in zip(m.name,
+                                    m.eval(score, self.inner.objective))]
 
     # ------------------------------------------------------------------
     def predict(self, data, start_iteration: int = 0,

@@ -8,6 +8,12 @@ update gathers the new tree's leaf values over the learner's final
 row->leaf partition instead of re-walking the tree (the reference's
 CUDADataPartition::UpdateTrainScore trick); validation scores walk the
 binned validation rows on the device.
+
+Multiclass objectives grow K trees per iteration, one per class column
+of the [N, K] score (the model list is iteration-major: tree ``i * K +
+k`` is class k of iteration i). Objectives with leaf renewal (l1,
+quantile, mape) copy the class's score column and the row->leaf
+partition to the host for it, as the reference does.
 """
 from __future__ import annotations
 
@@ -77,31 +83,40 @@ def tree_outputs_by_bin(tree: Tree, bins: torch.Tensor,
 
 class ValidData:
     """One validation set: binned rows aligned with the training mappers
-    and incrementally maintained f32 scores, both on the device
+    and incrementally maintained [n, K] f32 scores, both on the device
     (reference: GBDT::AddValidDataset, gbdt.cpp:182)."""
 
     def __init__(self, dataset: BinnedDataset, metrics: List[Metric],
-                 device: torch.device):
+                 num_tree_per_iteration: int, device: torch.device):
         self.dataset = dataset
         self.metrics = metrics
         self.bins = torch.from_numpy(dataset.bins).to(device)
-        scores = np.zeros((dataset.num_data, 1), dtype=np.float32)
-        if dataset.metadata.init_score is not None:
-            scores[:, 0] += np.asarray(dataset.metadata.init_score,
-                                       dtype=np.float64)
-        self.scores_dev = torch.from_numpy(scores).to(device)
+        self.scores_dev = torch.from_numpy(
+            initial_score(dataset.metadata, dataset.num_data,
+                          num_tree_per_iteration)).to(device)
 
     @property
     def scores(self) -> np.ndarray:
         return self.scores_dev.cpu().numpy().astype(np.float64)
 
-    def add_tree(self, tree: Tree, bin_meta) -> None:
+    def add_tree(self, tree: Tree, class_id: int, bin_meta) -> None:
         delta = tree_outputs_by_bin(tree, self.bins, bin_meta)
         if delta is not None:
-            self.scores_dev[:, 0] += delta
+            self.scores_dev[:, class_id] += delta
 
-    def add_const(self, val: float) -> None:
-        self.scores_dev[:, 0] += float(np.float32(val))
+    def add_const(self, val: float, class_id: int) -> None:
+        self.scores_dev[:, class_id] += float(np.float32(val))
+
+
+def initial_score(metadata, num_data: int, K: int) -> np.ndarray:
+    """[N, K] f32 starting scores: zeros plus the metadata init_score,
+    whose class-major layout (all of class 0, then class 1, ...) maps
+    to the columns (reference: GBDT::_initial_score)."""
+    score = np.zeros((num_data, K), dtype=np.float32)
+    if metadata.init_score is not None:
+        init = np.asarray(metadata.init_score, dtype=np.float64)
+        score += init.reshape(K, -1).T.astype(np.float32)
+    return score
 
 
 class GBDT:
@@ -121,8 +136,8 @@ class GBDT:
         self.num_init_iteration = 0
         self.best_iteration = -1
         self.shrinkage_rate = float(config.learning_rate)
-        self.num_class = 1
-        self.num_tree_per_iteration = 1
+        self.num_class = config.num_tree_per_iteration
+        self.num_tree_per_iteration = self.num_class
         if train_data is not None:
             self._init_train(train_data)
         else:
@@ -139,6 +154,8 @@ class GBDT:
         self.objective = create_objective(config.objective, config)
         self.objective.init(train_data.metadata, train_data.num_data,
                             self.device)
+        K = self.num_tree_per_iteration = \
+            self.objective.num_model_per_iteration
         self.num_data = train_data.num_data
         self.max_feature_idx = train_data.num_total_features - 1
         self.feature_names = list(train_data.feature_names)
@@ -149,12 +166,10 @@ class GBDT:
             config, train_data.num_data, self.device)
         self.sample_strategy.reset_metadata(train_data.metadata)
         self._has_init_score = train_data.metadata.init_score is not None
-        score = np.zeros((self.num_data, 1), dtype=np.float32)
-        if self._has_init_score:
-            score[:, 0] += np.asarray(train_data.metadata.init_score,
-                                      dtype=np.float64).astype(np.float32)
-        self.train_score = torch.from_numpy(score).to(self.device)
-        self.class_need_train = self.objective.class_need_train(0)
+        self.train_score = torch.from_numpy(initial_score(
+            train_data.metadata, self.num_data, K)).to(self.device)
+        self.class_need_train = [self.objective.class_need_train(k)
+                                 for k in range(K)]
         self.train_metrics: List[Metric] = []
         self.valid_data: List[ValidData] = []
         self._bin_meta = (
@@ -170,85 +185,119 @@ class GBDT:
         metrics = []
         for name in resolve_metric_names(self.config, self.config.objective):
             m = create_metric(name, self.config)
-            m.init(valid_data.metadata, valid_data.num_data)
-            metrics.append(m)
-        vd = ValidData(valid_data, metrics, self.device)
-        for tree in self.models:
-            vd.add_tree(tree, self._bin_meta)
+            if m is not None:
+                m.init(valid_data.metadata, valid_data.num_data)
+                metrics.append(m)
+        vd = ValidData(valid_data, metrics, self.num_tree_per_iteration,
+                       self.device)
+        for i, tree in enumerate(self.models):
+            vd.add_tree(tree, i % self.num_tree_per_iteration,
+                        self._bin_meta)
         self.valid_data.append(vd)
 
     # ------------------------------------------------------------------
-    def _boost_from_average(self) -> float:
+    def _boost_from_average(self, class_id: int) -> float:
         """reference: GBDT::BoostFromAverage (gbdt.cpp:309)."""
         if self.models or self._has_init_score:
             return 0.0
         if self.config.boost_from_average:
-            init_score = self.objective.boost_from_score(0)
+            init_score = self.objective.boost_from_score(class_id)
             if abs(init_score) > kEpsilon:
-                self._add_const_score(init_score)
+                self._add_const_score(init_score, class_id)
                 log.info("Start training from score %f" % init_score)
                 return init_score
+        elif self.objective.name in ("regression_l1", "quantile", "mape"):
+            log.warning("Disabling boost_from_average in %s may cause the "
+                        "slow convergence" % self.objective.name)
         return 0.0
 
-    def _add_const_score(self, val: float) -> None:
-        self.train_score[:, 0] += float(np.float32(val))
+    def _add_const_score(self, val: float, class_id: int) -> None:
+        self.train_score[:, class_id] += float(np.float32(val))
         for vd in self.valid_data:
-            vd.add_const(val)
+            vd.add_const(val, class_id)
 
     def train_one_iter(self) -> bool:
-        """One boosting iteration (reference: GBDT::TrainOneIter,
-        gbdt.cpp:334). Returns True when training should stop (no leaf
-        could be split)."""
-        init_score = self._boost_from_average()
-        grad, hess = self.objective.get_gradients(self.train_score[:, 0])
+        """One boosting iteration: K trees, one per class (reference:
+        GBDT::TrainOneIter, gbdt.cpp:334). Returns True when training
+        should stop (no tree of the iteration could split)."""
+        K = self.num_tree_per_iteration
+        init_scores = [self._boost_from_average(k) for k in range(K)]
+        score = self.train_score[:, 0] if K == 1 else self.train_score
+        grad, hess = self.objective.get_gradients(score)
         grad, hess, bag = self.sample_strategy.bagging(self.iter, grad, hess)
-        tree: Optional[Tree] = None
-        if self.class_need_train:
-            tree, leaf_of_row = self.learner.train(grad, hess, bag)
-        if tree is not None and tree.num_leaves > 1:
-            tree.apply_shrinkage(self.shrinkage_rate)
-            self._update_score(tree, leaf_of_row)
-            if abs(init_score) > kEpsilon:
-                tree.add_bias(init_score)
-            self.models.append(tree)
-            self.iter += 1
-            return False
-        log.warning("Stopped training because there are no more leaves "
-                    "that meet the split requirements")
-        if self.models:
-            return True
-        # keep a constant tree the first iteration (reference:
-        # gbdt.cpp:407-418)
-        if not self.config.boost_from_average and not self._has_init_score:
-            init_score = self.objective.boost_from_score(0)
-            self._add_const_score(init_score)
-        tree = Tree(1)
-        tree.leaf_value[0] = init_score
-        self.models.append(tree)
+        should_continue = False
+        new_trees = []
+        for k in range(K):
+            # one class column at a time, made contiguous for the learner
+            gk = grad if K == 1 else grad[:, k].contiguous()
+            hk = hess if K == 1 else hess[:, k].contiguous()
+            tree: Optional[Tree] = None
+            if self.class_need_train[k]:
+                tree, leaf_of_row = self.learner.train(gk, hk, bag)
+            if tree is not None and tree.num_leaves > 1:
+                should_continue = True
+                if self.objective.is_renew_tree_output:
+                    self._renew_tree_output(tree, leaf_of_row, k, bag)
+                tree.apply_shrinkage(self.shrinkage_rate)
+                self._update_score(tree, leaf_of_row, k)
+                if abs(init_scores[k]) > kEpsilon:
+                    tree.add_bias(init_scores[k])
+            else:
+                tree = Tree(1)
+                # constant trees the first iteration (reference:
+                # gbdt.cpp:407-418)
+                if len(self.models) < K:
+                    if (not self.config.boost_from_average
+                            and not self._has_init_score):
+                        init_scores[k] = self.objective.boost_from_score(k)
+                        self._add_const_score(init_scores[k], k)
+                    tree.leaf_value[0] = init_scores[k]
+            new_trees.append(tree)
+        if not should_continue:
+            log.warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+            if len(self.models) >= K:
+                return True
+        self.models.extend(new_trees)
         self.iter += 1
-        return True
+        return not should_continue
 
-    def _update_score(self, tree: Tree, leaf_of_row: torch.Tensor) -> None:
+    def _renew_tree_output(self, tree: Tree, leaf_of_row: torch.Tensor,
+                           class_id: int, bag: Optional[torch.Tensor]
+                           ) -> None:
+        """Leaf renewal on the host (reference: gbdt.py:433-444): the
+        class's score column, the row->leaf partition and the in-bag
+        rows are copied from the device for the objective's
+        percentiles."""
+        self.objective.renew_tree_output(
+            tree,
+            self.train_score[:, class_id].double().cpu().numpy(),
+            leaf_of_row.cpu().numpy(),
+            None if bag is None else bag.cpu().numpy() > 0)
+
+    def _update_score(self, tree: Tree, leaf_of_row: torch.Tensor,
+                      class_id: int) -> None:
         """Device gather of the tree's f32 leaf outputs over the
         learner's final partition (reference: GBDT::UpdateScore,
         gbdt.cpp:475; leaf values cast to f32 as at gbdt.py:722-727)."""
         lv = torch.from_numpy(
             tree.leaf_value[:tree.num_leaves].astype(np.float32)).to(
             self.device)
-        self.train_score[:, 0] += lv[leaf_of_row.long()]
+        self.train_score[:, class_id] += lv[leaf_of_row.long()]
         for vd in self.valid_data:
-            vd.add_tree(tree, self._bin_meta)
+            vd.add_tree(tree, class_id, self._bin_meta)
 
     # ------------------------------------------------------------------
     # Prediction over raw feature matrices (host walk)
     # ------------------------------------------------------------------
     def _used_models(self, start_iteration: int = 0,
                      num_iteration: int = -1) -> List[Tree]:
-        total_iter = len(self.models)
+        K = self.num_tree_per_iteration
+        total_iter = len(self.models) // K
         start = max(0, min(start_iteration, total_iter))
         end = total_iter if num_iteration <= 0 \
             else min(start + num_iteration, total_iter)
-        return self.models[start:end]
+        return self.models[start * K:end * K]
 
     def predict_raw(self, X: np.ndarray, start_iteration: int = 0,
                     num_iteration: int = -1,
@@ -256,33 +305,46 @@ class GBDT:
                     pred_early_stop_freq: Optional[int] = None,
                     pred_early_stop_margin: Optional[float] = None
                     ) -> np.ndarray:
+        """[n] raw scores, or [n, K] for a multiclass model."""
         X = np.asarray(X, dtype=np.float64)
-        out = np.zeros(X.shape[0], dtype=np.float64)
+        K = self.num_tree_per_iteration
+        n = X.shape[0]
+        out = np.zeros((n, K), dtype=np.float64)
         models = self._used_models(start_iteration, num_iteration)
         if pred_early_stop is None:
             pred_early_stop = bool(self.config.pred_early_stop)
         if pred_early_stop and self.objective is not None \
-                and self.objective.name == "binary":
+                and self.objective.name in ("binary", "multiclass",
+                                            "multiclassova"):
             # margin-based per-row early exit (reference:
             # src/boosting/prediction_early_stop.cpp: binary margin
-            # 2|score|, checked every round_period iterations)
+            # 2|score|, multiclass top1 - top2, checked every round_period
+            # iterations)
             freq = max(int(pred_early_stop_freq
                            if pred_early_stop_freq is not None
                            else self.config.pred_early_stop_freq), 1)
             margin_thr = float(pred_early_stop_margin
                                if pred_early_stop_margin is not None
                                else self.config.pred_early_stop_margin)
-            active = np.arange(X.shape[0])
-            for it, tree in enumerate(models):
+            active = np.arange(n)
+            n_iters = len(models) // K
+            for it in range(n_iters):
                 if len(active) == 0:
                     break
-                out[active] += tree.predict(X[active])
-                if (it + 1) % freq == 0 and it + 1 < len(models):
-                    active = active[2.0 * np.abs(out[active]) < margin_thr]
+                Xa = X[active]
+                for k in range(K):
+                    out[active, k] += models[it * K + k].predict(Xa)
+                if (it + 1) % freq == 0 and it + 1 < n_iters:
+                    if K == 1:
+                        margin = 2.0 * np.abs(out[active, 0])
+                    else:
+                        part = np.partition(out[active], K - 2, axis=1)
+                        margin = part[:, K - 1] - part[:, K - 2]
+                    active = active[margin < margin_thr]
         else:
-            for tree in models:
-                out += tree.predict(X)
-        return out
+            for i, tree in enumerate(models):
+                out[:, i % K] += tree.predict(X)
+        return out[:, 0] if K == 1 else out
 
     def predict(self, X: np.ndarray, raw_score: bool = False,
                 start_iteration: int = 0, num_iteration: int = -1,
@@ -365,8 +427,9 @@ class GBDT:
                 log.unsupported("average_output models (random forest)",
                                 "item 16")
             i += 1
-        if int(kv.get("num_tree_per_iteration", 1)) != 1:
-            log.unsupported("multiclass models", "item 10")
+        self.num_class = int(kv.get("num_class", 1))
+        self.num_tree_per_iteration = int(
+            kv.get("num_tree_per_iteration", self.num_class))
         self.label_idx = int(kv.get("label_index", 0))
         self.max_feature_idx = int(kv.get("max_feature_idx", 0))
         self.feature_names = kv.get("feature_names", "").split()
@@ -375,9 +438,10 @@ class GBDT:
             self.objective = load_objective_from_string(kv["objective"],
                                                         self.config)
         self.models = parse_tree_blocks("\n".join(lines[i:]))
-        self.num_init_iteration = len(self.models)
+        self.num_init_iteration = \
+            len(self.models) // self.num_tree_per_iteration
         self.iter = 0
 
     @property
     def current_iteration(self) -> int:
-        return len(self.models)
+        return len(self.models) // self.num_tree_per_iteration

@@ -474,11 +474,8 @@ class Config:
         not here yet (never ignore one silently). Each message names the
         ROADMAP queue-1 item that will bring it."""
         unsupported = log.unsupported
-        if self.objective not in ("binary", "regression"):
-            unsupported("objective=%s" % self.objective, "item 10")
-        for m in self.metric:
-            if m not in ("auc", "binary_logloss", "l2"):
-                unsupported("metric=%s" % m, "item 10")
+        if self.objective == "custom":
+            unsupported("a custom objective", "item 18")
         if self.boosting != "gbdt":
             unsupported("boosting=%s" % self.boosting, "item 16")
         if self.data_sample_strategy == "goss":

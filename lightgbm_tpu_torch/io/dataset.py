@@ -23,12 +23,14 @@ from .binning import BinMapper, BinType, MissingType
 
 
 class Metadata:
-    """Labels / weights / init score (reference: dataset.h:46)."""
+    """Labels / weights / query boundaries / init score (reference:
+    dataset.h:46)."""
 
     def __init__(self, num_data: int):
         self.num_data = num_data
         self.label = np.zeros(num_data, dtype=np.float32)
         self.weights: Optional[np.ndarray] = None
+        self.query_boundaries: Optional[np.ndarray] = None
         self.init_score: Optional[np.ndarray] = None
 
     def set_label(self, label: Sequence[float]) -> None:
@@ -48,15 +50,35 @@ class Metadata:
                       % (len(weights), self.num_data))
         self.weights = weights
 
+    def set_group(self, group: Optional[Sequence[int]]) -> None:
+        """Group sizes -> query boundaries (reference:
+        Metadata::SetQuery, src/io/metadata.cpp:456)."""
+        if group is None:
+            self.query_boundaries = None
+            return
+        group = np.asarray(group, dtype=np.int64).reshape(-1)
+        if group.sum() != self.num_data:
+            log.fatal("Sum of group sizes (%d) != num_data (%d)"
+                      % (int(group.sum()), self.num_data))
+        self.query_boundaries = np.concatenate(
+            [[0], np.cumsum(group)]).astype(np.int32)
+
     def set_init_score(self, init_score: Optional[Sequence[float]]) -> None:
+        """num_data values, or num_class * num_data class-major (all of
+        class 0, then class 1, ...) for multiclass models."""
         if init_score is None:
             self.init_score = None
             return
         init_score = np.asarray(init_score, dtype=np.float64).reshape(-1)
-        if len(init_score) != self.num_data:
-            log.fatal("Length of init_score (%d) != num_data (%d)"
-                      % (len(init_score), self.num_data))
+        if len(init_score) % max(self.num_data, 1) != 0:
+            log.fatal("Length of init_score (%d) must be a multiple of "
+                      "num_data (%d)" % (len(init_score), self.num_data))
         self.init_score = init_score
+
+    @property
+    def num_queries(self) -> int:
+        return (0 if self.query_boundaries is None
+                else len(self.query_boundaries) - 1)
 
 
 class BinnedDataset:
@@ -82,6 +104,7 @@ class BinnedDataset:
     def from_matrix(cls, data: np.ndarray, config: Config,
                     label: Optional[Sequence[float]] = None,
                     weights: Optional[Sequence[float]] = None,
+                    group: Optional[Sequence[int]] = None,
                     init_score: Optional[Sequence[float]] = None,
                     feature_names: Optional[List[str]] = None,
                     reference: Optional["BinnedDataset"] = None,
@@ -89,6 +112,7 @@ class BinnedDataset:
                     ) -> "BinnedDataset":
         """Bin a dense float matrix.
 
+        group : query sizes, summing to the rows (ranking objectives).
         reference : a training dataset whose bin mappers this one reuses
             (validation sets; reference: dataset_loader.cpp:299).
         mappers : one BinMapper per column, used instead of finding bins
@@ -147,6 +171,7 @@ class BinnedDataset:
         if label is not None:
             self.metadata.set_label(label)
         self.metadata.set_weights(weights)
+        self.metadata.set_group(group)
         self.metadata.set_init_score(init_score)
         return self
 

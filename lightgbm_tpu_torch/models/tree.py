@@ -122,6 +122,10 @@ class Tree:
         self.leaf_value[:self.num_leaves] += val
         self.internal_value[:max(self.num_leaves - 1, 0)] += val
 
+    def set_leaf_output(self, leaf: int, value: float) -> None:
+        """A renewed leaf output (reference: Tree::SetLeafOutput)."""
+        self.leaf_value[leaf] = _sane(value)
+
     def predict(self, X: np.ndarray) -> np.ndarray:
         return self.leaf_value[self.predict_leaf_index(X)]
 

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from ..utils import log
-from .base import ObjectiveFunction
+from .base import ObjectiveFunction, apply_weight
 
 _EPS = 1e-12
 
@@ -22,11 +22,12 @@ class BinaryLogloss(ObjectiveFunction):
         hess = |response| * (sigmoid - |response|) * label_weight
 
     with label in {-1, +1} and label weights from is_unbalance /
-    scale_pos_weight (Init, :59-102)."""
+    scale_pos_weight (Init, :59-102). ``is_pos`` maps raw labels to the
+    positive class (``y > 0`` by default)."""
 
     name = "binary"
 
-    def __init__(self, config):
+    def __init__(self, config, is_pos=None):
         super().__init__(config)
         self.sigmoid = float(config.sigmoid)
         if self.sigmoid <= 0.0:
@@ -37,12 +38,15 @@ class BinaryLogloss(ObjectiveFunction):
         if self.is_unbalance and abs(self.scale_pos_weight - 1.0) > 1e-6:
             log.fatal("Cannot set is_unbalance and scale_pos_weight at the "
                       "same time")
+        # which labels count as positive: ``y > 0``, or one class of a
+        # one-vs-all multiclass objective
+        self._is_pos = is_pos if is_pos is not None else (lambda y: y > 0)
         self.need_train = True
 
     def init(self, metadata, num_data: int,
              device: torch.device = torch.device("cpu")) -> None:
         super().init(metadata, num_data, device)
-        is_pos = np.asarray(metadata.label) > 0
+        is_pos = self._is_pos(np.asarray(metadata.label))
         cnt_positive = int(is_pos.sum())
         cnt_negative = num_data - cnt_positive
         self.need_train = True
@@ -63,7 +67,7 @@ class BinaryLogloss(ObjectiveFunction):
         self.label_weight = torch.from_numpy(
             np.where(is_pos, pos_weight, neg_weight).astype(np.float32)
         ).to(device)
-        self._is_pos = is_pos
+        self._is_pos_np = is_pos
         self._weights_np = (None if metadata.weights is None else
                             np.asarray(metadata.weights, dtype=np.float32))
 
@@ -78,13 +82,10 @@ class BinaryLogloss(ObjectiveFunction):
         abs_r = response.abs()
         grad = response * self.label_weight
         hess = abs_r * (sig - abs_r) * self.label_weight
-        if self.weights is not None:
-            grad = grad * self.weights
-            hess = hess * self.weights
-        return grad, hess
+        return apply_weight(grad, hess, self.weights)
 
     def boost_from_score(self, class_id: int = 0) -> float:
-        is_pos = self._is_pos.astype(np.float64)
+        is_pos = self._is_pos_np.astype(np.float64)
         if self._weights_np is not None:
             w = self._weights_np.astype(np.float64)
             pavg = (is_pos * w).sum() / w.sum()

@@ -104,12 +104,43 @@ def tree_key(base_key: torch.Tensor, tree_no: int) -> torch.Tensor:
     return fold_in(base_key, tree_no)
 
 
-def sum_gh(gh: torch.Tensor) -> torch.Tensor:
-    """Channel sums: integer rows sum exactly in int32, float rows in
-    their own dtype."""
+def sum_gh(gh: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+    """Channel sums: integer rows sum exactly in int32; float rows in
+    their own dtype, in the order of the reference's ``jnp.sum`` over
+    its rows padded with zero rows to ``rows`` (:func:`xla_row_sum`)."""
     if not gh.dtype.is_floating_point:
         return gh.sum(dim=0, dtype=acc_dtype(gh.dtype))
-    return gh.sum(dim=0)
+    if rows is not None and rows > gh.shape[0]:
+        gh = torch.nn.functional.pad(gh, (0, 0, 0, rows - gh.shape[0]))
+    return xla_row_sum(gh)
+
+
+#: rows per window of XLA's CPU TreeReductionRewriter
+_XLA_REDUCE_WINDOW = 32
+
+
+def xla_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of a [N, C] float tensor over its rows, added in the order of
+    XLA's CPU build of ``jnp.sum(x, axis=0)``: its TreeReductionRewriter
+    pads the rows with zeros to a multiple of 32 (split between the two
+    ends, the odd one at the end) and sums each window of 32 consecutive
+    rows in order, level by level until at most 32 rows are left, which
+    it sums in order."""
+    C, w = x.shape[1], _XLA_REDUCE_WINDOW
+    while x.shape[0] > w:
+        n = x.shape[0]
+        m = -(-n // w) * w
+        lo = (m - n) // 2
+        x = torch.nn.functional.pad(x, (0, 0, lo, m - n - lo)).view(
+            m // w, w, C)
+        acc = x[:, 0].clone()
+        for j in range(1, w):
+            acc += x[:, j]
+        x = acc
+    acc = x[0].clone()
+    for i in range(1, x.shape[0]):
+        acc += x[i]
+    return acc
 
 
 def scale4(qscale: torch.Tensor) -> torch.Tensor:

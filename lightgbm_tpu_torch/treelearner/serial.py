@@ -156,6 +156,9 @@ class SerialTreeLearner:
         mask[:F] = True
         self.feature_mask = mask
         self._ones = torch.ones(N, dtype=torch.float32, device=device)
+        # the reference pads its rows to a multiple of 4096 above N; its
+        # f32 root sums add the zero rows too (ops/quantize.py::sum_gh)
+        self._padded_rows = -(-(N + 1) // 4096) * 4096
         self._tree_idx = 0
         self._init_quantization(config)
 
@@ -234,7 +237,7 @@ class SerialTreeLearner:
 
     def _root(self, gh: torch.Tensor) -> GrowState:
         # exact integer sums in quantized mode, dequantized once
-        sums = dequantize_sums(sum_gh(gh), self._qscale)
+        sums = dequantize_sums(sum_gh(gh, self._padded_rows), self._qscale)
         hist = build_histogram(self.bins, gh, self.B)
         # root "parent" output: its own unsmoothed output (reference:
         # SerialTreeLearner::GetParentOutput)

@@ -13,6 +13,9 @@ re-implements that generator in plain torch:
   setting; with x64 on jax would put ``seed >> 32`` in the first word);
 - :func:`fold_in` hashes the pair ``(0, data)`` under the key
   (``threefry_fold_in``: ``threefry_2x32(key, threefry_seed(data))``);
+- :func:`split` hashes the 64-bit index of each new key, split into
+  its hi and lo words, and keeps both output words as the key
+  (``_threefry_split_foldlike``);
 - :func:`random_bits32` hashes the 64-bit flat index of every element,
   split into its hi and lo words, and xors the two output words
   (``_threefry_random_bits_partitionable``);
@@ -80,6 +83,15 @@ def fold_in(key: torch.Tensor, data: IntOrTensor) -> torch.Tensor:
     zero = torch.zeros(1, dtype=torch.int64, device=key.device)
     y0, y1 = threefry2x32(key, zero, d)
     return torch.cat([y0, y1])
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``num`` new keys from ``key``, int64 ``[num, 2]``
+    (``jax.random.split`` in partitionable mode: key ``i`` is the hash of
+    the count ``(i >> 32, i & 0xFFFFFFFF)``)."""
+    counts = torch.arange(int(num), dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key, counts >> 32, counts & _M32)
+    return torch.stack([y0, y1], dim=1)
 
 
 def _shape(shape: Union[int, Sequence[int]]) -> Tuple[int, ...]:

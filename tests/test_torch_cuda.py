@@ -184,3 +184,54 @@ def test_tiny_children(cuda, n):
     assert bool(((got - ref).abs() <= 1e-5 * mag).all())
     assert torch.equal(H.build_histogram(bins, gh8, 128, idx),
                        H.histogram_plain(bins, gh8, 128, idx))
+
+
+def _first_tree_splits(booster):
+    t = booster.inner.models[0]
+    ni = t.num_internal
+    return (t.num_leaves, t.split_feature[:ni].tolist(),
+            t.threshold[:ni].tolist())
+
+
+@pytest.mark.parametrize("objective", ["multiclass", "multiclassova"])
+def test_multiclass_on_cuda_launches_k_per_split(cuda, objective):
+    """K trees per iteration through the kernel: launches == K x (1 +
+    splits) per iteration; tree 1 (class 0) makes the CPU run's
+    splits."""
+    rng = np.random.RandomState(1)
+    X = rng.randn(20000, 12)
+    f = X[:, 0] + 0.7 * X[:, 1] - 0.5 * X[:, 2] ** 2
+    y = np.digitize(f + 0.3 * rng.randn(20000), [-0.5, 0.5])
+    params = {"objective": objective, "num_class": 3, "num_leaves": 31,
+              "verbose": -1}
+    H.reset_launch_counts()
+    gpu = lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=2)
+    launches = dict(H.launch_counts)
+    cpu = lgb.train(dict(params, device_type="cpu"),
+                    lgb.Dataset(X, label=y), num_boost_round=1)
+    trees = gpu.inner.models
+    assert len(trees) == 6
+    assert launches["histogram_f32"] == sum(t.num_leaves for t in trees)
+    assert launches["histogram_f32"] == sum(launches.values())
+    assert _first_tree_splits(gpu) == _first_tree_splits(cpu)
+    assert gpu.predict(X[:100]).shape == (100, 3)
+
+
+def test_lambdarank_on_cuda_tree1_equals_cpu(cuda):
+    rng = np.random.RandomState(2)
+    group = rng.randint(2, 120, size=400)
+    n = int(group.sum())
+    X = rng.randn(n, 16)
+    y = np.clip(np.floor(X[:, 0] + 0.5 * X[:, 1] + rng.randn(n) * 0.5
+                         + 1.5), 0, 4)
+    params = {"objective": "lambdarank", "num_leaves": 31, "verbose": -1,
+              "eval_at": "1,3,5"}
+    H.reset_launch_counts()
+    gpu = lgb.train(params, lgb.Dataset(X, label=y, group=group),
+                    num_boost_round=2)
+    assert H.launch_counts["histogram_f32"] == sum(
+        t.num_leaves for t in gpu.inner.models)
+    cpu = lgb.train(dict(params, device_type="cpu"),
+                    lgb.Dataset(X, label=y, group=group),
+                    num_boost_round=1)
+    assert _first_tree_splits(gpu) == _first_tree_splits(cpu)

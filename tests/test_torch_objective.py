@@ -1,6 +1,21 @@
-"""The port's objectives against the JAX package's: binary and l2
-gradients and hessians within a few f32 ulps (the two compute ``exp``
-with different libraries), and equal ``boost_from_score``."""
+"""The port's objectives against the JAX package's, on the same NumPy
+inputs, for every objective of the reference's ``_OBJECTIVES`` table.
+
+- Gradients and hessians (f32) are byte-equal where no transcendental
+  is involved (l2, l1, huber, fair, quantile, mape). Where ``exp``,
+  ``log`` or the sigmoid are involved (binary, poisson, gamma, tweedie,
+  softmax, one-vs-all, the cross-entropies) the two packages call
+  different libraries, and each value is held within 4 f32 ulps of its
+  operand scale (the magnitude of the terms it is computed from, see
+  ``_operand_scale``).
+- Lambdarank and rank_xendcg lambdas and hessians are held within
+  1e-5 x the query's sum of |lambda| (|hessian|): the sums over a
+  query's docs add in another order; xendcg draws the same uniforms
+  (``utils/prng.py::split`` + ``uniform``).
+- ``boost_from_score``, ``to_string`` and ``convert_output`` are equal;
+  leaf renewal (l1, quantile, mape) is byte-equal on the same leaf
+  partition and scores.
+"""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,13 +23,20 @@ import torch
 
 import lightgbm_tpu.config as ref_config
 import lightgbm_tpu.io.dataset as ref_dataset
+import lightgbm_tpu.models.tree as ref_tree
 import lightgbm_tpu.objective as ref_objective
 import lightgbm_tpu_torch.config as port_config
 import lightgbm_tpu_torch.io.dataset as port_dataset
+import lightgbm_tpu_torch.models.tree as port_tree
 import lightgbm_tpu_torch.objective as port_objective
 from lightgbm_tpu_torch.utils.log import LightGBMError
 
 torch.set_num_threads(1)
+
+EPS = float(np.finfo(np.float32).eps)
+#: objectives whose gradients use no transcendental: byte-equal
+EXACT = {"regression", "regression_l1", "huber", "fair", "quantile",
+         "mape"}
 
 CASES = [
     ("binary", {}, False),
@@ -23,63 +45,266 @@ CASES = [
     ("regression", {}, False),
     ("regression", {}, True),
     ("regression", {"reg_sqrt": True}, False),
+    ("regression_l1", {}, False),
+    ("regression_l1", {}, True),
+    ("huber", {"alpha": 1.5}, False),
+    ("huber", {"alpha": 1.5}, True),
+    ("fair", {"fair_c": 0.7}, False),
+    ("fair", {"fair_c": 0.7}, True),
+    ("quantile", {"alpha": 0.3}, False),
+    ("quantile", {"alpha": 0.3}, True),
+    ("mape", {}, False),
+    ("mape", {}, True),
+    ("poisson", {}, False),
+    ("poisson", {"poisson_max_delta_step": 0.4}, True),
+    ("gamma", {}, False),
+    ("gamma", {}, True),
+    ("tweedie", {"tweedie_variance_power": 1.3}, False),
+    ("tweedie", {}, True),
+    ("cross_entropy", {}, False),
+    ("cross_entropy", {}, True),
+    ("cross_entropy_lambda", {}, False),
+    ("cross_entropy_lambda", {}, True),
+    ("multiclass", {"num_class": 3}, False),
+    ("multiclass", {"num_class": 3}, True),
+    ("multiclass", {"num_class": 7}, True),
+    ("multiclassova", {"num_class": 3}, False),
+    ("multiclassova", {"num_class": 3, "sigmoid": 0.8}, True),
 ]
 
 
-def _objectives(name, extra, weighted, seed=0):
+def _label(name, extra, rng, n):
+    if name in ("binary",):
+        return (rng.rand(n) > 0.3).astype(np.float64)
+    if name in ("poisson", "tweedie"):
+        return rng.poisson(2.0, n).astype(np.float64)
+    if name == "gamma":
+        return rng.gamma(2.0, 1.5, n)
+    if name.startswith("cross_entropy"):
+        return rng.rand(n)
+    if name.startswith("multiclass"):
+        return rng.randint(0, extra["num_class"], n).astype(np.float64)
+    return rng.randn(n) * 3
+
+
+def _metadata(n, label, weights, group=None):
+    rmeta, pmeta = ref_dataset.Metadata(n), port_dataset.Metadata(n)
+    for md in (rmeta, pmeta):
+        md.set_label(label)
+        md.set_weights(weights)
+        md.set_group(group)
+    return rmeta, pmeta
+
+
+def _objectives(name, extra, weighted, seed=0, group=None, label=None):
     rng = np.random.RandomState(seed)
-    n = 5000
-    label = ((rng.rand(n) > 0.3).astype(np.float64) if name == "binary"
-             else rng.randn(n) * 3)
+    n = 5000 if group is None else int(np.sum(group))
+    if label is None:
+        label = _label(name, extra, rng, n)
     weights = rng.rand(n) + 0.5 if weighted else None
     params = dict(extra, objective=name, verbose=-1)
     rcfg = ref_config.Config.from_params(params)
     pcfg = port_config.Config.from_params(dict(params, device_type="cpu"))
-    rmeta = ref_dataset.Metadata(n)
-    pmeta = port_dataset.Metadata(n)
-    for md in (rmeta, pmeta):
-        md.set_label(label)
-        md.set_weights(weights)
+    rmeta, pmeta = _metadata(n, label, weights, group)
     robj = ref_objective.create_objective(rcfg.objective, rcfg)
     pobj = port_objective.create_objective(pcfg.objective, pcfg)
     robj.init(rmeta, n)
     pobj.init(pmeta, n)
-    score = (rng.randn(n) * 2).astype(np.float32)
-    return robj, pobj, score
+    K = extra.get("num_class", 1)
+    shape = (n, K) if K > 1 else (n,)
+    score = (rng.randn(*shape) * 2).astype(np.float32)
+    return robj, pobj, score, label, weights
+
+
+def _operand_scale(name, extra, score, label, weights, rg, rh):
+    """(grad scale, hess scale): the magnitude of the terms each value
+    is computed from, at which 4 f32 ulps are held. Where a formula
+    subtracts nearly equal terms, the result's own magnitude would
+    count the cancellation as error."""
+    s = score.astype(np.float64)
+    y = label.astype(np.float32).astype(np.float64)
+    w = 1.0 if weights is None else weights.astype(np.float32).astype(
+        np.float64)
+    if np.ndim(w) and s.ndim == 2:
+        w = w[:, None]
+    ag, ah = np.abs(rg), np.abs(rh)
+    if name == "binary":
+        # hess = |r| * (sigmoid - |r|): the scale of its operands
+        return ag, np.maximum(ah, ag * float(extra.get("sigmoid", 1.0)))
+    if name == "poisson":
+        return np.maximum(np.exp(s), y) * w, ah
+    if name == "gamma":
+        return np.maximum(1.0, y * np.exp(-s)) * w, ah
+    if name == "tweedie":
+        rho = float(extra.get("tweedie_variance_power", 1.5))
+        e1, e2 = np.exp((1 - rho) * s), np.exp((2 - rho) * s)
+        return (np.maximum(y * e1, e2) * w,
+                np.maximum(y * (rho - 1) * e1, (2 - rho) * e2) * w)
+    if name == "cross_entropy_lambda" and weights is not None:
+        return _xentlambda_sensitivity(s, y, w)
+    if name in ("cross_entropy", "cross_entropy_lambda"):
+        z = 1.0 / (1.0 + np.exp(-s))
+        return np.maximum(z, y) * w, z * w
+    if name == "multiclass":
+        e = np.exp(s - s.max(axis=1, keepdims=True))
+        p = e / e.sum(axis=1, keepdims=True)
+        K = extra["num_class"]
+        return np.maximum(p, ag) * w, K / (K - 1.0) * p * w
+    if name == "multiclassova":
+        return ag, np.maximum(ah, ag)
+    return ag, ah
+
+
+def _xentlambda_sensitivity(s, y, w):
+    """Weighted cross_entropy_lambda chains two cancelling subtractions
+    (z = 1 - exp(-w*hhat), c - 1), so its operand scale is the
+    first-order error bound of the formula: the sum over its
+    intermediates of the change one ulp of that intermediate makes."""
+
+    def f(d):
+        epf = np.exp(s) * (1 + d[0])
+        hhat = np.log1p(epf) * (1 + d[1])
+        z = (1 - np.exp(-w * hhat) * (1 + d[2])) * (1 + d[3])
+        g = (1 - y / z) * w / (1 + 1 / epf)
+        c = 1 / (1 - z) * (1 + d[4])
+        d2 = (c - 1) * (1 + d[5])
+        dd = 1 + epf
+        h = w * epf / (dd * dd) * (1 + y * (c / (d2 * d2))
+                                   * (1 + w * epf - c))
+        return g, h
+    g0, h0 = f([0.0] * 6)
+    sg, sh = np.abs(g0), np.abs(h0)
+    for i in range(6):
+        g, h = f([EPS if j == i else 0.0 for j in range(6)])
+        sg = sg + np.abs(g - g0) / EPS
+        sh = sh + np.abs(h - h0) / EPS
+    return sg, sh
 
 
 @pytest.mark.parametrize("name,extra,weighted", CASES)
 def test_gradients_within_a_few_ulps(name, extra, weighted):
-    robj, pobj, score = _objectives(name, extra, weighted)
+    robj, pobj, score, label, weights = _objectives(name, extra, weighted)
     rg, rh = robj.get_gradients(jnp.asarray(score))
     pg, ph = pobj.get_gradients(torch.from_numpy(score))
     assert pg.dtype == ph.dtype == torch.float32
-    np.testing.assert_array_max_ulp(pg.numpy(), np.asarray(rg), maxulp=4)
-    # binary hess = |r| * (sigmoid - |r|) * w cancels where |r| nears
-    # sigmoid, so its ulps are counted at the scale of its operands,
-    # |grad| * sigmoid, as well as at its own
-    scale = np.maximum(np.abs(np.asarray(rh)),
-                       np.abs(np.asarray(rg)) * getattr(pobj, "sigmoid", 0))
-    eps = np.finfo(np.float32).eps
-    assert np.all(np.abs(ph.numpy() - np.asarray(rh)) <= 4 * eps * scale)
+    assert pg.shape == ph.shape == score.shape
+    rg, rh = np.asarray(rg), np.asarray(rh)
+    if name in EXACT:
+        np.testing.assert_array_equal(pg.numpy(), rg)
+        np.testing.assert_array_equal(ph.numpy(), rh)
+        return
+    sg, sh = _operand_scale(name, extra, score, label, weights,
+                            rg.astype(np.float64), rh.astype(np.float64))
+    assert np.all(np.abs(pg.numpy() - rg) <= 4 * EPS * sg)
+    assert np.all(np.abs(ph.numpy() - rh) <= 4 * EPS * sh)
 
 
 @pytest.mark.parametrize("name,extra,weighted", CASES)
 def test_boost_from_score_equal(name, extra, weighted):
-    robj, pobj, _ = _objectives(name, extra, weighted, seed=1)
-    assert pobj.boost_from_score(0) == robj.boost_from_score(0)
+    robj, pobj, _, _, _ = _objectives(name, extra, weighted, seed=1)
+    K = extra.get("num_class", 1)
+    for k in range(K):
+        assert pobj.boost_from_score(k) == robj.boost_from_score(k)
+        assert pobj.class_need_train(k) == robj.class_need_train(k)
+    assert pobj.num_model_per_iteration == robj.num_model_per_iteration
+    assert pobj.is_renew_tree_output == robj.is_renew_tree_output
     assert pobj.to_string() == robj.to_string()
-    x = np.linspace(-5, 5, 11)
+    x = np.linspace(-5, 5, 11 * K).reshape(11, K) if K > 1 \
+        else np.linspace(-5, 5, 11)
     np.testing.assert_array_equal(pobj.convert_output(x),
                                   robj.convert_output(x))
+    again = port_objective.load_objective_from_string(
+        pobj.to_string(), port_config.Config.from_params({"verbose": -1}))
+    assert again.to_string() == pobj.to_string()
 
 
-@pytest.mark.parametrize("name", ["multiclass", "huber", "lambdarank",
-                                  "cross_entropy"])
-def test_other_objectives_raise_with_their_roadmap_item(name):
-    params = {"objective": name, "device_type": "cpu", "verbose": -1}
-    if name == "multiclass":
-        params["num_class"] = 3
-    cfg = port_config.Config.from_params(params)
-    with pytest.raises(LightGBMError, match="item 10"):
+@pytest.mark.parametrize("line,attr,value", [
+    ("multiclass num_class:7", "num_class", 7),
+    ("multiclassova num_class:4 sigmoid:0.5", "sigmoid", 0.5),
+    ("quantile alpha:0.9", "alpha", 0.9),
+    ("regression sqrt", "sqrt", True),
+])
+def test_load_objective_from_string_with_parameters(line, attr, value):
+    cfg = port_config.Config.from_params({"verbose": -1})
+    obj = port_objective.load_objective_from_string(line, cfg)
+    assert obj.name == line.split()[0]
+    assert getattr(obj, attr) == value
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name,extra,weighted", [
+    c for c in CASES if c[0] in ("regression_l1", "quantile", "mape")])
+def test_renewal_byte_equal(name, extra, weighted, masked):
+    robj, pobj, score, _, _ = _objectives(name, extra, weighted, seed=2)
+    rng = np.random.RandomState(3)
+    n = score.shape[0]
+    leaf_of_row = rng.randint(0, 6, n)
+    leaf_of_row[leaf_of_row == 5] = 4           # leaf 5 holds no row
+    row_mask = rng.rand(n) < 0.7 if masked else None
+    score64 = score.astype(np.float64)
+    rtree, ptree = ref_tree.Tree(8), port_tree.Tree(8)
+    for t in (rtree, ptree):
+        t.num_leaves = 6
+        t.leaf_value[:6] = np.arange(6) * 0.25
+    robj.renew_tree_output(rtree, score64, leaf_of_row, row_mask)
+    pobj.renew_tree_output(ptree, score64, leaf_of_row, row_mask)
+    assert pobj.is_renew_tree_output
+    np.testing.assert_array_equal(ptree.leaf_value, rtree.leaf_value)
+
+
+def _query_sizes(seed, num_queries=150):
+    return np.random.RandomState(seed).randint(2, 61, size=num_queries)
+
+
+RANK_CASES = [
+    ("lambdarank", {}, False),
+    ("lambdarank", {}, True),
+    ("lambdarank", {"lambdarank_norm": False, "sigmoid": 1.5}, False),
+    ("lambdarank", {"lambdarank_truncation_level": 5,
+                    "label_gain": "0,1,3,7,20"}, False),
+    ("rank_xendcg", {}, False),
+    ("rank_xendcg", {"objective_seed": 17}, True),
+]
+
+
+@pytest.mark.parametrize("name,extra,weighted", RANK_CASES)
+def test_rank_lambdas_within_query_tolerance(name, extra, weighted):
+    group = _query_sizes(4)
+    n = int(group.sum())
+    rng = np.random.RandomState(5)
+    label = rng.randint(0, 5, n).astype(np.float64)
+    label[:group[0]] = 0.0                      # a query with one label
+    robj, pobj, score, _, _ = _objectives(name, extra, weighted, seed=6,
+                                          group=group, label=label)
+    score[group[0]:group[0] + 3] = 0.5          # tied scores
+    qb = np.concatenate([[0], np.cumsum(group)])
+    # three calls: rank_xendcg splits its key on every call
+    for _ in range(3):
+        rg, rh = robj.get_gradients(jnp.asarray(score))
+        pg, ph = pobj.get_gradients(torch.from_numpy(score))
+        rg, rh = np.asarray(rg, np.float64), np.asarray(rh, np.float64)
+        pg, ph = pg.numpy().astype(np.float64), ph.numpy().astype(np.float64)
+        for q in range(len(group)):
+            sl = slice(qb[q], qb[q + 1])
+            assert np.all(np.abs(pg[sl] - rg[sl])
+                          <= 1e-5 * np.abs(rg[sl]).sum()), "query %d" % q
+            assert np.all(np.abs(ph[sl] - rh[sl])
+                          <= 1e-5 * np.abs(rh[sl]).sum()), "query %d" % q
+        assert np.abs(rg).sum() > 0
+        score = score - 0.1 * pg.astype(np.float32)
+
+
+@pytest.mark.parametrize("params,item", [
+    ({"objective": "none"}, "item 18"),
+    ({"boosting": "dart"}, "item 16"),
+    ({"linear_tree": True}, "item 15"),
+    ({"categorical_feature": "0"}, "item 11"),
+])
+def test_other_objectives_raise_with_their_roadmap_item(params, item):
+    """A custom objective, and the settings of later slices, still
+    raise, each naming its ROADMAP item."""
+    cfg = port_config.Config.from_params(dict(params, device_type="cpu",
+                                              verbose=-1))
+    with pytest.raises(LightGBMError, match=item):
+        cfg.check_slice()
         port_objective.create_objective(cfg.objective, cfg)

@@ -116,8 +116,8 @@ def test_cpu_runs_only_when_asked(quantized):
     ({"linear_tree": True}, "item 15"),
     ({"forcedsplits_filename": "splits.json"}, "item 15"),
     ({"boosting": "dart"}, "item 16"),
-    ({"objective": "huber"}, "item 10"),
-    ({"metric": "rmse"}, "item 10"),
+    ({"objective": "none"}, "item 18"),
+    ({"boosting": "rf"}, "item 16"),
     ({"max_bin": 511}, "item 26"),
     ({"tpu_use_f64_hist": True}, "item 26"),
     ({"tpu_batch_iterations": 4}, "item 17"),

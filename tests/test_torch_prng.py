@@ -1,7 +1,7 @@
 """The port's threefry PRNG against ``jax.random``.
 
-Parity level (a), byte-equal: keys, folded keys, raw 32-bit words and
-float32 uniforms of ``lightgbm_tpu_torch.utils.prng`` equal
+Parity level (a), byte-equal: keys, folded keys, split keys, raw 32-bit
+words and float32 uniforms of ``lightgbm_tpu_torch.utils.prng`` equal
 ``jax.random``'s word for word (threefry2x32, partitionable mode, x64
 off: the reference's settings).
 """
@@ -60,6 +60,30 @@ def test_bits_and_uniform_equal_jax(shape):
             assert u.dtype == torch.float32 and want.dtype == np.float32
             assert np.array_equal(u.numpy().view(np.int32),
                                   want.view(np.int32))
+
+
+@pytest.mark.parametrize("num", [1, 2, 3, 7])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_equals_jax(seed, num):
+    got = prng.split(prng.PRNGKey(seed), num)
+    assert got.dtype == torch.int64 and got.shape == (num, 2)
+    want = jax.random.split(jax.random.PRNGKey(seed), num)
+    assert np.array_equal(got.numpy(), _words(want))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_chain_and_draws_equal_jax(seed):
+    """rank_xendcg's sequence: ``key, sub = split(key)`` on every call,
+    then a uniform of the query layout's shape under ``sub``."""
+    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    for _ in range(4):
+        kj, sj = jax.random.split(kj)
+        kt, st = prng.split(kt)
+        assert np.array_equal(st.numpy(), _words(sj))
+        want = np.asarray(jax.random.uniform(sj, (13, 61)))
+        assert np.array_equal(prng.uniform(st, (13, 61)).numpy().view(
+            np.int32), want.view(np.int32))
+    assert np.array_equal(kt.numpy(), _words(kj))
 
 
 def test_tree_key_sequence_over_five_trees():
