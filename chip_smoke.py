@@ -17,28 +17,35 @@ Phases (each one fails the run if it fails):
    rows), every row in one bin of every feature, Fp = 8, 40 and 64
    beside 32, and Fp = 56 and 136 at the root shapes of phases 9 and 10
    with children of 1, 1000 and 100k rows; two f32 calls on the same
-   inputs must give the same bytes;
+   inputs must give the same bytes; the device-count entry (row count
+   read from device memory) must give the host-count launch's bytes
+   for every instance at n = 0, 1, 1023, 1024, 1025, 10k, 100k, 1M and
+   all rows, at Fp = 32 and 136;
 3. train the binary slice at a small size on ``cuda`` and on ``cpu`` and
    compare the first tree and the held-out AUC;
 4. train the full-size slice (10.5M Higgs-shaped rows x 28 features,
-   255 leaves, 5 rounds) through ``lightgbm_tpu_torch.train``, predict a
-   500k held-out set, and check that every histogram went through the
-   kernel (launches == 1 + splits); print the kernel's ms summed by rows
-   per launch, ms per split and per scan; a second run of 2 rounds must
-   give the same two trees, text for text (f32 histograms and scans are
-   deterministic);
+   255 leaves, 5 rounds) through ``lightgbm_tpu_torch.train`` with the
+   default whole-tree loop (the split step replayed as a CUDA graph),
+   predict a 500k held-out set, and check that every histogram went
+   through the kernel (its device counter == roots + split steps, and
+   steps >= splits); print ms per split, host syncs per tree, capture
+   ms, replays per tree and peak memory; a second run of 2 rounds with
+   the per-split loop (``tpu_fused_tree=false``) must give the same two
+   trees, text for text (the two loops agree, and f32 histograms and
+   scans are deterministic);
 5. time every kernel at the main path's root shape, and with row-index
    lists of 10k, 100k and 1M rows (L2 flushed), against its plain
-   version, one library call and its memory bound; time a split scan
-   with its prefix sums in the reference's order and with a cumsum;
+   version, one library call and its memory bound, and its device-count
+   entry at the same sizes; time a split scan with its prefix sums in
+   the reference's order and with a cumsum;
 6. draw the quantized-gradient rows (threefry ``uniform`` and
    ``quantize_gh``) at 10.5M rows on the card and on the CPU from the
    same inputs: they must be byte-equal;
 7. train the full-size data of phase 4 with quantized gradients
    (``quant_grad_bits=8``, 5 rounds): every histogram must go through the
-   int8 instance (launches == 1 + splits, no f32 launch), the held-out
-   AUC must pass 0.7, and a second run of 2 rounds must give the same
-   two trees, text for text;
+   int8 instance (launches == roots + steps, no f32 launch), the
+   held-out AUC must pass 0.7, and a per-split rerun of 2 rounds must
+   give the same two trees, text for text;
 8. train 200k rows with ``quant_grad_bits=16`` and bagging on ``cuda``
    and on ``cpu``: tree 1 must make the same splits, through the int16
    instance on the card;
@@ -47,16 +54,18 @@ Phases (each one fails the run if it fails):
    ``enable_bundle=false``): held-out multi_logloss falls every round,
    multi_error ends below the majority class's 0.512, the device
    validation scores equal the host walk within 1e-4, f32 launches ==
-   roots + splits over the 35 trees; a 2-round rerun is text-equal; 2
+   roots + steps over the 35 trees; a 2-round per-split rerun is
+   text-equal; 2
    rounds at 8 bits go through the int8 instance only, and an 8-bit
    tree 1 at 50k rows is the same on cuda and cpu; softmax gradient ms
    and memory;
 10. lambdarank at MSLR-WEB30K's shape (2,270,296 rows x 136 in 18,919
    queries of at most 1,251 docs, synthetic from a seed; 255 leaves,
    min_data_in_leaf 100, ndcg@1,3,5 on 2,000 held-out queries, 5
-   rounds): ndcg@5 rises, launches == roots + splits, a 2-round rerun
-   is text-equal; the gradient stage's ms and memory; then two 2-round
-   rank_xendcg runs must give the same trees;
+   rounds): ndcg@5 rises, launches == roots + steps, a 2-round
+   per-split rerun is text-equal; the gradient stage's ms and memory;
+   then a whole-tree and a per-split 2-round rank_xendcg run must give
+   the same trees;
 11. every other objective (l1, huber, fair, quantile, mape, poisson,
    gamma, tweedie, cross_entropy, cross_entropy_lambda, multiclassova)
    on phase 3's rows, 63 leaves, 3 rounds, cuda vs cpu: tree 1 the same
@@ -64,8 +73,13 @@ Phases (each one fails the run if it fails):
 
 then time every instance at Fp = 56 and 136 (the real bins of phases 9
 and 10), and print one ``{"kernels": [...]}`` line with the launches of
-each kernel on each path that runs it (``launches_by_path``; f32:
-phases 4, 9, 10, 11; int8: phases 7, 9; int16: phase 8).
+each kernel on each path that runs it, as its device counter counted
+them (graph replays included; ``launches_by_path``; f32: phases 3, 4,
+9, 10, 11; int8: phases 7, 9; int16: phase 8).
+
+Phases 3, 4 and 7-11 train through the default whole-tree loop; every
+per-split (``tpu_fused_tree=false``) rerun must give its whole-tree
+run's trees.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a visible
@@ -78,10 +92,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -386,6 +402,51 @@ def phase_kernels(hist_mod):
     return errs
 
 
+def count_buffer(idx, S: int):
+    """The whole-tree loop's row list: ``idx`` in front of an [S + 1]
+    buffer filled with the trash slot S, and its length as a [1] int32
+    tensor on the card."""
+    import torch
+    n = idx.shape[0]
+    buf = torch.full((S + 1,), S, dtype=torch.int32, device="cuda")
+    buf[:n] = idx
+    return buf, torch.tensor([n], dtype=torch.int32, device="cuda")
+
+
+DEVICE_COUNT_ROWS = (0, 1, 1023, 1024, 1025, 10_000, 100_000, 1_000_000)
+
+
+def phase_device_count_entry(hist_mod):
+    """The device-count entry of every instance against the host-count
+    launch over the same sorted row list: byte-equal at every n of
+    ``DEVICE_COUNT_ROWS`` and all rows, at Fp = 32 (one feature group,
+    132 row blocks at most) and Fp = 136 (five groups, 26 row blocks);
+    n = 0 must give zeros."""
+    import torch
+    S, B = 1 << 20, 256
+    checked = 0
+    for Fp, seed in ((32, 13), (136, 14)):
+        bins, gh, gh8, gh16, _ = make_hist_inputs(S, Fp, B, seed=seed)
+        for n in DEVICE_COUNT_ROWS + (S,):
+            idx = sub_index(S, n, seed=n + Fp) if n < S else torch.arange(
+                S, dtype=torch.int32, device="cuda")
+            buf, count = count_buffer(idx, S)
+            for rows in (gh, gh8, gh16):
+                got = hist_mod.build_histogram(bins, rows, B, buf, count)
+                want = hist_mod.build_histogram(bins, rows, B, idx)
+                torch.cuda.synchronize()
+                check(torch.equal(got.view(torch.int32),
+                                  want.view(torch.int32)),
+                      "device-count entry (%s, Fp=%d, n=%d) differs from "
+                      "the host-count launch" % (rows.dtype, Fp, n))
+                check(n > 0 or not got.any(),
+                      "device-count entry with no rows is not zero")
+                checked += 1
+    log("device-count entry: byte-equal to the host-count launch in %d "
+        "cases (f32, int8, int16; Fp 32 and 136; n = %s and all %d rows)"
+        % (checked, ", ".join(str(n) for n in DEVICE_COUNT_ROWS), S))
+
+
 # ---------------------------------------------------------------------------
 # phase 5: timing at the main path's root shape and at child sizes
 # ---------------------------------------------------------------------------
@@ -461,6 +522,7 @@ def phase_timing(hist_mod, bins, B, errs):
     rows = []
     children = [sub_index(S, n, seed=n) for n in (10_000, 100_000,
                                                    1_000_000)]
+    everything = torch.arange(S, dtype=torch.int32, device="cuda")
     for name, rows_gh in (("histogram_f32", gh), ("histogram_i8", gh8),
                           ("histogram_i16", gh16)):
         t = time_histogram(hist_mod, bins, rows_gh, B, name)
@@ -471,7 +533,26 @@ def phase_timing(hist_mod, bins, B, errs):
             max_abs_err=errs[name], **t))
         for idx in children:
             time_histogram(hist_mod, bins, rows_gh, B, name, idx)
+        rows[-1]["device_count_ms"] = {
+            str(idx.shape[0]): time_device_count(hist_mod, bins, rows_gh, B,
+                                                 name, idx)
+            for idx in [everything] + children}
     return rows
+
+
+def time_device_count(hist_mod, bins, gh, B, name, idx):
+    """ms of the device-count entry over ``idx`` (all rows: warm
+    repeats; a child's list: L2 flushed before each call), beside the
+    host-count launch over the same list."""
+    buf, count = count_buffer(idx, bins.shape[0])
+    timer = cuda_ms if idx.shape[0] == bins.shape[0] else cuda_ms_cold
+    ms = timer(lambda: hist_mod.build_histogram(bins, gh, B, buf, count))
+    host_ms = timer(lambda: hist_mod.build_histogram(bins, gh, B, idx))
+    log("%s device-count entry at n=%d (row-index list%s): %.4f ms; "
+        "host-count launch over the same list %.4f ms"
+        % (name, idx.shape[0], "" if idx.shape[0] == bins.shape[0]
+           else ", L2 flushed", ms, host_ms))
+    return ms
 
 
 def time_scan(B: int = 256, Fp: int = 32, calls: int = 200) -> None:
@@ -566,7 +647,8 @@ def phase_small(lgb, hist_mod, extra, kernel, auc_tol):
                                               time.perf_counter() - t0))
         res[dev] = (tree_splits(bst)[0], evals["held_out"]["auc"][-1],
                     dict(hist_mod.launch_counts),
-                    sum(t.num_leaves for t in bst.inner.models))
+                    check_device_launches(hist_mod, bst, kernel, dev)
+                    if dev == "cuda" else None)
     torch.set_num_threads(threads)
     check(res["cuda"][0] == res["cpu"][0],
           "tree 1 differs between cuda and cpu at %d rows (%s)"
@@ -575,11 +657,7 @@ def phase_small(lgb, hist_mod, extra, kernel, auc_tol):
         check(abs(res["cuda"][1] - res["cpu"][1]) <= auc_tol,
               "held-out AUC cuda %.6f vs cpu %.6f" % (res["cuda"][1],
                                                       res["cpu"][1]))
-    launches = res["cuda"][2]
-    check(launches[kernel] == res["cuda"][3] and
-          sum(launches.values()) == launches[kernel],
-          "small slice on cuda: launches %s, expected %d of %s only"
-          % (launches, res["cuda"][3], kernel))
+    launches = res["cuda"][3]
     check(sum(res["cpu"][2].values()) == 0, "the cpu run launched a kernel")
     log("small slice (%d rows, 63 leaves, 3 rounds, %s): tree 1 splits "
         "equal on cuda and cpu; held-out AUC cuda %.6f cpu %.6f; %d "
@@ -587,6 +665,30 @@ def phase_small(lgb, hist_mod, extra, kernel, auc_tol):
         % (SMALL_ROWS, json.dumps(extra), res["cuda"][1], res["cpu"][1],
            launches[kernel], kernel))
     return launches
+
+
+def check_device_launches(hist_mod, bst, kernel, what):
+    """Every histogram of a training run went through ``kernel``: its
+    device counter (graph replays included) == the learner's roots +
+    split steps, one root per tree, a step for every split (the
+    whole-tree loop may run a few past a tree's end, with no rows), and
+    no other instance launched. Returns the device counts."""
+    dev = hist_mod.device_launch_counts()
+    stats = bst.inner.learner.grow_stats
+    trees = bst.inner.models
+    splits = sum(t.num_leaves - 1 for t in trees)
+    check(dev[kernel] == stats["roots"] + stats["steps"]
+          and stats["roots"] == len(trees) and stats["steps"] >= splits,
+          "%s: %s device launches %d, roots %d + steps %d (trees %d, "
+          "splits %d)" % (what, kernel, dev[kernel], stats["roots"],
+                          stats["steps"], len(trees), splits))
+    check(sum(dev.values()) == dev[kernel],
+          "%s: another histogram instance was launched: %s" % (what, dev))
+    log("%s: %d device launches of %s == %d roots + %d steps (%d graph "
+        "replays, %d captures) for %d splits"
+        % (what, dev[kernel], kernel, stats["roots"], stats["steps"],
+           stats["replays"], stats["captures"], splits))
+    return dev
 
 
 class _EventTimer:
@@ -604,6 +706,10 @@ class _EventTimer:
 
     def __call__(self, *args, **kwargs):
         import torch
+        if torch.cuda.is_current_stream_capturing():
+            # a graph capture runs the call once and its replays not at
+            # all: only eager calls are timed
+            return self.fn(*args, **kwargs)
         if self.size_of is not None:
             self.sizes.append(self.size_of(*args, **kwargs))
         start = torch.cuda.Event(enable_timing=True)
@@ -621,8 +727,12 @@ class _EventTimer:
         return sum(self.each_ms())
 
 
-def hist_rows(bins, gh, num_bins, idx=None):
-    """Rows summed by one ``build_histogram`` call."""
+def hist_rows(bins, gh, num_bins, idx=None, count=None):
+    """Rows summed by one ``build_histogram`` call; a count on the
+    device is kept as a copy (no host read in the call) and read after
+    the run."""
+    if count is not None:
+        return count.clone()
     return bins.shape[0] if idx is None else idx.shape[0]
 
 
@@ -632,9 +742,10 @@ ROW_BUCKETS = (1_000, 10_000, 100_000, 1_000_000)
 def log_launch_sizes(timer: _EventTimer, kernel: str) -> None:
     """Launches and kernel ms summed by rows per launch."""
     edges = (0,) + ROW_BUCKETS + (float("inf"),)
+    sizes = [int(n) for n in timer.sizes]
     parts = []
     for lo, hi in zip(edges[:-1], edges[1:]):
-        ms = [t for n, t in zip(timer.sizes, timer.each_ms())
+        ms = [t for n, t in zip(sizes, timer.each_ms())
               if lo <= n < hi]
         parts.append("[%s, %s): %d launches, %.3f ms"
                      % (lo, "inf" if hi == float("inf") else int(hi),
@@ -697,11 +808,16 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
                grad_cls=None, tag=None):
     """Train through ``lightgbm_tpu_torch.train`` with the launch counts
     set to 0 just before and read just after; every histogram must go
-    through ``kernel`` (launches == roots + splits summed over all trees,
-    K per iteration for multiclass; no other instance launched). CUDA
-    events time every histogram, scan and quantize call, and, when
-    ``grad_cls`` names the objective's class, every gradient call with
-    the device memory it needs. Returns a dict of the run's numbers."""
+    through ``kernel`` (:func:`check_device_launches`: its device
+    counter == roots + split steps summed over all trees, K per
+    iteration for multiclass; no other instance launched). Each tree's
+    host syncs are counted with ``torch.cuda.set_sync_debug_mode("warn")``
+    around the learner's ``train``; in the whole-tree loop they must stay
+    within ``ceil((L - 1) / FUSED_CHUNK) + 2``. CUDA events time every
+    eager histogram, scan and quantize call (a graph replay runs none of
+    them through Python), and, when ``grad_cls`` names the objective's
+    class, every gradient call with the device memory it needs. Returns
+    a dict of the run's numbers."""
     import torch
     from lightgbm_tpu_torch.treelearner import serial
     tag = tag or json.dumps({k: v for k, v in params.items()
@@ -712,14 +828,22 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
     grad_timer = (_StageTimer(grad_cls.get_gradients) if grad_cls
                   else None)
     grow = serial.SerialTreeLearner.train
-    tree_seconds = []
+    tree_seconds, tree_syncs = [], []
 
     def timed_grow(self, *args):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = grow(self, *args)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = grow(self, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         tree_seconds.append(time.perf_counter() - t)
+        tree_syncs.append(sum("synchroniz" in str(w.message)
+                              for w in caught))
         return out
     iter_starts = []
 
@@ -743,7 +867,6 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
                         callbacks=[mark, lgb.record_evaluation(evals)])
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
-        launches = dict(hist_mod.launch_counts)
     finally:
         serial.build_histogram = hist_timer.fn
         serial.find_best_split = scan_timer.fn
@@ -761,11 +884,16 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
     check(len(trees) == rounds * K, "expected %d trees, got %d"
           % (rounds * K, len(trees)))
     check(all(t.num_leaves > 1 for t in trees), "a tree has one leaf")
-    check(launches[kernel] == len(trees) + splits,
-          "%s launches %d != 1 + splits summed over trees (%d)"
-          % (kernel, launches[kernel], len(trees) + splits))
-    check(sum(launches.values()) == launches[kernel],
-          "another histogram instance was launched: %s" % launches)
+    launches = check_device_launches(hist_mod, bst, kernel, tag)
+    learner = bst.inner.learner
+    stats = learner.grow_stats
+    fused = learner._fused_growth
+    sync_bound = math.ceil((learner.L - 1) / serial.FUSED_CHUNK) + 2
+    if fused:
+        check(max(tree_syncs) <= sync_bound,
+              "%s: %d host syncs in a tree, more than ceil((L-1)/%d) + 2 "
+              "= %d" % (tag, max(tree_syncs), serial.FUSED_CHUNK,
+                        sync_bound))
     hist_ms = hist_timer.total_ms()
     quant_ms = quant_timer.each_ms()
     log("train %s: %.3f s for %d rounds (%d trees); seconds per tree: %s; "
@@ -775,19 +903,30 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
            " ".join("%.3f" % v for v in tree_seconds),
            " ".join("%.3f" % v for v in per_iter),
            [t.num_leaves for t in trees]))
-    log("histogram kernel time %.1f ms = %.1f%% of tree time (%.3f s); "
-        "%d launches of %s (= %d roots + %d splits)%s"
+    log("%s loop: ms per split (tree seconds / splits): %s; host syncs per "
+        "tree: %s (sync debug mode; bound for the whole-tree loop "
+        "ceil((L-1)/%d) + 2 = %d); graph captures %d, capture ms %.1f; "
+        "replays per tree %.1f; device launches of %s %d == roots %d + "
+        "steps %d (replays %d), splits %d; counter reads %d, record "
+        "reads %d"
+        % ("whole-tree" if fused else "per-split",
+           " ".join("%.3f" % (1e3 * s / max(t.num_leaves - 1, 1))
+                    for s, t in zip(tree_seconds, trees)),
+           " ".join(str(v) for v in tree_syncs), serial.FUSED_CHUNK,
+           sync_bound, stats["captures"], stats["capture_ms"],
+           stats["replays"] / len(trees), kernel, launches[kernel],
+           stats["roots"], stats["steps"], stats["replays"], splits,
+           stats["flag_reads"], stats["record_reads"]))
+    log("eager histogram calls: %.1f ms = %.1f%% of tree time (%.3f s), "
+        "%d calls%s"
         % (hist_ms, 100.0 * hist_ms / 1e3 / sum(tree_seconds),
-           sum(tree_seconds), launches[kernel], kernel, len(trees), splits,
+           sum(tree_seconds), len(hist_timer.events),
            "; quantize stage ms per tree: " + " ".join(
                "%.3f" % v for v in quant_ms) if quant_ms else ""))
     log_launch_sizes(hist_timer, kernel)
     scan_ms = scan_timer.each_ms()
-    log("ms per split (tree seconds / splits): %s; split scan: %d calls, "
-        "%.3f ms each on average (CUDA events; the scan is launch-bound)"
-        % (" ".join("%.2f" % (1e3 * s / (t.num_leaves - 1))
-                    for s, t in zip(tree_seconds, trees)),
-           len(scan_ms), float(np.mean(scan_ms))))
+    log("split scan: %d eager calls, %.3f ms each on average (CUDA "
+        "events)" % (len(scan_ms), float(np.mean(scan_ms))))
     grad_ms = grad_timer.each_ms() if grad_timer else []
     if grad_timer:
         log("gradient stage (%s.get_gradients, CUDA events) ms per "
@@ -800,7 +939,8 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
     return dict(booster=bst, launches=launches,
                 evals=evals["held_out"], per_iter=per_iter,
                 tree_seconds=tree_seconds, quant_ms=quant_ms,
-                grad_ms=grad_ms, peak=peak)
+                grad_ms=grad_ms, peak=peak, tree_syncs=tree_syncs,
+                splits=splits)
 
 
 def check_predict(bst, data, device_auc):
@@ -825,15 +965,17 @@ def check_predict(bst, data, device_auc):
 
 
 def check_rerun(lgb, hist_mod, data, extra, kernel, bst, what):
-    """A second run of 2 rounds must give the first run's first two
-    trees, text for text."""
-    again, _, _, _, _ = train_full(lgb, hist_mod, data, extra, kernel,
-                                   rounds=2)
+    """A second run of 2 rounds through the per-split loop must give the
+    first (whole-tree) run's first two trees, text for text."""
+    again, _, _, _, _ = train_full(lgb, hist_mod, data,
+                                   dict(extra, tpu_fused_tree=False),
+                                   kernel, rounds=2)
     first = [t.to_string() for t in bst.inner.models[:2]]
     second = [t.to_string() for t in again.inner.models]
-    check(first == second, "a second %s run gave other trees" % what)
-    log("%s rerun (2 rounds): trees 1 and 2 text-equal to the first run's"
-        % what)
+    check(first == second, "a per-split %s run gave other trees than the "
+          "whole-tree run" % what)
+    log("%s per-split rerun (2 rounds): trees 1 and 2 text-equal to the "
+        "whole-tree run's" % what)
 
 
 def phase_full(lgb, hist_mod, data):
@@ -1012,13 +1154,16 @@ def phase_covertype(lgb, hist_mod):
            " ".join("%.6f" % v for v in err), majority_error, gap,
            float(np.mean(run["per_iter"])),
            " ".join("%.3f" % v for v in run["grad_ms"])))
-    again = train_path(lgb, hist_mod, ds, valid, params, "histogram_f32", 2,
-                       tag="covertype multiclass rerun")["booster"]
+    again = train_path(lgb, hist_mod, ds, valid,
+                       dict(params, tpu_fused_tree=False), "histogram_f32",
+                       2, tag="covertype multiclass per-split rerun")[
+        "booster"]
     check([t.to_string() for t in bst.inner.models[:14]]
           == [t.to_string() for t in again.inner.models],
-          "a second covertype run gave other trees")
-    log("covertype rerun (2 rounds): all 14 trees text-equal to the first "
-        "run's")
+          "a per-split covertype run gave other trees than the whole-tree "
+          "run")
+    log("covertype per-split rerun (2 rounds): all 14 trees text-equal to "
+        "the whole-tree run's")
     launches = {"histogram_f32": run["launches"]["histogram_f32"]}
     bins = bst.inner.learner.bins
     del bst, again
@@ -1134,26 +1279,34 @@ def phase_mslr(lgb, hist_mod):
                  for k in ("ndcg@1", "ndcg@3", "ndcg@5")]
                 + [float(np.mean(run["per_iter"])),
                    " ".join("%.3f" % v for v in run["grad_ms"])]))
-    again = train_path(lgb, hist_mod, ds, valid, params, "histogram_f32", 2,
-                       tag="mslr lambdarank rerun")["booster"]
+    again = train_path(lgb, hist_mod, ds, valid,
+                       dict(params, tpu_fused_tree=False), "histogram_f32",
+                       2, tag="mslr lambdarank per-split rerun")["booster"]
     check([t.to_string() for t in bst.inner.models[:2]]
           == [t.to_string() for t in again.inner.models],
-          "a second lambdarank run gave other trees")
-    log("mslr lambdarank rerun (2 rounds): trees 1 and 2 text-equal")
+          "a per-split lambdarank run gave other trees than the whole-tree "
+          "run")
+    log("mslr lambdarank per-split rerun (2 rounds): trees 1 and 2 "
+        "text-equal to the whole-tree run's")
     launches = run["launches"]["histogram_f32"]
     bins = bst.inner.learner.bins
     del bst, again
     xe = dict(params, objective="rank_xendcg")
     from lightgbm_tpu_torch.objective.rank import RankXENDCG
     texts = []
-    for _ in range(2):
-        r = train_path(lgb, hist_mod, ds, valid, xe, "histogram_f32", 2,
-                       grad_cls=RankXENDCG, tag="mslr rank_xendcg")
+    for fused in (True, False):
+        r = train_path(lgb, hist_mod, ds, valid,
+                       dict(xe, tpu_fused_tree=fused), "histogram_f32", 2,
+                       grad_cls=RankXENDCG,
+                       tag="mslr rank_xendcg %s" % ("whole-tree" if fused
+                                                    else "per-split"))
         texts.append([t.to_string() for t in r["booster"].inner.models])
         launches += r["launches"]["histogram_f32"]
-    check(texts[0] == texts[1], "two rank_xendcg runs gave other trees")
-    log("mslr rank_xendcg: two 2-round runs text-equal; held-out ndcg@5 "
-        "%s" % " ".join("%.6f" % v for v in r["evals"]["ndcg@5"]))
+    check(texts[0] == texts[1], "the per-split rank_xendcg run gave other "
+          "trees than the whole-tree run")
+    log("mslr rank_xendcg: whole-tree and per-split 2-round runs "
+        "text-equal; held-out ndcg@5 %s"
+        % " ".join("%.6f" % v for v in r["evals"]["ndcg@5"]))
     return launches, bins
 
 
@@ -1226,19 +1379,17 @@ def phase_other_objectives(lgb, hist_mod):
                 secs = time.perf_counter() - t0
             finally:
                 gbdt.GBDT._renew_tree_output = renew
-            res[dev] = (b.inner.models, dict(hist_mod.launch_counts), secs,
-                        list(renew_ms))
+            res[dev] = (b.inner.models,
+                        check_device_launches(hist_mod, b, "histogram_f32",
+                                              name)
+                        if dev == "cuda" else dict(hist_mod.launch_counts),
+                        secs, list(renew_ms))
         torch.set_num_threads(threads)
         cuda_trees, launches, secs, rms = res["cuda"]
         a, c = cuda_trees[0], res["cpu"][0][0]
         check(tree_structure(a) == tree_structure(c),
               "%s: tree 1 differs between cuda and cpu" % name)
         same_order = tree_splits_of(a) == tree_splits_of(c)
-        leaves = sum(t.num_leaves for t in cuda_trees)
-        check(launches["histogram_f32"] == leaves
-              and sum(launches.values()) == leaves,
-              "%s: launches %s, expected %d of histogram_f32 only"
-              % (name, launches, leaves))
         check(sum(res["cpu"][1].values()) == 0,
               "%s: the cpu run launched a kernel" % name)
         renewed = b.inner.objective.is_renew_tree_output
@@ -1348,12 +1499,15 @@ def main(argv=None) -> int:
     errs = dict.fromkeys(hist_mod.launch_counts, 0.0)
     if 2 in phases:
         errs = phase_kernels(hist_mod)
+        phase_device_count_entry(hist_mod)
         lap("phase 2")
     import lightgbm_tpu_torch as lgb
     # launches of each kernel on each path that runs it
     by_path = {k: {} for k in hist_mod.launch_counts}
     if 3 in phases:
-        phase_small(lgb, hist_mod, {}, "histogram_f32", 1e-3)
+        run = phase_small(lgb, hist_mod, {}, "histogram_f32", 1e-3)
+        by_path["histogram_f32"]["phase3_small_binary"] = \
+            run["histogram_f32"]
         lap("phase 3")
     data = full_data(lgb) if phases & {4, 7} else None
     bins_root, f32_auc = None, None

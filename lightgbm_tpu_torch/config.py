@@ -345,9 +345,11 @@ class Config:
     # gpu_device_id picks the CUDA card; the fields below the reference
     # build added for the TPU are accepted by name so parameter dicts
     # interchange. check_slice raises for those that need a later slice
-    # (f64 histograms, batched iterations); the fused/stepped loop
-    # switch and the out-of-core frontier width give the same trees in
-    # the reference and have no effect here.
+    # (f64 histograms, batched iterations). tpu_fused_tree selects the
+    # learner's loop, as in the reference: the whole-tree loop (true,
+    # the default) or the per-split loop (false), which give the same
+    # trees. Only the out-of-core frontier width, tpu_frontier_splits,
+    # has no effect here.
     gpu_platform_id: int = -1
     gpu_device_id: int = -1
     gpu_use_dp: bool = False

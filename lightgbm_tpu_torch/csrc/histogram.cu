@@ -48,6 +48,18 @@
 // The launch plan (groups, tile rows, blocks, shared bytes, scratch
 // shape) is computed by ops/histogram.py::launch_plan and passed in.
 //
+// Two entries per instance. The host-count entry (lgbm_histogram_*)
+// takes the row count and the row blocks from the host. The device-count
+// entry (lgbm_histogram_*_dev) reads the row count from device memory,
+// where the learner's split step wrote it (the length of the smaller
+// child's row list), so the step needs no host read and can be replayed
+// as a CUDA graph: it launches the widest grid of the shape's plan
+// (num_sms / groups row blocks), each block derives the plan for n rows
+// (plan_blocks, the arithmetic of launch_plan) and the blocks past it
+// return at once. Both entries give the same bytes for the same rows.
+// Every launch of either entry adds one to a device counter of the
+// instance (thread 0 of block (0, 0)), which counts graph replays too.
+//
 // Templated on (gh type, accumulator type): f32 -> f32 for the learner,
 // int8 -> int32 and int16 -> int32 for quantized gradients (exact). The
 // TPU package has no kernel for int16 rows (it sends them through an
@@ -106,14 +118,39 @@ struct Args {
   const uint8_t* bins;
   const void* gh;
   const int32_t* idx;
-  void* dst;              // out (one block of rows) or scratch
-  long long S;            // rows summed (idx length, or N)
+  void* out;              // written directly by a lone row block
+  void* scratch;          // per-block partials when there are more
+  long long S;            // rows summed (idx length, or N); host count
   long long rows_per_block;
+  const int32_t* count;   // device count (the device-count entry) or null
+  int max_blocks;         // the device-count entry's grid width
+  int min_rows;           // rows a block takes at least
+  unsigned long long* launches;  // device launch counter
   int Fp, B, C;
   int Fg;                 // features per group (a multiple of 8)
   int T;                  // tile rows (a multiple of 32)
   int bins_unit, gh_unit; // copy unit in bytes
 };
+
+// Row blocks and rows per block for n rows: at most max_blocks, each of
+// at least min_rows rows, then as few as hold n (ops/histogram.py
+// launch_plan and device_plan repeat this arithmetic). n = 0 gives one
+// block of no rows, which writes a zero histogram.
+__host__ __device__ __forceinline__ int plan_blocks(long long n,
+                                                    int max_blocks,
+                                                    int min_rows,
+                                                    long long* per_block) {
+  if (n <= 0) {
+    *per_block = 0;
+    return 1;
+  }
+  long long b = (n + min_rows - 1) / min_rows;
+  if (b > max_blocks) b = max_blocks;
+  if (b < 1) b = 1;
+  const long long per = (n + b - 1) / b;
+  *per_block = per;
+  return static_cast<int>((n + per - 1) / per);
+}
 
 // stage rows [t0, t0 + n) of this block's range into one tile buffer
 template <typename GH>
@@ -408,9 +445,25 @@ hist_rows_kernel(Args a) {
   const int tb_step = a.T * a.Fg;
   const int tg_step = a.T * gh_bytes;
 
-  const long long begin = static_cast<long long>(blockIdx.x) * a.rows_per_block;
-  long long end = begin + a.rows_per_block;
-  if (end > a.S) end = a.S;
+  if (a.launches != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&
+      threadIdx.x == 0) {
+    atomicAdd(a.launches, 1ULL);
+  }
+  // this launch's rows and row blocks: from the host, or from the count
+  // in device memory (blocks past the plan return at once)
+  long long S = a.S;
+  long long per_block = a.rows_per_block;
+  int blocks = static_cast<int>(gridDim.x);
+  if (a.count != nullptr) {
+    S = *a.count;
+    blocks = plan_blocks(S, a.max_blocks, a.min_rows, &per_block);
+    if (static_cast<int>(blockIdx.x) >= blocks) return;  // block-uniform
+  }
+  void* const dst = blocks > 1 ? a.scratch : a.out;
+  const long long begin = static_cast<long long>(blockIdx.x) * per_block;
+  long long end = begin + per_block;
+  if (end > S) end = S;
+  if (end < begin) end = begin;
   const int n_rows = static_cast<int>(end - begin);
   const int n_tiles = (n_rows + a.T - 1) / a.T;
 
@@ -471,7 +524,7 @@ hist_rows_kernel(Args a) {
   __syncthreads();
   // the block's partial, [nf, B, C]: plain coalesced stores into its own
   // slot
-  ACC* out = static_cast<ACC*>(a.dst) +
+  ACC* out = static_cast<ACC*>(dst) +
              (static_cast<long long>(blockIdx.x) * a.Fp + f0) * BC;
   if constexpr (kChannelMajor<ACC>) {
     for (int p = threadIdx.x; p < nf * a.B; p += kThreads) {
@@ -487,11 +540,19 @@ hist_rows_kernel(Args a) {
   }
 }
 
-// out[i] = sum over blocks k, in order k = 0, 1, ..., of scratch[k][i]
+// out[i] = sum over blocks k, in order k = 0, 1, ..., of scratch[k][i];
+// with a device count the row blocks are those of plan_blocks, and one
+// block (it wrote out itself) leaves nothing to do
 template <typename ACC>
 __global__ void __launch_bounds__(256)
 hist_sum_kernel(const ACC* __restrict__ scratch, ACC* __restrict__ out,
-                int blocks, long long n) {
+                int blocks, long long n, const int32_t* count,
+                int max_blocks, int min_rows) {
+  if (count != nullptr) {
+    long long per_block;
+    blocks = plan_blocks(*count, max_blocks, min_rows, &per_block);
+    if (blocks <= 1) return;
+  }
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (i >= n) return;
@@ -537,46 +598,101 @@ cudaError_t dispatch_rows(dim3 grid, int smem, cudaStream_t st,
   return cudaErrorInvalidValue;
 }
 
+// checks and Args shared by both entries; returns cudaSuccess or
+// cudaErrorInvalidValue
 template <typename GH, typename ACC>
-int launch(const void* bins, const void* gh, const void* idx, void* out,
-           void* scratch, long long S, int Fp, int B, int C, int Fg,
-           int groups, int T, int blocks, long long rows_per_block,
-           int smem, void* stream) {
-  if (S <= 0) return static_cast<int>(cudaSuccess);
+cudaError_t make_args(const void* bins, const void* gh, const void* idx,
+                      void* out, void* scratch, void* launches, int Fp,
+                      int B, int C, int Fg, int groups, int T, int smem,
+                      Args* a) {
   const int gh_bytes = C * static_cast<int>(sizeof(GH));
   if (Fp <= 0 || Fp % 8 != 0 || B <= 0 || B > 256 || C <= 0 || C > kMaxC ||
       (Fg != 16 && Fg != 32) ||
       groups != (Fp + Fg - 1) / Fg || T <= 0 || T % 32 != 0 ||
-      blocks <= 0 || rows_per_block <= 0 ||
-      static_cast<long long>(blocks) * rows_per_block < S ||
-      (blocks > 1 && scratch == nullptr) || smem > kMaxSmem ||
+      out == nullptr || smem > kMaxSmem ||
       smem < Fg * B * C * static_cast<int>(sizeof(ACC)) +
                  2 * T * (Fg + gh_bytes)) {
+    return cudaErrorInvalidValue;
+  }
+  a->bins = static_cast<const uint8_t*>(bins);
+  a->gh = gh;
+  a->idx = static_cast<const int32_t*>(idx);
+  a->out = out;
+  a->scratch = scratch;
+  a->S = 0;
+  a->rows_per_block = 0;
+  a->count = nullptr;
+  a->max_blocks = 1;
+  a->min_rows = 1;
+  a->launches = static_cast<unsigned long long*>(launches);
+  a->Fp = Fp;
+  a->B = B;
+  a->C = C;
+  a->Fg = Fg;
+  a->T = T;
+  // a unit that divides the last group's features too
+  a->bins_unit = copy_unit_for(Fg, Fp, bins);
+  while ((Fp - (groups - 1) * Fg) % a->bins_unit != 0) a->bins_unit >>= 1;
+  a->gh_unit = copy_unit_for(gh_bytes, gh_bytes, gh);
+  return cudaSuccess;
+}
+
+// the host-count entry: S rows in `blocks` row blocks of rows_per_block
+template <typename GH, typename ACC>
+int launch(const void* bins, const void* gh, const void* idx, void* out,
+           void* scratch, void* launches, long long S, int Fp, int B, int C,
+           int Fg, int groups, int T, int blocks, long long rows_per_block,
+           int smem, void* stream) {
+  if (S <= 0) return static_cast<int>(cudaSuccess);
+  Args a;
+  cudaError_t err = make_args<GH, ACC>(bins, gh, idx, out, scratch, launches,
+                                       Fp, B, C, Fg, groups, T, smem, &a);
+  if (err != cudaSuccess || blocks <= 0 || rows_per_block <= 0 ||
+      static_cast<long long>(blocks) * rows_per_block < S ||
+      (blocks > 1 && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a;
-  a.bins = static_cast<const uint8_t*>(bins);
-  a.gh = gh;
-  a.idx = static_cast<const int32_t*>(idx);
-  a.dst = blocks > 1 ? scratch : out;
   a.S = S;
   a.rows_per_block = rows_per_block;
-  a.Fp = Fp;
-  a.B = B;
-  a.C = C;
-  a.Fg = Fg;
-  a.T = T;
-  // a unit that divides the last group's features too
-  a.bins_unit = copy_unit_for(Fg, Fp, bins);
-  while ((Fp - (groups - 1) * Fg) % a.bins_unit != 0) a.bins_unit >>= 1;
-  a.gh_unit = copy_unit_for(gh_bytes, gh_bytes, gh);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(groups));
-  cudaError_t err = dispatch_rows<GH, ACC>(grid, smem, st, a);
+  err = dispatch_rows<GH, ACC>(grid, smem, st, a);
   if (err != cudaSuccess || blocks == 1) return static_cast<int>(err);
   const long long n = static_cast<long long>(Fp) * B * C;
   hist_sum_kernel<ACC><<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const ACC*>(scratch), static_cast<ACC*>(out), blocks, n);
+      static_cast<const ACC*>(scratch), static_cast<ACC*>(out), blocks, n,
+      nullptr, 0, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the device-count entry: *count rows of idx (count in device memory), a
+// grid of max_blocks row blocks of which plan_blocks(*count) work;
+// scratch holds max_blocks partials (it may be null when max_blocks is
+// 1). Launches the sum kernel always: it returns at once for one block.
+template <typename GH, typename ACC>
+int launch_dev(const void* bins, const void* gh, const void* idx,
+               const void* count, void* out, void* scratch, void* launches,
+               int Fp, int B, int C, int Fg, int groups, int T,
+               int max_blocks, int min_rows, int smem, void* stream) {
+  Args a;
+  cudaError_t err = make_args<GH, ACC>(bins, gh, idx, out, scratch, launches,
+                                       Fp, B, C, Fg, groups, T, smem, &a);
+  if (err != cudaSuccess || idx == nullptr || count == nullptr ||
+      max_blocks <= 0 || min_rows <= 0 ||
+      (max_blocks > 1 && scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.count = static_cast<const int32_t*>(count);
+  a.max_blocks = max_blocks;
+  a.min_rows = min_rows;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(static_cast<unsigned>(max_blocks), static_cast<unsigned>(groups));
+  err = dispatch_rows<GH, ACC>(grid, smem, st, a);
+  if (err != cudaSuccess || max_blocks == 1) return static_cast<int>(err);
+  const long long n = static_cast<long long>(Fp) * B * C;
+  hist_sum_kernel<ACC><<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+      static_cast<const ACC*>(scratch), static_cast<ACC*>(out), max_blocks, n,
+      a.count, max_blocks, min_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -584,16 +700,26 @@ int launch(const void* bins, const void* gh, const void* idx, void* out,
 
 #define LGBM_HISTOGRAM_ARGS                                                   \
   const void *bins, const void *gh, const void *idx, void *out,              \
-      void *scratch, long long S, int Fp, int B, int C, int Fg, int groups,  \
-      int T, int blocks, long long rows_per_block, int smem, void *stream
+      void *scratch, void *launches, long long S, int Fp, int B, int C,      \
+      int Fg, int groups, int T, int blocks, long long rows_per_block,       \
+      int smem, void *stream
 #define LGBM_HISTOGRAM_PASS                                                  \
-  bins, gh, idx, out, scratch, S, Fp, B, C, Fg, groups, T, blocks,          \
+  bins, gh, idx, out, scratch, launches, S, Fp, B, C, Fg, groups, T, blocks, \
       rows_per_block, smem, stream
+#define LGBM_HISTOGRAM_DEV_ARGS                                               \
+  const void *bins, const void *gh, const void *idx, const void *count,      \
+      void *out, void *scratch, void *launches, int Fp, int B, int C,        \
+      int Fg, int groups, int T, int max_blocks, int min_rows, int smem,     \
+      void *stream
+#define LGBM_HISTOGRAM_DEV_PASS                                              \
+  bins, gh, idx, count, out, scratch, launches, Fp, B, C, Fg, groups, T,     \
+      max_blocks, min_rows, smem, stream
 
 extern "C" {
 
 // f32 gh -> f32 histogram. idx may be null (all S rows in order);
-// scratch ([blocks, Fp, B, C]) may be null when blocks == 1.
+// scratch ([blocks, Fp, B, C]) may be null when blocks == 1; launches
+// (a device uint64 counter) may be null.
 int lgbm_histogram_f32(LGBM_HISTOGRAM_ARGS) {
   return launch<float, float>(LGBM_HISTOGRAM_PASS);
 }
@@ -606,6 +732,20 @@ int lgbm_histogram_i8(LGBM_HISTOGRAM_ARGS) {
 // int16 gh -> int32 histogram (16-bit quantized gradients).
 int lgbm_histogram_i16(LGBM_HISTOGRAM_ARGS) {
   return launch<int16_t, int>(LGBM_HISTOGRAM_PASS);
+}
+
+// The device-count entries: the first *count rows of idx, with count an
+// int32 in device memory.
+int lgbm_histogram_f32_dev(LGBM_HISTOGRAM_DEV_ARGS) {
+  return launch_dev<float, float>(LGBM_HISTOGRAM_DEV_PASS);
+}
+
+int lgbm_histogram_i8_dev(LGBM_HISTOGRAM_DEV_ARGS) {
+  return launch_dev<int8_t, int>(LGBM_HISTOGRAM_DEV_PASS);
+}
+
+int lgbm_histogram_i16_dev(LGBM_HISTOGRAM_DEV_ARGS) {
+  return launch_dev<int16_t, int>(LGBM_HISTOGRAM_DEV_PASS);
 }
 
 // the kernel's limits, for the launch plan

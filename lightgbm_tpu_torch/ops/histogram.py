@@ -13,6 +13,19 @@ the kernel or an exception, never the plain version.
 :func:`launch_plan` sizes the kernel's launch (feature groups, tile rows,
 blocks, shared memory, scratch) from the shapes alone, so the CPU tests
 can check it.
+
+A row-index list may come with its length as a one-element int32
+tensor on the device (``count``): the kernel's device-count entry then
+reads the length itself and plans its row blocks on the device
+(:func:`device_plan`, the same arithmetic as :func:`launch_plan`), so
+the learner's split step launches it without a host read, and a CUDA
+graph can replay the step. Both entries give the same bytes for the
+same rows.
+
+Launches are counted twice: :data:`launch_counts` on the host, where the
+wrapper launches (a graph runs the wrapper once, at capture), and a
+device counter per instance that the kernel itself bumps, so that graph
+replays count too (:func:`device_launch_counts`).
 """
 from __future__ import annotations
 
@@ -26,9 +39,13 @@ from ..utils.log import LightGBMError
 from .quantize import acc_dtype as quant_acc_dtype
 
 #: kernel launches per instance since the last :func:`reset_launch_counts`
-#: (the wrapper adds one exactly where it launches its kernel)
+#: (the wrapper adds one exactly where it launches its kernel; a graph
+#: capture counts once, its replays not at all)
 launch_counts: Dict[str, int] = {"histogram_f32": 0, "histogram_i8": 0,
                                  "histogram_i16": 0}
+#: the device counters, one uint64 per (instance, device): the kernel adds
+#: one on every launch, replays of a captured graph included
+_device_counters: Dict[Tuple[str, int], torch.Tensor] = {}
 
 _KERNEL_OF = {torch.float32: ("histogram_f32", "lgbm_histogram_f32",
                               torch.float32),
@@ -52,6 +69,21 @@ MIN_TILE_ROWS = 128
 #: a block takes at least this many rows (a child of a few thousand rows
 #: gets a few blocks; one block writes the output directly)
 MIN_ROWS_PER_BLOCK = 1024
+
+
+def device_plan(n: int, num_sms: int, groups: int) -> Tuple[int, int]:
+    """(row blocks, rows per block) that the device-count entry derives
+    in each block from the row count n read from device memory
+    (``csrc/histogram.cu`` ``plan_blocks``, called by ``hist_rows_kernel``
+    and ``hist_sum_kernel``): the arithmetic of :func:`launch_plan` over
+    a grid of ``num_sms // groups`` row blocks; n = 0 gives one block of
+    no rows (a zero histogram)."""
+    max_blocks = max(1, num_sms // groups)
+    if n <= 0:
+        return 1, 0
+    blocks = max(1, min(max_blocks, -(-n // MIN_ROWS_PER_BLOCK)))
+    per_block = -(-n // blocks)
+    return -(-n // per_block), per_block
 
 
 class LaunchPlan(NamedTuple):
@@ -133,8 +165,39 @@ def _group_plan(Fp: int, B: int, C: int, gh_bytes: int):
 
 
 def reset_launch_counts() -> None:
+    """Zero the host counts and every device counter (an in-place fill,
+    so a captured graph keeps counting into the same memory)."""
     for k in launch_counts:
         launch_counts[k] = 0
+    for t in _device_counters.values():
+        t.zero_()
+
+
+def device_launch_counts() -> Dict[str, int]:
+    """Kernel launches per instance since :func:`reset_launch_counts`, as
+    the kernels counted them on their devices (graph replays included).
+    Reads the counters back: a host sync."""
+    out = dict.fromkeys(launch_counts, 0)
+    for (name, _), t in _device_counters.items():
+        out[name] += int(t.item())
+    return out
+
+
+def _device_counter(name: str, device: torch.device) -> torch.Tensor:
+    """The instance's launch counter on ``device``, made at its first
+    launch there. It must exist before a graph that launches the
+    instance is captured: memory allocated while capturing belongs to
+    the graph."""
+    key = (name, device.index)
+    t = _device_counters.get(key)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise LightGBMError("histogram launch counter of %s made while "
+                                "a CUDA graph is captured: launch the "
+                                "kernel once before capturing" % name)
+        t = torch.zeros(1, dtype=torch.int64, device=device)
+        _device_counters[key] = t
+    return t
 
 
 def acc_dtype(gh_dtype: torch.dtype) -> torch.dtype:
@@ -147,11 +210,15 @@ def acc_dtype(gh_dtype: torch.dtype) -> torch.dtype:
 
 
 def histogram_plain(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
-                    idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    idx: Optional[torch.Tensor] = None,
+                    count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version: one flat ``(f * B + bin)`` index and one
     ``index_add_``, the analogue of the reference's
     ``_segment_histogram``. Rows are summed in row order, as XLA's CPU
-    segment_sum does, so on the CPU f32 results match it bit for bit."""
+    segment_sum does, so on the CPU f32 results match it bit for bit.
+    With ``count`` only the first ``count`` rows of ``idx`` are summed."""
+    if count is not None:
+        idx = idx[:int(count)]
     if idx is not None:
         bins = bins[idx.long()]
         gh = gh[idx.long()]
@@ -166,7 +233,7 @@ def histogram_plain(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
     return out.view(F, num_bins, C)
 
 
-def _check_cuda_args(bins, gh, num_bins, idx) -> None:
+def _check_cuda_args(bins, gh, num_bins, idx, count=None) -> None:
     if bins.dtype != torch.uint8:
         raise LightGBMError("histogram kernel takes uint8 bins, got %s"
                             % bins.dtype)
@@ -187,7 +254,12 @@ def _check_cuda_args(bins, gh, num_bins, idx) -> None:
     if not (1 <= num_bins <= _MAX_B):
         raise LightGBMError("histogram kernel takes at most %d bins, got "
                             "%d" % (_MAX_B, num_bins))
-    tensors = [bins, gh] + ([idx] if idx is not None else [])
+    if count is not None and (idx is None or count.dtype != torch.int32
+                              or count.numel() != 1):
+        raise LightGBMError("histogram kernel takes a row count as a "
+                            "one-element int32 tensor beside a row-index "
+                            "list")
+    tensors = [bins, gh] + [t for t in (idx, count) if t is not None]
     for t in tensors:
         if t.device != bins.device:
             raise LightGBMError("histogram inputs lie on different "
@@ -203,30 +275,49 @@ def _check_cuda_args(bins, gh, num_bins, idx) -> None:
 
 
 def histogram_cuda(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
-                   idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch ``csrc/histogram.cu`` on PyTorch's current stream, laid out
-    by :func:`launch_plan`. The kernel writes the whole output, so it is
+                   idx: Optional[torch.Tensor] = None,
+                   count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch ``csrc/histogram.cu`` on PyTorch's current stream. With a
+    host row count (no ``count``) the launch is laid out by
+    :func:`launch_plan`; with ``count`` (the length of ``idx``'s list,
+    a one-element int32 tensor on the device) the device-count entry
+    plans it on the device. The kernel writes the whole output, so it is
     allocated empty, as is the scratch for the per-block partials."""
-    _check_cuda_args(bins, gh, num_bins, idx)
+    _check_cuda_args(bins, gh, num_bins, idx, count)
     name, symbol, out_dtype = _KERNEL_OF[gh.dtype]
     F, C = bins.shape[1], gh.shape[1]
     S = bins.shape[0] if idx is None else idx.shape[0]
     if S == 0:
         return torch.zeros((F, num_bins, C), dtype=out_dtype,
                            device=bins.device)
-    plan = launch_plan(S, F, num_bins, C, gh.dtype, _num_sms(bins.device))
+    num_sms = _num_sms(bins.device)
+    plan = launch_plan(S, F, num_bins, C, gh.dtype, num_sms)
     out = torch.empty((F, num_bins, C), dtype=out_dtype, device=bins.device)
-    scratch = (None if plan.scratch_shape is None else
-               torch.empty(plan.scratch_shape, dtype=out_dtype,
-                           device=bins.device))
-    fn = _kernel_fn(symbol)
+    counter = _device_counter(name, bins.device)
     stream = torch.cuda.current_stream(bins.device).cuda_stream
-    code = fn(bins.data_ptr(), gh.data_ptr(),
-              None if idx is None else idx.data_ptr(), out.data_ptr(),
-              None if scratch is None else scratch.data_ptr(),
-              S, F, num_bins, C, plan.features_per_group, plan.groups,
-              plan.tile_rows, plan.blocks, plan.rows_per_block,
-              plan.smem_bytes, stream)
+    if count is None:
+        scratch = (None if plan.scratch_shape is None else
+                   torch.empty(plan.scratch_shape, dtype=out_dtype,
+                               device=bins.device))
+        code = _kernel_fn(symbol)(
+            bins.data_ptr(), gh.data_ptr(),
+            None if idx is None else idx.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            counter.data_ptr(), S, F, num_bins, C, plan.features_per_group,
+            plan.groups, plan.tile_rows, plan.blocks, plan.rows_per_block,
+            plan.smem_bytes, stream)
+    else:
+        max_blocks = max(1, num_sms // plan.groups)
+        scratch = (None if max_blocks == 1 else
+                   torch.empty((max_blocks, F, num_bins, C),
+                               dtype=out_dtype, device=bins.device))
+        code = _kernel_fn(symbol + "_dev")(
+            bins.data_ptr(), gh.data_ptr(), idx.data_ptr(),
+            count.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            counter.data_ptr(), F, num_bins, C, plan.features_per_group,
+            plan.groups, plan.tile_rows, max_blocks, MIN_ROWS_PER_BLOCK,
+            plan.smem_bytes, stream)
     launch_counts[name] += 1
     if code != 0:
         raise LightGBMError("histogram kernel launch failed: %s (cuda "
@@ -245,8 +336,14 @@ def _kernel_fn(symbol: str):
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32,
-                       i32, i32, i64, i32, vp]
+        if symbol.endswith("_dev"):
+            # bins, gh, idx, count, out, scratch, launches; Fp, B, C, Fg,
+            # groups, T, max_blocks, min_rows, smem; stream
+            fn.argtypes = [vp] * 7 + [i32] * 9 + [vp]
+        else:
+            # bins, gh, idx, out, scratch, launches; S; Fp, B, C, Fg,
+            # groups, T, blocks; rows_per_block; smem; stream
+            fn.argtypes = [vp] * 6 + [i64] + [i32] * 7 + [i64, i32, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -260,18 +357,22 @@ def _error_string(code: int) -> str:
 
 
 def build_histogram(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
-                    idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    idx: Optional[torch.Tensor] = None,
+                    count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Accumulate (grad, hess, counts) per (feature, bin).
 
     bins : uint8 [N, F] (F a multiple of 8 on CUDA)
     gh : f32, int8 or int16 [N, C], C <= 8
     idx : optional int32 [S] row-index list; only those rows are summed
+    count : optional one-element int32 tensor on idx's device: only the
+        first ``count`` rows of idx are summed (on CUDA the kernel reads it
+        there, so the caller needs no host read)
     Returns [F, num_bins, C] f32 (int32 for integer gh).
     """
     if bins.device.type == "cpu":
-        return histogram_plain(bins, gh, num_bins, idx)
+        return histogram_plain(bins, gh, num_bins, idx, count)
     if bins.device.type == "cuda":
-        return histogram_cuda(bins, gh, num_bins, idx)
+        return histogram_cuda(bins, gh, num_bins, idx, count)
     raise LightGBMError("no histogram kernel for device %s" % bins.device)
 
 

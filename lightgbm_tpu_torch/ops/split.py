@@ -171,6 +171,14 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     return out.view(*x.shape[:-1], nb * _SCAN_BASE)[..., :B]
 
 
+def _at(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``a[i]`` for a 1-d ``a`` and a 0-d index on the device, as a 0-d
+    tensor. Indexing with the tensor itself would read it back to the
+    host; this keeps the scan free of host reads, so a CUDA graph can
+    hold it."""
+    return a.index_select(0, i.view(1)).view(())
+
+
 def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
                     sum_hess: torch.Tensor, sum_count: torch.Tensor,
                     sum_total_count: torch.Tensor, meta: FeatureMeta,
@@ -251,23 +259,26 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
 
     flat = torch.stack([gain_r - shift, gain_l - shift]).reshape(-1)
     best = torch.argmax(flat)
-    best_gain = flat[best]
+    best_gain = _at(flat, best)
     variant, rem = best // (F * B), best % (F * B)
     feature, tbin = rem // B, rem % B
 
     is_l = variant == 1
-    lg = left_g[feature, tbin] + torch.where(is_l, nan_g[feature], zero)
-    lh = left_h[feature, tbin] + torch.where(is_l, nan_h[feature], zero)
-    lc = left_c[feature, tbin] + torch.where(is_l, nan_c[feature], zero)
-    ltc = left_tc[feature, tbin] + torch.where(is_l, nan_tc[feature], zero)
+
+    def left_at(prefix, nan):
+        return (_at(prefix.reshape(-1), rem)
+                + torch.where(is_l, _at(nan, feature), zero))
+
+    lg, lh = left_at(left_g, nan_g), left_at(left_h, nan_h)
+    lc, ltc = left_at(left_c, nan_c), left_at(left_tc, nan_tc)
     rg, rh, rc = sum_grad - lg, sum_hess - lh, sum_count - lc
     rtc = sum_total_count - ltc
 
     is_valid = torch.isfinite(best_gain) & (best_gain > 0.0)
     default_left = torch.where(
-        is_nan_missing[feature], is_l,
-        (meta.missing_type[feature] == MissingType.ZERO)
-        & (meta.zero_bin[feature] <= tbin))
+        _at(is_nan_missing, feature), is_l,
+        (_at(meta.missing_type, feature) == MissingType.ZERO)
+        & (_at(meta.zero_bin, feature) <= tbin))
     out_left = bounded_output(lg, lh, lc)
     out_right = bounded_output(rg, rh, rc)
     neg_one = torch.full((), -1.0, dtype=torch.float32, device=dev)

@@ -35,6 +35,17 @@ def _inputs(S, F, B, seed):
     return bins, gh, gh8, idx.sort().values.to(torch.int32)
 
 
+def _launches_cover_every_split(booster, launches):
+    """The kernel's device counter holds one launch per root and per
+    split step (the whole-tree loop may run a few steps past a tree's
+    end; they launch with no rows), and every split had its step."""
+    stats = booster.inner.learner.grow_stats
+    assert launches == stats["roots"] + stats["steps"]
+    assert stats["roots"] == len(booster.inner.models)
+    assert stats["steps"] >= sum(t.num_leaves - 1
+                                 for t in booster.inner.models)
+
+
 @pytest.mark.parametrize("with_idx", [False, True])
 def test_f32_kernel_matches_plain_sum(cuda, with_idx):
     """Counts exact; grad/hess within 1e-5 x the bin's sum of |x| (the
@@ -66,11 +77,11 @@ def test_training_on_cuda_goes_through_the_kernel(cuda):
     params = {"objective": "binary", "num_leaves": 31, "verbose": -1}
     H.reset_launch_counts()
     gpu = lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=3)
-    launches = H.launch_counts["histogram_f32"]
+    launches = H.device_launch_counts()["histogram_f32"]
     cpu = lgb.train(dict(params, device_type="cpu"),
                     lgb.Dataset(X, label=y), num_boost_round=3)
     trees = gpu.inner.models
-    assert launches == sum(t.num_leaves for t in trees)
+    _launches_cover_every_split(gpu, launches)
     a, b = trees[0], cpu.inner.models[0]
     ni = a.num_internal
     assert a.num_leaves == b.num_leaves
@@ -129,9 +140,9 @@ def test_quantized_training_on_cuda_is_repeatable(cuda):
               "bagging_freq": 1}
     H.reset_launch_counts()
     a = lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=4)
-    assert H.launch_counts["histogram_i8"] == sum(
-        t.num_leaves for t in a.inner.models)
-    assert H.launch_counts["histogram_f32"] == 0
+    dev = H.device_launch_counts()
+    _launches_cover_every_split(a, dev["histogram_i8"])
+    assert dev["histogram_f32"] == 0
     b = lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=4)
     assert a.model_to_string() == b.model_to_string()
 
@@ -195,9 +206,9 @@ def _first_tree_splits(booster):
 
 @pytest.mark.parametrize("objective", ["multiclass", "multiclassova"])
 def test_multiclass_on_cuda_launches_k_per_split(cuda, objective):
-    """K trees per iteration through the kernel: launches == K x (1 +
-    splits) per iteration; tree 1 (class 0) makes the CPU run's
-    splits."""
+    """K trees per iteration through the kernel: one launch per root
+    and per split step of each of the K trees; tree 1 (class 0) makes
+    the CPU run's splits."""
     rng = np.random.RandomState(1)
     X = rng.randn(20000, 12)
     f = X[:, 0] + 0.7 * X[:, 1] - 0.5 * X[:, 2] ** 2
@@ -206,12 +217,12 @@ def test_multiclass_on_cuda_launches_k_per_split(cuda, objective):
               "verbose": -1}
     H.reset_launch_counts()
     gpu = lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=2)
-    launches = dict(H.launch_counts)
+    launches = H.device_launch_counts()
     cpu = lgb.train(dict(params, device_type="cpu"),
                     lgb.Dataset(X, label=y), num_boost_round=1)
     trees = gpu.inner.models
     assert len(trees) == 6
-    assert launches["histogram_f32"] == sum(t.num_leaves for t in trees)
+    _launches_cover_every_split(gpu, launches["histogram_f32"])
     assert launches["histogram_f32"] == sum(launches.values())
     assert _first_tree_splits(gpu) == _first_tree_splits(cpu)
     assert gpu.predict(X[:100]).shape == (100, 3)
@@ -229,9 +240,118 @@ def test_lambdarank_on_cuda_tree1_equals_cpu(cuda):
     H.reset_launch_counts()
     gpu = lgb.train(params, lgb.Dataset(X, label=y, group=group),
                     num_boost_round=2)
-    assert H.launch_counts["histogram_f32"] == sum(
-        t.num_leaves for t in gpu.inner.models)
+    _launches_cover_every_split(
+        gpu, H.device_launch_counts()["histogram_f32"])
     cpu = lgb.train(dict(params, device_type="cpu"),
                     lgb.Dataset(X, label=y, group=group),
                     num_boost_round=1)
     assert _first_tree_splits(gpu) == _first_tree_splits(cpu)
+
+
+@pytest.mark.parametrize("gh_dtype", ["f32", "int8", "int16"])
+@pytest.mark.parametrize("F", [32, 136])
+def test_device_count_entry_equals_host_count_launch(cuda, gh_dtype, F):
+    """The device-count entry (row count read from device memory, blocks
+    planned there) gives the host-count launch's bytes over the same
+    sorted row list, for every n across the block-count boundaries; n =
+    0 gives zeros."""
+    S = 1 << 20
+    bins, gh, gh8, _ = _inputs(S, F, 256, seed=11)
+    q = (2 ** 31 - 1) // S
+    rows = {"f32": gh, "int8": gh8,
+            "int16": torch.randint(-q, q + 1, (S, 4), device="cuda",
+                                   dtype=torch.int32).to(torch.int16)}[
+        gh_dtype]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    perm = torch.randperm(S, generator=g, device="cuda")
+    for n in (0, 1, 1023, 1024, 1025, 10_000, 100_000, 1_000_000, S):
+        idx = perm[:n].sort().values.to(torch.int32)
+        buf = torch.full((S + 1,), S, dtype=torch.int32, device="cuda")
+        buf[:n] = idx
+        count = torch.tensor([n], dtype=torch.int32, device="cuda")
+        got = H.build_histogram(bins, rows, 256, buf, count)
+        want = H.build_histogram(bins, rows, 256, idx)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), n
+
+
+def _train_pair(params, X, y, rounds=3):
+    out = []
+    for fused in (True, False):
+        H.reset_launch_counts()
+        b = lgb.train(dict(params, tpu_fused_tree=fused),
+                      lgb.Dataset(X, label=y), num_boost_round=rounds)
+        out.append((b, H.device_launch_counts()))
+    return out
+
+
+@pytest.mark.parametrize("extra", [{}, {"use_quantized_grad": True},
+                                   {"use_quantized_grad": True,
+                                    "quant_grad_bits": 16,
+                                    "bagging_fraction": 0.8,
+                                    "bagging_freq": 1}])
+def test_whole_tree_equals_per_split_on_cuda(cuda, extra):
+    """The graph-replayed whole-tree loop gives the per-split loop's
+    trees and train-score bits on the card; the device counter holds
+    one launch per root and per step, and the graph ran every step but
+    the first (the warm-up before capture)."""
+    rng = np.random.RandomState(7)
+    X = rng.randn(30000, 12)
+    y = (X[:, 0] + 0.5 * X[:, 1] ** 2 + rng.randn(30000) * 0.3 > 0.5)
+    params = dict({"objective": "binary", "num_leaves": 63,
+                   "min_data_in_leaf": 50, "verbose": -1}, **extra)
+    (fused, dev_f), (stepped, dev_s) = _train_pair(params, X, y)
+    assert [t.to_string() for t in fused.inner.models] == \
+        [t.to_string() for t in stepped.inner.models]
+    assert torch.equal(fused.inner.train_score.view(torch.int32),
+                       stepped.inner.train_score.view(torch.int32))
+    stats = fused.inner.learner.grow_stats
+    splits = sum(t.num_leaves - 1 for t in fused.inner.models)
+    assert stats["captures"] == 1
+    assert stats["replays"] == stats["steps"] - 1
+    assert stats["steps"] >= splits
+    assert sum(dev_f.values()) == stats["roots"] + stats["steps"]
+    assert sum(dev_s.values()) == len(stepped.inner.models) + splits
+
+
+def test_split_step_makes_no_sync(cuda):
+    """A warmed eager step raises nothing under
+    ``torch.cuda.set_sync_debug_mode("error")``: it holds no host read."""
+    rng = np.random.RandomState(8)
+    X = rng.randn(20000, 12)
+    y = (X[:, 0] + rng.randn(20000) * 0.3 > 0).astype(float)
+    booster = lgb.Booster({"objective": "binary", "num_leaves": 31,
+                           "verbose": -1}, lgb.Dataset(X, label=y))
+    learner = booster.inner.learner
+    g = torch.from_numpy((rng.rand(20000) - y).astype(np.float32)).cuda()
+    gh = torch.stack([g, torch.full_like(g, 0.25), torch.ones_like(g),
+                      torch.ones_like(g)], dim=1)
+    buf = learner._fused_buffers(gh)
+    learner._root(buf.state)
+    learner._step(buf)                    # warm: kernels built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            learner._step(buf)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(buf.state.step) == 6
+
+
+def test_device_counter_counts_replays(cuda):
+    """Graph replays launch the kernel without the wrapper: the host
+    count holds the capture once, the device counter every replay."""
+    rng = np.random.RandomState(9)
+    X = rng.randn(20000, 12)
+    y = (X[:, 0] + rng.randn(20000) * 0.3 > 0).astype(float)
+    H.reset_launch_counts()
+    b = lgb.train({"objective": "binary", "num_leaves": 31, "verbose": -1},
+                  lgb.Dataset(X, label=y), num_boost_round=2)
+    stats = b.inner.learner.grow_stats
+    dev = H.device_launch_counts()["histogram_f32"]
+    # roots and the warm-up step through the wrapper, plus the capture
+    assert H.launch_counts["histogram_f32"] == stats["roots"] + 2
+    assert dev == stats["roots"] + 1 + stats["replays"]
+    assert stats["replays"] >= sum(t.num_leaves - 1
+                                   for t in b.inner.models) - 1
