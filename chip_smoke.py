@@ -71,11 +71,30 @@ Phases (each one fails the run if it fails):
    on phase 3's rows, 63 leaves, 3 rounds, cuda vs cpu: tree 1 the same
    tree, renewed leaf values (l1, quantile, mape) equal; renewal ms;
 
+12. prediction through the stacked forest: train binary (255 leaves,
+   min_data_in_leaf 100, lr 0.1, 100 rounds) on phase 3's 200k rows;
+   predict the reference bench's batch (262,144 rows of
+   ``make_higgs_like(seed=1)``) through ``Booster.predict`` in auto
+   mode (it must dispatch the stacked path), ``predict_raw_device`` and
+   ``pred_leaf``, against the host walk: leaf ids equal, values and raw
+   scores byte-equal, the Kahan f32 sum within Kahan's bound of the f64
+   sum of the same f32 leaf values (2 f32 ulp of the sum of their
+   magnitudes); a 4096-row f64 batch (the dd path)
+   byte-equal; rows/s of the host walk, the stacked ``value`` path and
+   ``raw_device``, ms per 65,536-row bucket split into quantize, walk
+   and sum, bytes each way, peak memory; then continue the model saved
+   after 50 rounds for 50 more through ``init_model`` (held-out AUC must
+   not fall) and round-trip it through pickle (same predictions).
+   Phases 4, 9 and 10 hold the stacked path against the host walk on
+   their own boosters and held-out rows too;
+
 then time every instance at Fp = 56 and 136 (the real bins of phases 9
 and 10), and print one ``{"kernels": [...]}`` line with the launches of
 each kernel on each path that runs it, as its device counter counted
 them (graph replays included; ``launches_by_path``; f32: phases 3, 4,
-9, 10, 11; int8: phases 7, 9; int16: phase 8).
+9, 10, 11, 12; int8: phases 7, 9; int16: phase 8). Prediction launches
+no hand kernel: the stacked walk is PyTorch ops (the reference's is
+``jnp``), so it has no row in that line.
 
 Phases 3, 4 and 7-11 train through the default whole-tree loop; every
 per-split (``tpu_fused_tree=false``) rerun must give its whole-tree
@@ -121,6 +140,8 @@ REL_TOL = 1e-5
 FULL_ROWS = 10_500_000
 HELD_OUT_ROWS = 500_000
 SMALL_ROWS = 200_000
+# the reference bench's predict batch (bench.py:153, BENCH_PREDICT_ROWS)
+PREDICT_ROWS = 1 << 18
 # UCI Covertype: 581,012 rows x 54 columns, 7 classes (phase 9)
 COVERTYPE_ROWS = 581_012
 COVERTYPE_HELD_OUT = 50_000
@@ -948,7 +969,7 @@ def check_predict(bst, data, device_auc):
     shape, AUC > 0.7 and equal to the device valid-score AUC."""
     _, _, Xv, yv = data
     t0 = time.perf_counter()
-    pred = bst.predict(Xv)
+    pred = bst.predict(Xv, predict_on_device=False)
     t_pred = time.perf_counter() - t0
     check(pred.shape == (HELD_OUT_ROWS,) and bool(np.isfinite(pred).all()),
           "predictions are not finite or of the wrong shape")
@@ -985,6 +1006,7 @@ def phase_full(lgb, hist_mod, data):
     bst, launches, aucs, _, _ = train_full(lgb, hist_mod, data, {},
                                            "histogram_f32")
     a = check_predict(bst, data, aucs)
+    check_stacked(bst, data[2], "phase 4 higgs")
     check_rerun(lgb, hist_mod, data, {}, "histogram_f32", bst, "f32")
     return bst, launches, a
 
@@ -1135,7 +1157,7 @@ def phase_covertype(lgb, hist_mod):
     check(err[-1] < majority_error,
           "held-out multi_error %.4f is not below the majority-class "
           "error %.3f" % (err[-1], majority_error))
-    host = bst.predict(Xv, raw_score=True)
+    host = bst.predict(Xv, raw_score=True, predict_on_device=False)
     dev = bst.inner.valid_data[0].scores
     check(host.shape == dev.shape == (len(yv), 7)
           and bool(np.isfinite(host).all()),
@@ -1143,9 +1165,10 @@ def phase_covertype(lgb, hist_mod):
     gap = float(np.abs(host - dev).max())
     check(gap <= 1e-4, "host-walk scores differ from the device "
           "validation scores by %.3g" % gap)
-    prob = bst.predict(Xv)
+    prob = bst.predict(Xv, predict_on_device=False)
     check(bool(np.allclose(prob.sum(axis=1), 1.0)),
           "class probabilities do not sum to 1")
+    check_stacked(bst, Xv, "phase 9 covertype")
     log("covertype multiclass: held-out multi_logloss %s; multi_error %s "
         "(majority-class error %.3f); host walk vs device scores max "
         "|diff| %.3g; mean seconds per iteration %.3f; softmax gradient "
@@ -1272,6 +1295,7 @@ def phase_mslr(lgb, hist_mod):
     bst, evals = run["booster"], run["evals"]
     ndcg5 = evals["ndcg@5"]
     check(ndcg5[-1] > ndcg5[0], "held-out ndcg@5 did not rise: %s" % ndcg5)
+    check_stacked(bst, Xv, "phase 10 mslr")
     log("mslr lambdarank: held-out ndcg@1 %s; ndcg@3 %s; ndcg@5 %s; mean "
         "seconds per iteration %.3f; lambdarank gradient stage ms per "
         "iteration %s"
@@ -1412,6 +1436,225 @@ def phase_other_objectives(lgb, hist_mod):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 12: prediction through the stacked forest
+# ---------------------------------------------------------------------------
+def timed(fn):
+    """(result, host seconds) of ``fn()``, the card synchronised before
+    and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def stacked_predictor(bst):
+    """The booster's cached ``BucketedPredictor`` (None before its first
+    stacked dispatch)."""
+    cached = getattr(bst, "_stacked_cache", None)
+    return None if cached is None else cached[1]
+
+
+def check_stacked(bst, X, what):
+    """``Booster.predict`` in auto mode (the stacked forest on the card)
+    against the host walk (``predict_on_device=False``) on ``X``: the
+    stacked path must dispatch, leaf ids must be equal and raw scores and
+    values byte-equal. Returns the host-walk and stacked rows/s of the
+    raw scores."""
+    n = X.shape[0]
+    bst._stacked_cache = None
+    raw, t_dev = timed(lambda: bst.predict(X, raw_score=True))
+    pred = stacked_predictor(bst)
+    check(pred is not None and sum(pred.entries.values()) > 0,
+          "%s: auto mode did not dispatch the stacked path" % what)
+    host, t_host = timed(lambda: bst.predict(X, raw_score=True,
+                                             predict_on_device=False))
+    check(raw.shape == host.shape and np.array_equal(raw, host),
+          "%s: stacked raw scores differ from the host walk (max |diff| "
+          "%.3g)" % (what, float(np.nanmax(np.abs(raw - host)))))
+    check(np.array_equal(bst.predict(X),
+                         bst.predict(X, predict_on_device=False)),
+          "%s: stacked values differ from the host walk" % what)
+    leaves = bst.predict(X, pred_leaf=True)
+    check(np.array_equal(leaves, bst.predict(X, pred_leaf=True,
+                                             predict_on_device=False)),
+          "%s: stacked leaf ids differ from the host walk" % what)
+    log("%s: stacked path == host walk on %d rows x %d trees (leaf ids "
+        "equal, raw and values byte-equal); raw scores %.0f rows/s "
+        "stacked (the first call packs the forest), %.0f rows/s host "
+        "walk; bucket dispatches %s"
+        % (what, n, leaves.shape[1], n / t_dev, n / t_host,
+           json.dumps({"%s %s" % (k[1], "/".join(k[2:])): v
+                       for k, v in sorted(pred.entries.items(),
+                                          key=str)})))
+    return n / t_host, n / t_dev
+
+
+def time_dispatch(forest, Xb):
+    """CUDA-event ms of one bucket's stages on the card: the rows' copy
+    to the card, quantize, the walk of all trees, the f64 tree-order sum
+    and the Kahan f32 sum, and the read-back of [n, K] f64."""
+    import torch
+    from lightgbm_tpu_torch.ops import predict as P
+    K = forest.num_classes
+    Xd = torch.from_numpy(Xb).cuda()
+    bins_t = P._quantize_rows_impl(Xd, forest._qt)
+    leaves = P._walk_stacked(bins_t, forest._nodes, forest.trips)
+    raw = P._sum_leaf_values_f64(leaves, forest._leaf_f64, K)
+    return {
+        "copy_in": cuda_ms(lambda: torch.from_numpy(Xb).cuda(), reps=5),
+        "quantize": cuda_ms(lambda: P._quantize_rows_impl(Xd, forest._qt),
+                            reps=5),
+        "walk": cuda_ms(lambda: P._walk_stacked(bins_t, forest._nodes,
+                                                forest.trips), reps=5),
+        "sum_f64": cuda_ms(lambda: P._sum_leaf_values_f64(
+            leaves, forest._leaf_f64, K), reps=5),
+        "sum_kahan_f32": cuda_ms(lambda: P._raw_from_leaves(
+            leaves, forest._nodes, K), reps=5),
+        "copy_out": cuda_ms(lambda: raw.cpu(), reps=5),
+    }
+
+
+def phase_predict(lgb, hist_mod):
+    """Train binary (255 leaves, min_data_in_leaf 100, lr 0.1) for 100
+    rounds on phase 3's 200k Higgs-shaped rows, predict the reference
+    bench's 262,144-row batch three ways against the host walk, time
+    the stacked path, then continue the 50-round model for 50 rounds
+    through ``init_model`` and round-trip it through pickle. Returns the
+    f32 histogram launches of the two training runs."""
+    import pickle
+    import torch
+    X, y = make_higgs_like(SMALL_ROWS + 50_000, seed=7)
+    params = dict(SLICE_PARAMS, num_leaves=255)
+    ds = lgb.Dataset(X[:SMALL_ROWS], label=y[:SMALL_ROWS],
+                     params=params).construct()
+    valid = lgb.Dataset(X[SMALL_ROWS:], label=y[SMALL_ROWS:],
+                        reference=ds).construct()
+    run = train_path(lgb, hist_mod, ds, valid, params, "histogram_f32",
+                     100, tag="phase 12 binary, 255 leaves, 100 rounds")
+    bst = run["booster"]
+    launches = {"phase12_binary_100_rounds": run["launches"]["histogram_f32"]}
+    Xp, _ = make_higgs_like(PREDICT_ROWS, seed=1)
+    n = PREDICT_ROWS
+
+    # the host walk: raw scores, values, leaf ids
+    host_raw, t_host = timed(lambda: bst.predict(
+        Xp, raw_score=True, predict_on_device=False))
+    # the host walk's values: its raw scores through the objective's
+    # convert_output, as GBDT.predict computes them
+    host_val = bst.inner.objective.convert_output(host_raw)
+    host_leaf = bst.predict(Xp, pred_leaf=True, predict_on_device=False)
+    # Booster.predict in auto mode: must take the stacked path
+    bst._stacked_cache = None
+    bst.predict(Xp[:4096])                 # packs and places the forest
+    pred = stacked_predictor(bst)
+    check(pred is not None, "auto mode did not dispatch the stacked path")
+    forest = pred.forest
+    forest.transfer_bytes.update(to_device=0, from_device=0)
+    pred.entries.clear()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    val, t_val = timed(lambda: bst.predict(Xp))
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    moved = dict(forest.transfer_bytes)
+    check(pred.entries == {(pred.model_version, 1 << 16, "value"): 4},
+          "auto mode dispatched %s, not 4 buckets of 65536 rows"
+          % pred.entries)
+    check(np.array_equal(val, host_val),
+          "stacked values differ from the host walk")
+    raw = bst.predict(Xp, raw_score=True)
+    check(np.array_equal(raw, host_raw),
+          "stacked raw scores differ from the host walk")
+    leaf = bst.predict(Xp, pred_leaf=True)
+    check(np.array_equal(leaf, host_leaf),
+          "stacked leaf ids differ from the host walk")
+    # the throughput path: the Kahan f32 sum of the whole batch in one
+    # pass, as the reference bench times it
+    Xd32 = np.ascontiguousarray(Xp, dtype=np.float32)
+    forest.predict_raw_device(Xd32)          # warm
+    fast, t_fast = timed(lambda: forest.predict_raw_device(Xd32))
+    # Kahan's bound (Higham, Accuracy and Stability, 4.3): the error of
+    # the compensated f32 sum of x_1..x_T is at most (2u + O(T u^2)) *
+    # sum |x_i|, u = 2^-24, so at most 2 f32 ulp of sum |x_i|; with
+    # leaf values of one sign (the reference's 512 positive stumps)
+    # that is 2 ulp of the sum itself. x_i are the f32 leaf values the
+    # card adds; their exact sum is taken in f64
+    leaves_dev = forest.leaves_device(Xd32)
+    f32_vals = forest._nodes.leaf_value.gather(1, leaves_dev.long()).double()
+    exact = f32_vals.sum(dim=0).cpu().numpy()
+    mass = f32_vals.abs().sum(dim=0).cpu().numpy()
+    fast = fast[:, 0].cpu().numpy().astype(np.float64)
+    err = np.abs(fast - exact)
+    gap = err / np.spacing(mass.astype(np.float32)).astype(np.float64)
+    check(float(gap.max()) <= 2.0,
+          "raw_device is %.3f f32 ulp of sum |leaf values| from the f64 "
+          "sum of its leaf values" % float(gap.max()))
+    ulp_sum = np.spacing(np.abs(exact).astype(np.float32)).astype(
+        np.float64)
+    gap_sum = err / ulp_sum
+    host_gap = np.abs(fast - host_raw) / ulp_sum
+    # f64 rows: the double-double path, byte-equal to the host walk
+    X64 = Xp[:4096].astype(np.float64) + 1e-12
+    dd = bst.predict(X64)
+    check(any(k[-1] == "dd" for k in pred.entries),
+          "the f64 batch did not take the dd path")
+    check(np.array_equal(dd, bst.predict(X64, predict_on_device=False)),
+          "dd values differ from the host walk")
+    stages = time_dispatch(forest, Xd32[:1 << 16])
+    log("phase 12 predict, %d rows x %d trees (255 leaves, trips %d): "
+        "host walk %.0f rows/s (%.3f s raw); stacked value path (auto "
+        "mode, 4 buckets of 65536) %.0f rows/s (%.3f s); raw_device (one "
+        "pass, Kahan f32) %.0f rows/s (%.3f s); leaf ids equal, value and "
+        "raw byte-equal to the host walk; raw_device from the f64 sum of "
+        "its f32 leaf values: at most %.3f f32 ulp of sum |leaf values| "
+        "(bound 2), in f32 ulp of the sum itself at most %.1f, median "
+        "%.3f, %.2f%% of rows within 2; from the host's f64 sum of f64 "
+        "leaf values: at most %.1f, median %.3f ulp of the sum; 4096 f64 "
+        "rows (dd) byte-equal"
+        % (n, forest.num_trees, forest.trips, n / t_host, t_host,
+           n / t_val, t_val, n / t_fast, t_fast, float(gap.max()),
+           float(gap_sum.max()), float(np.median(gap_sum)),
+           100.0 * float(np.mean(gap_sum <= 2.0)), float(host_gap.max()),
+           float(np.median(host_gap))))
+    log("phase 12 ms per 65536-row bucket on the card (CUDA events): %s; "
+        "sum of the value path's stages %.3f ms; bytes to the card %d, "
+        "from the card %d for the %d-row value call; peak memory above "
+        "the model %.3f GiB"
+        % (json.dumps({k: round(v, 4) for k, v in stages.items()}),
+           sum(v for k, v in stages.items() if k != "sum_kahan_f32"),
+           moved["to_device"], moved["from_device"], n, peak / 2 ** 30))
+
+    # continued training on the card from the model after 50 rounds
+    yv = y[SMALL_ROWS:]
+    auc50 = auc(yv, bst.predict(X[SMALL_ROWS:], num_iteration=50))
+    auc100 = auc(yv, bst.predict(X[SMALL_ROWS:]))
+    first50 = lgb.Booster(model_str=bst.model_to_string(num_iteration=50))
+    hist_mod.reset_launch_counts()
+    cont = lgb.train(params, ds, num_boost_round=50, valid_sets=[valid],
+                     valid_names=["held_out"], init_model=first50)
+    stats = cont.inner.learner.grow_stats
+    dev = hist_mod.device_launch_counts()["histogram_f32"]
+    check(cont.num_trees() == 100 and stats["roots"] == 50
+          and dev == stats["roots"] + stats["steps"],
+          "continued run: %d trees, roots %d, steps %d, launches %d"
+          % (cont.num_trees(), stats["roots"], stats["steps"], dev))
+    launches["phase12_continued_50_rounds"] = dev
+    auc_cont = auc(yv, cont.predict(X[SMALL_ROWS:]))
+    check(auc_cont >= auc50, "held-out AUC fell in continued training: "
+          "%.6f after 50 rounds, %.6f after 50 more" % (auc50, auc_cont))
+    back = pickle.loads(pickle.dumps(cont))
+    check(np.array_equal(back.predict(Xp), cont.predict(Xp)),
+          "a pickle round trip predicts other values")
+    log("phase 12 continued training: held-out AUC %.6f after 50 rounds, "
+        "%.6f after 50 more through init_model (%.6f for 100 rounds in "
+        "one run); %d launches of histogram_f32 == %d roots + %d steps; "
+        "pickle round trip predicts the same %d values"
+        % (auc50, auc_cont, auc100, dev, stats["roots"], stats["steps"], n))
+    return launches
+
+
 def tree_splits_of(tree):
     ni = tree.num_internal
     return (tree.num_leaves, list(tree.split_feature[:ni]),
@@ -1469,7 +1712,7 @@ def time_widths(hist_mod, widths, rows_out):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
@@ -1569,6 +1812,9 @@ def main(argv=None) -> int:
         by_path["histogram_f32"]["phase11_other_objectives"] = \
             phase_other_objectives(lgb, hist_mod)
         lap("phase 11")
+    if 12 in phases:
+        by_path["histogram_f32"].update(phase_predict(lgb, hist_mod))
+        lap("phase 12")
     if rows is not None:
         for row in rows:
             row["launches_by_path"] = by_path[row["name"]]

@@ -6,8 +6,10 @@ the score update run on the learner's device; the host keeps the model
 (a list of host ``Tree``s) and evaluates metrics. The training score
 update gathers the new tree's leaf values over the learner's final
 row->leaf partition instead of re-walking the tree (the reference's
-CUDADataPartition::UpdateTrainScore trick); validation scores walk the
-binned validation rows on the device.
+CUDADataPartition::UpdateTrainScore trick); validation scores, rollback
+and the replay of an ``init_model`` walk binned rows on the device
+(``ops/predict.py``). Prediction over raw rows is the host walk here;
+``Booster.predict`` sends device batches through ``serve/``.
 
 Multiclass objectives grow K trees per iteration, one per class column
 of the [N, K] score (the model list is iteration-major: tree ``i * K +
@@ -23,12 +25,12 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..io.binning import MissingType
 from ..io.dataset import BinnedDataset
 from ..metric import Metric, create_metric, resolve_metric_names
-from ..models.tree import Tree, kDefaultLeftMask, parse_tree_blocks
+from ..models.tree import Tree, parse_tree_blocks
 from ..objective import (ObjectiveFunction, create_objective,
                          load_objective_from_string)
+from ..ops.predict import build_device_tree, tree_output_on_device
 from ..treelearner import create_tree_learner
 from ..utils import log
 from .sample_strategy import create_sample_strategy
@@ -36,49 +38,20 @@ from .sample_strategy import create_sample_strategy
 kEpsilon = 1e-15
 
 
-def tree_outputs_by_bin(tree: Tree, bins: torch.Tensor,
+def device_tree_outputs(tree: Tree, bins: torch.Tensor,
                         bin_meta) -> Optional[torch.Tensor]:
     """[n] f32 output of one tree over binned rows ``bins`` [n, F]
-    (uint8, any device): a lockstep walk, one level per pass (the
-    reference's ops/predict.py device traversal). ``bin_meta`` is
-    (nan_bins, zero_bins, missing_types) per inner feature. Returns None
-    for a zero-valued stump."""
-    n = bins.shape[0]
-    dev = bins.device
-    ni = tree.num_internal
-    if ni == 0:
+    (uint8, any device), by the walk of ``ops/predict.py``. ``bin_meta``
+    is (nan_bins, zero_bins, missing_types) per inner feature. Returns
+    None for a zero-valued stump."""
+    dtree = build_device_tree(tree, bin_meta, bins.device)
+    if dtree is None:
         if tree.leaf_value[0] != 0.0:
-            return torch.full((n,), float(np.float32(tree.leaf_value[0])),
-                              dtype=torch.float32, device=dev)
+            return torch.full((bins.shape[0],),
+                              float(np.float32(tree.leaf_value[0])),
+                              dtype=torch.float32, device=bins.device)
         return None
-    nan_bins, zero_bins, missing_types = bin_meta
-    f = tree.split_feature_inner[:ni]
-    dt = tree.decision_type[:ni]
-
-    def t(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
-
-    feat = t(f, np.int64)
-    tbin = t(tree.threshold_in_bin[:ni], np.int32)
-    dl = t((dt & kDefaultLeftMask) != 0, np.bool_)
-    nb = t(np.where(missing_types[f] == MissingType.NAN, nan_bins[f], -1),
-           np.int32)
-    zb = t(np.where(missing_types[f] == MissingType.ZERO, zero_bins[f], -1),
-           np.int32)
-    left = t(tree.left_child[:ni], np.int32)
-    right = t(tree.right_child[:ni], np.int32)
-    lv = t(tree.leaf_value[:tree.num_leaves], np.float32)
-    rows = torch.arange(n, device=dev)
-    node = torch.zeros(n, dtype=torch.int32, device=dev)
-    for _ in range(int(tree.leaf_depth[:tree.num_leaves].max())):
-        nd = node.clamp(min=0).long()
-        b = bins[rows, feat[nd]].to(torch.int32)
-        gl = b <= tbin[nd]
-        gl = torch.where(b == nb[nd], dl[nd], gl)
-        gl = torch.where(b == zb[nd], dl[nd], gl)
-        node = torch.where(node >= 0,
-                           torch.where(gl, left[nd], right[nd]), node)
-    return lv[(~node).long()]
+    return tree_output_on_device(bins, dtree)
 
 
 class ValidData:
@@ -99,10 +72,11 @@ class ValidData:
     def scores(self) -> np.ndarray:
         return self.scores_dev.cpu().numpy().astype(np.float64)
 
-    def add_tree(self, tree: Tree, class_id: int, bin_meta) -> None:
-        delta = tree_outputs_by_bin(tree, self.bins, bin_meta)
+    def add_tree(self, tree: Tree, class_id: int, bin_meta,
+                 sign: float = 1.0) -> None:
+        delta = device_tree_outputs(tree, self.bins, bin_meta)
         if delta is not None:
-            self.scores_dev[:, class_id] += delta
+            self.scores_dev[:, class_id].add_(delta, alpha=sign)
 
     def add_const(self, val: float, class_id: int) -> None:
         self.scores_dev[:, class_id] += float(np.float32(val))
@@ -136,7 +110,11 @@ class GBDT:
         self.num_init_iteration = 0
         self.best_iteration = -1
         self.shrinkage_rate = float(config.learning_rate)
-        self.num_class = config.num_tree_per_iteration
+        # objective=none takes num_class trees per iteration from a
+        # callable objective (class-major gradients)
+        self.num_class = (max(int(config.num_class), 1)
+                          if config.objective == "custom"
+                          else config.num_tree_per_iteration)
         self.num_tree_per_iteration = self.num_class
         if train_data is not None:
             self._init_train(train_data)
@@ -151,11 +129,13 @@ class GBDT:
     def _init_train(self, train_data: BinnedDataset) -> None:
         config = self.config
         config.check_slice()
-        self.objective = create_objective(config.objective, config)
-        self.objective.init(train_data.metadata, train_data.num_data,
-                            self.device)
-        K = self.num_tree_per_iteration = \
-            self.objective.num_model_per_iteration
+        K = self.num_class
+        if config.objective != "custom":
+            self.objective = create_objective(config.objective, config)
+            self.objective.init(train_data.metadata, train_data.num_data,
+                                self.device)
+            K = self.objective.num_model_per_iteration
+        self.num_tree_per_iteration = K
         self.num_data = train_data.num_data
         self.max_feature_idx = train_data.num_total_features - 1
         self.feature_names = list(train_data.feature_names)
@@ -168,8 +148,9 @@ class GBDT:
         self._has_init_score = train_data.metadata.init_score is not None
         self.train_score = torch.from_numpy(initial_score(
             train_data.metadata, self.num_data, K)).to(self.device)
-        self.class_need_train = [self.objective.class_need_train(k)
-                                 for k in range(K)]
+        self.class_need_train = [
+            self.objective is None or self.objective.class_need_train(k)
+            for k in range(K)]
         self.train_metrics: List[Metric] = []
         self.valid_data: List[ValidData] = []
         self._bin_meta = (
@@ -198,7 +179,7 @@ class GBDT:
     # ------------------------------------------------------------------
     def _boost_from_average(self, class_id: int) -> float:
         """reference: GBDT::BoostFromAverage (gbdt.cpp:309)."""
-        if self.models or self._has_init_score:
+        if self.models or self._has_init_score or self.objective is None:
             return 0.0
         if self.config.boost_from_average:
             init_score = self.objective.boost_from_score(class_id)
@@ -216,14 +197,27 @@ class GBDT:
         for vd in self.valid_data:
             vd.add_const(val, class_id)
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, grad: Optional[np.ndarray] = None,
+                       hess: Optional[np.ndarray] = None) -> bool:
         """One boosting iteration: K trees, one per class (reference:
-        GBDT::TrainOneIter, gbdt.cpp:334). Returns True when training
-        should stop (no tree of the iteration could split)."""
+        GBDT::TrainOneIter, gbdt.cpp:334). ``grad`` and ``hess`` (host
+        arrays of N values, or K * N class-major ones) come from a
+        callable objective; without them the objective computes them.
+        Returns True when training should stop (no tree of the iteration
+        could split)."""
         K = self.num_tree_per_iteration
-        init_scores = [self._boost_from_average(k) for k in range(K)]
-        score = self.train_score[:, 0] if K == 1 else self.train_score
-        grad, hess = self.objective.get_gradients(score)
+        if grad is None or hess is None:
+            if self.objective is None:
+                log.fatal("No objective function provided: objective=none "
+                          "takes its gradients from a callable objective "
+                          "(train's params['objective'], or "
+                          "Booster.update(fobj=...); ROADMAP item 18a)")
+            init_scores = [self._boost_from_average(k) for k in range(K)]
+            score = self.train_score[:, 0] if K == 1 else self.train_score
+            grad, hess = self.objective.get_gradients(score)
+        else:
+            init_scores = [0.0] * K
+            grad, hess = (self._host_gradient(v) for v in (grad, hess))
         grad, hess, bag = self.sample_strategy.bagging(self.iter, grad, hess)
         should_continue = False
         new_trees = []
@@ -236,7 +230,8 @@ class GBDT:
                 tree, leaf_of_row = self.learner.train(gk, hk, bag)
             if tree is not None and tree.num_leaves > 1:
                 should_continue = True
-                if self.objective.is_renew_tree_output:
+                if (self.objective is not None
+                        and self.objective.is_renew_tree_output):
                     self._renew_tree_output(tree, leaf_of_row, k, bag)
                 tree.apply_shrinkage(self.shrinkage_rate)
                 self._update_score(tree, leaf_of_row, k)
@@ -247,7 +242,8 @@ class GBDT:
                 # constant trees the first iteration (reference:
                 # gbdt.cpp:407-418)
                 if len(self.models) < K:
-                    if (not self.config.boost_from_average
+                    if (self.objective is not None
+                            and not self.config.boost_from_average
                             and not self._has_init_score):
                         init_scores[k] = self.objective.boost_from_score(k)
                         self._add_const_score(init_scores[k], k)
@@ -261,6 +257,82 @@ class GBDT:
         self.models.extend(new_trees)
         self.iter += 1
         return not should_continue
+
+    def _host_gradient(self, v) -> torch.Tensor:
+        """A callable objective's gradient or hessian on the device:
+        f32 [N], or [N, K] from K * N class-major values."""
+        t = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(v, dtype=np.float32).reshape(-1))).to(self.device)
+        K = self.num_tree_per_iteration
+        if t.numel() != K * self.num_data:
+            log.fatal("a custom objective returned %d values; expected "
+                      "num_data * num_class = %d"
+                      % (t.numel(), K * self.num_data))
+        return t if K == 1 else t.view(K, self.num_data).t().contiguous()
+
+    def rollback_one_iter(self) -> None:
+        """Drop the last iteration's trees and take their outputs off the
+        training and validation scores (reference:
+        GBDT::RollbackOneIter, gbdt.cpp:438)."""
+        if self.iter <= 0:
+            return
+        K = self.num_tree_per_iteration
+        bins = self.learner.bins
+        for k in range(K):
+            tree = self.models[-K + k]
+            delta = device_tree_outputs(tree, bins, self._bin_meta)
+            if delta is not None:
+                self.train_score[:, k].sub_(delta)
+            for vd in self.valid_data:
+                vd.add_tree(tree, k, self._bin_meta, sign=-1.0)
+        del self.models[-K:]
+        self.iter -= 1
+
+    def replay_init_model(self, models: List[Tree]) -> None:
+        """Continued training: preload ``models`` (text-loaded trees),
+        re-link them to this dataset's bins and add their f32 outputs to
+        the training scores in tree order (reference: engine.train's
+        ``init_model`` replay, lightgbm_tpu/engine.py:81-101). No
+        boost-from-average follows."""
+        self.models = list(models)
+        self.num_init_iteration = self.current_iteration
+        self.align_trees_to_dataset(self.train_data)
+        bins = self.learner.bins
+        K = self.num_tree_per_iteration
+        for i, tree in enumerate(self.models):
+            delta = device_tree_outputs(tree, bins, self._bin_meta)
+            if delta is not None:
+                self.train_score[:, i % K] += delta
+        self._has_init_score = True
+
+    def align_trees_to_dataset(self, dataset: BinnedDataset) -> None:
+        """Give text-loaded trees the bin-space node fields
+        (``split_feature_inner``, ``threshold_in_bin``) of ``dataset``'s
+        bin mappers, for the binned walks (reference:
+        ``GBDT.align_trees_to_dataset``, gbdt.py:1231)."""
+        inner_of = {f: j for j, f in enumerate(dataset.used_feature_map)}
+        for tree in self.models:
+            for node in range(tree.num_internal):
+                inner = inner_of.get(int(tree.split_feature[node]), -1)
+                tree.split_feature_inner[node] = max(inner, 0)
+                if inner >= 0:
+                    tree.threshold_in_bin[node] = \
+                        dataset.bin_mappers[inner].value_to_bin(
+                            np.array([tree.threshold[node]]))[0]
+
+    def reset_config(self, config: Config) -> None:
+        """Take new parameters between iterations (reference:
+        GBDT::ResetConfig and ``ops_refresh.refresh_learner_params``):
+        the shrinkage, the bagging draw and the learner's split
+        parameters and depth limit. The captured split step holds the
+        old ones as constants, so it is dropped and the next tree
+        captures it again."""
+        config.check_slice()
+        self.config = config
+        self.shrinkage_rate = float(config.learning_rate)
+        if self.train_data is not None:
+            self.learner.reset_config(config)
+            self.sample_strategy.refresh_config(config)
 
     def _renew_tree_output(self, tree: Tree, leaf_of_row: torch.Tensor,
                            class_id: int, bag: Optional[torch.Tensor]
@@ -348,8 +420,13 @@ class GBDT:
 
     def predict(self, X: np.ndarray, raw_score: bool = False,
                 start_iteration: int = 0, num_iteration: int = -1,
-                **kwargs) -> np.ndarray:
-        raw = self.predict_raw(X, start_iteration, num_iteration, **kwargs)
+                pred_early_stop: Optional[bool] = None,
+                pred_early_stop_freq: Optional[int] = None,
+                pred_early_stop_margin: Optional[float] = None
+                ) -> np.ndarray:
+        raw = self.predict_raw(X, start_iteration, num_iteration,
+                               pred_early_stop, pred_early_stop_freq,
+                               pred_early_stop_margin)
         if raw_score or self.objective is None:
             return raw
         return self.objective.convert_output(raw)
@@ -412,6 +489,44 @@ class GBDT:
         out += "\nparameters:\n%s\nend of parameters\n" % \
             self.config.to_param_string()
         return out
+
+    def dump_model(self, start_iteration: int = 0, num_iteration: int = -1,
+                   importance_type: str = "split") -> Dict:
+        """The model as a JSON-serializable dict (reference:
+        GBDT::DumpModel, gbdt_model_text.cpp:21-170)."""
+        d: Dict = {
+            "name": self.submodel_name,
+            "version": "v3",
+            "num_class": self.num_class,
+            "num_tree_per_iteration": self.num_tree_per_iteration,
+            "label_index": self.label_idx,
+            "max_feature_idx": self.max_feature_idx,
+        }
+        if self.objective is not None:
+            d["objective"] = self.objective.to_string()
+        d["average_output"] = False
+        d["feature_names"] = list(self.feature_names)
+        d["monotone_constraints"] = []
+        infos: Dict = {}
+        for name, info in zip(self.feature_names, self.feature_infos):
+            if info.startswith("["):
+                lo, hi = info[1:-1].split(":")
+                infos[name] = {"min_value": float(lo),
+                               "max_value": float(hi), "values": []}
+            elif info != "none":
+                vals = [int(v) for v in info.split(":")]
+                infos[name] = {"min_value": min(vals),
+                               "max_value": max(vals), "values": vals}
+        d["feature_infos"] = infos
+        d["tree_info"] = [dict(tree.to_json(), tree_index=i)
+                          for i, tree in enumerate(self._used_models(
+                              start_iteration, num_iteration))]
+        imp = self.feature_importance(importance_type, num_iteration)
+        d["feature_importances"] = {
+            self.feature_names[i]: (int(imp[i]) if importance_type == "split"
+                                    else float(imp[i]))
+            for i in range(len(imp)) if imp[i] > 0}
+        return d
 
     def load_model_from_string(self, s: str) -> None:
         """reference: GBDT::LoadModelFromString

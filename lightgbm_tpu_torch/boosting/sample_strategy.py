@@ -44,6 +44,11 @@ class SampleStrategy:
     def reset_metadata(self, metadata) -> None:
         pass
 
+    def refresh_config(self, config) -> None:
+        """Re-read the config after ``reset_parameter``; the default
+        strategy keeps nothing from it."""
+        self.config = config
+
     def bagging(self, iter_idx: int, grad: torch.Tensor, hess: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor,
                            Optional[torch.Tensor]]:
@@ -73,12 +78,27 @@ class BaggingStrategy(SampleStrategy):
 
     def reset_metadata(self, metadata) -> None:
         if self.balanced:
-            is_pos = np.asarray(metadata.label) > 0
-            frac = np.where(is_pos,
-                            np.float32(self.config.pos_bagging_fraction),
-                            np.float32(self.config.neg_bagging_fraction))
-            self._frac = torch.from_numpy(frac.astype(np.float32)).to(
-                self.device)
+            self._is_pos = np.asarray(metadata.label) > 0
+            self._frac = self._balanced_frac()
+
+    def _balanced_frac(self) -> torch.Tensor:
+        frac = np.where(self._is_pos,
+                        np.float32(self.config.pos_bagging_fraction),
+                        np.float32(self.config.neg_bagging_fraction))
+        return torch.from_numpy(frac.astype(np.float32)).to(self.device)
+
+    def refresh_config(self, config) -> None:
+        """A bagging fraction or frequency set by ``reset_parameter``
+        takes effect at the next draw (reference:
+        ``BaggingStrategy.refresh_config``); the current bag stays."""
+        self.config = config
+        self.freq = max(int(config.bagging_freq), 1)
+        if self.balanced:
+            self._frac = self._balanced_frac()
+        else:
+            self._frac = torch.tensor(float(config.bagging_fraction),
+                                      dtype=torch.float32,
+                                      device=self.device)
 
     def bagging(self, iter_idx, grad, hess):
         d = int(iter_idx) // self.freq

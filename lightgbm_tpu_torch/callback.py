@@ -2,8 +2,9 @@
 
 Port of ``lightgbm_tpu/callback.py`` (API after the reference's
 python-package/lightgbm/callback.py): ``CallbackEnv``,
-``log_evaluation`` (:81), ``record_evaluation`` (:147) and
-``early_stopping`` (:375, with min_delta support).
+``log_evaluation`` (:81), ``record_evaluation`` (:147),
+``reset_parameter`` (:211) and ``early_stopping`` (:375, with min_delta
+support).
 """
 from __future__ import annotations
 
@@ -72,6 +73,35 @@ def record_evaluation(eval_result: Dict[str, Dict[str, List[float]]]
             eval_result[data_name][eval_name].append(result)
 
     _callback.order = 20
+    return _callback
+
+
+def reset_parameter(**kwargs: Union[list, Callable]) -> Callable:
+    """reference: callback.py:211. Per-iteration parameter schedules: a
+    list indexed by the iteration, or a callable of it; applied through
+    ``Booster.reset_parameter`` before each iteration."""
+
+    def _callback(env: CallbackEnv) -> None:
+        new_parameters = {}
+        for key, value in kwargs.items():
+            if isinstance(value, list):
+                if len(value) != env.end_iteration - env.begin_iteration:
+                    raise ValueError(
+                        "Length of list %r should equal to "
+                        "'num_boost_round'." % key)
+                new_param = value[env.iteration - env.begin_iteration]
+            elif callable(value):
+                new_param = value(env.iteration - env.begin_iteration)
+            else:
+                raise ValueError("Only list and callable values are "
+                                 "supported as a mapping from boosting "
+                                 "round index to new parameter value.")
+            new_parameters[key] = new_param
+        if new_parameters:
+            env.model.reset_parameter(new_parameters)
+
+    _callback.before_iteration = True
+    _callback.order = 10
     return _callback
 
 

@@ -476,8 +476,6 @@ class Config:
         not here yet (never ignore one silently). Each message names the
         ROADMAP queue-1 item that will bring it."""
         unsupported = log.unsupported
-        if self.objective == "custom":
-            unsupported("a custom objective", "item 18")
         if self.boosting != "gbdt":
             unsupported("boosting=%s" % self.boosting, "item 16")
         if self.data_sample_strategy == "goss":

@@ -569,15 +569,23 @@ int copy_unit_for(long long row_bytes, long long stride, const void* base) {
   return 1;
 }
 
+// the shared-memory attribute is a property of the function on each
+// device, so it is set once per (instance, device)
+constexpr int kMaxDevices = 64;
+
 template <typename GH, typename ACC, int KPW, int CV>
 cudaError_t launch_rows(dim3 grid, int smem, cudaStream_t st, const Args& a) {
-  static bool configured = false;  // per instance: allow the full 227 KB
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
+  static bool configured[kMaxDevices] = {};  // allow the full 227 KB
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(
         hist_rows_kernel<GH, ACC, KPW, CV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured[dev] = true;
   }
   hist_rows_kernel<GH, ACC, KPW, CV><<<grid, kThreads, smem, st>>>(a);
   return cudaGetLastError();

@@ -1,16 +1,18 @@
 """Training entry point ``train``.
 
 Port of the per-iteration loop of ``lightgbm_tpu/engine.py::train``
-(API after the reference's python-package/lightgbm/engine.py:36):
-dataset construction, validation sets aligned to the training bins,
-evaluation and the callbacks ``log_evaluation``, ``record_evaluation``
-and ``early_stopping`` (also armed by the ``early_stopping_round``
-param). Batched iterations, checkpoints and ``init_model`` are later
-slices.
+(API after the reference's python-package/lightgbm/engine.py:36), with
+the reference's arguments in the reference's order: dataset
+construction, validation sets aligned to the training bins, a callable
+objective, ``feval``, ``init_model`` (continued training), evaluation and
+the callbacks (``early_stopping`` is also armed by the
+``early_stopping_round`` param). Checkpoints (``checkpoint_dir``,
+``checkpoint_freq``, ``resume``) are ROADMAP item 19 and raise; batched
+iterations are item 17.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
 from . import callback as callback_mod
 from .basic import Booster, Dataset
@@ -22,26 +24,57 @@ _NUM_ROUND_KEYS = ("num_iterations", "num_iteration", "n_iter", "num_tree",
                    "num_boost_round", "n_estimators", "max_iter")
 
 
+def _pop_callable_objective(params: Dict[str, Any]):
+    """Take a callable objective out of ``params`` in place, leaving
+    ``"none"`` (Config parses strings only); returns it, or None."""
+    obj = params.get("objective")
+    if callable(obj):
+        params["objective"] = "none"
+        return obj
+    return None
+
+
 def train(params: Dict[str, Any], train_set: Dataset,
           num_boost_round: int = 100,
           valid_sets: Optional[List[Dataset]] = None,
           valid_names: Optional[List[str]] = None,
+          feval: Optional[Union[Callable, List[Callable]]] = None,
+          init_model: Optional[Union[str, Booster]] = None,
+          keep_training_booster: bool = False,
           callbacks: Optional[List[Callable]] = None,
-          init_model=None) -> Booster:
+          checkpoint_dir: Optional[str] = None,
+          checkpoint_freq: int = 0,
+          resume: bool = False) -> Booster:
     """Train a GBDT model (reference: engine.py:36). Runs on
-    ``params["device_type"]``: ``cuda`` by default, ``cpu`` on request."""
+    ``params["device_type"]``: ``cuda`` by default, ``cpu`` on request.
+
+    ``params["objective"]`` may be a callable ``fobj(preds, train_set) ->
+    (grad, hess)``. ``init_model`` (a Booster or a model file) continues
+    training: its trees are kept, and their outputs start the training
+    scores. The returned Booster keeps its training state whatever
+    ``keep_training_booster`` says, as in the reference."""
+    if checkpoint_dir is not None or checkpoint_freq > 0 or resume:
+        unsupported("checkpoints (checkpoint_dir / checkpoint_freq / "
+                    "resume)", "item 19")
     params = dict(params or {})
-    if callable(params.get("objective")):
-        unsupported("a callable (custom) objective", "item 18")
-    if init_model is not None:
-        unsupported("init_model (continued training)", "item 18")
+    fobj = _pop_callable_objective(params)
     cfg = Config.from_params(params)
     if any(k in params for k in _NUM_ROUND_KEYS):
         num_boost_round = cfg.num_iterations
 
-    train_set.params = dict(params, **(train_set.params or {}))
+    merged = dict(params, **(train_set.params or {}))
+    fobj = _pop_callable_objective(merged) or fobj
+    train_set.params = merged
     train_set.construct()
     booster = Booster(params=params, train_set=train_set)
+    if init_model is not None:
+        if isinstance(init_model, Booster):
+            init_str = init_model.model_to_string()
+        else:
+            with open(init_model) as fh:
+                init_str = fh.read()
+        base = Booster(params=params, model_str=init_str)
+        booster.inner.replay_init_model(base.inner.models)
 
     valid_sets = valid_sets or []
     valid_names = valid_names or []
@@ -77,11 +110,11 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 model=booster, params=params, iteration=i,
                 begin_iteration=0, end_iteration=num_boost_round,
                 evaluation_result_list=None))
-        finished = booster.update()
+        finished = booster.update(fobj=fobj)
         evaluation_result_list = []
         if eval_train:
-            evaluation_result_list.extend(booster.eval_train())
-        evaluation_result_list.extend(booster.eval_valid())
+            evaluation_result_list.extend(booster.eval_train(feval))
+        evaluation_result_list.extend(booster.eval_valid(feval))
         try:
             for cb in callbacks_after:
                 cb(callback_mod.CallbackEnv(

@@ -27,6 +27,7 @@ import numpy as np
 from ..io.binning import MissingType, kZeroThreshold
 from ..utils.log import unsupported
 
+kCategoricalMask = 1
 kDefaultLeftMask = 2
 
 
@@ -191,6 +192,57 @@ class Tree:
         lines += [f"shrinkage={_fmt(self.shrinkage)}", ""]
         return "\n".join(lines)
 
+    def _node_to_json(self, index: int) -> dict:
+        """reference: Tree::NodeToJSON (src/io/tree.cpp:455-520).
+        Iterative (post-order): a chain-shaped tree can be num_leaves - 1
+        deep, past Python's recursion limit."""
+        order: List[int] = []
+        stack = [index]
+        while stack:
+            idx = stack.pop()
+            order.append(idx)
+            if idx >= 0:
+                stack.append(int(self.left_child[idx]))
+                stack.append(int(self.right_child[idx]))
+        memo: dict = {}
+        for idx in reversed(order):
+            if idx < 0:
+                leaf = ~idx
+                memo[idx] = {
+                    "leaf_index": int(leaf),
+                    "leaf_value": float(self.leaf_value[leaf]),
+                    "leaf_weight": float(self.leaf_weight[leaf]),
+                    "leaf_count": int(self.leaf_count[leaf]),
+                }
+                continue
+            dt = int(self.decision_type[idx])
+            memo[idx] = {
+                "split_index": int(idx),
+                "split_feature": int(self.split_feature[idx]),
+                "split_gain": float(self.split_gain[idx]),
+                "threshold": float(self.threshold[idx]),
+                "decision_type": "<=",
+                "default_left": bool(dt & kDefaultLeftMask),
+                "missing_type": ("None", "Zero", "NaN", "NaN")[(dt >> 2) & 3],
+                "internal_value": float(self.internal_value[idx]),
+                "internal_weight": float(self.internal_weight[idx]),
+                "internal_count": int(self.internal_count[idx]),
+                "left_child": memo[int(self.left_child[idx])],
+                "right_child": memo[int(self.right_child[idx])],
+            }
+        return memo[index]
+
+    def to_json(self) -> dict:
+        """JSON-dump structure (reference: Tree::ToJSON,
+        src/io/tree.cpp:411-429)."""
+        d = {"num_leaves": int(self.num_leaves), "num_cat": 0,
+             "shrinkage": float(self.shrinkage)}
+        if self.num_leaves == 1:
+            d["tree_structure"] = {"leaf_value": float(self.leaf_value[0])}
+        else:
+            d["tree_structure"] = self._node_to_json(0)
+        return d
+
     @classmethod
     def from_string(cls, s: str) -> "Tree":
         """Parse the text format (reference: Tree::Tree(const char*, ...),
@@ -251,6 +303,21 @@ class Tree:
     @property
     def num_internal(self) -> int:
         return max(self.num_leaves - 1, 0)
+
+    def structure_depth(self) -> int:
+        """Most root-to-leaf hops, from the child arrays alone (the trip
+        count of the device walks; ``leaf_depth`` is a train-time field
+        that trees carried across from other sources may leave zero)."""
+        best = 0
+        stack = [(0, 0)] if self.num_leaves > 1 else []
+        while stack:
+            idx, d = stack.pop()
+            if idx < 0:
+                best = max(best, d)
+                continue
+            stack.append((int(self.left_child[idx]), d + 1))
+            stack.append((int(self.right_child[idx]), d + 1))
+        return best
 
 
 def _sane(v: float) -> float:

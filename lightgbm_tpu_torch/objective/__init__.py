@@ -2,8 +2,9 @@
 
 Every objective of the reference's ``_OBJECTIVES`` table (reference:
 src/objective/objective_function.cpp:69-104). A custom objective (a
-Python callable, or ``objective=none``) is the Python surface of ROADMAP
-item 18: ``Config.check_slice`` raises for it.
+Python callable passed as ``objective``, with ``objective=none`` in the
+config) has no object here: its gradients reach
+``GBDT.train_one_iter`` from ``Booster.update(fobj=...)``.
 """
 from __future__ import annotations
 
@@ -45,6 +46,10 @@ _STRING_PARAMS = {"sigmoid": float, "num_class": int, "alpha": float}
 
 
 def create_objective(name: str, config) -> ObjectiveFunction:
+    if name == "custom":
+        log.fatal("objective=none has no objective object: its gradients "
+                  "come from a callable objective (Booster.update(fobj=...)"
+                  "; ROADMAP item 18a)")
     if name not in _OBJECTIVES:
         log.fatal("Unknown objective type name: %s" % name)
     return _OBJECTIVES[name](config)

@@ -295,29 +295,32 @@ def histogram_cuda(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
     out = torch.empty((F, num_bins, C), dtype=out_dtype, device=bins.device)
     counter = _device_counter(name, bins.device)
     stream = torch.cuda.current_stream(bins.device).cuda_stream
-    if count is None:
-        scratch = (None if plan.scratch_shape is None else
-                   torch.empty(plan.scratch_shape, dtype=out_dtype,
-                               device=bins.device))
-        code = _kernel_fn(symbol)(
-            bins.data_ptr(), gh.data_ptr(),
-            None if idx is None else idx.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            counter.data_ptr(), S, F, num_bins, C, plan.features_per_group,
-            plan.groups, plan.tile_rows, plan.blocks, plan.rows_per_block,
-            plan.smem_bytes, stream)
-    else:
-        max_blocks = max(1, num_sms // plan.groups)
-        scratch = (None if max_blocks == 1 else
-                   torch.empty((max_blocks, F, num_bins, C),
-                               dtype=out_dtype, device=bins.device))
-        code = _kernel_fn(symbol + "_dev")(
-            bins.data_ptr(), gh.data_ptr(), idx.data_ptr(),
-            count.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            counter.data_ptr(), F, num_bins, C, plan.features_per_group,
-            plan.groups, plan.tile_rows, max_blocks, MIN_ROWS_PER_BLOCK,
-            plan.smem_bytes, stream)
+    # the ctypes entries launch on the thread's current device: make it
+    # the tensors' one
+    with torch.cuda.device(bins.device):
+        if count is None:
+            scratch = (None if plan.scratch_shape is None else
+                       torch.empty(plan.scratch_shape, dtype=out_dtype,
+                                   device=bins.device))
+            code = _kernel_fn(symbol)(
+                bins.data_ptr(), gh.data_ptr(),
+                None if idx is None else idx.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                counter.data_ptr(), S, F, num_bins, C,
+                plan.features_per_group, plan.groups, plan.tile_rows,
+                plan.blocks, plan.rows_per_block, plan.smem_bytes, stream)
+        else:
+            max_blocks = max(1, num_sms // plan.groups)
+            scratch = (None if max_blocks == 1 else
+                       torch.empty((max_blocks, F, num_bins, C),
+                                   dtype=out_dtype, device=bins.device))
+            code = _kernel_fn(symbol + "_dev")(
+                bins.data_ptr(), gh.data_ptr(), idx.data_ptr(),
+                count.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                counter.data_ptr(), F, num_bins, C,
+                plan.features_per_group, plan.groups, plan.tile_rows,
+                max_blocks, MIN_ROWS_PER_BLOCK, plan.smem_bytes, stream)
     launch_counts[name] += 1
     if code != 0:
         raise LightGBMError("histogram kernel launch failed: %s (cuda "

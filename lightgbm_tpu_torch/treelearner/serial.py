@@ -237,6 +237,18 @@ class SerialTreeLearner:
             ("roots", "steps", "replays", "captures", "capture_ms",
              "flag_reads", "record_reads"), 0)
 
+    def reset_config(self, config) -> None:
+        """New split parameters, depth limit and loop choice between
+        trees (reference: ``ops_refresh.refresh_learner_params``). The
+        captured step holds the old ones (its parameter tensors and
+        ``max_depth``), so the graph is dropped and the next tree
+        captures it again."""
+        self.config = config
+        self.params = SplitParams.from_config(config, self.device)
+        self.max_depth = int(config.max_depth)
+        self._fused_growth = bool(config.tpu_fused_tree)
+        self._graph = None
+
     def _init_quantization(self, config) -> None:
         """Quantized-gradient state: the per-row magnitude cap (overflow
         discipline against the int32 accumulator), the row dtype, the

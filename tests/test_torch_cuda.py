@@ -355,3 +355,86 @@ def test_device_counter_counts_replays(cuda):
     assert dev == stats["roots"] + 1 + stats["replays"]
     assert stats["replays"] >= sum(t.num_leaves - 1
                                    for t in b.inner.models) - 1
+
+
+@pytest.mark.parametrize("objective,extra", [
+    ("binary", {}), ("multiclass", {"num_class": 3})])
+def test_stacked_predict_on_card_equals_host_walk(cuda, objective, extra):
+    """Auto mode on a card booster sends 256+ rows through the stacked
+    forest; leaves, values and raw scores are byte-equal to the host
+    walk, f64 rows (the dd path) too; the Kahan f32 sum stays within
+    2e-5 of the f64 one."""
+    rng = np.random.RandomState(10)
+    X = rng.randn(6000, 8).astype(np.float32).astype(np.float64)
+    X[rng.rand(6000) < 0.1, 3] = np.nan
+    y = ((X[:, 0] > 0).astype(int) + (X[:, 1] > 0.5)
+         if objective == "multiclass" else X[:, 0] + X[:, 1] > 0)
+    b = lgb.train(dict(extra, objective=objective, num_leaves=31,
+                       verbose=-1), lgb.Dataset(X, label=y.astype(float)),
+                  num_boost_round=5)
+    got = b.predict(X)
+    assert b._stacked_cache[1].entries, "auto mode did not dispatch"
+    np.testing.assert_array_equal(got, b.predict(X,
+                                                 predict_on_device=False))
+    for kw in ({"raw_score": True}, {"pred_leaf": True}):
+        np.testing.assert_array_equal(
+            b.predict(X, **kw), b.predict(X, predict_on_device=False, **kw))
+    X64 = X[:4096] + 1e-12
+    np.testing.assert_array_equal(b.predict(X64),
+                                  b.predict(X64, predict_on_device=False))
+    assert any(k[-1] == "dd" for k in b._stacked_cache[1].entries)
+    from lightgbm_tpu_torch.serve import StackedForest
+    forest = StackedForest.from_gbdt(b).place("cuda")
+    fast = forest.predict_raw_device(X.astype(np.float32)).cpu().numpy()
+    host = b.predict(X, raw_score=True, predict_on_device=False)
+    np.testing.assert_allclose(fast.reshape(host.shape), host, rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_reset_parameter_recaptures_the_step_on_card(cuda):
+    """A reset drops the captured split step (it holds the old split
+    parameters and depth limit); the next tree captures it again and
+    grows the tree the per-split loop grows with the same schedule."""
+    rng = np.random.RandomState(11)
+    X = rng.randn(20000, 10)
+    y = X[:, 0] * 2 + np.sin(X[:, 1]) + 0.1 * rng.randn(20000)
+    texts = []
+    for fused in (True, False):
+        b = lgb.train({"objective": "regression", "num_leaves": 31,
+                       "verbose": -1, "tpu_fused_tree": fused},
+                      lgb.Dataset(X, label=y), num_boost_round=2)
+        b.reset_parameter({"learning_rate": 0.5, "max_depth": 2,
+                           "lambda_l2": 3.0})
+        b.update()
+        if fused:
+            assert b.inner.learner.grow_stats["captures"] == 2
+        last = b.inner.models[-1]
+        assert last.structure_depth() <= 2 and last.shrinkage == 0.5
+        texts.append([t.to_string() for t in b.inner.models])
+    assert texts[0] == texts[1]
+
+
+def test_histogram_launches_on_the_tensors_card():
+    """With two or more cards, the kernel runs on the card its tensors
+    lie on, whatever the current device is (the launch is guarded and
+    the shared-memory attribute is set per device)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.cuda.set_device(0)
+    bins, gh, _, idx = _inputs(1 << 15, 16, 256, seed=12)
+    want = H.build_histogram(bins, gh, 256, idx)
+    d1 = torch.device("cuda", 1)
+    got = H.build_histogram(bins.to(d1), gh.to(d1), 256, idx.to(d1))
+    assert got.device == d1
+    assert torch.equal(got.cpu(), want.cpu())      # deterministic f32
+    rng = np.random.RandomState(12)
+    X = rng.randn(5000, 8)
+    y = (X[:, 0] > 0).astype(float)
+    b = lgb.train({"objective": "binary", "num_leaves": 15, "verbose": -1,
+                   "gpu_device_id": 1}, lgb.Dataset(X, label=y),
+                  num_boost_round=2)
+    assert b.inner.learner.bins.device == d1
+    c = lgb.train({"objective": "binary", "num_leaves": 15, "verbose": -1},
+                  lgb.Dataset(X, label=y), num_boost_round=2)
+    assert [t.to_string() for t in b.inner.models] == \
+        [t.to_string() for t in c.inner.models]

@@ -79,7 +79,7 @@ def test_multiclass_flow_matches_reference(case):
     # the text round-trip
     text = port.model_to_string()
     assert "num_class=3" in text and "num_tree_per_iteration=3" in text
-    again = lgb.Booster(model_str=text)
+    again = lgb.Booster(model_str=text, params={"device_type": "cpu"})
     np.testing.assert_array_equal(again.predict(Xv), pred)
     assert again.current_iteration == 10
     assert again.model_to_string().split("parameters:")[0] == \
@@ -93,7 +93,8 @@ def test_reference_multiclass_model_text_predicts_identically():
     ref = ref_lgb.train({"objective": "multiclass", "num_class": 3,
                          "num_leaves": 7, "verbose": -1},
                         ref_lgb.Dataset(X, label=y), num_boost_round=6)
-    port = lgb.Booster(model_str=ref.model_to_string())
+    port = lgb.Booster(model_str=ref.model_to_string(),
+                       params={"device_type": "cpu"})
     assert port.inner.num_tree_per_iteration == 3
     assert port.current_iteration == 6
     np.testing.assert_array_equal(port.predict(Xq), ref.predict(Xq))

@@ -136,7 +136,7 @@ def test_trees_from_numpy_predict_like_the_reference():
 def test_reference_model_text_predicts_identically():
     ref, Xq = _reference_model(seed=7)
     text = ref.model_to_string()
-    port = lgb.Booster(model_str=text)
+    port = lgb.Booster(model_str=text, params={"device_type": "cpu"})
     np.testing.assert_array_equal(port.predict(Xq), ref.inner.predict(Xq))
     np.testing.assert_array_equal(port.predict(Xq, raw_score=True),
                                   ref.inner.predict_raw(Xq))
@@ -149,7 +149,8 @@ def test_reference_model_text_predicts_identically():
     with pytest.raises(ValueError, match="number of features"):
         port.predict(Xq[:, :5])
     # the port's own text round-trips
-    again = lgb.Booster(model_str=port.model_to_string())
+    again = lgb.Booster(model_str=port.model_to_string(),
+                        params={"device_type": "cpu"})
     np.testing.assert_array_equal(again.predict(Xq), port.predict(Xq))
 
 
@@ -167,7 +168,8 @@ def test_model_file_round_trip_and_early_stopping(tmp_path):
     assert len(bst.inner.models) <= bst.best_iteration + 3
     path = tmp_path / "model.txt"
     bst.save_model(str(path))
-    loaded = lgb.Booster(model_file=str(path))
+    loaded = lgb.Booster(model_file=str(path),
+                         params={"device_type": "cpu"})
     np.testing.assert_array_equal(
         loaded.predict(X, num_iteration=bst.best_iteration),
         bst.predict(X))
