@@ -15,12 +15,14 @@ Phases (each one fails the run if it fails):
    against its plain PyTorch version on the card: random rows with and
    without row-index lists (of half the rows, 1, 31, 1000 and 100k
    rows), every row in one bin of every feature, Fp = 8, 40 and 64
-   beside 32, and Fp = 56 and 136 at the root shapes of phases 9 and 10
-   with children of 1, 1000 and 100k rows; two f32 calls on the same
-   inputs must give the same bytes; the device-count entry (row count
-   read from device memory) must give the host-count launch's bytes
-   for every instance at n = 0, 1, 1023, 1024, 1025, 10k, 100k, 1M and
-   all rows, at Fp = 32 and 136;
+   beside 32, Fp = 56 and 136 at the root shapes of phase 9 unbundled
+   and phase 10, and bundle columns (Gp = 16 at Bg = 256, phase 9's
+   shape, and at Bg = 72), with children of 1, 1000 and 100k rows; two
+   f32 calls on the same inputs must give the same bytes; the
+   device-count entry (row count read from device memory) must give the
+   host-count launch's bytes for every instance at n = 0, 1, 1023,
+   1024, 1025, 10k, 100k, 1M and all rows, at Fp = 32 and 136 and at the
+   bundle shape Gp = 16, Bg = 72;
 3. train the binary slice at a small size on ``cuda`` and on ``cpu`` and
    compare the first tree and the held-out AUC;
 4. train the full-size slice (10.5M Higgs-shaped rows x 28 features,
@@ -50,15 +52,26 @@ Phases (each one fails the run if it fails):
    and on ``cpu``: tree 1 must make the same splits, through the int16
    instance on the card;
 9. multiclass at UCI Covertype's shape (581,012 rows x 54 columns, 7
-   classes, synthetic from a seed; 255 leaves, 5 rounds = 35 trees,
-   ``enable_bundle=false``): held-out multi_logloss falls every round,
+   classes, synthetic from a seed; 255 leaves, 5 rounds = 35 trees) with
+   EFB at its default: the 44 one-hot columns bundle, and the kernel runs
+   over the bundle columns; held-out multi_logloss falls every round,
    multi_error ends below the majority class's 0.512, the device
    validation scores equal the host walk within 1e-4, f32 launches ==
    roots + steps over the 35 trees; a 2-round per-split rerun is
-   text-equal; 2
-   rounds at 8 bits go through the int8 instance only, and an 8-bit
-   tree 1 at 50k rows is the same on cuda and cpu; softmax gradient ms
-   and memory;
+   text-equal; a 2-round unbundled f32 run reaches the held-out loss
+   within 1e-4 (its prediction gap and structure-equal trees printed);
+   on the same gradients the bundled learner's histograms of the root
+   and of the root split's smaller child (unpacked, each shared zero bin
+   rebuilt from the totals the learner passes) are held against the f64
+   sums over the unbundled bins within the f32 kernel's tolerance, and
+   ms per split of both learners are timed in turns;
+   the same rows as a scipy CSR matrix bin to the same bytes and train
+   2 text-equal rounds; the LUT-node encoding of the stacked forest
+   gives the compare encoding's and the host walk's leaves and bytes
+   (ms per bucket for both); 2 rounds at 8 bits go through the int8
+   instance only and equal an unbundled 8-bit run text for text, and
+   an 8-bit tree 1 at 50k rows is the same on cuda and cpu; softmax
+   gradient ms and memory;
 10. lambdarank at MSLR-WEB30K's shape (2,270,296 rows x 136 in 18,919
    queries of at most 1,251 docs, synthetic from a seed; 255 leaves,
    min_data_in_leaf 100, ndcg@1,3,5 on 2,000 held-out queries, 5
@@ -88,17 +101,27 @@ Phases (each one fails the run if it fails):
    Phases 4, 9 and 10 hold the stacked path against the host walk on
    their own boosters and held-out rows too;
 
-then time every instance at Fp = 56 and 136 (the real bins of phases 9
-and 10), and print one ``{"kernels": [...]}`` line with the launches of
-each kernel on each path that runs it, as its device counter counted
-them (graph replays included; ``launches_by_path``; f32: phases 3, 4,
-9, 10, 11, 12; int8: phases 7, 9; int16: phase 8). Prediction launches
+13. Covertype in its categorical form (phase 9's rows with the
+   wilderness and soil one-hot columns collapsed into two categorical
+   columns: 12 columns, ``categorical_feature=[10, 11]``, 5 rounds):
+   phase 9's checks, categorical nodes in the model text, the stacked
+   path equal to the host walk on rows with NaN, negative and unseen
+   categories, a per-split rerun text-equal, 2 rounds with
+   ``max_cat_to_onehot: 8`` (wilderness one-hot on the card), an 8-bit
+   tree 1 at 50k rows the same on cuda and cpu;
+
+then time every instance over the learners' real bins of phases 9 (the
+bundle columns at Bg), 13 and 10, and print one ``{"kernels": [...]}``
+line with the launches of each kernel on each path that runs it, as its
+device counter counted them (graph replays included;
+``launches_by_path``; f32: phases 3, 4, 9, 10, 11, 12, 13; int8: phases
+7, 9; int16: phase 8). Prediction launches
 no hand kernel: the stacked walk is PyTorch ops (the reference's is
 ``jnp``), so it has no row in that line.
 
-Phases 3, 4 and 7-11 train through the default whole-tree loop; every
-per-split (``tpu_fused_tree=false``) rerun must give its whole-tree
-run's trees.
+Phases 3, 4, 7-11 and 13 train through the default whole-tree loop;
+every per-split (``tpu_fused_tree=false``) rerun must give its
+whole-tree run's trees.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a visible
@@ -402,6 +425,17 @@ def phase_kernels(hist_mod):
         cases += [("Fp=%d, idx %d" % (fp, n), wb, wgh, wgh8, wgh16, B,
                    sub_index(rows, n, seed=n + fp)) for n in
                   (1, 1000, 100_000)]
+    # EFB: the kernel over bundle columns [N, Gp] at the bundle width Bg
+    # (phase 9's Gp = 16 at Bg = 256, and a Bg of 72 bins, off the
+    # per-feature B)
+    for rows, gp, bg, seed in ((COVERTYPE_ROWS, 16, 256, 7),
+                               (1 << 20, 16, 72, 8)):
+        wb, wgh, wgh8, wgh16, _ = make_hist_inputs(rows, gp, bg, seed=seed)
+        cases.append(("bundles Gp=%d Bg=%d root" % (gp, bg), wb, wgh, wgh8,
+                      wgh16, bg, None))
+        cases += [("bundles Gp=%d Bg=%d, idx %d" % (gp, bg, n), wb, wgh,
+                   wgh8, wgh16, bg, sub_index(rows, n, seed=n + bg))
+                  for n in (1, 1000, 100_000)]
     errs = dict.fromkeys(hist_mod.launch_counts, 0.0)
     for label, cb, cgh, cgh8, cgh16, cB, cidx in cases:
         e = compare_f32(hist_mod, cb, cgh, cB, cidx)
@@ -441,12 +475,12 @@ def phase_device_count_entry(hist_mod):
     """The device-count entry of every instance against the host-count
     launch over the same sorted row list: byte-equal at every n of
     ``DEVICE_COUNT_ROWS`` and all rows, at Fp = 32 (one feature group,
-    132 row blocks at most) and Fp = 136 (five groups, 26 row blocks);
-    n = 0 must give zeros."""
+    132 row blocks at most), Fp = 136 (five groups, 26 row blocks) and
+    the bundle shape Gp = 16 at Bg = 72 bins; n = 0 must give zeros."""
     import torch
-    S, B = 1 << 20, 256
+    S = 1 << 20
     checked = 0
-    for Fp, seed in ((32, 13), (136, 14)):
+    for Fp, B, seed in ((32, 256, 13), (136, 256, 14), (16, 72, 15)):
         bins, gh, gh8, gh16, _ = make_hist_inputs(S, Fp, B, seed=seed)
         for n in DEVICE_COUNT_ROWS + (S,):
             idx = sub_index(S, n, seed=n + Fp) if n < S else torch.arange(
@@ -458,13 +492,14 @@ def phase_device_count_entry(hist_mod):
                 torch.cuda.synchronize()
                 check(torch.equal(got.view(torch.int32),
                                   want.view(torch.int32)),
-                      "device-count entry (%s, Fp=%d, n=%d) differs from "
-                      "the host-count launch" % (rows.dtype, Fp, n))
+                      "device-count entry (%s, Fp=%d, B=%d, n=%d) differs "
+                      "from the host-count launch" % (rows.dtype, Fp, B, n))
                 check(n > 0 or not got.any(),
                       "device-count entry with no rows is not zero")
                 checked += 1
     log("device-count entry: byte-equal to the host-count launch in %d "
-        "cases (f32, int8, int16; Fp 32 and 136; n = %s and all %d rows)"
+        "cases (f32, int8, int16; Fp 32 and 136 at B 256, the bundle "
+        "shape Gp 16 at Bg 72; n = %s and all %d rows)"
         % (checked, ", ".join(str(n) for n in DEVICE_COUNT_ROWS), S))
 
 
@@ -1125,13 +1160,91 @@ def make_covertype_like(n: int, seed: int):
     return X, y.astype(np.float64)
 
 
+def covertype_splits(Xt, yt, Xv, yv, lgb, params):
+    """The training and held-out Datasets of a Covertype-shaped run."""
+    ds = lgb.Dataset(Xt, label=yt, params=params).construct()
+    valid = lgb.Dataset(Xv, label=yv, reference=ds).construct()
+    return ds, valid
+
+
+def check_multiclass(bst, run, Xv, yv, what):
+    """The phase 9 checks of a 7-class run: held-out multi_logloss falls
+    every round, multi_error ends below the majority class's, the device
+    validation scores equal the host walk within 1e-4, the probabilities
+    sum to 1, and the stacked path (auto mode) equals the host walk."""
+    evals = run["evals"]
+    loss, err = evals["multi_logloss"], evals["multi_error"]
+    check(all(b < a for a, b in zip(loss, loss[1:])),
+          "%s: held-out multi_logloss did not fall every round: %s"
+          % (what, loss))
+    majority_error = 1.0 - max(COVERTYPE_SHARES)
+    check(err[-1] < majority_error,
+          "%s: held-out multi_error %.4f is not below the majority-class "
+          "error %.3f" % (what, err[-1], majority_error))
+    host = bst.predict(Xv, raw_score=True, predict_on_device=False)
+    dev = bst.inner.valid_data[0].scores
+    check(host.shape == dev.shape == (len(yv), 7)
+          and bool(np.isfinite(host).all()),
+          "%s: raw scores are not finite or of the wrong shape" % what)
+    gap = float(np.abs(host - dev).max())
+    check(gap <= 1e-4, "%s: host-walk scores differ from the device "
+          "validation scores by %.3g" % (what, gap))
+    prob = bst.predict(Xv, predict_on_device=False)
+    check(bool(np.allclose(prob.sum(axis=1), 1.0)),
+          "%s: class probabilities do not sum to 1" % what)
+    check_stacked(bst, Xv, what)
+    learner = bst.inner.learner
+    log("%s: held-out multi_logloss %s; multi_error %s (majority-class "
+        "error %.3f); host walk vs device scores max |diff| %.3g; mean "
+        "seconds per iteration %.3f; ms per split (mean over trees) %.3f; "
+        "peak memory %.3f GiB; gradient ms per iteration %s"
+        % (what, " ".join("%.6f" % v for v in loss),
+           " ".join("%.6f" % v for v in err), majority_error, gap,
+           float(np.mean(run["per_iter"])),
+           1e3 * sum(run["tree_seconds"]) / max(run["splits"], 1),
+           run["peak"] / 2 ** 30,
+           " ".join("%.3f" % v for v in run["grad_ms"])))
+    return learner
+
+
+def first_tree_cuda_vs_cpu(lgb, Xt, yt, params, what, sub=50_000,
+                           categorical_feature=None):
+    """Tree 1 (class 0) at ``sub`` rows with 8-bit gradients (integer
+    histograms: the same sums in any order) on cuda and on cpu."""
+    first = {}
+    for dev_type in ("cuda", "cpu"):
+        sds = lgb.Dataset(Xt[:sub], label=yt[:sub],
+                          categorical_feature=categorical_feature)
+        b = lgb.train(dict(params, device_type=dev_type,
+                           use_quantized_grad=True, quant_grad_bits=8),
+                      sds, num_boost_round=1)
+        t = b.inner.models[0]
+        first[dev_type] = (tree_splits_of(t), list(t.cat_boundaries),
+                           list(t.cat_threshold),
+                           list(t.leaf_count[:t.num_leaves]))
+    check(first["cuda"] == first["cpu"],
+          "%s: 8-bit tree 1 (class 0) differs between cuda and cpu at %d "
+          "rows" % (what, sub))
+    log("%s 8-bit at %d rows: tree 1 (class 0) makes the same %d splits "
+        "(categories and leaf counts too) on cuda and cpu"
+        % (what, sub, first["cuda"][0][0] - 1))
+
+
 def phase_covertype(lgb, hist_mod):
     """Multiclass (softmax, 7 classes, K = 7 trees per iteration) at
     Covertype's shape: 581,012 training rows x 54 columns, 255 leaves,
-    5 rounds; EFB would bundle the one-hot columns (ROADMAP item 11), so
-    ``enable_bundle=false``. Then 2 rounds with 8-bit gradients, and an
-    8-bit run on a 50k-row subset on cuda and cpu. Returns the launches
-    by instance and the learner's bins for timing."""
+    5 rounds, with EFB at its default (``enable_bundle=true``): the 44
+    one-hot columns bundle and the kernel runs over the bundle columns.
+    Then a 2-round unbundled run (held-out loss within 1e-4; the f32
+    prediction gap printed), the bundled histograms held against f64
+    sums over the unbundled bins and both learners timed on the same
+    gradients, the same rows as a scipy CSR matrix (bins byte-equal, 2
+    rounds text-equal), the LUT-node encoding of the stacked forest, 2
+    rounds with 8-bit gradients bundled and unbundled (text-equal), and
+    an 8-bit run on a 50k-row subset on cuda and cpu. Returns the
+    launches by path and the learner's bundle columns with their width,
+    for timing."""
+    import scipy.sparse as sp
     from lightgbm_tpu_torch.objective.multiclass import MulticlassSoftmax
     t0 = time.perf_counter()
     X, y = make_covertype_like(COVERTYPE_ROWS + COVERTYPE_HELD_OUT, seed=9)
@@ -1139,47 +1252,34 @@ def phase_covertype(lgb, hist_mod):
     Xv, yv = X[COVERTYPE_ROWS:], y[COVERTYPE_ROWS:]
     shares = np.bincount(yt.astype(int), minlength=7) / len(yt)
     params = {"objective": "multiclass", "num_class": 7, "num_leaves": 255,
-              "learning_rate": 0.1, "max_bin": 255, "enable_bundle": False,
+              "learning_rate": 0.1, "max_bin": 255,
               "metric": "multi_logloss,multi_error", "verbosity": -1}
-    ds = lgb.Dataset(Xt, label=yt, params=params).construct()
-    valid = lgb.Dataset(Xv, label=yv, reference=ds).construct()
-    log("covertype-like: %d + %d rows x %d, class shares %s; generated "
-        "and binned in %.1f s" % (len(yt), len(yv), X.shape[1],
-                                  " ".join("%.3f" % v for v in shares),
-                                  time.perf_counter() - t0))
+    t_gen = time.perf_counter() - t0
+    ds, valid = covertype_splits(Xt, yt, Xv, yv, lgb, params)
+    lay = ds.handle.bundle
+    check(lay is not None, "covertype: the one-hot columns did not bundle")
+    log("covertype-like: %d + %d rows x %d, class shares %s; generated in "
+        "%.1f s, binned in %.1f s; EFB: %d features in %d bundle columns "
+        "(%d of them shared: %s), %d bundle bins"
+        % (len(yt), len(yv), X.shape[1],
+           " ".join("%.3f" % v for v in shares), t_gen,
+           time.perf_counter() - t0 - t_gen, ds.handle.num_features,
+           lay.num_groups, sum(len(g) > 1 for g in lay.groups),
+           [len(g) for g in lay.groups if len(g) > 1],
+           lay.num_bundled_bins))
     run = train_path(lgb, hist_mod, ds, valid, params, "histogram_f32", 5,
-                     grad_cls=MulticlassSoftmax, tag="covertype multiclass")
-    bst, evals = run["booster"], run["evals"]
-    loss, err = evals["multi_logloss"], evals["multi_error"]
-    check(all(b < a for a, b in zip(loss, loss[1:])),
-          "held-out multi_logloss did not fall every round: %s" % loss)
-    majority_error = 1.0 - max(COVERTYPE_SHARES)
-    check(err[-1] < majority_error,
-          "held-out multi_error %.4f is not below the majority-class "
-          "error %.3f" % (err[-1], majority_error))
-    host = bst.predict(Xv, raw_score=True, predict_on_device=False)
-    dev = bst.inner.valid_data[0].scores
-    check(host.shape == dev.shape == (len(yv), 7)
-          and bool(np.isfinite(host).all()),
-          "multiclass raw scores are not finite or of the wrong shape")
-    gap = float(np.abs(host - dev).max())
-    check(gap <= 1e-4, "host-walk scores differ from the device "
-          "validation scores by %.3g" % gap)
-    prob = bst.predict(Xv, predict_on_device=False)
-    check(bool(np.allclose(prob.sum(axis=1), 1.0)),
-          "class probabilities do not sum to 1")
-    check_stacked(bst, Xv, "phase 9 covertype")
-    log("covertype multiclass: held-out multi_logloss %s; multi_error %s "
-        "(majority-class error %.3f); host walk vs device scores max "
-        "|diff| %.3g; mean seconds per iteration %.3f; softmax gradient "
-        "ms per iteration %s"
-        % (" ".join("%.6f" % v for v in loss),
-           " ".join("%.6f" % v for v in err), majority_error, gap,
-           float(np.mean(run["per_iter"])),
-           " ".join("%.3f" % v for v in run["grad_ms"])))
+                     grad_cls=MulticlassSoftmax,
+                     tag="covertype multiclass bundled")
+    bst = run["booster"]
+    learner = check_multiclass(bst, run, Xv, yv, "phase 9 covertype")
+    check(learner._bundled and learner.bins.shape[1] == learner.Gp,
+          "covertype: the learner does not hold the bundle columns")
+    log("phase 9 covertype bundled: G = %d (Gp = %d) bundle columns at "
+        "Bg = %d bins, against Fp = %d features at B = %d"
+        % (lay.num_groups, learner.Gp, learner.Bg, learner.Fp, learner.B))
     again = train_path(lgb, hist_mod, ds, valid,
                        dict(params, tpu_fused_tree=False), "histogram_f32",
-                       2, tag="covertype multiclass per-split rerun")[
+                       2, tag="covertype bundled per-split rerun")[
         "booster"]
     check([t.to_string() for t in bst.inner.models[:14]]
           == [t.to_string() for t in again.inner.models],
@@ -1187,29 +1287,338 @@ def phase_covertype(lgb, hist_mod):
           "run")
     log("covertype per-split rerun (2 rounds): all 14 trees text-equal to "
         "the whole-tree run's")
-    launches = {"histogram_f32": run["launches"]["histogram_f32"]}
-    bins = bst.inner.learner.bins
-    del bst, again
+    del again
+    launches = {"phase9_covertype_bundled": run["launches"]["histogram_f32"]}
+    # unbundled, 2 rounds, against the reference's contract for bundles
+    # (tests/test_efb.py::test_bundled_matches_unbundled_predictions,
+    # rtol 1e-4 at 2,000 rows). In f32 a bundled feature's zero bin is
+    # summed from other bins than the unbundled one's rows, and sibling
+    # subtraction carries that rounding (an ulp of the root's sums) into
+    # small leaves, so the f32 gap is measured and held at level (c):
+    # the held-out loss within 1e-4, and the bundled histograms within
+    # the f32 tolerance of their f64 sums (check_bundled_histograms);
+    # the 8-bit pair below, with exact integer histograms, must be
+    # text-equal
+    p0 = dict(params, enable_bundle=False)
+    ds0, valid0 = covertype_splits(Xt, yt, Xv, yv, lgb, p0)
+    unb = train_path(lgb, hist_mod, ds0, valid0, p0, "histogram_f32", 2,
+                     tag="covertype unbundled 2 rounds")
+    plain = unb["booster"]
+    check(not plain.inner.learner._bundled, "enable_bundle=false bundled")
+    p_b = bst.predict(Xv, num_iteration=2, predict_on_device=False)
+    p_u = plain.predict(Xv, predict_on_device=False)
+    same = sum(tree_structure(a) == tree_structure(b)
+               for a, b in zip(bst.inner.models[:14], plain.inner.models))
+    gap = np.abs(p_b - p_u)
+    within = bool(np.allclose(p_b, p_u, rtol=1e-4, atol=1e-5))
+    loss_gap = abs(run["evals"]["multi_logloss"][1]
+                   - unb["evals"]["multi_logloss"][1])
+    log("covertype bundled vs unbundled, f32 (2 rounds): %d of 14 trees "
+        "structure-equal; predictions max |diff| %.3g, %.4f%% of values "
+        "beyond rtol 1e-4 + atol 1e-5 (all within: %s); held-out "
+        "multi_logloss round 2 %.6f vs %.6f"
+        % (same, float(gap.max()),
+           100.0 * float(np.mean(gap > 1e-5 + 1e-4 * np.abs(p_u))), within,
+           run["evals"]["multi_logloss"][1],
+           unb["evals"]["multi_logloss"][1]))
+    check(loss_gap <= 1e-4, "bundled and unbundled held-out multi_logloss "
+          "differ by %.3g" % loss_gap)
+    time_bundled_step(bst.inner.learner, plain.inner.learner, hist_mod)
+    del plain, unb
+    # the same rows as a CSR matrix
+    t0 = time.perf_counter()
+    Xs = sp.csr_matrix(Xt)
+    dss, valids = covertype_splits(Xs, yt, Xv, yv, lgb, params)
+    t_sparse = time.perf_counter() - t0
+    check(dss.handle.bins.tobytes() == ds.handle.bins.tobytes(),
+          "CSR bins differ from the dense bundled bins")
+    sparse = train_path(lgb, hist_mod, dss, valids, params, "histogram_f32",
+                        2, tag="covertype CSR 2 rounds")["booster"]
+    check([t.to_string() for t in bst.inner.models[:14]]
+          == [t.to_string() for t in sparse.inner.models],
+          "CSR covertype run gave other trees than the dense run")
+    log("covertype as a CSR matrix (%d stored values): bins byte-equal to "
+        "the dense bundled bins (built in %.1f s); 2 rounds text-equal to "
+        "the dense run's" % (Xs.nnz, t_sparse))
+    del sparse, dss, valids, Xs
+    time_lut_encoding(bst, Xv, "phase 9 covertype bundled")
+    bins = (learner.bins, learner.Bg)
+    del bst, learner
     q8 = dict(params, use_quantized_grad=True, quant_grad_bits=8)
     qrun = train_path(lgb, hist_mod, ds, valid, q8, "histogram_i8", 2,
-                      tag="covertype multiclass 8-bit")
-    launches["histogram_i8"] = qrun["launches"]["histogram_i8"]
-    log("covertype 8-bit: held-out multi_logloss %s (f32 %s)"
+                      tag="covertype multiclass bundled 8-bit")
+    launches["phase9_covertype_bundled_8bit"] = \
+        qrun["launches"]["histogram_i8"]
+    qplain = train_path(lgb, hist_mod, ds0, valid0,
+                        dict(q8, enable_bundle=False), "histogram_i8", 2,
+                        tag="covertype multiclass unbundled 8-bit")
+    check([t.to_string() for t in qrun["booster"].inner.models]
+          == [t.to_string() for t in qplain["booster"].inner.models],
+          "8-bit bundled and unbundled covertype runs gave other trees")
+    log("covertype 8-bit: bundled and unbundled 2-round runs text-equal "
+        "(all 14 trees; integer histograms, exact zero bins); held-out "
+        "multi_logloss %s (f32 %s)"
         % (" ".join("%.6f" % v for v in qrun["evals"]["multi_logloss"]),
-           " ".join("%.6f" % v for v in loss[:2])))
-    del qrun
-    sub = 50_000
-    first = {}
-    for dev_type in ("cuda", "cpu"):
-        sds = lgb.Dataset(Xt[:sub], label=yt[:sub])
-        b = lgb.train(dict(q8, device_type=dev_type), sds,
-                      num_boost_round=1)
-        first[dev_type] = tree_splits(b)[0]
-    check(first["cuda"] == first["cpu"],
-          "8-bit covertype tree 1 (class 0) differs between cuda and cpu "
-          "at %d rows" % sub)
-    log("covertype 8-bit at %d rows: tree 1 (class 0) splits equal on "
-        "cuda and cpu (%d splits)" % (sub, len(first["cuda"][0])))
+           " ".join("%.6f" % v for v in run["evals"]["multi_logloss"][:2])))
+    del qrun, qplain, ds0, valid0
+    first_tree_cuda_vs_cpu(lgb, Xt, yt, params, "phase 9 covertype")
+    return launches, bins
+
+
+def check_bundled_histograms(bundled, unbundled, gh, hist_mod):
+    """The bundled learner's f32 histograms against f64 sums over the
+    unbundled learner's bins, on the same rows: the root (totals from
+    ``sum_gh``, as ``_root`` passes them) and the smaller child of the
+    root's winning split (totals from its record row, as ``_step``
+    passes them). Counts must be exact, so totals of other rows than
+    the leaf's fail there. A grad/hess bin may be off by ``REL_TOL``
+    times the f64 sum of its rows' absolute values (the bound of
+    :func:`compare_f32`); a rebuilt zero bin (totals minus the feature's
+    other bins) carries the rounding of the totals, which sum every row
+    of the leaf at the root and come from the root's histogram for the
+    child, so its bound is ``REL_TOL`` times the root's absolute sum.
+    The unbundled kernel
+    is held to the same per-bin bound, and the largest bundled -
+    unbundled difference is printed."""
+    import torch
+    from lightgbm_tpu_torch.ops import split as S
+    from lightgbm_tpu_torch.ops.quantize import sum_gh
+    check(bundled.B == unbundled.B and bundled.F == unbundled.F,
+          "bundled and unbundled learners differ in shape")
+    B, F = bundled.B, bundled.F       # pad features past F hold nothing
+    bt = bundled._btab
+    zero_at = torch.zeros((bundled.Fp, B), dtype=torch.bool,
+                          device=gh.device)
+    zero_at[torch.arange(bundled.Fp, device=gh.device),
+            bundled.meta.zero_bin.long()] = bt.zero_fix
+    zero_at = zero_at[:F]
+    state = bundled._new_state(gh)
+    bundled._root(state)
+    row = state.cand[0]
+    check(bool(torch.isfinite(row[S.GAIN])), "covertype root has no split")
+    gl = bundled._go_left(row)
+    left = bool(row[S.LEFT_TOTAL_COUNT] <= row[S.RIGHT_TOTAL_COUNT])
+    side = S.LEFT_SUM_GRAD if left else S.RIGHT_SUM_GRAD
+    small = torch.nonzero(gl if left else ~gl).view(-1).to(torch.int32)
+    cases = (("root", None, sum_gh(gh, bundled._padded_rows)),
+             ("root's smaller child", small, row[side:side + 4]))
+    worst, root_mag = {}, None
+    for what, idx, totals in cases:
+        got = bundled._leaf_histogram(gh, idx, totals=totals)[:F].double()
+        flat = unbundled.bins
+        ref = hist_mod.histogram_plain(flat, gh.double(), B, idx)[:F]
+        mag = hist_mod.histogram_plain(flat, gh[:, :2].double().abs(), B,
+                                       idx)[:F]
+        if root_mag is None:
+            root_mag = mag[0].sum(dim=0)     # [2]: every row in one bin
+        bound = REL_TOL * torch.where(zero_at[..., None], root_mag, mag)
+        check(torch.equal(got[..., 2:], ref[..., 2:]),
+              "bundled %s histogram: count channels differ from the "
+              "unbundled bins' counts" % what)
+        err = (got[..., :2] - ref[..., :2]).abs()
+        check(bool((err <= bound).all()),
+              "bundled %s histogram off the f64 sums by %.3g (%.3g of its "
+              "bound)" % (what, float(err.max()),
+                          float((err / bound.clamp(min=1e-300)).max())))
+        flat_got = hist_mod.build_histogram(flat, gh, B, idx)[:F].double()
+        ferr = (flat_got[..., :2] - ref[..., :2]).abs()
+        check(bool((ferr <= REL_TOL * mag).all()),
+              "unbundled %s histogram off the f64 sums by %.3g"
+              % (what, float(ferr.max())))
+        worst[what] = (float(err.max()), float(ferr.max()),
+                       float((got - flat_got).abs().max()),
+                       int(zero_at.sum()), len(gh) if idx is None
+                       else len(idx))
+    log("covertype bundled f32 histograms against f64 sums over the "
+        "unbundled bins (%d rebuilt zero bins; bound REL_TOL x abs sum "
+        "per bin, the root's for a rebuilt bin): %s"
+        % (int(zero_at.sum()), "; ".join(
+            "%s (%d rows): max err bundled %.3g, unbundled %.3g, bundled "
+            "- unbundled %.3g" % (k, v[4], v[0], v[1], v[2])
+            for k, v in worst.items())))
+
+
+def time_bundled_step(bundled, unbundled, hist_mod, trees: int = 2):
+    """The whole-tree loop of a bundled and an unbundled learner on the
+    same rows and the same gradients (synthetic, from a seed), in turns
+    (unbundled, bundled, bundled, unbundled): ms per split of each, on
+    one card in one call. First the bundled histograms on those
+    gradients are checked (:func:`check_bundled_histograms`)."""
+    import torch
+    n, dev = bundled.N, bundled.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    grad = torch.rand(n, generator=g, device=dev) - 0.5
+    hess = torch.rand(n, generator=g, device=dev) * 0.25
+    gh = torch.stack([grad, hess, torch.ones_like(grad),
+                      torch.ones_like(grad)], dim=1)
+    check_bundled_histograms(bundled, unbundled, gh, hist_mod)
+    ms = {"unbundled": [], "bundled": []}
+    for name in ("unbundled", "bundled", "bundled", "unbundled"):
+        learner = bundled if name == "bundled" else unbundled
+        for _ in range(trees):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tree, _ = learner._grow_fused(gh)
+            torch.cuda.synchronize()
+            ms[name].append(1e3 * (time.perf_counter() - t0)
+                            / max(tree.num_leaves - 1, 1))
+    log("whole-tree loop on the same gradients (covertype, 255 leaves; "
+        "in turns): ms per split unbundled %s, bundled %s"
+        % (" ".join("%.3f" % v for v in ms["unbundled"]),
+           " ".join("%.3f" % v for v in ms["bundled"])))
+
+
+def time_lut_encoding(bst, X, what):
+    """The LUT-node encoding (``lut=True``) of a booster's stacked
+    forest against the compare encoding and the host walk (leaf ids
+    equal, raw scores byte-equal), and each encoding's ms per
+    65,536-row bucket by stage."""
+    from lightgbm_tpu_torch.serve import StackedForest
+    host_leaf = bst.predict(X, pred_leaf=True, predict_on_device=False)
+    host_raw = bst.predict(X, raw_score=True, predict_on_device=False)
+    stages = {}
+    for lut in (False, True):
+        forest = StackedForest.from_gbdt(bst, lut=lut).place("cuda")
+        check(forest.lut_nodes == lut, "lut=%s was not built" % lut)
+        check(np.array_equal(forest.leaves(X), host_leaf),
+              "%s: lut=%s leaf ids differ from the host walk" % (what, lut))
+        check(np.array_equal(forest.predict_raw(X), host_raw),
+              "%s: lut=%s raw scores differ from the host walk"
+              % (what, lut))
+        Xb = np.ascontiguousarray(np.resize(X, (1 << 16, X.shape[1])),
+                                  dtype=np.float32)
+        stages["lut" if lut else "compare"] = time_dispatch(forest, Xb)
+    log("%s stacked forest: the LUT-node encoding and the compare encoding "
+        "give the host walk's leaf ids and raw bytes on %d rows; ms per "
+        "65536-row bucket by stage (CUDA events): %s"
+        % (what, X.shape[0], json.dumps({
+            k: {s: round(v, 4) for s, v in st.items()}
+            for k, st in stages.items()})))
+
+
+# ---------------------------------------------------------------------------
+# phase 13: Covertype in its categorical form
+# ---------------------------------------------------------------------------
+def make_covertype_categorical(n: int, seed: int):
+    """Phase 9's generator with its 4 wilderness and 40 soil one-hot
+    columns collapsed into one categorical column each (values 0..3 and
+    0..39): 12 columns."""
+    X, y = make_covertype_like(n, seed)
+    wild = np.argmax(X[:, 10:14], axis=1).astype(np.float32)
+    soil = np.argmax(X[:, 14:54], axis=1).astype(np.float32)
+    return np.column_stack([X[:, :10], wild, soil]), y
+
+
+def unusual_categories(Xv: np.ndarray) -> np.ndarray:
+    """Held-out rows with NaN, negative, fractional and unseen values in
+    the two categorical columns (every 1000-row block one kind)."""
+    Xu = Xv.copy()
+    for k, (col, val) in enumerate(((10, np.nan), (10, -1.0), (10, 9.0),
+                                    (10, 2.5), (11, np.nan), (11, -5.0),
+                                    (11, 77.0), (11, 40.0), (11, 31.0))):
+        Xu[k * 1000:(k + 1) * 1000, col] = val
+    return Xu
+
+
+def cat_nodes(bst, feature):
+    """(category sets of the categorical nodes on ``feature``, count of
+    categorical nodes) over the booster's trees."""
+    sets, total = [], 0
+    for t in bst.inner.models:
+        for j in range(t.num_internal):
+            if int(t.decision_type[j]) & 1:
+                total += 1
+                if int(t.split_feature[j]) == feature:
+                    sets.append(t._cats_of(int(t.threshold_in_bin[j])))
+    return sets, total
+
+
+def phase_covertype_categorical(lgb, hist_mod):
+    """Phase 9's rows in their categorical form: 581,012 + 50,000 held
+    out x 12 columns, ``categorical_feature=[10, 11]`` (wilderness: 4
+    values, num_bin 5 > max_cat_to_onehot 4, so both columns take the
+    sorted subset), 7 classes, 255 leaves, 5 rounds through the
+    whole-tree loop; phase 9's checks, categorical nodes in the model
+    text, the stacked path (auto mode) on rows with NaN, negative and
+    unseen categories, a 2-round per-split rerun, 2 rounds with
+    ``max_cat_to_onehot: 8`` (wilderness in one-hot mode) and an 8-bit
+    tree 1 at 50k rows on cuda and cpu. Returns the launches by path and
+    the learner's bins for timing."""
+    from lightgbm_tpu_torch.objective.multiclass import MulticlassSoftmax
+    t0 = time.perf_counter()
+    X, y = make_covertype_categorical(COVERTYPE_ROWS + COVERTYPE_HELD_OUT,
+                                      seed=9)
+    Xt, yt = X[:COVERTYPE_ROWS], y[:COVERTYPE_ROWS]
+    Xv, yv = X[COVERTYPE_ROWS:], y[COVERTYPE_ROWS:]
+    params = {"objective": "multiclass", "num_class": 7, "num_leaves": 255,
+              "learning_rate": 0.1, "max_bin": 255,
+              "categorical_feature": [10, 11],
+              "metric": "multi_logloss,multi_error", "verbosity": -1}
+    ds, valid = covertype_splits(Xt, yt, Xv, yv, lgb, params)
+    mappers = ds.handle.bin_mappers
+    nb = [m.num_bin for m in mappers[-2:]]
+    # wilderness: 4 categories + bin 0 = 5 bins > max_cat_to_onehot 4,
+    # so the sorted subset scans it; soil keeps the categories that
+    # cover 99% of the sample (bin.cpp:424-491)
+    check([m.bin_type for m in mappers[-2:]] == [1, 1] and nb[0] == 5,
+          "covertype categorical: columns 10, 11 are not categorical, "
+          "wilderness with 5 bins: %s" % nb)
+    log("covertype categorical: %d + %d rows x %d (wilderness %d bins, "
+        "soil %d bins); generated and binned in %.1f s"
+        % (len(yt), len(yv), X.shape[1], nb[0], nb[1],
+           time.perf_counter() - t0))
+    run = train_path(lgb, hist_mod, ds, valid, params, "histogram_f32", 5,
+                     grad_cls=MulticlassSoftmax,
+                     tag="covertype multiclass categorical")
+    bst = run["booster"]
+    learner = check_multiclass(bst, run, Xv, yv, "phase 13 covertype "
+                               "categorical")
+    check(learner._has_cat and not learner._bundled,
+          "covertype categorical: the learner has no categorical scan")
+    text = bst.model_to_string()
+    wild_sets, n_cat = cat_nodes(bst, 10)
+    soil_sets, _ = cat_nodes(bst, 11)
+    check(n_cat > 0 and "cat_threshold=" in text,
+          "covertype categorical: no categorical node in the model text")
+    log("phase 13 categorical nodes: %d of %d (wilderness %d, soil %d; "
+        "soil sets of %s categories)"
+        % (n_cat, sum(t.num_internal for t in bst.inner.models),
+           len(wild_sets), len(soil_sets),
+           sorted({len(c) for c in soil_sets})))
+    check_stacked(bst, unusual_categories(Xv),
+                  "phase 13 covertype categorical, NaN / negative / "
+                  "unseen categories")
+    again = train_path(lgb, hist_mod, ds, valid,
+                       dict(params, tpu_fused_tree=False), "histogram_f32",
+                       2, tag="covertype categorical per-split rerun")[
+        "booster"]
+    check([t.to_string() for t in bst.inner.models[:14]]
+          == [t.to_string() for t in again.inner.models],
+          "a per-split categorical covertype run gave other trees than the "
+          "whole-tree run")
+    log("covertype categorical per-split rerun (2 rounds): all 14 trees "
+        "text-equal to the whole-tree run's")
+    launches = {"phase13_covertype_categorical":
+                run["launches"]["histogram_f32"]}
+    bins = (learner.bins, learner.B)
+    del bst, again, learner
+    oh = dict(params, max_cat_to_onehot=8)
+    ohrun = train_path(lgb, hist_mod, ds, valid, oh, "histogram_f32", 2,
+                       tag="covertype categorical, wilderness one-hot")
+    wild_oh, _ = cat_nodes(ohrun["booster"], 10)
+    check(len(wild_oh) > 0 and all(len(c) == 1 for c in wild_oh),
+          "max_cat_to_onehot=8: wilderness splits are not one-hot: %s"
+          % wild_oh[:5])
+    log("covertype categorical, max_cat_to_onehot 8: %d wilderness splits, "
+        "each one category (one-hot mode); held-out multi_logloss %s"
+        % (len(wild_oh), " ".join(
+            "%.6f" % v for v in ohrun["evals"]["multi_logloss"])))
+    launches["phase13_covertype_categorical_onehot"] = \
+        ohrun["launches"]["histogram_f32"]
+    del ohrun
+    first_tree_cuda_vs_cpu(lgb, Xt, yt, params, "phase 13 covertype "
+                           "categorical")
     return launches, bins
 
 
@@ -1501,14 +1910,16 @@ def time_dispatch(forest, Xb):
     K = forest.num_classes
     Xd = torch.from_numpy(Xb).cuda()
     bins_t = P._quantize_rows_impl(Xd, forest._qt)
-    leaves = P._walk_stacked(bins_t, forest._nodes, forest.trips)
+    leaves = P._walk_stacked(bins_t, forest._nodes, forest.trips,
+                             forest._cat_lut)
     raw = P._sum_leaf_values_f64(leaves, forest._leaf_f64, K)
     return {
         "copy_in": cuda_ms(lambda: torch.from_numpy(Xb).cuda(), reps=5),
         "quantize": cuda_ms(lambda: P._quantize_rows_impl(Xd, forest._qt),
                             reps=5),
         "walk": cuda_ms(lambda: P._walk_stacked(bins_t, forest._nodes,
-                                                forest.trips), reps=5),
+                                                forest.trips,
+                                                forest._cat_lut), reps=5),
         "sum_f64": cuda_ms(lambda: P._sum_leaf_values_f64(
             leaves, forest._leaf_f64, K), reps=5),
         "sum_kahan_f32": cuda_ms(lambda: P._raw_from_leaves(
@@ -1682,7 +2093,7 @@ def time_widths(hist_mod, widths, rows_out):
     than the root), each beside its bound, plain and library times;
     appended to each instance's row of the kernels line."""
     import torch
-    for label, bins in widths:
+    for label, bins, B in widths:
         S = bins.shape[0]
         g = torch.Generator(device="cuda")
         g.manual_seed(12)
@@ -1699,20 +2110,20 @@ def time_widths(hist_mod, widths, rows_out):
         children = [sub_index(S, n, seed=n) for n in (10_000, 100_000,
                                                        1_000_000) if n < S]
         for row, rows_gh in zip(rows_out, (gh, gh8, gh16)):
-            times = [dict(width=label, S=S, Fp=bins.shape[1],
-                          **time_histogram(hist_mod, bins, rows_gh, 256,
+            times = [dict(width=label, S=S, Fp=bins.shape[1], B=B,
+                          **time_histogram(hist_mod, bins, rows_gh, B,
                                            row["name"]))]
             for idx in children:
                 times.append(dict(width=label, S=idx.shape[0],
-                                  Fp=bins.shape[1], child=True,
+                                  Fp=bins.shape[1], B=B, child=True,
                                   **time_histogram(hist_mod, bins, rows_gh,
-                                                   256, row["name"], idx)))
+                                                   B, row["name"], idx)))
             row.setdefault("widths", []).extend(times)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
@@ -1792,21 +2203,28 @@ def main(argv=None) -> int:
         lap("phase 8")
     widths = []
     if 9 in phases:
-        run, bins = phase_covertype(lgb, hist_mod)
-        by_path["histogram_f32"]["phase9_covertype_multiclass"] = \
-            run["histogram_f32"]
-        by_path["histogram_i8"]["phase9_covertype_multiclass_8bit"] = \
-            run["histogram_i8"]
-        widths.append(("covertype Fp=56", bins))
+        run, (bins, bg) = phase_covertype(lgb, hist_mod)
+        by_path["histogram_f32"]["phase9_covertype_bundled"] = \
+            run["phase9_covertype_bundled"]
+        by_path["histogram_i8"]["phase9_covertype_bundled_8bit"] = \
+            run["phase9_covertype_bundled_8bit"]
+        widths.append(("covertype bundles Gp=%d Bg=%d" % (bins.shape[1],
+                                                         bg), bins, bg))
         lap("phase 9")
+    if 13 in phases:
+        run, (bins, b) = phase_covertype_categorical(lgb, hist_mod)
+        by_path["histogram_f32"].update(run)
+        widths.append(("covertype categorical Fp=%d" % bins.shape[1], bins,
+                       b))
+        lap("phase 13")
     if 10 in phases:
         n, bins = phase_mslr(lgb, hist_mod)
         by_path["histogram_f32"]["phase10_mslr_lambdarank_xendcg"] = n
-        widths.append(("mslr Fp=136", bins))
+        widths.append(("mslr Fp=136", bins, 256))
         lap("phase 10")
     if rows is not None and widths:
         time_widths(hist_mod, widths, rows)
-        lap("kernel timing at Fp 56 and 136")
+        lap("kernel timing at the widths of phases 9, 10 and 13")
     del widths
     if 11 in phases:
         by_path["histogram_f32"]["phase11_other_objectives"] = \

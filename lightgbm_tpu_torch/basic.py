@@ -24,6 +24,8 @@ from .utils.log import LightGBMError
 
 
 def _to_2d_float(data) -> np.ndarray:
+    if hasattr(data, "toarray"):       # scipy sparse (csr/csc/coo)
+        data = data.toarray()
     if hasattr(data, "values") and not isinstance(data, np.ndarray):
         data = data.values             # pandas
     arr = np.asarray(data)
@@ -62,11 +64,9 @@ class Dataset:
         if self.reference is not None:
             self.reference.construct()
         config = Config.from_params(self.params)
-        cat = self.categorical_feature
-        if cat not in ("auto", None, "", []):
-            config.categorical_feature = cat
         if hasattr(self.data, "tocsc"):
-            data = self.data             # from_matrix raises for sparse
+            # scipy sparse stays sparse: from_matrix bins it per column
+            data = self.data
         else:
             data = _to_2d_float(self.data)
         feature_names = None
@@ -74,10 +74,13 @@ class Dataset:
             feature_names = list(self.feature_name)
         elif hasattr(self.data, "columns"):
             feature_names = [str(c) for c in self.data.columns]
+        cat = self.categorical_feature
+        if cat == "auto":
+            cat = None
         self._handle = BinnedDataset.from_matrix(
             data, config, label=self.label, weights=self.weight,
             group=self.group, init_score=self.init_score,
-            feature_names=feature_names,
+            feature_names=feature_names, categorical_feature=cat,
             reference=(self.reference._handle
                        if self.reference is not None else None))
         if self.free_raw_data:
@@ -164,6 +167,7 @@ class Dataset:
         h.feature_names = src.feature_names
         h.num_bin_per_feature = src.num_bin_per_feature
         h.max_num_bin = src.max_num_bin
+        h.bundle = src.bundle
         md = Metadata(len(idx))
         md.set_label(np.asarray(src.metadata.label)[idx])
         if src.metadata.weights is not None:

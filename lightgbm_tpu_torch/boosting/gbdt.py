@@ -19,7 +19,7 @@ partition to the host for it, as the reference does.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -27,12 +27,12 @@ import torch
 from ..config import Config
 from ..io.dataset import BinnedDataset
 from ..metric import Metric, create_metric, resolve_metric_names
-from ..models.tree import Tree, parse_tree_blocks
+from ..models.tree import Tree, kCategoricalMask, parse_tree_blocks
 from ..objective import (ObjectiveFunction, create_objective,
                          load_objective_from_string)
 from ..ops.predict import build_device_tree, tree_output_on_device
 from ..treelearner import create_tree_learner
-from ..utils import log
+from ..utils import log, next_pow2
 from .sample_strategy import create_sample_strategy
 
 kEpsilon = 1e-15
@@ -40,11 +40,12 @@ kEpsilon = 1e-15
 
 def device_tree_outputs(tree: Tree, bins: torch.Tensor,
                         bin_meta) -> Optional[torch.Tensor]:
-    """[n] f32 output of one tree over binned rows ``bins`` [n, F]
-    (uint8, any device), by the walk of ``ops/predict.py``. ``bin_meta``
-    is (nan_bins, zero_bins, missing_types) per inner feature. Returns
-    None for a zero-valued stump."""
-    dtree = build_device_tree(tree, bin_meta, bins.device)
+    """[n] f32 output of one tree over binned rows ``bins`` [n, F] or,
+    EFB-bundled, [n, G] (uint8, any device), by the walk of
+    ``ops/predict.py``. ``bin_meta`` is the GBDT's :class:`BinMeta`.
+    Returns None for a zero-valued stump."""
+    dtree = build_device_tree(tree, bin_meta[:3], bins.device,
+                              bin_meta.num_bins, bin_meta.bundle)
     if dtree is None:
         if tree.leaf_value[0] != 0.0:
             return torch.full((bins.shape[0],),
@@ -52,6 +53,28 @@ def device_tree_outputs(tree: Tree, bins: torch.Tensor,
                               dtype=torch.float32, device=bins.device)
         return None
     return tree_output_on_device(bins, dtree)
+
+
+class BinMeta(NamedTuple):
+    """What the binned walks need of the training dataset: per inner
+    feature its NaN bin, zero bin and missing type; the bin values' bound
+    (``num_bins``) and the EFB layout of bundled rows (or None)."""
+    nan_bins: np.ndarray
+    zero_bins: np.ndarray
+    missing_types: np.ndarray
+    num_bins: int
+    bundle: object
+
+
+def bin_meta_of(dataset: BinnedDataset) -> BinMeta:
+    m = dataset.bin_mappers
+    i32 = lambda v: np.asarray(v, dtype=np.int32)  # noqa: E731
+    width = (dataset.bundle.num_bundled_bins if dataset.bundle is not None
+             else dataset.max_num_bin)
+    return BinMeta(i32([b.num_bin - 1 for b in m]),
+                   i32([b.default_bin for b in m]),
+                   i32([b.missing_type for b in m]),
+                   next_pow2(max(int(width), 2)), dataset.bundle)
 
 
 class ValidData:
@@ -153,13 +176,7 @@ class GBDT:
             for k in range(K)]
         self.train_metrics: List[Metric] = []
         self.valid_data: List[ValidData] = []
-        self._bin_meta = (
-            np.asarray([m.num_bin - 1 for m in train_data.bin_mappers],
-                       dtype=np.int32),
-            np.asarray([m.default_bin for m in train_data.bin_mappers],
-                       dtype=np.int32),
-            np.asarray([m.missing_type for m in train_data.bin_mappers],
-                       dtype=np.int32))
+        self._bin_meta = bin_meta_of(train_data)
 
     def add_valid_data(self, valid_data: BinnedDataset) -> None:
         """reference: GBDT::AddValidDataset (gbdt.cpp:182)."""
@@ -307,18 +324,30 @@ class GBDT:
 
     def align_trees_to_dataset(self, dataset: BinnedDataset) -> None:
         """Give text-loaded trees the bin-space node fields
-        (``split_feature_inner``, ``threshold_in_bin``) of ``dataset``'s
-        bin mappers, for the binned walks (reference:
-        ``GBDT.align_trees_to_dataset``, gbdt.py:1231)."""
+        (``split_feature_inner``, ``threshold_in_bin``, the bin masks of
+        categorical nodes) of ``dataset``'s bin mappers, for the binned
+        walks (reference: ``GBDT.align_trees_to_dataset``,
+        gbdt.py:1231)."""
         inner_of = {f: j for j, f in enumerate(dataset.used_feature_map)}
         for tree in self.models:
             for node in range(tree.num_internal):
                 inner = inner_of.get(int(tree.split_feature[node]), -1)
                 tree.split_feature_inner[node] = max(inner, 0)
-                if inner >= 0:
-                    tree.threshold_in_bin[node] = \
-                        dataset.bin_mappers[inner].value_to_bin(
-                            np.array([tree.threshold[node]]))[0]
+                if inner < 0:
+                    continue
+                mapper = dataset.bin_mappers[inner]
+                if tree.decision_type[node] & kCategoricalMask:
+                    # a bin goes left when its category is in the node's
+                    # bitset (bin 0, NaN and others, never is)
+                    cats = np.array(
+                        [mapper.bin_2_categorical[b]
+                         if b < len(mapper.bin_2_categorical) else -1
+                         for b in range(mapper.num_bin)], dtype=np.float64)
+                    tree.cat_bin_masks[node] = tree._cat_contains(
+                        int(tree.threshold_in_bin[node]), cats)
+                else:
+                    tree.threshold_in_bin[node] = mapper.value_to_bin(
+                        np.array([tree.threshold[node]]))[0]
 
     def reset_config(self, config: Config) -> None:
         """Take new parameters between iterations (reference:

@@ -486,8 +486,6 @@ class Config:
             unsupported("extra_trees", "item 14")
         if self.feature_fraction_bynode < 1.0:
             unsupported("feature_fraction_bynode < 1", "item 15")
-        if self.categorical_feature:
-            unsupported("categorical features", "item 11")
         if any(int(v) != 0 for v in self.monotone_constraints):
             unsupported("monotone_constraints", "item 15")
         if self.interaction_constraints:

@@ -1,10 +1,10 @@
 """Carry binning and model state across from plain NumPy data.
 
-With these two functions a caller holding another package's bin
-boundaries and trees — for example ``lightgbm_tpu``'s
-``BinMapper.to_dict()`` output and its ``Tree`` arrays — hands them to
-this package unchanged, so both compute from exactly the same bins and
-the same model.
+With these functions a caller holding another package's bin boundaries,
+EFB layout and trees — for example ``lightgbm_tpu``'s
+``BinMapper.to_dict()`` output, its ``BundleLayout`` and its ``Tree``
+arrays — hands them to this package unchanged, so both compute from
+exactly the same bins, the same bundles and the same model.
 """
 from __future__ import annotations
 
@@ -12,7 +12,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .io.binning import BinMapper, BinType
+from .io.binning import BinMapper
+from .io.efb import BundleLayout
 from .models.tree import Tree
 from .utils.log import unsupported
 
@@ -29,39 +30,44 @@ def bin_mappers_from_numpy(dicts: Sequence[Optional[dict]]
     """One BinMapper per column from ``BinMapper.to_dict()``-shaped
     dicts (keys ``num_bin``, ``missing_type``, ``is_trivial``,
     ``sparse_rate``, ``bin_type``, ``bin_upper_bound``, ``min_val``,
-    ``max_val``, ``default_bin``, ``most_freq_bin``). ``None`` stands for
-    a trivial (unused) column. Pass the result as ``mappers=`` to
+    ``max_val``, ``default_bin``, ``most_freq_bin``, and for a
+    categorical column ``bin_2_categorical`` and ``categorical_2_bin``).
+    ``None`` stands for a trivial (unused) column. Pass the result as
+    ``mappers=`` to ``BinnedDataset.from_matrix``."""
+    return [BinMapper() if d is None else BinMapper.from_dict(d)
+            for d in dicts]
+
+
+def bundle_layout_from_numpy(layout) -> BundleLayout:
+    """An EFB layout from another package's ``BundleLayout`` (any object
+    or mapping with its fields: ``groups``, ``group_of``, ``member``,
+    ``unmap``, ``needs_zero_fix``, ``gidx_g``, ``gidx_b``,
+    ``num_bundled_bins``). Pass it as ``bundle=`` beside ``mappers=`` to
     ``BinnedDataset.from_matrix``."""
-    out = []
-    for d in dicts:
-        m = BinMapper()
-        if d is not None:
-            if int(d["bin_type"]) != BinType.NUMERICAL:
-                unsupported("categorical bin mappers", "item 11")
-            m.num_bin = int(d["num_bin"])
-            m.missing_type = int(d["missing_type"])
-            m.is_trivial = bool(d["is_trivial"])
-            m.sparse_rate = float(d["sparse_rate"])
-            m.bin_upper_bound = np.asarray(d["bin_upper_bound"],
-                                           dtype=np.float64)
-            m.min_val = float(d["min_val"])
-            m.max_val = float(d["max_val"])
-            m.default_bin = int(d["default_bin"])
-            m.most_freq_bin = int(d["most_freq_bin"])
-        out.append(m)
-    return out
+    get = (layout.get if isinstance(layout, dict)
+           else lambda k: getattr(layout, k))
+    return BundleLayout(
+        groups=[[int(f) for f in g] for g in get("groups")],
+        group_of=np.asarray(get("group_of"), dtype=np.int32),
+        member=np.asarray(get("member"), dtype=np.int32),
+        unmap=np.asarray(get("unmap"), dtype=np.int32),
+        needs_zero_fix=np.asarray(get("needs_zero_fix"), dtype=bool),
+        gidx_g=np.asarray(get("gidx_g"), dtype=np.int32),
+        gidx_b=np.asarray(get("gidx_b"), dtype=np.int32),
+        num_bundled_bins=int(get("num_bundled_bins")))
 
 
 def trees_from_numpy(dicts: Sequence[Dict[str, object]]) -> List[Tree]:
     """Trees from per-tree dicts of arrays named as ``Tree``'s fields
     (``split_feature``, ``threshold``, ``threshold_in_bin``,
     ``decision_type``, ``left_child``, ``right_child``, ``leaf_value``,
-    counts, weights, …) plus ``num_leaves`` and ``shrinkage``. Missing
-    optional arrays stay zero."""
+    counts, weights, …) plus ``num_leaves`` and ``shrinkage``. A tree
+    with categorical nodes also gives ``num_cat``, ``cat_boundaries``
+    and ``cat_threshold`` (its bitset words), and may give
+    ``cat_bin_masks`` (node -> bool mask over the node's bins, for the
+    binned walks). Missing optional arrays stay zero."""
     trees = []
     for d in dicts:
-        if int(d.get("num_cat", 0)) > 0:
-            unsupported("categorical trees", "item 11")
         if bool(d.get("is_linear", False)):
             unsupported("linear trees", "item 15")
         nl = int(d["num_leaves"])
@@ -77,5 +83,12 @@ def trees_from_numpy(dicts: Sequence[Dict[str, object]]) -> List[Tree]:
                 src = np.asarray(d[name])
                 n = min(len(src), len(dst))
                 dst[:n] = src[:n].astype(dtype or dst.dtype)
+        t.num_cat = int(d.get("num_cat", 0))
+        if t.num_cat > 0:
+            t.cat_boundaries = [int(v) for v in d["cat_boundaries"]]
+            t.cat_threshold = [int(v) for v in d["cat_threshold"]]
+        t.cat_bin_masks = {int(k): np.asarray(v, dtype=bool)
+                           for k, v in dict(d.get("cat_bin_masks")
+                                            or {}).items()}
         trees.append(t)
     return trees

@@ -10,12 +10,14 @@ device memory.
 The greedy bin search is the NumPy loop of the reference; the reference
 dispatches columns with more than 512 distinct values to a native
 ``GreedyFindBin``, which its own tests hold bit-identical to this loop.
-``value_to_bin`` is one ``np.searchsorted`` per column.
+``value_to_bin`` is one ``np.searchsorted`` per column. A categorical
+feature maps its category values to bins sorted by count (bin.cpp:424;
+bin 0 holds NaN, negative and rare or unseen values).
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -235,10 +237,54 @@ class BinMapper:
         self.sparse_rate: float = 1.0
         self.bin_type: int = BinType.NUMERICAL
         self.bin_upper_bound: np.ndarray = np.array([math.inf])
+        self.bin_2_categorical: List[int] = []
+        self.categorical_2_bin: Dict[int, int] = {}
         self.min_val: float = 0.0
         self.max_val: float = 0.0
         self.default_bin: int = 0
         self.most_freq_bin: int = 0
+
+    # ------------------------------------------------------------------
+    def to_dict(self) -> dict:
+        """JSON-safe fields (the reference's ``to_dict``): upper bounds
+        as floats, categorical keys as strings."""
+        return {
+            "num_bin": int(self.num_bin),
+            "missing_type": int(self.missing_type),
+            "is_trivial": bool(self.is_trivial),
+            "sparse_rate": float(self.sparse_rate),
+            "bin_type": int(self.bin_type),
+            "bin_upper_bound": [float(v) for v in self.bin_upper_bound],
+            "bin_2_categorical": [int(v) for v in self.bin_2_categorical],
+            "categorical_2_bin": {str(k): int(v) for k, v
+                                  in self.categorical_2_bin.items()},
+            "min_val": float(self.min_val),
+            "max_val": float(self.max_val),
+            "default_bin": int(self.default_bin),
+            "most_freq_bin": int(self.most_freq_bin),
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "BinMapper":
+        """Inverse of :meth:`to_dict`; the categorical keys are optional
+        (a numerical mapper's dict may leave them out)."""
+        m = cls()
+        m.num_bin = int(d["num_bin"])
+        m.missing_type = int(d["missing_type"])
+        m.is_trivial = bool(d["is_trivial"])
+        m.sparse_rate = float(d["sparse_rate"])
+        m.bin_type = int(d["bin_type"])
+        m.bin_upper_bound = np.asarray(d["bin_upper_bound"],
+                                       dtype=np.float64)
+        m.bin_2_categorical = [int(v) for v in d.get("bin_2_categorical",
+                                                     [])]
+        m.categorical_2_bin = {int(k): int(v) for k, v
+                               in d.get("categorical_2_bin", {}).items()}
+        m.min_val = float(d["min_val"])
+        m.max_val = float(d["max_val"])
+        m.default_bin = int(d["default_bin"])
+        m.most_freq_bin = int(d["most_freq_bin"])
+        return m
 
     # ------------------------------------------------------------------
     def find_bin(self, sample_values: np.ndarray, total_sample_cnt: int,
@@ -325,8 +371,9 @@ class BinMapper:
                 cnt_arr[self.num_bin - 1] = na_cnt
             cnt_in_bin = cnt_arr.tolist()
         else:
-            from ..utils.log import unsupported
-            unsupported("categorical features", "item 11")
+            cnt_in_bin = self._find_bin_categorical(
+                distinct, counts, max_bin, total_sample_cnt, na_cnt,
+                min_data_in_bin)
 
         self.is_trivial = self.num_bin <= 1
         if not self.is_trivial and pre_filter and _need_filter(
@@ -344,11 +391,69 @@ class BinMapper:
             self.sparse_rate = 1.0
 
     # ------------------------------------------------------------------
+    def _find_bin_categorical(self, distinct: np.ndarray,
+                              counts: np.ndarray, max_bin: int,
+                              total_sample_cnt: int, na_cnt: int,
+                              min_data_in_bin: int) -> List[int]:
+        """The categorical branch of FindBin (reference:
+        src/io/bin.cpp:424-491): integer categories sorted by count
+        (ties by value), kept until 99% of the non-NaN sample is covered
+        and while they hold ``min_data_in_bin`` rows; bin 0 holds NaN,
+        negative and dropped values. Returns the count per bin."""
+        vals_int: List[int] = []
+        cnts_int: List[int] = []
+        for v, c in zip(distinct, counts):
+            iv = int(v)
+            if iv < 0:
+                na_cnt += int(c)
+                continue
+            if vals_int and iv == vals_int[-1]:
+                cnts_int[-1] += int(c)
+            else:
+                vals_int.append(iv)
+                cnts_int.append(int(c))
+        self.bin_2_categorical = [-1]
+        self.categorical_2_bin = {-1: 0}
+        cnt_in_bin = [0]
+        self.num_bin = 1
+        rest_cnt = total_sample_cnt - na_cnt
+        if rest_cnt <= 0 or not vals_int:
+            return cnt_in_bin
+        order = np.argsort(-np.asarray(cnts_int), kind="stable")
+        cut_cnt = int(round((total_sample_cnt - na_cnt) * 0.99))
+        distinct_cnt = len(vals_int) + (1 if na_cnt > 0 else 0)
+        max_bin = min(distinct_cnt, max_bin)
+        used_cnt = 0
+        cur = 0
+        while cur < len(order) and (used_cnt < cut_cnt
+                                    or self.num_bin < max_bin):
+            i = int(order[cur])
+            if cnts_int[i] < min_data_in_bin and cur > 1:
+                break
+            self.bin_2_categorical.append(vals_int[i])
+            self.categorical_2_bin[vals_int[i]] = self.num_bin
+            used_cnt += cnts_int[i]
+            cnt_in_bin.append(cnts_int[i])
+            self.num_bin += 1
+            cur += 1
+        if cur == len(order) and na_cnt == 0:
+            self.missing_type = MissingType.NONE
+        else:
+            self.missing_type = MissingType.NAN
+        cnt_in_bin[0] = total_sample_cnt - used_cnt
+        return cnt_in_bin
+
+    # ------------------------------------------------------------------
     def value_to_bin(self, value) -> np.ndarray:
-        """Vectorized ValueToBin (reference: include/LightGBM/bin.h:492)."""
+        """Vectorized ValueToBin (reference: include/LightGBM/bin.h:492).
+        A categorical value maps through ``categorical_2_bin`` (its
+        integer part); NaN, negative and unseen values go to bin 0."""
         v = np.asarray(value, dtype=np.float64)
         scalar = v.ndim == 0
         v = np.atleast_1d(v)
+        if self.bin_type == BinType.CATEGORICAL:
+            out = self._categorical_to_bin(v)
+            return out[0] if scalar else out
         nan_mask = np.isnan(v)
         if self.missing_type != MissingType.NAN:
             v = np.where(nan_mask, 0.0, v)
@@ -359,9 +464,25 @@ class BinMapper:
             out = np.where(nan_mask, self.num_bin - 1, out)
         return out[0] if scalar else out
 
+    def _categorical_to_bin(self, v: np.ndarray) -> np.ndarray:
+        iv = np.where(np.isnan(v), -1, v).astype(np.int64)
+        cats = np.array(sorted(c for c in self.categorical_2_bin if c >= 0),
+                        dtype=np.int64)
+        if len(cats) == 0:
+            return np.zeros(len(iv), dtype=np.int32)
+        bins_for_cats = np.array(
+            [self.categorical_2_bin[int(c)] for c in cats], dtype=np.int32)
+        pos = np.searchsorted(cats, iv)
+        pos_clip = np.clip(pos, 0, len(cats) - 1)
+        hit = (pos < len(cats)) & (cats[pos_clip] == iv) & (iv >= 0)
+        return np.where(hit, bins_for_cats[pos_clip], 0).astype(np.int32)
+
     def bin_to_value(self, bin_idx: int) -> float:
         """Upper bound of a bin — the real-valued threshold stored in trees
-        (reference: include/LightGBM/bin.h:115 BinToValue)."""
+        (reference: include/LightGBM/bin.h:115 BinToValue); the category
+        value of a categorical bin."""
+        if self.bin_type == BinType.CATEGORICAL:
+            return float(self.bin_2_categorical[bin_idx])
         return float(self.bin_upper_bound[bin_idx])
 
     def feature_info(self) -> str:
@@ -369,4 +490,6 @@ class BinMapper:
         (reference: src/io/dataset.cpp DumpModel feature_infos format)."""
         if self.is_trivial:
             return "none"
+        if self.bin_type == BinType.CATEGORICAL:
+            return ":".join(str(c) for c in self.bin_2_categorical[1:])
         return f"[{self.min_val}:{self.max_val}]"

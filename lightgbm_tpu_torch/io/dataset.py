@@ -1,25 +1,30 @@
 """Binned dataset + metadata for lightgbm_tpu_torch.
 
-Port of the dense numerical path of ``lightgbm_tpu/io/dataset.py``
-(reference: include/LightGBM/dataset.h:426,46; construction after
+Port of ``lightgbm_tpu/io/dataset.py`` (reference:
+include/LightGBM/dataset.h:426,46; construction after
 DatasetLoader::ConstructFromSampleData, src/io/dataset_loader.cpp:593):
 
-  sample rows -> BinMapper.find_bin per feature -> value_to_bin over the
-  full column -> drop trivial features -> one row-major uint8 matrix.
+  sample rows -> BinMapper.find_bin per feature (numerical or
+  categorical) -> drop trivial features -> EFB bundles of mostly-zero
+  columns (``io/efb.py``, on by default as in the reference) ->
+  value_to_bin over the full columns -> one row-major uint8 matrix,
+  [N, G] bundle columns when bundled, [N, F] features otherwise.
 
-The matrix stays on the host here; the learner copies it to the device
-once. Sparse input, categorical features and EFB bundles are later
-slices: a dataset whose sparse columns would bundle raises.
+Dense arrays and scipy sparse matrices are taken; sparse input stays
+CSC and every per-column pass is O(nnz) (implicit zeros take the
+feature's zero bin). The matrix stays on the host here; the learner
+copies it to the device once.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 
 from ..config import Config
 from ..utils import log
 from .binning import BinMapper, BinType, MissingType
+from .efb import BundleLayout, build_layout, bundle_columns, find_groups
 
 
 class Metadata:
@@ -84,9 +89,11 @@ class Metadata:
 class BinnedDataset:
     """Quantized training data.
 
-    bins : np.ndarray [num_data, num_used_features] uint8
+    bins : np.ndarray uint8, [num_data, num_used_features], or the
+        bundled [num_data, num_groups] matrix when ``bundle`` is set
     bin_mappers : one BinMapper per *used* (non-trivial) feature
     used_feature_map : original column index per used feature
+    bundle : the EFB layout (``io/efb.py`` BundleLayout) or None
     """
 
     def __init__(self) -> None:
@@ -98,36 +105,53 @@ class BinnedDataset:
         self.metadata: Metadata = Metadata(0)
         self.max_num_bin: int = 0
         self.num_bin_per_feature: np.ndarray = np.zeros(0, dtype=np.int32)
+        self.bundle: Optional[BundleLayout] = None
 
     # ------------------------------------------------------------------
     @classmethod
-    def from_matrix(cls, data: np.ndarray, config: Config,
+    def from_matrix(cls, data, config: Config,
                     label: Optional[Sequence[float]] = None,
                     weights: Optional[Sequence[float]] = None,
                     group: Optional[Sequence[int]] = None,
                     init_score: Optional[Sequence[float]] = None,
                     feature_names: Optional[List[str]] = None,
+                    categorical_feature: Optional[
+                        Sequence[Union[int, str]]] = None,
                     reference: Optional["BinnedDataset"] = None,
-                    mappers: Optional[List[BinMapper]] = None
+                    mappers: Optional[List[BinMapper]] = None,
+                    bundle: Optional[BundleLayout] = None
                     ) -> "BinnedDataset":
-        """Bin a dense float matrix.
+        """Bin a dense float matrix or a scipy sparse matrix.
 
+        categorical_feature : column indices or names of categorical
+            columns (``config.categorical_feature`` when None)
         group : query sizes, summing to the rows (ranking objectives).
-        reference : a training dataset whose bin mappers this one reuses
-            (validation sets; reference: dataset_loader.cpp:299).
+        reference : a training dataset whose bin mappers and bundle
+            layout this one reuses (validation sets; reference:
+            dataset_loader.cpp:299).
         mappers : one BinMapper per column, used instead of finding bins
             (``convert.bin_mappers_from_numpy`` carries another
-            package's mappers across this way).
+            package's mappers across this way); with them the data is
+            bundled by ``bundle`` (``convert.bundle_layout_from_numpy``)
+            and left unbundled when that is None.
         """
-        if hasattr(data, "tocsc"):
-            log.unsupported("sparse input", "item 11")
-        data = np.asarray(data)
-        if data.dtype not in (np.float32, np.float64):
-            data = data.astype(np.float64)
-        if data.ndim != 2:
-            log.fatal("Training data must be 2-dimensional")
+        is_sparse = hasattr(data, "tocsc")
+        if is_sparse:
+            data = data.tocsc()
+            if not data.has_canonical_format:
+                # duplicate (row, col) entries sum, as in a dense matrix;
+                # copy first: tocsc() may alias the caller's matrix
+                data = data.copy()
+                data.sum_duplicates()
+        else:
+            data = np.asarray(data)
+            if data.dtype not in (np.float32, np.float64):
+                data = data.astype(np.float64)
+            if data.ndim != 2:
+                log.fatal("Training data must be 2-dimensional")
         n, num_total_features = data.shape
         config.check_slice()
+        columns = _Columns(data, is_sparse)
 
         self = cls()
         self.num_total_features = num_total_features
@@ -139,9 +163,16 @@ class BinnedDataset:
             self.used_feature_map = reference.used_feature_map
             self.num_bin_per_feature = reference.num_bin_per_feature
             self.max_num_bin = reference.max_num_bin
+            self.bundle = reference.bundle
         else:
+            if categorical_feature is None and config.categorical_feature:
+                categorical_feature = config.categorical_feature
+            cat_set = _resolve_categorical(categorical_feature,
+                                           self.feature_names)
+            sample_bin_cols: List[np.ndarray] = []
             if mappers is None:
-                mappers = _find_mappers(data, config)
+                mappers, sample_bin_cols = _find_mappers(
+                    columns, n, config, cat_set)
             elif len(mappers) != num_total_features:
                 log.fatal("%d bin mappers for %d columns"
                           % (len(mappers), num_total_features))
@@ -160,12 +191,30 @@ class BinnedDataset:
                 self.num_bin_per_feature) else 1
             if self.max_num_bin > 256:
                 log.unsupported("more than 256 bins per feature", "item 26")
+            if bundle is not None:
+                self.bundle = bundle
+            elif (sample_bin_cols and config.enable_bundle
+                  and len(self.bin_mappers) > 1):
+                self._find_bundles(sample_bin_cols, config)
+            if (self.bundle is not None
+                    and self.bundle.num_bundled_bins > 256):
+                log.unsupported("EFB bundles of more than 256 bins "
+                                "(uint16 bundle columns)", "item 26")
 
-        bins = np.empty((n, len(self.bin_mappers)), dtype=np.uint8)
-        for j, (f, bm) in enumerate(zip(self.used_feature_map,
-                                        self.bin_mappers)):
-            bins[:, j] = bm.value_to_bin(data[:, f])
-        self.bins = bins
+        def binned_col(j: int) -> np.ndarray:
+            return columns.binned(self.used_feature_map[j],
+                                  self.bin_mappers[j], n)
+
+        if self.bundle is not None:
+            zero_bins = np.asarray([m.default_bin for m in self.bin_mappers],
+                                   dtype=np.int32)
+            self.bins = bundle_columns(binned_col, self.bundle, zero_bins, n,
+                                       np.uint8)
+        else:
+            bins = np.empty((n, len(self.bin_mappers)), dtype=np.uint8)
+            for j in range(len(self.bin_mappers)):
+                bins[:, j] = binned_col(j)
+            self.bins = bins
 
         self.metadata = Metadata(n)
         if label is not None:
@@ -174,6 +223,59 @@ class BinnedDataset:
         self.metadata.set_group(group)
         self.metadata.set_init_score(init_score)
         return self
+
+    # ------------------------------------------------------------------
+    def _find_bundles(self, sample_bin_cols: List[np.ndarray],
+                      config: Config) -> None:
+        """Greedy EFB over the sampled binned columns (reference:
+        Dataset::FindGroups, src/io/dataset.cpp:107). Only numerical,
+        non-NaN-missing, mostly-zero features are candidates."""
+        sample_cnt = len(sample_bin_cols[0])
+        zero_bins = np.asarray([m.default_bin for m in self.bin_mappers],
+                               dtype=np.int32)
+        masks: List[Optional[np.ndarray]] = []
+        for j, m in enumerate(self.bin_mappers):
+            if (m.bin_type == BinType.CATEGORICAL
+                    or m.missing_type == MissingType.NAN
+                    or m.num_bin < 2):
+                masks.append(None)
+                continue
+            nz = sample_bin_cols[j] != zero_bins[j]
+            # bundling pays off on sparse columns only (reference:
+            # kSparseThreshold, include/LightGBM/bin.h:39)
+            masks.append(nz if nz.mean() <= 0.3 else None)
+        if all(mk is None for mk in masks):
+            return
+        max_bundle_bins = max(self.max_num_bin, min(config.max_bin + 1, 256))
+        groups = find_groups(masks, self.num_bin_per_feature, sample_cnt,
+                             max_bundle_bins)
+        if all(len(g) == 1 for g in groups):
+            return
+        self.bundle = build_layout(groups, self.num_bin_per_feature,
+                                   zero_bins, self.max_num_bin)
+        log.info("EFB: bundled %d features into %d columns"
+                 % (len(self.bin_mappers), self.bundle.num_groups))
+
+    def feature_bin_column(self, j: int) -> np.ndarray:
+        """The bin column of used feature j, unbundled where needed."""
+        if self.bundle is None:
+            return self.bins[:, j]
+        lay = self.bundle
+        g = int(lay.group_of[j])
+        col = self.bins[:, g].astype(np.int64)
+        zb = self.bin_mappers[j].default_bin
+        return np.where(lay.member[g][col] == j, lay.unmap[g][col],
+                        zb).astype(self.bins.dtype)
+
+    def feature_bins(self) -> np.ndarray:
+        """[N, F] per-feature bin matrix (made when bundled)."""
+        if self.bundle is None:
+            return self.bins
+        out = np.empty((self.bins.shape[0], len(self.bin_mappers)),
+                       dtype=self.bins.dtype)
+        for j in range(len(self.bin_mappers)):
+            out[:, j] = self.feature_bin_column(j)
+        return out
 
     # ------------------------------------------------------------------
     @property
@@ -198,11 +300,51 @@ class BinnedDataset:
         return infos
 
 
-def _find_mappers(data: np.ndarray, config: Config) -> List[BinMapper]:
+class _Columns:
+    """Column access to a dense matrix or a CSC matrix: a sparse column
+    is its (row indices, values) pair, never a dense vector."""
+
+    def __init__(self, data, is_sparse: bool):
+        self.data = data
+        self.is_sparse = is_sparse
+
+    def nonzero(self, f: int):
+        d = self.data
+        sl = slice(int(d.indptr[f]), int(d.indptr[f + 1]))
+        return d.indices[sl], np.asarray(d.data[sl], dtype=np.float64)
+
+    def sample(self, f: int, sample_idx: Optional[np.ndarray]):
+        """(sampled values, their positions in the sample): every value
+        of a dense column, the stored values of a sparse one (the
+        reference's sample keeps the non-zeros and a sample count,
+        DatasetLoader::SampleTextData)."""
+        if not self.is_sparse:
+            col = self.data[:, f]
+            return (col if sample_idx is None else col[sample_idx]), None
+        rows, vals = self.nonzero(f)
+        if sample_idx is None:
+            return vals, rows
+        pos = np.searchsorted(sample_idx, rows)
+        ok = pos < len(sample_idx)
+        ok[ok] &= sample_idx[pos[ok]] == rows[ok]
+        return vals[ok], pos[ok]
+
+    def binned(self, f: int, bm: BinMapper, n: int) -> np.ndarray:
+        if not self.is_sparse:
+            return bm.value_to_bin(self.data[:, f])
+        rows, vals = self.nonzero(f)
+        out = np.full(n, bm.default_bin, dtype=np.int32)
+        out[rows] = bm.value_to_bin(vals)
+        return out
+
+
+def _find_mappers(columns: _Columns, n: int, config: Config,
+                  cat_set: set):
     """Sampling pass (bin_construct_sample_cnt, config.h:641) and one
-    ``find_bin`` per column, with the reference's knobs. Raises when the
-    sampled sparse columns would form EFB bundles (a later slice)."""
-    n, num_total_features = data.shape
+    ``find_bin`` per column, with the reference's knobs. Returns the
+    mappers and the sampled bin column of each non-trivial one (what
+    EFB groups by)."""
+    num_total_features = columns.data.shape[1]
     sample_cnt = min(config.bin_construct_sample_cnt, n)
     rng = np.random.RandomState(config.data_random_seed)
     sample_idx = (np.sort(rng.choice(n, sample_cnt, replace=False))
@@ -217,10 +359,9 @@ def _find_mappers(data: np.ndarray, config: Config) -> List[BinMapper]:
             log.fatal("Each entry of max_bin_by_feature must be > 1")
     forced_bounds = _load_forced_bounds(config)
     mappers: List[BinMapper] = []
-    sample_bin_cols: List[Optional[np.ndarray]] = []
+    sample_bin_cols: List[np.ndarray] = []
     for f in range(num_total_features):
-        col = data[:, f]
-        sample_col = col if sample_idx is None else col[sample_idx]
+        sample_col, sample_rows = columns.sample(f, sample_idx)
         bm = BinMapper()
         bm.find_bin(
             sample_col, total_sample_cnt=sample_cnt,
@@ -229,21 +370,22 @@ def _find_mappers(data: np.ndarray, config: Config) -> List[BinMapper]:
             min_data_in_bin=config.min_data_in_bin,
             min_split_data=config.min_data_in_leaf,
             pre_filter=config.feature_pre_filter,
-            bin_type=BinType.NUMERICAL,
+            bin_type=(BinType.CATEGORICAL if f in cat_set
+                      else BinType.NUMERICAL),
             use_missing=config.use_missing,
             zero_as_missing=config.zero_as_missing,
             forced_upper_bounds=forced_bounds.get(f))
         mappers.append(bm)
-        sample_bin_cols.append(None if bm.is_trivial
-                               else bm.value_to_bin(sample_col))
-    if config.enable_bundle and _bundles_would_form(
-            [m for m in mappers if not m.is_trivial],
-            [c for c in sample_bin_cols if c is not None], sample_cnt,
-            config):
-        log.unsupported("EFB bundling of sparse columns (set "
-                        "enable_bundle=false to train unbundled)",
-                        "item 11")
-    return mappers
+        if bm.is_trivial:
+            continue
+        if sample_rows is None:
+            sample_bin_cols.append(
+                bm.value_to_bin(sample_col).astype(np.int32))
+        else:
+            sb = np.full(sample_cnt, bm.default_bin, dtype=np.int32)
+            sb[sample_rows] = bm.value_to_bin(sample_col)
+            sample_bin_cols.append(sb)
+    return mappers, sample_bin_cols
 
 
 def _load_forced_bounds(config) -> dict:
@@ -263,35 +405,21 @@ def _load_forced_bounds(config) -> dict:
     return forced_bounds
 
 
-def _bundles_would_form(mappers: List[BinMapper],
-                        sample_bin_cols: List[np.ndarray],
-                        sample_cnt: int, config: Config) -> bool:
-    """Whether the reference's greedy EFB (``io/efb.py find_groups``,
-    after Dataset::FindGroups, src/io/dataset.cpp:107) would put two
-    features into one bundle on this sample: only mostly-zero,
-    non-NaN-missing numerical features are candidates; each goes into
-    the first group whose conflict count and bin budget allow it."""
-    if len(mappers) < 2:
-        return False
-    num_bins = np.asarray([m.num_bin for m in mappers], dtype=np.int32)
-    masks = []
-    for m, col in zip(mappers, sample_bin_cols):
-        if m.missing_type == MissingType.NAN or m.num_bin < 2:
-            continue
-        nz = col != m.default_bin
-        if nz.mean() <= 0.3:
-            masks.append((nz, int(m.num_bin) - 1))
-    if len(masks) < 2:
-        return False
-    max_bundle_bins = max(int(num_bins.max()), min(config.max_bin + 1, 256))
-    max_conflict = int(1e-4 * sample_cnt)
-    masks.sort(key=lambda mb: -int(mb[0].sum()))
-    groups = []                    # [union mask, conflicts, bins]
-    for mask, extra_bins in masks:
-        for g in groups:
-            if g[2] + extra_bins > max_bundle_bins:
-                continue
-            if g[1] + int((g[0] & mask).sum()) <= max_conflict:
-                return True
-        groups.append([mask.copy(), 0, 1 + extra_bins])
-    return False
+def _resolve_categorical(categorical_feature, feature_names) -> set:
+    """Column indices of ``categorical_feature``: indices, or names of
+    ``feature_names``, as a list or a comma-separated string."""
+    cats: set = set()
+    if categorical_feature is None or categorical_feature == "auto":
+        return cats
+    if isinstance(categorical_feature, str):
+        categorical_feature = [c for c in categorical_feature.split(",")
+                               if c]
+    for c in categorical_feature:
+        if isinstance(c, str) and not c.lstrip("-").isdigit():
+            if c in feature_names:
+                cats.add(feature_names.index(c))
+            else:
+                log.warning("Unknown categorical feature name: %s" % c)
+        else:
+            cats.add(int(c))
+    return cats

@@ -14,13 +14,17 @@ Conventions (same as reference):
   keeps leaf index L, the right child becomes leaf ``num_leaves``
 - ``decision_type`` bit flags: 1 = categorical, 2 = default_left,
   bits 2-3 = missing type (none/zero/nan) (include/LightGBM/tree.h:19-20)
+- a categorical node's ``threshold`` is the index of its split in
+  ``cat_boundaries``; its category values sending rows left are the set
+  bits of ``cat_threshold[cat_boundaries[i]:cat_boundaries[i + 1]]``
+  (uint32 words, tree.h ``cat_threshold_``); NaN, negative and unseen
+  categories go right
 
-This slice holds numerical splits only; categorical and linear trees
-(text with ``num_cat > 0`` or ``is_linear=1``) raise on load.
+Linear trees (text with ``is_linear=1``) raise on load (item 15).
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 
@@ -66,6 +70,14 @@ class Tree:
         self.leaf_parent = np.full(max_leaves, -1, dtype=np.int32)
         self.leaf_depth = np.zeros(max_leaves, dtype=np.int32)
         self.shrinkage = 1.0
+        # categorical splits (tree.h cat_boundaries_ / cat_threshold_)
+        self.num_cat = 0
+        self.cat_boundaries: List[int] = [0]
+        self.cat_threshold: List[int] = []      # uint32 bitset words
+        # node -> bool mask over its feature's BINS, for the binned
+        # walks of the training session (not serialized; a text-loaded
+        # tree gets it from GBDT.align_trees_to_dataset)
+        self.cat_bin_masks: Dict[int, np.ndarray] = {}
 
     # ------------------------------------------------------------------
     def split(self, leaf: int, feature: int, feature_inner: int,
@@ -112,6 +124,74 @@ class Tree:
         return new_leaf
 
     # ------------------------------------------------------------------
+    def split_categorical(self, leaf: int, feature: int, feature_inner: int,
+                          cat_values, bin_mask,
+                          left_value: float, right_value: float,
+                          left_count: int, right_count: int,
+                          left_weight: float, right_weight: float,
+                          gain: float) -> int:
+        """Categorical split: rows whose category is in ``cat_values``
+        go left (reference: Tree::SplitCategorical, tree.h:85: the
+        bitset words are appended to ``cat_threshold``, and the node's
+        threshold is the split's index into ``cat_boundaries``).
+        ``bin_mask`` is the same set over the feature's bins."""
+        node = self.num_leaves - 1
+        new_leaf = self.split(
+            leaf=leaf, feature=feature, feature_inner=feature_inner,
+            threshold_bin=self.num_cat, threshold_real=float(self.num_cat),
+            left_value=left_value, right_value=right_value,
+            left_count=left_count, right_count=right_count,
+            left_weight=left_weight, right_weight=right_weight,
+            gain=gain, missing_type=MissingType.NONE, default_left=False)
+        self.decision_type[node] = kCategoricalMask
+        max_cat = max([int(v) for v in cat_values], default=0)
+        words = [0] * (max_cat // 32 + 1)
+        for v in cat_values:
+            v = int(v)
+            if v >= 0:
+                words[v // 32] |= 1 << (v % 32)
+        self.cat_threshold.extend(words)
+        self.cat_boundaries.append(len(self.cat_threshold))
+        self.num_cat += 1
+        self.cat_bin_masks[node] = np.asarray(bin_mask, dtype=bool)
+        return new_leaf
+
+    def _cat_contains(self, cat_idx: int, values: np.ndarray) -> np.ndarray:
+        """Vectorized FindInBitset (reference: utils/common.h): whether
+        each (integer-truncated) value is in split ``cat_idx``'s set;
+        negative values and values past its words are not."""
+        lo = self.cat_boundaries[cat_idx]
+        hi = self.cat_boundaries[cat_idx + 1]
+        words = np.asarray(self.cat_threshold[lo:hi], dtype=np.uint64)
+        iv = values.astype(np.int64)
+        word_idx = iv // 32
+        ok = (iv >= 0) & (word_idx < len(words))
+        wi = np.clip(word_idx, 0, max(len(words) - 1, 0))
+        bits = (words[wi] >> (iv % 32).astype(np.uint64)) & 1
+        return ok & (bits > 0)
+
+    def cat_value_words(self, cat_idx: int) -> int:
+        """Bitset words of categorical split ``cat_idx``: it sends no
+        value >= 32 * words left."""
+        return self.cat_boundaries[cat_idx + 1] - self.cat_boundaries[cat_idx]
+
+    def cat_value_mask(self, cat_idx: int, max_value: int) -> np.ndarray:
+        """[max_value + 1] bool: which of the category values
+        0..max_value split ``cat_idx`` sends left (from the bitset
+        alone, so text-loaded trees have it)."""
+        return self._cat_contains(
+            cat_idx, np.arange(max_value + 1, dtype=np.float64))
+
+    def _cats_of(self, cat_idx: int) -> List[int]:
+        """The category values of split ``cat_idx``, ascending
+        (reference: Tree::NodeToJSON's FindInBitset loop)."""
+        lo = self.cat_boundaries[cat_idx]
+        hi = self.cat_boundaries[cat_idx + 1]
+        return [w * 32 + j for w in range(hi - lo)
+                for j in range(32)
+                if (int(self.cat_threshold[lo + w]) >> j) & 1]
+
+    # ------------------------------------------------------------------
     def apply_shrinkage(self, rate: float) -> None:
         """reference: Tree::Shrinkage (tree.h:113)."""
         self.leaf_value[:self.num_leaves] *= rate
@@ -132,9 +212,11 @@ class Tree:
 
     def predict_leaf_index(self, X: np.ndarray) -> np.ndarray:
         """Lockstep vectorized traversal: all rows advance one level per
-        pass (reference: tree.h:133 Predict over NumericalDecision —
-        here the per-row branch walk becomes array ops over the flat
-        node arrays)."""
+        pass (reference: tree.h:133 Predict over NumericalDecision and
+        CategoricalDecision — here the per-row branch walk becomes array
+        ops over the flat node arrays). A categorical node sends a row
+        left when its value's integer part is in the node's bitset: NaN,
+        negative and unseen categories go right."""
         n = X.shape[0]
         if self.num_leaves == 1:
             return np.zeros(n, dtype=np.int32)
@@ -145,6 +227,12 @@ class Tree:
         default_left = (dt & kDefaultLeftMask) != 0
         missing = (dt >> 2) & 3
         left, right = self.left_child[:ni], self.right_child[:ni]
+        is_cat = (dt & kCategoricalMask) != 0
+        has_cat = bool(is_cat.any())
+        if has_cat:
+            boundaries = np.asarray(self.cat_boundaries, dtype=np.int64)
+            words = np.asarray(self.cat_threshold, dtype=np.uint64)
+            cat_idx = self.threshold_in_bin[:ni].astype(np.int64)
         node = np.zeros(n, dtype=np.int32)   # >=0 internal, <0 = ~leaf
         for _ in range(ni):
             act = np.nonzero(node >= 0)[0]
@@ -161,6 +249,20 @@ class Tree:
                           default_left[nd], gl)
             gl = np.where((m == MissingType.NAN) & isnan,
                           default_left[nd], gl)
+            if has_cat:
+                cn = is_cat[nd]
+                if cn.any():
+                    iv = np.where(isnan, -1.0, fv).astype(np.int64)
+                    # numerical nodes hold bins in threshold_in_bin:
+                    # clamp them out of the boundaries lookup
+                    ci = np.clip(np.where(cn, cat_idx[nd], 0), 0,
+                                 len(boundaries) - 2)
+                    n_words = boundaries[ci + 1] - boundaries[ci]
+                    ok = (iv >= 0) & (iv // 32 < n_words)
+                    pos = np.clip(boundaries[ci] + iv // 32, 0,
+                                  max(len(words) - 1, 0))
+                    bits = (words[pos] >> (iv % 32).astype(np.uint64)) & 1
+                    gl = np.where(cn, ok & (bits > 0), gl)
             node[act] = np.where(gl, left[nd], right[nd])
         return (~node).astype(np.int32)
 
@@ -170,7 +272,7 @@ class Tree:
         (src/io/tree.cpp:339-410)."""
         nl = self.num_leaves
         ni = max(nl - 1, 0)
-        lines = [f"num_leaves={nl}", "num_cat=0"]
+        lines = [f"num_leaves={nl}", f"num_cat={self.num_cat}"]
         if nl == 1:
             lines += [f"leaf_value={_fmt(self.leaf_value[0])}"]
         else:
@@ -188,6 +290,13 @@ class Tree:
                 "internal_weight=" + _arr_to_str(self.internal_weight[:ni], True),
                 "internal_count=" + _arr_to_str(self.internal_count[:ni], False),
             ]
+            if self.num_cat > 0:
+                lines += [
+                    "cat_boundaries=" + " ".join(
+                        str(v) for v in self.cat_boundaries),
+                    "cat_threshold=" + " ".join(
+                        str(v) for v in self.cat_threshold),
+                ]
         lines += ["is_linear=0"]
         lines += [f"shrinkage={_fmt(self.shrinkage)}", ""]
         return "\n".join(lines)
@@ -216,12 +325,19 @@ class Tree:
                 }
                 continue
             dt = int(self.decision_type[idx])
+            if dt & kCategoricalMask:
+                threshold = "||".join(str(c) for c in self._cats_of(
+                    int(self.threshold_in_bin[idx])))
+                decision = "=="
+            else:
+                threshold = float(self.threshold[idx])
+                decision = "<="
             memo[idx] = {
                 "split_index": int(idx),
                 "split_feature": int(self.split_feature[idx]),
                 "split_gain": float(self.split_gain[idx]),
-                "threshold": float(self.threshold[idx]),
-                "decision_type": "<=",
+                "threshold": threshold,
+                "decision_type": decision,
                 "default_left": bool(dt & kDefaultLeftMask),
                 "missing_type": ("None", "Zero", "NaN", "NaN")[(dt >> 2) & 3],
                 "internal_value": float(self.internal_value[idx]),
@@ -235,7 +351,8 @@ class Tree:
     def to_json(self) -> dict:
         """JSON-dump structure (reference: Tree::ToJSON,
         src/io/tree.cpp:411-429)."""
-        d = {"num_leaves": int(self.num_leaves), "num_cat": 0,
+        d = {"num_leaves": int(self.num_leaves),
+             "num_cat": int(self.num_cat),
              "shrinkage": float(self.shrinkage)}
         if self.num_leaves == 1:
             d["tree_structure"] = {"leaf_value": float(self.leaf_value[0])}
@@ -253,8 +370,6 @@ class Tree:
                 k, v = line.split("=", 1)
                 kv[k.strip()] = v.strip()
         nl = int(kv["num_leaves"])
-        if int(kv.get("num_cat", 0)) > 0:
-            unsupported("categorical trees", "item 11")
         if int(kv.get("is_linear", 0)):
             unsupported("linear trees", "item 15")
         t = cls(max(nl, 1))
@@ -297,6 +412,18 @@ class Tree:
             t.internal_weight[:ni] = farr("internal_weight", ni)
         if "internal_count" in kv:
             t.internal_count[:ni] = farr("internal_count", ni, np.int64)
+        t.num_cat = int(kv.get("num_cat", 0))
+        if t.num_cat > 0:
+            t.cat_boundaries = [int(v)
+                                for v in kv["cat_boundaries"].split()]
+            t.cat_threshold = [int(v) for v in kv["cat_threshold"].split()]
+            # a categorical node's threshold is its split index; cast
+            # only those (a numerical one may be NaN)
+            cat_nodes = (t.decision_type[:ni] & kCategoricalMask) != 0
+            t.threshold_in_bin[:ni] = np.where(
+                cat_nodes,
+                np.where(cat_nodes, t.threshold[:ni], 0).astype(np.int32),
+                t.threshold_in_bin[:ni])
         return t
 
     # ------------------------------------------------------------------

@@ -384,3 +384,36 @@ def subtract_histogram(parent: torch.Tensor,
     """Sibling histogram by subtraction (reference:
     serial_tree_learner.cpp ``larger.Subtract(smaller)``)."""
     return parent - child
+
+
+def unpack_bundle_histogram(bhist: torch.Tensor, gidx_g: torch.Tensor,
+                            gidx_b: torch.Tensor, zero_fix: torch.Tensor,
+                            zero_bins: torch.Tensor,
+                            totals: torch.Tensor) -> torch.Tensor:
+    """Bundle histogram [G, Bg, C] -> per-feature histogram [F, B, C]
+    (port of the reference's ``unpack_bundle_histogram``; EFB, after
+    FixHistogram, src/io/dataset.cpp).
+
+    A feature's bins gather from its bundle sub-range by the static
+    tables ``gidx_g`` / ``gidx_b`` ([F, B], -1 = no source); a feature
+    of a multi-member bundle (``zero_fix``) gets its zero bin as the
+    leaf's totals minus the sum of its other bins. ``totals`` is [C],
+    or [F, C] per feature. Integer (quantized) histograms subtract
+    exactly in their own dtype; f32 ones subtract in f64 and round once,
+    so the result is the same on every device."""
+    G, Bg, C = bhist.shape
+    has = gidx_g >= 0
+    flat = (gidx_g.clamp(min=0).long() * Bg + gidx_b.long()).view(-1)
+    hist = bhist.reshape(G * Bg, C).index_select(0, flat).view(
+        *gidx_g.shape, C)
+    zero = torch.zeros((), dtype=bhist.dtype, device=bhist.device)
+    hist = torch.where(has[..., None], hist, zero)
+    tot = totals if totals.dim() == 2 else totals[None, :]
+    if bhist.dtype.is_floating_point:
+        resid = (tot.to(torch.float64)
+                 - hist.to(torch.float64).sum(dim=1)).to(bhist.dtype)
+    else:
+        resid = tot.to(bhist.dtype) - hist.sum(dim=1, dtype=bhist.dtype)
+    fix = torch.where(zero_fix[:, None], resid, zero)
+    zb = zero_bins.long().view(-1, 1, 1).expand(-1, 1, C)
+    return hist.scatter_add(1, zb, fix[:, None, :])

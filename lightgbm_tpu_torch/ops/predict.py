@@ -17,6 +17,14 @@ row's current node, and a child pointer < 0 encodes leaf ``~index``
   all T trees at once over a ``[T, n]`` node tensor, one pass per level.
   Leaf values are summed per class with a Kahan-compensated f32 sum.
 
+A categorical node decides by one gather from a boolean table over its
+feature's values (its LUT row); a categorical feature's "bin" is its
+category value, clamped into the table. The LUT-node encoding decides
+EVERY node that way (a numerical node's row is ``bin <= rank``, with two
+sentinel columns for NaN and zero-as-missing), and so does the binned
+walk of an EFB-bundled dataset, whose node rows are tables over the
+node's bundle column.
+
 These are plain PyTorch ops on whatever device the tensors lie on; the
 reference's versions are jnp code (no Pallas), so there is no hand
 kernel here. The Kahan steps run eagerly and must stay so: a compiler
@@ -30,7 +38,7 @@ import numpy as np
 import torch
 
 from ..io.binning import MissingType
-from ..models.tree import Tree, kDefaultLeftMask
+from ..models.tree import Tree, kCategoricalMask, kDefaultLeftMask
 from ..utils import next_pow2
 
 
@@ -48,13 +56,20 @@ class DeviceTree(NamedTuple):
     right: torch.Tensor         # [NI] int32
     leaf_value: torch.Tensor    # [NL] f32
     depth: int                  # host int: the most hops a row needs
+    is_cat: Optional[torch.Tensor] = None    # [NI] bool: decide by LUT
+    cat_mask: Optional[torch.Tensor] = None  # [NI, W] bool: bin -> left
 
 
-def build_device_tree(tree: Tree, bin_meta,
-                      device: torch.device) -> Optional[DeviceTree]:
+def build_device_tree(tree: Tree, bin_meta, device: torch.device,
+                      num_bins: int = 256,
+                      bundle=None) -> Optional[DeviceTree]:
     """Pack a host Tree for the binned walk. ``bin_meta`` is the GBDT's
-    (nan_bins, zero_bins, missing_types) per inner feature. Returns None
-    for a stump (its output is a constant)."""
+    (nan_bins, zero_bins, missing_types) per inner feature; ``num_bins``
+    bounds the bin values of the rows walked. Categorical nodes decide
+    by their bin mask (``tree.cat_bin_masks``). Over EFB-bundled rows
+    (``bundle``, the dataset's BundleLayout) every node is a LUT row over
+    its bundle column (reference ``_build_bundled_device_tree``).
+    Returns None for a stump (its output is a constant)."""
     ni = tree.num_internal
     if ni == 0:
         return None
@@ -66,6 +81,15 @@ def build_device_tree(tree: Tree, bin_meta,
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
             device)
 
+    if bundle is not None:
+        return _bundled_device_tree(tree, bin_meta, num_bins, bundle, t)
+    is_cat = (dt & kCategoricalMask) != 0
+    cat_mask = None
+    if is_cat.any():
+        cat_mask = np.zeros((ni, num_bins), dtype=bool)
+        for node in np.nonzero(is_cat)[0]:
+            m = np.asarray(tree.cat_bin_masks[int(node)], dtype=bool)
+            cat_mask[node, :min(len(m), num_bins)] = m[:num_bins]
     return DeviceTree(
         feat=t(f, np.int64),
         tbin=t(tree.threshold_in_bin[:ni], np.int32),
@@ -77,7 +101,49 @@ def build_device_tree(tree: Tree, bin_meta,
         left=t(tree.left_child[:ni], np.int32),
         right=t(tree.right_child[:ni], np.int32),
         leaf_value=t(tree.leaf_value[:tree.num_leaves], np.float32),
-        depth=tree.structure_depth())
+        depth=tree.structure_depth(),
+        is_cat=None if cat_mask is None else t(is_cat, np.bool_),
+        cat_mask=None if cat_mask is None else t(cat_mask, np.bool_))
+
+
+def _bundled_device_tree(tree: Tree, bin_meta, num_bins: int, bundle,
+                         t) -> DeviceTree:
+    """LUT-node DeviceTree over EFB-bundled rows: per node a bool table
+    over its bundle column's bins, from the member / unmap maps."""
+    nan_bins, zero_bins, missing_types = bin_meta
+    ni = tree.num_internal
+    feat = np.zeros(ni, dtype=np.int64)
+    lut = np.zeros((ni, num_bins), dtype=bool)
+    for node in range(ni):
+        f = int(tree.split_feature_inner[node])
+        g = int(bundle.group_of[f])
+        feat[node] = g
+        zb = int(zero_bins[f])
+        orig = np.where(bundle.member[g] == f, bundle.unmap[g],
+                        zb)[:num_bins]
+        bits = int(tree.decision_type[node])
+        if bits & kCategoricalMask:
+            mask = np.asarray(tree.cat_bin_masks[node], dtype=bool)
+            gl = mask[np.minimum(orig, len(mask) - 1)]
+        else:
+            dl = bool(bits & kDefaultLeftMask)
+            gl = orig <= int(tree.threshold_in_bin[node])
+            if missing_types[f] == MissingType.NAN:
+                gl = np.where(orig == nan_bins[f], dl, gl)
+            elif missing_types[f] == MissingType.ZERO:
+                gl = np.where(orig == zb, dl, gl)
+        lut[node, :len(gl)] = gl
+    neg1 = np.full(ni, -1, dtype=np.int32)
+    return DeviceTree(
+        feat=t(feat, np.int64), tbin=t(neg1, np.int32),
+        default_left=t(np.zeros(ni, dtype=bool), np.bool_),
+        nan_bin=t(neg1, np.int32), zero_bin=t(neg1, np.int32),
+        left=t(tree.left_child[:ni], np.int32),
+        right=t(tree.right_child[:ni], np.int32),
+        leaf_value=t(tree.leaf_value[:tree.num_leaves], np.float32),
+        depth=tree.structure_depth(),
+        is_cat=t(np.ones(ni, dtype=bool), np.bool_),
+        cat_mask=t(lut, np.bool_))
 
 
 def _traverse(bins: torch.Tensor, dt: DeviceTree, trips: int) -> torch.Tensor:
@@ -91,6 +157,8 @@ def _traverse(bins: torch.Tensor, dt: DeviceTree, trips: int) -> torch.Tensor:
         gl = b <= dt.tbin[nd]
         gl = torch.where(b == dt.nan_bin[nd], dt.default_left[nd], gl)
         gl = torch.where(b == dt.zero_bin[nd], dt.default_left[nd], gl)
+        if dt.is_cat is not None:
+            gl = torch.where(dt.is_cat[nd], dt.cat_mask[nd, b.long()], gl)
         nxt = torch.where(gl, dt.left[nd], dt.right[nd])
         node = torch.where(node >= 0, nxt, node)
     return torch.where(node < 0, ~node, 0)
@@ -119,14 +187,22 @@ kZeroBin = -4   # |v| <= kZeroThreshold on a MissingType.ZERO feature
 
 class StackedNodes(NamedTuple):
     """All T trees' node arrays padded to common [T, NI] / [T, NL]
-    shapes (``serve/forest.py`` packs them). Numerical decisions only:
-    categorical nodes and the LUT-node encoding are ROADMAP item 11."""
+    shapes (``serve/forest.py`` packs them). Two encodings share it:
+
+    - compare nodes: a numerical node decides ``bin <= tbin``, a
+      categorical one (``is_cat``) by its row ``cat_slot`` of the shared
+      LUT; ``is_cat`` is None for a forest without categorical nodes;
+    - LUT nodes: every node is a LUT row over its feature's bins
+      (``is_cat`` all True; ``tbin`` and ``default_left`` None: the walk
+      runs no compare)."""
     feat: torch.Tensor          # [T, NI] int64 used-feature (compact) index
-    tbin: torch.Tensor          # [T, NI] int32 threshold rank (-1: none)
-    default_left: torch.Tensor  # [T, NI] bool
+    tbin: Optional[torch.Tensor]  # [T, NI] int32 threshold rank (-1: none)
+    default_left: Optional[torch.Tensor]  # [T, NI] bool
     left: torch.Tensor          # [T, NI] int32 (>= 0 node, < 0 ~leaf)
     right: torch.Tensor         # [T, NI] int32
     leaf_value: torch.Tensor    # [T, NL] f32
+    is_cat: Optional[torch.Tensor] = None    # [T, NI] bool
+    cat_slot: Optional[torch.Tensor] = None  # [T, NI] int64 LUT row
 
 
 class QuantizerTables(NamedTuple):
@@ -137,6 +213,8 @@ class QuantizerTables(NamedTuple):
     nan_feat: torch.Tensor      # [U] bool (MissingType.NAN features)
     zero_feat: torch.Tensor     # [U] bool (MissingType.ZERO features)
     zero_eps: float             # round-down f32 of kZeroThreshold
+    is_cat: Optional[torch.Tensor] = None    # [U] bool categorical
+    vmax: int = 0               # the largest category value in the LUT
 
 
 class QuantizerTablesDD(NamedTuple):
@@ -148,6 +226,22 @@ class QuantizerTablesDD(NamedTuple):
     thr_lo: torch.Tensor        # [U, M64] int32, 0 pad
     nan_feat: torch.Tensor      # [U] bool
     zero_feat: torch.Tensor     # [U] bool
+    is_cat: Optional[torch.Tensor] = None    # [U] bool
+    vmax: int = 0
+
+
+def _category_bins(X: torch.Tensor, b: torch.Tensor, is_cat, vmax: int
+                   ) -> torch.Tensor:
+    """A categorical feature's bin is its value's integer part, clamped
+    into the LUT's row: NaN, negative and values above ``vmax`` take
+    column vmax + 1, which is False for every node (the host's
+    FindInBitset miss: go right)."""
+    if is_cat is None:
+        return b
+    iv = torch.clamp(torch.where(torch.isnan(X), -1.0, X), -1.0,
+                     vmax + 1.0).to(torch.int32)
+    cb = torch.where((iv >= 0) & (iv <= vmax), iv, vmax + 1)
+    return torch.where(is_cat[:, None], cb, b)
 
 
 def _quantize_rows_impl(X: torch.Tensor, qt: QuantizerTables) -> torch.Tensor:
@@ -167,8 +261,9 @@ def _quantize_rows_impl(X: torch.Tensor, qt: QuantizerTables) -> torch.Tensor:
     Xn = torch.where(isnan & ~qt.nan_feat[:, None], 0.0, Xu)
     b = torch.searchsorted(qt.thresholds, Xn, right=False).to(torch.int32)
     b = torch.where(qt.nan_feat[:, None] & isnan, kNanBin, b)
-    return torch.where(qt.zero_feat[:, None] & (Xn.abs() <= qt.zero_eps),
-                       kZeroBin, b)
+    b = torch.where(qt.zero_feat[:, None] & (Xn.abs() <= qt.zero_eps),
+                    kZeroBin, b)
+    return _category_bins(Xu, b, qt.is_cat, qt.vmax)
 
 
 def _quantize_rows_dd_impl(Xhi: torch.Tensor, Xlo: torch.Tensor,
@@ -195,25 +290,41 @@ def _quantize_rows_dd_impl(Xhi: torch.Tensor, Xlo: torch.Tensor,
     less = (thi < h) | ((thi == h) & (tlo < lw))
     b = less.sum(dim=2, dtype=torch.int32)
     b = torch.where(qt.nan_feat[:, None] & isnan, kNanBin, b)
-    return torch.where(qt.zero_feat[:, None] & (lo == -1), kZeroBin, b)
+    b = torch.where(qt.zero_feat[:, None] & (lo == -1), kZeroBin, b)
+    return _category_bins(hi, b, qt.is_cat, qt.vmax)
 
 
 def _walk_stacked(bins_t: torch.Tensor, nodes: StackedNodes,
-                  trips: int) -> torch.Tensor:
+                  trips: int, cat_lut: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """[U, n] bins -> [T, n] int32 leaf ids: the lockstep walk of every
     tree at once. ``node`` is [T, n]; each pass gathers the node fields
     along dim 1 and each (tree, row)'s bin from ``bins_t`` along dim 0.
     ``trips`` is at least the deepest tree's depth; rows already on a
-    leaf keep it."""
+    leaf keep it. ``cat_lut`` [rows, W] decides the nodes of
+    ``nodes.is_cat``; its last two columns take the NaN and zero
+    sentinel bins (read by LUT-encoded numerical nodes only)."""
     T = nodes.feat.shape[0]
     n = bins_t.shape[1]
     node = torch.zeros((T, n), dtype=torch.int32, device=bins_t.device)
+    if nodes.is_cat is not None:
+        lut_w = cat_lut.shape[1]
+        lut_flat = cat_lut.reshape(-1)
     for _ in range(trips):
         nd = node.clamp(min=0).long()
         b = bins_t.gather(0, nodes.feat.gather(1, nd))
-        gl = b <= nodes.tbin.gather(1, nd)
-        gl = torch.where((b == kNanBin) | (b == kZeroBin),
-                         nodes.default_left.gather(1, nd), gl)
+        if nodes.is_cat is not None:
+            bi = torch.where(b == kNanBin, lut_w - 2, torch.where(
+                b == kZeroBin, lut_w - 1, b.clamp(min=0)))
+            lu = lut_flat[nodes.cat_slot.gather(1, nd) * lut_w + bi]
+        if nodes.tbin is None:
+            gl = lu                       # LUT nodes: one gather decides
+        else:
+            gl = b <= nodes.tbin.gather(1, nd)
+            gl = torch.where((b == kNanBin) | (b == kZeroBin),
+                             nodes.default_left.gather(1, nd), gl)
+            if nodes.is_cat is not None:
+                gl = torch.where(nodes.is_cat.gather(1, nd), lu, gl)
         nxt = torch.where(gl, nodes.left.gather(1, nd),
                           nodes.right.gather(1, nd))
         node = torch.where(node >= 0, nxt, node)
@@ -255,19 +366,21 @@ def _sum_leaf_values_f64(leaves: torch.Tensor, leaf_value: torch.Tensor,
     return s.t()
 
 
-def stacked_forest_leaves(X, qt, nodes, trips):
-    return _walk_stacked(_quantize_rows_impl(X, qt), nodes, trips)
+def stacked_forest_leaves(X, qt, nodes, trips, cat_lut=None):
+    return _walk_stacked(_quantize_rows_impl(X, qt), nodes, trips, cat_lut)
 
 
-def stacked_forest_raw(X, qt, nodes, trips, K):
-    return _raw_from_leaves(stacked_forest_leaves(X, qt, nodes, trips),
-                            nodes, K)
-
-
-def stacked_forest_leaves_dd(Xhi, Xlo, qt, nodes, trips):
-    return _walk_stacked(_quantize_rows_dd_impl(Xhi, Xlo, qt), nodes, trips)
-
-
-def stacked_forest_raw_dd(Xhi, Xlo, qt, nodes, trips, K):
+def stacked_forest_raw(X, qt, nodes, trips, K, cat_lut=None):
     return _raw_from_leaves(
-        stacked_forest_leaves_dd(Xhi, Xlo, qt, nodes, trips), nodes, K)
+        stacked_forest_leaves(X, qt, nodes, trips, cat_lut), nodes, K)
+
+
+def stacked_forest_leaves_dd(Xhi, Xlo, qt, nodes, trips, cat_lut=None):
+    return _walk_stacked(_quantize_rows_dd_impl(Xhi, Xlo, qt), nodes, trips,
+                         cat_lut)
+
+
+def stacked_forest_raw_dd(Xhi, Xlo, qt, nodes, trips, K, cat_lut=None):
+    return _raw_from_leaves(
+        stacked_forest_leaves_dd(Xhi, Xlo, qt, nodes, trips, cat_lut),
+        nodes, K)

@@ -1,8 +1,8 @@
 """Best-split search over (grad, hess, count) histograms.
 
-Port of the numerical path of ``lightgbm_tpu/ops/split.py``
-(reference: src/treelearner/feature_histogram.hpp:85
-``FindBestThreshold``; closed forms at :477+):
+Port of ``lightgbm_tpu/ops/split.py`` (reference:
+src/treelearner/feature_histogram.hpp:85 ``FindBestThreshold``;
+categorical scans at :278-520; closed forms at :477+):
 
 - leaf output  = -ThresholdL1(sum_grad, l1) / (sum_hess + l2), clipped to
   +-max_delta_step when that is positive, then path-smoothed
@@ -20,8 +20,17 @@ cumulative sums over the bin axis (:func:`prefix_sum`, in the
 reference's own addition order) give the left-side stats of every
 (feature, threshold), and a flat argmax (first maximum on ties, like
 ``jnp.argmax``) picks the winner. Invalid candidates score ``-inf``.
-Categorical scans and monotone bounds are later slices (ROADMAP items
-11 and 15).
+
+Categorical features (``has_categorical``, a static switch as in the
+reference, so an all-numerical scan runs none of it) add three variants
+over bins 1..num_bin-1 (bin 0 holds NaN and other values and always goes
+right): one-hot (a single bin left, for features of at most
+``max_cat_to_onehot`` bins) and the sorted subset in both directions
+(eligible bins sorted by g / (h + cat_smooth) with a stable sort,
+prefixes of at most ``max_cat_threshold`` bins, l2 raised by ``cat_l2``,
+evaluated once per ``min_data_per_group`` rows). The winner's left bins
+come back packed into the record. Monotone bounds are a later slice
+(ROADMAP item 15).
 """
 from __future__ import annotations
 
@@ -44,6 +53,49 @@ _SCAN_BASE = 16
  RIGHT_SUM_GRAD, RIGHT_SUM_HESS, RIGHT_COUNT, RIGHT_TOTAL_COUNT,
  RIGHT_OUTPUT) = range(14)
 RECORD_WIDTH = 14
+# a scan with categorical features appends: 1.0 for a categorical
+# winner, then its left-bin mask as 16-bit words (bins 16k..16k+15 of
+# word k, bit j for bin 16k + j; exact as f32 integers)
+IS_CATEGORICAL = 14
+CAT_WORDS = 15
+CAT_WORD_BITS = 16
+kEps = 1e-15
+
+
+def record_width(num_bins: int, has_categorical: bool) -> int:
+    """Columns of a record row: :data:`RECORD_WIDTH`, plus the winner's
+    kind and its mask words when the scan has categorical features."""
+    if not has_categorical:
+        return RECORD_WIDTH
+    return CAT_WORDS + -(-num_bins // CAT_WORD_BITS)
+
+
+def pack_cat_mask(mask: torch.Tensor) -> torch.Tensor:
+    """bool [B] -> f32 [ceil(B / 16)] words (bit j of word k: bin
+    16k + j); sums of distinct powers of two below 2^16, exact in any
+    order."""
+    B = mask.shape[0]
+    nw = -(-B // CAT_WORD_BITS)
+    m = TF.pad(mask.to(torch.float32), (0, nw * CAT_WORD_BITS - B))
+    pow2 = torch.pow(2.0, torch.arange(CAT_WORD_BITS, dtype=torch.float32,
+                                       device=mask.device))
+    return (m.view(nw, CAT_WORD_BITS) * pow2).sum(dim=1)
+
+
+def unpack_cat_mask(words: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """Inverse of :func:`pack_cat_mask` (on any device, no host read)."""
+    w = words.to(torch.int32)
+    bits = torch.arange(CAT_WORD_BITS, dtype=torch.int32,
+                        device=words.device)
+    return ((w[:, None] >> bits) & 1).view(-1)[:num_bins] > 0
+
+
+def cat_mask_of_row(row, num_bins: int) -> np.ndarray:
+    """Host twin of :func:`unpack_cat_mask` over a record row read back
+    as floats."""
+    words = np.asarray(row[CAT_WORDS:], dtype=np.float64).astype(np.int64)
+    bits = (words[:, None] >> np.arange(CAT_WORD_BITS)) & 1
+    return bits.reshape(-1)[:num_bins] > 0
 
 
 class SplitParams(NamedTuple):
@@ -57,6 +109,12 @@ class SplitParams(NamedTuple):
     min_gain_to_split: torch.Tensor
     max_delta_step: torch.Tensor
     path_smooth: torch.Tensor
+    # categorical knobs (config.h:452-472); max_cat_threshold is a host
+    # int: it bounds the sequential part of the sorted-subset scan
+    cat_l2: torch.Tensor
+    cat_smooth: torch.Tensor
+    min_data_per_group: torch.Tensor
+    max_cat_threshold: int
 
     @classmethod
     def from_config(cls, config, device: torch.device) -> "SplitParams":
@@ -70,24 +128,46 @@ class SplitParams(NamedTuple):
                        config.min_sum_hessian_in_leaf),
                    min_gain_to_split=f32(config.min_gain_to_split),
                    max_delta_step=f32(config.max_delta_step),
-                   path_smooth=f32(config.path_smooth))
+                   path_smooth=f32(config.path_smooth),
+                   cat_l2=f32(config.cat_l2),
+                   cat_smooth=f32(config.cat_smooth),
+                   min_data_per_group=f32(config.min_data_per_group),
+                   max_cat_threshold=int(config.max_cat_threshold))
 
 
 class FeatureMeta(NamedTuple):
-    """Per-feature metadata, int32 [F] tensors on the learner's device."""
+    """Per-feature metadata, int32 [F] tensors on the learner's device;
+    ``is_categorical`` and ``use_onehot`` bool [F] (None: all
+    numerical). ``cat_positions`` (host int) is the most prefix
+    positions a sorted-subset scan can evaluate, the largest
+    num_bin // 2 of a categorical feature."""
     num_bin: torch.Tensor
     missing_type: torch.Tensor
     zero_bin: torch.Tensor
+    is_categorical: Optional[torch.Tensor] = None
+    use_onehot: Optional[torch.Tensor] = None
+    cat_positions: int = 0
 
     @classmethod
-    def from_dataset(cls, dataset, device: torch.device) -> "FeatureMeta":
+    def from_dataset(cls, dataset, device: torch.device,
+                     max_cat_to_onehot: int) -> "FeatureMeta":
+        from ..io.binning import BinType
+
         def i32(vals):
             return torch.from_numpy(np.asarray(vals, dtype=np.int32)).to(
                 device)
+        num_bin = np.asarray(dataset.num_bin_per_feature, dtype=np.int32)
+        is_cat = np.asarray([m.bin_type == BinType.CATEGORICAL
+                             for m in dataset.bin_mappers], dtype=bool)
         return cls(
-            num_bin=i32(dataset.num_bin_per_feature),
+            num_bin=i32(num_bin),
             missing_type=i32([m.missing_type for m in dataset.bin_mappers]),
-            zero_bin=i32([m.default_bin for m in dataset.bin_mappers]))
+            zero_bin=i32([m.default_bin for m in dataset.bin_mappers]),
+            is_categorical=torch.from_numpy(is_cat).to(device),
+            use_onehot=torch.from_numpy(
+                is_cat & (num_bin <= max_cat_to_onehot)).to(device),
+            cat_positions=int((num_bin[is_cat] // 2).max())
+            if is_cat.any() else 0)
 
 
 def pad_feature_meta(meta: FeatureMeta, pad: int) -> FeatureMeta:
@@ -96,12 +176,16 @@ def pad_feature_meta(meta: FeatureMeta, pad: int) -> FeatureMeta:
         return meta
 
     def padv(a, fill):
+        if a is None:
+            return None
         return torch.cat([a, torch.full((pad,), fill, dtype=a.dtype,
                                         device=a.device)])
 
-    return FeatureMeta(num_bin=padv(meta.num_bin, 1),
-                       missing_type=padv(meta.missing_type, 0),
-                       zero_bin=padv(meta.zero_bin, 0))
+    return meta._replace(num_bin=padv(meta.num_bin, 1),
+                         missing_type=padv(meta.missing_type, 0),
+                         zero_bin=padv(meta.zero_bin, 0),
+                         is_categorical=padv(meta.is_categorical, False),
+                         use_onehot=padv(meta.use_onehot, False))
 
 
 def threshold_l1(s: torch.Tensor, l1: torch.Tensor) -> torch.Tensor:
@@ -109,19 +193,25 @@ def threshold_l1(s: torch.Tensor, l1: torch.Tensor) -> torch.Tensor:
     return torch.sign(s) * torch.clamp(s.abs() - l1, min=0.0)
 
 
-def calculate_leaf_output(sum_grad, sum_hess, p: SplitParams):
-    """Closed-form leaf weight (reference: CalculateSplittedLeafOutput)."""
-    out = -threshold_l1(sum_grad, p.lambda_l1) / (sum_hess + p.lambda_l2)
+def calculate_leaf_output(sum_grad, sum_hess, p: SplitParams, l2=None):
+    """Closed-form leaf weight (reference: CalculateSplittedLeafOutput);
+    ``l2`` replaces lambda_l2 (the sorted-subset scan adds cat_l2)."""
+    if l2 is None:
+        l2 = p.lambda_l2
+    out = -threshold_l1(sum_grad, p.lambda_l1) / (sum_hess + l2)
     clipped = torch.minimum(torch.maximum(out, -p.max_delta_step),
                             p.max_delta_step)
     return torch.where(p.max_delta_step > 0.0, clipped, out)
 
 
-def leaf_gain_given_output(sum_grad, sum_hess, output, p: SplitParams):
+def leaf_gain_given_output(sum_grad, sum_hess, output, p: SplitParams,
+                           l2=None):
     """reference: GetLeafGainGivenOutput (exact also when the output was
     clipped by max_delta_step)."""
+    if l2 is None:
+        l2 = p.lambda_l2
     sg = threshold_l1(sum_grad, p.lambda_l1)
-    return -(2.0 * sg * output + (sum_hess + p.lambda_l2) * output * output)
+    return -(2.0 * sg * output + (sum_hess + l2) * output * output)
 
 
 def leaf_gain(sum_grad, sum_hess, p: SplitParams):
@@ -184,8 +274,8 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
                     sum_total_count: torch.Tensor, meta: FeatureMeta,
                     params: SplitParams, feature_mask: torch.Tensor,
                     parent_output: torch.Tensor,
-                    hist_scale: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    hist_scale: Optional[torch.Tensor] = None,
+                    has_categorical: bool = False) -> torch.Tensor:
     """Scan one leaf histogram for its best (feature, threshold).
 
     hist : f32 [F, B, 4] sums of (grad, hess, in-bag count, total count);
@@ -195,18 +285,24 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
     sum_* : the leaf's f32 0-d totals (already dequantized)
     feature_mask : bool [F]
     parent_output : f32 0-d, the leaf's own output (path smoothing)
+    has_categorical : static; scan the categorical features of ``meta``
+        too (and return the wider record of :func:`record_width`)
 
-    Returns one f32 record row of width ``RECORD_WIDTH`` (see the column
-    constants); an invalid record has gain -inf and feature -1.
+    Returns one f32 record row (see the column constants); an invalid
+    record has gain -inf and feature -1.
     """
     F, B, _ = hist.shape
     dev = hist.device
     hist = dequantize_hist(hist, hist_scale)
     g, h, c, tc = hist[..., 0], hist[..., 1], hist[..., 2], hist[..., 3]
 
-    def bounded_output(sg, sh, n):
-        out = calculate_leaf_output(sg, sh, params)
+    def bounded_output(sg, sh, n, l2=None):
+        out = calculate_leaf_output(sg, sh, params, l2)
         return smooth_output(out, n, parent_output, params)
+
+    def bounded_gain(sg, sh, n, l2=None):
+        return leaf_gain_given_output(sg, sh, bounded_output(sg, sh, n, l2),
+                                      params, l2)
 
     # the four channels' prefix sums in one call: [4, F, B]
     left_g, left_h, left_c, left_tc = prefix_sum(hist.permute(2, 0, 1))
@@ -228,6 +324,8 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
     # NaN-missing feature's NaN bin is not a threshold either
     t_max = torch.where(is_nan_missing[:, None], num_bin - 2, num_bin - 1)
     valid_t = (bin_ids < t_max) & feature_mask[:, None]
+    if has_categorical:
+        valid_t = valid_t & ~meta.is_categorical[:, None]
 
     def split_gain(lg, lh, lc):
         rg, rh, rc = sum_grad - lg, sum_hess - lh, sum_count - lc
@@ -251,13 +349,28 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
     # min_gain_shift; under path smoothing the smoothed own output)
     own_out = calculate_leaf_output(sum_grad, sum_hess, params)
     own_smoothed = smooth_output(own_out, sum_count, parent_output, params)
+    use_smooth = params.path_smooth > kSmoothEps
+    parent_gain_plain = leaf_gain(sum_grad, sum_hess, params)
     parent_gain = torch.where(
-        params.path_smooth > kSmoothEps,
+        use_smooth,
         leaf_gain_given_output(sum_grad, sum_hess, own_smoothed, params),
-        leaf_gain(sum_grad, sum_hess, params))
+        parent_gain_plain)
     shift = parent_gain + params.min_gain_to_split
+    variants = [gain_r - shift, gain_l - shift]
+    if has_categorical:
+        cat = _categorical_scan(g, h, c, tc, sum_grad, sum_hess, sum_count,
+                                meta, params, feature_mask, bounded_gain)
+        # the categorical baseline scores the stored parent output
+        # under path smoothing (reference fh.hpp:294-303)
+        shift_cat = torch.where(
+            use_smooth,
+            leaf_gain_given_output(sum_grad, sum_hess, parent_output,
+                                   params),
+            parent_gain_plain) + params.min_gain_to_split
+        variants += [cat["gain_oh"] - shift_cat, cat["gain_f"] - shift_cat,
+                     cat["gain_r"] - shift_cat]
 
-    flat = torch.stack([gain_r - shift, gain_l - shift]).reshape(-1)
+    flat = torch.stack(variants).reshape(-1)
     best = torch.argmax(flat)
     best_gain = _at(flat, best)
     variant, rem = best // (F * B), best % (F * B)
@@ -271,19 +384,148 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
 
     lg, lh = left_at(left_g, nan_g), left_at(left_h, nan_h)
     lc, ltc = left_at(left_c, nan_c), left_at(left_tc, nan_tc)
-    rg, rh, rc = sum_grad - lg, sum_hess - lh, sum_count - lc
-    rtc = sum_total_count - ltc
-
-    is_valid = torch.isfinite(best_gain) & (best_gain > 0.0)
     default_left = torch.where(
         _at(is_nan_missing, feature), is_l,
         (_at(meta.missing_type, feature) == MissingType.ZERO)
         & (_at(meta.zero_bin, feature) <= tbin))
-    out_left = bounded_output(lg, lh, lc)
-    out_right = bounded_output(rg, rh, rc)
+    out_l2 = None
+    if has_categorical:
+        # the winner's left stats by variant: one-hot bin, or the
+        # prefix of the sorted bins in either direction
+        def pick(numerical, oh, fwd, rev):
+            return torch.where(variant <= 1, numerical, torch.where(
+                variant == 2, oh, torch.where(
+                    variant == 3, _at(fwd.reshape(-1), rem),
+                    _at(rev.reshape(-1), rem))))
+        stats_f, stats_r = cat["stats_f"], cat["stats_r"]
+        lg = pick(lg, _at(g.reshape(-1), rem), stats_f[0], stats_r[0])
+        lh = pick(lh, _at(h.reshape(-1), rem) + kEps, stats_f[1],
+                  stats_r[1])
+        lc = pick(lc, _at(c.reshape(-1), rem), stats_f[2], stats_r[2])
+        ltc = pick(ltc, _at(tc.reshape(-1), rem), stats_f[3], stats_r[3])
+        is_cat_winner = variant >= 2
+        default_left = default_left & ~is_cat_winner
+        out_l2 = torch.where(variant >= 3, cat["cat_l2"], params.lambda_l2)
+        cat_mask = _winner_cat_mask(cat, variant, feature, tbin, B)
+    rg, rh, rc = sum_grad - lg, sum_hess - lh, sum_count - lc
+    rtc = sum_total_count - ltc
+
+    is_valid = torch.isfinite(best_gain) & (best_gain > 0.0)
+    out_left = bounded_output(lg, lh, lc, out_l2)
+    out_right = bounded_output(rg, rh, rc, out_l2)
     neg_one = torch.full((), -1.0, dtype=torch.float32, device=dev)
-    return torch.stack([
+    row = torch.stack([
         torch.where(is_valid, best_gain, _NEG_INF),
         torch.where(is_valid, feature.float(), neg_one),
         tbin.float(), default_left.float(),
         lg, lh, lc, ltc, out_left, rg, rh, rc, rtc, out_right])
+    if not has_categorical:
+        return row
+    return torch.cat([row, is_cat_winner.float().view(1),
+                      pack_cat_mask(cat_mask)])
+
+
+def _categorical_scan(g, h, c, tc, sum_grad, sum_hess, sum_count,
+                      meta: FeatureMeta, params: SplitParams,
+                      feature_mask, bounded_gain) -> dict:
+    """The categorical variants of a leaf scan (reference:
+    FindBestThresholdCategoricalInner, feature_histogram.hpp:278-520, as
+    vectorized by ``lightgbm_tpu/ops/split.py:439-535``): [F, B] gains of
+    one-hot mode and of the sorted-subset prefixes in both directions,
+    with what the winner's stats and mask are read from."""
+    F, B = g.shape
+    dev = g.device
+    bin_ids = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+    is_cat = meta.is_categorical
+    cat_bin_ok = ((bin_ids >= 1) & (bin_ids < meta.num_bin[:, None])
+                  & is_cat[:, None] & feature_mask[:, None])
+    min_data = params.min_data_in_leaf
+    min_hess = params.min_sum_hessian_in_leaf
+
+    # one-hot mode (num_bin <= max_cat_to_onehot; plain lambda_l2)
+    oh_ok = (cat_bin_ok & meta.use_onehot[:, None]
+             & (c >= min_data) & (h >= min_hess)
+             & ((sum_count - c) >= min_data)
+             & ((sum_hess - h - kEps) >= min_hess))
+    gain_oh = (bounded_gain(g, h + kEps, c)
+               + bounded_gain(sum_grad - g, sum_hess - h - kEps,
+                              sum_count - c))
+    gain_oh = torch.where(oh_ok, gain_oh, _NEG_INF)
+
+    # sorted-subset mode: eligible bins by g / (h + cat_smooth), stably
+    # (ineligible ones last, as +inf), l2 raised by cat_l2
+    cat_l2 = params.lambda_l2 + params.cat_l2
+    sort_elig = (cat_bin_ok & ~meta.use_onehot[:, None]
+                 & (c >= params.cat_smooth))
+    used_bin = sort_elig.sum(dim=1, dtype=torch.int32)
+    ratio = torch.where(sort_elig, g / (h + params.cat_smooth),
+                        float("inf"))
+    order = torch.sort(ratio, dim=1, stable=True).indices
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(B, device=dev).expand(F, B).contiguous())
+    sorted_stats = torch.stack([a.gather(1, order) for a in (g, h, c, tc)])
+    max_num_cat = torch.clamp((used_bin + 1) // 2,
+                              max=params.max_cat_threshold)
+    # reverse direction: the sorted bins from the high end, rolled so
+    # that the eligible ones come first
+    shift_idx = (bin_ids.long() + (B - used_bin.long())[:, None]) % B
+    rev_stats = sorted_stats.flip(2).gather(
+        2, shift_idx.expand(4, F, B))
+
+    # both directions at once: [2 directions, 4 channels, F, B]
+    stats = torch.stack([sorted_stats, rev_stats])
+    left = prefix_sum(stats)
+    lg, lh, lc, ltc = left[:, 0], left[:, 1] + kEps, left[:, 2], left[:, 3]
+    rg, rh, rc = sum_grad - lg, sum_hess - lh, sum_count - lc
+    pos_ok = ((bin_ids < used_bin[:, None])
+              & (bin_ids < max_num_cat[:, None]))           # [F, B]
+    cont = (lc < min_data) | (lh < min_hess)
+    brk = ~cont & ((rc < min_data) | (rc < params.min_data_per_group)
+                   | (rh < min_hess))
+    # a direction's scan stops at its first break (reference
+    # feature_histogram.hpp:436-441): broken before position i
+    brk_pos = (brk & pos_ok).to(torch.int32)
+    broken = (torch.cumsum(brk_pos, dim=2) - brk_pos) > 0
+    allowed = pos_ok & ~broken & ~cont & ~brk
+    # min_data_per_group batching (fh.hpp:443-447): rows accumulate and
+    # a position is evaluated once the running group holds
+    # min_data_per_group, which starts a new group; sequential over the
+    # positions a prefix can reach (max_cat_threshold, num_bin // 2)
+    K = min(B, params.max_cat_threshold,
+            meta.cat_positions if meta.cat_positions > 0 else B)
+    scd = stats[:, 2]
+    cnt = torch.zeros((2, F), dtype=g.dtype, device=dev)
+    can_eval = torch.zeros((2, F, B), dtype=torch.bool, device=dev)
+    for i in range(K):
+        cnt = cnt + scd[:, :, i]
+        ce = allowed[:, :, i] & (cnt >= params.min_data_per_group)
+        cnt = torch.where(ce, 0.0, cnt)
+        can_eval[:, :, i] = ce
+    gains = (bounded_gain(lg, lh, lc, cat_l2)
+             + bounded_gain(rg, rh, rc, cat_l2))
+    gains = torch.where(can_eval, gains, _NEG_INF)
+    return dict(gain_oh=gain_oh, gain_f=gains[0], gain_r=gains[1],
+                stats_f=(lg[0], lh[0], lc[0], ltc[0]),
+                stats_r=(lg[1], lh[1], lc[1], ltc[1]),
+                rank=rank, used_bin=used_bin, sort_elig=sort_elig,
+                cat_l2=cat_l2)
+
+
+def _winner_cat_mask(cat: dict, variant, feature, tbin,
+                     B: int) -> torch.Tensor:
+    """bool [B] of the bins a categorical winner sends left: one-hot ->
+    {tbin}; sorted forward -> ranks <= tbin; sorted reverse -> the
+    tbin + 1 highest-ratio eligible bins; all False for a numerical
+    winner."""
+    dev = tbin.device
+    f = feature.view(1)
+    rk = cat["rank"].index_select(0, f).view(-1)
+    ub = _at(cat["used_bin"], feature)
+    elig = cat["sort_elig"].index_select(0, f).view(-1)
+    bins = torch.arange(B, device=dev)
+    mask_oh = bins == tbin
+    mask_fwd = (rk <= tbin) & elig
+    mask_rev = (rk >= ub - 1 - tbin) & (rk < ub) & elig
+    return torch.where(variant == 2, mask_oh, torch.where(
+        variant == 3, mask_fwd, torch.where(
+            variant == 4, mask_rev, torch.zeros_like(mask_oh))))

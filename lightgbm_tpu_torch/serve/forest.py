@@ -30,15 +30,32 @@ f32, exact int32 residual rank), thresholds are packed the same way, and
 a lexicographic pair count reproduces the host's f64 compares bit for
 bit (exact whenever |value| is not in the f32-subnormal range).
 
+**Categorical nodes** decide by one gather from a shared boolean LUT
+over category values (one row per categorical node, built from its
+bitset); a categorical feature's quantized "bin" is its value's integer
+part, clamped into the LUT (NaN, negative and unseen values fall in an
+all-False column: they go right, as on the host). A feature split both
+ways, or with mixed missing types, cannot be quantized once per row:
+such a model raises ``ValueError`` and the caller takes the host walk.
+
+**The LUT-node encoding** (``lut=True``, asked for explicitly; the
+default is the compare encoding) makes every node a LUT row: a
+numerical node's row is ``bin <= rank`` over its feature's bins, and
+two sentinel columns carry default_left for NaN and zero-as-missing.
+One gather decides any node. Both encodings give the same bytes. The
+JAX package picks LUT nodes by itself for wide sparse models (F >= 32
+and 2 U <= F); the port does not, because the only model timed on the
+card walks slower with them (PERF.md, PR 7) and no model that rule
+picks has been timed there.
+
 ``predict`` / ``predict_raw`` are byte-equal to the host walk
 (``GBDT.predict``): the device gathers the f64 leaf values and adds them
 per class in tree order from 0, the same IEEE adds in the same order as
 the host, and reads back ``[n, K]``. ``predict_raw_device`` is the
 throughput path: a Kahan-compensated f32 sum, read back as f32.
 
-Categorical nodes and the LUT-node encoding are ROADMAP item 11, linear
-leaves item 15 and ``average_output`` (random forest) item 16; each
-raises naming its item.
+Linear leaves are ROADMAP item 15 and ``average_output`` (random forest)
+item 16; each raises naming its item.
 """
 from __future__ import annotations
 
@@ -104,18 +121,18 @@ def f32_exact(X: np.ndarray) -> bool:
                        | np.isnan(X)))
 
 
+_KIND_NONE, _KIND_NUM, _KIND_CAT = 0, 1, 2
+
+
 class StackedForest:
     """Immutable packed forest and quantizer tables (on one device)."""
 
     def __init__(self, models: List[Tree], num_tree_per_iteration: int = 1,
                  num_features: Optional[int] = None, objective=None,
-                 average_output: bool = False, lut="auto"):
+                 average_output: bool = False, lut: bool = False):
         models = list(models)
         if not models:
             raise ValueError("StackedForest needs at least one tree")
-        if lut is True:
-            unsupported("the LUT-node encoding of the stacked forest",
-                        "item 11")
         if average_output:
             unsupported("average_output models (random forest)", "item 16")
         if any(getattr(t, "is_linear", False) for t in models):
@@ -134,11 +151,12 @@ class StackedForest:
         self.num_features = F
         self.objective = objective
 
-        # --- per-feature scan: missing type (-1: never split on) and
-        # threshold set --------------------------------------------------
+        # --- per-feature scan: kind, missing type and threshold set -----
+        kind = np.zeros(F, dtype=np.int8)
         missing = np.full(F, -1, dtype=np.int8)
         thresholds: List[List[float]] = [[] for _ in range(F)]
-        for tree in models:
+        cat_nodes: List[tuple] = []          # (tree, node, split index)
+        for ti, tree in enumerate(models):
             dt = tree.decision_type
             for node in range(tree.num_internal):
                 f = int(tree.split_feature[node])
@@ -146,9 +164,16 @@ class StackedForest:
                     raise ValueError("node feature %d out of range (%d)"
                                      % (f, F))
                 bits = int(dt[node])
-                if bits & kCategoricalMask:
-                    unsupported("categorical nodes in the stacked forest",
-                                "item 11")
+                want = _KIND_CAT if bits & kCategoricalMask else _KIND_NUM
+                if kind[f] not in (_KIND_NONE, want):
+                    raise ValueError(
+                        "feature %d has both numerical and categorical "
+                        "splits; cannot quantize once per row" % f)
+                kind[f] = want
+                if want == _KIND_CAT:
+                    cat_nodes.append((ti, node,
+                                      int(tree.threshold_in_bin[node])))
+                    continue
                 m = min((bits >> 2) & 3, MissingType.NAN)
                 if missing[f] not in (-1, m):
                     raise ValueError(
@@ -160,11 +185,13 @@ class StackedForest:
                     thresholds[f].append(t)
 
         # --- used-feature compaction ------------------------------------
-        used = [int(f) for f in np.nonzero(missing >= 0)[0]] or [0]
+        used = [int(f) for f in np.nonzero(kind != _KIND_NONE)[0]] or [0]
         col_of = {f: u for u, f in enumerate(used)}
         U = len(used)
+        k_used = kind[used]
         m_used = missing[used]
-        self._h_missing = missing    # the full-F host mirror (encode_dd)
+        self._h_kind = kind          # full-F host mirrors (encode_dd)
+        self._h_missing = missing
 
         # --- quantizer tables (f32 grid and exact f64 dd grid) ----------
         thr32 = [np.unique(round_down_f32(np.asarray(thresholds[f])))
@@ -183,6 +210,17 @@ class StackedForest:
         for u, vals in enumerate(thr64):
             thr_hi[u, :len(vals)], thr_lo[u, :len(vals)] = _dd_pair(vals)
 
+        # --- the categorical LUT: row 0 (numerical nodes) and column
+        # vmax + 1 (NaN, negative, unseen) are all False; the last two
+        # columns are the walk's NaN / zero sentinel columns ------------
+        vmax = max(0, max((models[ti].cat_value_words(ci) * 32 - 1
+                           for ti, _, ci in cat_nodes), default=-1))
+        cat_lut = np.zeros((len(cat_nodes) + 1, vmax + 4), dtype=bool)
+        cat_slot_of = {}
+        for slot, (ti, node, ci) in enumerate(cat_nodes, start=1):
+            cat_lut[slot, :vmax + 1] = models[ti].cat_value_mask(ci, vmax)
+            cat_slot_of[(ti, node)] = slot
+
         # --- stacked node arrays ---------------------------------------
         T = len(models)
         NI = next_pow2(max(t.num_internal for t in models))
@@ -193,8 +231,19 @@ class StackedForest:
         dleft = np.zeros((T, NI), dtype=bool)
         left = np.full((T, NI), ~0, dtype=np.int32)
         right = np.full((T, NI), ~0, dtype=np.int32)
+        is_cat = np.zeros((T, NI), dtype=bool)
+        cat_slot = np.zeros((T, NI), dtype=np.int64)
         leaf_f32 = np.zeros((T, NL), dtype=np.float32)
         leaf_f64 = np.zeros((T, NL), dtype=np.float64)
+        if not isinstance(lut, bool):
+            raise ValueError("lut must be True or False, not %r" % (lut,))
+        self.lut_nodes = lut
+        if self.lut_nodes:
+            W = max(M + 1, vmax + 2) + 2
+            node_lut = np.zeros(
+                (sum(t.num_internal for t in models) + 1, W), dtype=bool)
+            lut_slot = np.zeros((T, NI), dtype=np.int64)
+            next_slot = 1
         depth = 0
         for ti, tree in enumerate(models):
             ni, nl = tree.num_internal, tree.num_leaves
@@ -210,34 +259,67 @@ class StackedForest:
             left[ti, :ni] = tree.left_child[:ni]
             right[ti, :ni] = tree.right_child[:ni]
             for node in range(ni):
+                slot = cat_slot_of.get((ti, node))
+                if self.lut_nodes:
+                    ls = next_slot
+                    next_slot += 1
+                    lut_slot[ti, node] = ls
+                if slot is not None:
+                    is_cat[ti, node] = True
+                    cat_slot[ti, node] = slot
+                    if self.lut_nodes:
+                        node_lut[ls, :vmax + 2] = cat_lut[slot, :vmax + 2]
+                    continue
                 t = float(tree.threshold[node])
-                if np.isnan(t):
-                    continue  # tbin stays -1: "v <= NaN" is always False
                 u = col_of[int(tree.split_feature[node])]
-                tbin[ti, node] = int(np.searchsorted(
-                    thr32[u], round_down_f32(t), side="left"))
-                tbin_dd[ti, node] = int(np.searchsorted(
-                    thr64[u], t, side="left"))
+                if not np.isnan(t):
+                    # tbin stays -1 for NaN: "v <= NaN" is always False
+                    tbin[ti, node] = int(np.searchsorted(
+                        thr32[u], round_down_f32(t), side="left"))
+                    tbin_dd[ti, node] = int(np.searchsorted(
+                        thr64[u], t, side="left"))
+                if self.lut_nodes:
+                    nb = len(thr32[u]) + 1
+                    node_lut[ls, :nb] = np.arange(nb) <= tbin[ti, node]
+                    node_lut[ls, W - 2:] = bool(dt[node] & kDefaultLeftMask)
 
         self.trips = next_pow2(max(depth, 1))
-        nan_feat = m_used == MissingType.NAN
-        zero_feat = m_used == MissingType.ZERO
+        nan_feat = (k_used == _KIND_NUM) & (m_used == MissingType.NAN)
+        zero_feat = (k_used == _KIND_NUM) & (m_used == MissingType.ZERO)
+        has_cat = bool(cat_nodes)
         t = torch.from_numpy
-        self._nodes = StackedNodes(
+        nodes_cmp = StackedNodes(
             feat=t(feat), tbin=t(tbin), default_left=t(dleft),
-            left=t(left), right=t(right), leaf_value=t(leaf_f32))
-        # the dd walk has its own threshold ranks: two f64 thresholds can
-        # collapse onto one f32, so the f64 grid's ranks differ
-        self._nodes_dd = self._nodes._replace(tbin=t(tbin_dd))
+            left=t(left), right=t(right), leaf_value=t(leaf_f32),
+            is_cat=t(is_cat) if has_cat else None,
+            cat_slot=t(cat_slot) if has_cat else None)
+        if self.lut_nodes:
+            # every node one gather into node_lut, no compare lanes
+            self._nodes = nodes_cmp._replace(
+                tbin=None, default_left=None,
+                is_cat=torch.ones((T, NI), dtype=torch.bool),
+                cat_slot=t(lut_slot))
+            self._cat_lut = t(node_lut)
+        else:
+            self._nodes = nodes_cmp
+            self._cat_lut = t(cat_lut) if has_cat else None
+        # the dd walk always compares (its bins live in the f64 grid,
+        # whose ranks differ from the f32 grid's where two f64
+        # thresholds collapse onto one f32)
+        self._nodes_dd = nodes_cmp._replace(tbin=t(tbin_dd))
+        self._cat_lut_dd = t(cat_lut) if has_cat else None
         self._leaf_f64 = t(leaf_f64)
         used_t = t(np.asarray(used, dtype=np.int64))
+        cat_used = t(k_used == _KIND_CAT) if has_cat else None
         self._qt = QuantizerTables(
             used=used_t, thresholds=t(thr), nan_feat=t(nan_feat),
             zero_feat=t(zero_feat),
-            zero_eps=float(round_down_f32(kZeroThreshold)))
+            zero_eps=float(round_down_f32(kZeroThreshold)),
+            is_cat=cat_used, vmax=vmax)
         self._qt_dd = QuantizerTablesDD(
             used=used_t, thr_hi=t(thr_hi), thr_lo=t(thr_lo),
-            nan_feat=t(nan_feat), zero_feat=t(zero_feat))
+            nan_feat=t(nan_feat), zero_feat=t(zero_feat), is_cat=cat_used,
+            vmax=vmax)
         self._device = torch.device("cpu")
         #: bytes copied to and from the device by this placement's calls
         self.transfer_bytes = {"to_device": 0, "from_device": 0}
@@ -245,7 +327,8 @@ class StackedForest:
     # ------------------------------------------------------------------
     @classmethod
     def from_gbdt(cls, gbdt, start_iteration: int = 0,
-                  num_iteration: int = -1, lut="auto") -> "StackedForest":
+                  num_iteration: int = -1, lut: bool = False
+                  ) -> "StackedForest":
         """Pack a trained or text-loaded GBDT (the same tree slice as
         ``GBDT.predict_raw``); a Booster is accepted too."""
         gbdt = getattr(gbdt, "inner", gbdt)
@@ -269,6 +352,10 @@ class StackedForest:
         cp = _copy.copy(self)
         cp._nodes = put(self._nodes)
         cp._nodes_dd = put(self._nodes_dd)
+        cp._cat_lut = (None if self._cat_lut is None
+                       else self._cat_lut.to(device))
+        cp._cat_lut_dd = (None if self._cat_lut_dd is None
+                          else self._cat_lut_dd.to(device))
         cp._leaf_f64 = self._leaf_f64.to(device)
         cp._qt = put(self._qt)
         cp._qt_dd = put(self._qt_dd)
@@ -309,7 +396,8 @@ class StackedForest:
         is zero-as-missing, marked ``lo == -1`` (NaN counts as 0.0 on
         those features, as in the host walk)."""
         X = np.asarray(X64, dtype=np.float64)
-        zerof = self._h_missing == MissingType.ZERO
+        zerof = ((self._h_kind == _KIND_NUM)
+                 & (self._h_missing == MissingType.ZERO))
         isnan = np.isnan(X)
         hi, lo = _dd_pair(X)
         zs = zerof[None, :] & (isnan | (np.abs(np.where(isnan, 0.0, X))
@@ -334,9 +422,9 @@ class StackedForest:
             hi, lo = self.encode_dd(Xp)
             return stacked_forest_leaves_dd(
                 self._to_device(hi), self._to_device(lo), self._qt_dd,
-                self._nodes_dd, self.trips)
+                self._nodes_dd, self.trips, self._cat_lut_dd)
         return stacked_forest_leaves(self._to_device(Xp), self._qt,
-                                     self._nodes, self.trips)
+                                     self._nodes, self.trips, self._cat_lut)
 
     def leaves(self, X, dd=None) -> np.ndarray:
         """[n, T] leaf index of every row in every tree."""
@@ -368,6 +456,8 @@ class StackedForest:
             hi, lo = self.encode_dd(Xp)
             return stacked_forest_raw_dd(
                 self._to_device(hi), self._to_device(lo), self._qt_dd,
-                self._nodes_dd, self.trips, self.num_classes)
+                self._nodes_dd, self.trips, self.num_classes,
+                self._cat_lut_dd)
         return stacked_forest_raw(self._to_device(Xp), self._qt,
-                                  self._nodes, self.trips, self.num_classes)
+                                  self._nodes, self.trips, self.num_classes,
+                                  self._cat_lut)

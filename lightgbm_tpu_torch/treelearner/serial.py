@@ -31,6 +31,19 @@ Two loops grow a tree, as in the reference, and give the same trees:
   read-back and ``torch.nonzero`` of the smaller child (two syncs per
   split). It stays as the parity anchor.
 
+Categorical features add the scan's categorical variants (a static
+switch: an all-numerical learner runs none of it) and route rows by
+the winner's left-bin mask, which the record carries beside its f32
+values, so it comes back in the same one record read per tree.
+
+EFB (a dataset with a ``bundle``; reference ``_leaf_histogram``,
+``build_bundle_tables`` and ``_partition_col``,
+lightgbm_tpu/treelearner/serial.py:346-411): the device holds the
+[N, Gp] bundle columns, the kernel histograms them at ``Bg`` bins, and
+``unpack_bundle_histogram`` turns that into the per-feature [Fp, B]
+histogram the scan reads; the partition reads a feature's bin back
+through its bundle's member / unmap tables.
+
 Quantized-gradient mode (``use_quantized_grad``; reference:
 ``CapabilityMixin._init_quantization`` / ``_quantize_stage``,
 lightgbm_tpu/treelearner/capabilities.py:109-162) stages each tree's
@@ -51,12 +64,14 @@ from ..io.binning import MissingType
 from ..io.dataset import BinnedDataset
 from ..models.tree import Tree
 from ..ops import split as S
-from ..ops.histogram import build_histogram, subtract_histogram
+from ..ops.histogram import (build_histogram, subtract_histogram,
+                             unpack_bundle_histogram)
 from ..ops.quantize import (dequantize_sums, effective_quant_max,
                             quant_dtype, quant_warn_capped, quantize_gh,
                             sum_gh, tree_key)
 from ..ops.split import (FeatureMeta, SplitParams, calculate_leaf_output,
-                         find_best_split, pad_feature_meta)
+                         cat_mask_of_row, find_best_split, pad_feature_meta,
+                         record_width, unpack_cat_mask)
 from ..utils import log, next_pow2
 from ..utils.log import LightGBMError
 from ..utils.prng import PRNGKey
@@ -68,7 +83,8 @@ FUSED_CHUNK = 32
 
 
 class SplitRecord(NamedTuple):
-    """One winning split, read back to the host (f32 values as floats)."""
+    """One winning split, read back to the host (f32 values as floats);
+    a categorical winner also carries its left-bin mask."""
     leaf: int
     gain: float
     feature: int
@@ -84,12 +100,19 @@ class SplitRecord(NamedTuple):
     right_count: float
     right_total_count: float
     right_output: float
+    is_categorical: bool = False
+    cat_mask: Optional[np.ndarray] = None
 
     @classmethod
-    def from_row(cls, leaf: int, row: List[float]) -> "SplitRecord":
+    def from_row(cls, leaf: int, row: List[float],
+                 num_bins: int = 0) -> "SplitRecord":
+        """From a record row of :func:`find_best_split`; a wider
+        (categorical) row's mask is unpacked over ``num_bins`` bins."""
+        cat = len(row) > S.RECORD_WIDTH and row[S.IS_CATEGORICAL] > 0
         return cls(leaf, row[S.GAIN], int(row[S.FEATURE]),
                    int(row[S.THRESHOLD_BIN]), bool(row[S.DEFAULT_LEFT]),
-                   *row[S.LEFT_SUM_GRAD:S.RECORD_WIDTH])
+                   *row[S.LEFT_SUM_GRAD:S.RECORD_WIDTH], cat,
+                   cat_mask_of_row(row, num_bins) if cat else None)
 
 
 class GrowState(NamedTuple):
@@ -100,11 +123,12 @@ class GrowState(NamedTuple):
     gh: torch.Tensor              # [N, 4] (grad, hess, in-bag, total):
     #                               f32, or int8/int16 when quantized
     hists: torch.Tensor           # [L, Fp, B, 4] f32 (int32 quantized)
-    cand: torch.Tensor            # [L, RECORD_WIDTH] f32 best candidates
+    cand: torch.Tensor            # [L, W] f32 best candidates (W: record
+    #                               width, wider with categorical features)
     leaf_depth: torch.Tensor      # [L] int32
     step: torch.Tensor            # 0-d int32: splits applied so far
-    records: torch.Tensor         # [L - 1, 1 + RECORD_WIDTH] f32: split i's
-    #                               leaf, then its record row
+    records: torch.Tensor         # [L - 1, 1 + W] f32: split i's leaf,
+    #                               then its record row
 
 
 def record_is_valid(rec: SplitRecord) -> bool:
@@ -125,45 +149,85 @@ def record_valid(row: torch.Tensor) -> torch.Tensor:
 def apply_split_record(tree: Tree, dataset: BinnedDataset,
                        rec: SplitRecord) -> None:
     """Replay one split record into the host Tree (reference: the
-    Tree::Split call of SerialTreeLearner::Split,
-    serial_tree_learner.cpp:593)."""
+    Tree::Split / Tree::SplitCategorical call of
+    SerialTreeLearner::Split, serial_tree_learner.cpp:593). A
+    categorical split stores the category values of its left bins."""
     f = rec.feature
-    tree.split(
+    mapper = dataset.bin_mappers[f]
+    common = dict(
         leaf=rec.leaf, feature=dataset.real_feature_index(f),
-        feature_inner=f, threshold_bin=rec.threshold_bin,
-        threshold_real=dataset.real_threshold(f, rec.threshold_bin),
+        feature_inner=f,
         left_value=rec.left_output, right_value=rec.right_output,
         left_count=int(round(rec.left_count)),
         right_count=int(round(rec.right_count)),
         left_weight=rec.left_sum_hess, right_weight=rec.right_sum_hess,
-        gain=rec.gain, missing_type=dataset.bin_mappers[f].missing_type,
-        default_left=rec.default_left)
-
-
-def _go_left_by_bin(col: torch.Tensor, tbin: int, default_left: bool,
-                    missing_type: int, nan_bin: int,
-                    zero_bin: int) -> torch.Tensor:
-    """Training-time split direction over bin values (reference:
-    DenseBin::Split missing handling, src/io/dense_bin.hpp)."""
-    gl = col <= tbin
-    if missing_type == MissingType.NAN:
-        gl = torch.where(col == nan_bin, default_left, gl)
-    elif missing_type == MissingType.ZERO:
-        gl = torch.where(col == zero_bin, default_left, gl)
-    return gl
+        gain=rec.gain)
+    if rec.is_categorical:
+        cats = [mapper.bin_2_categorical[b]
+                for b in np.nonzero(rec.cat_mask)[0]
+                if b < len(mapper.bin_2_categorical)]
+        tree.split_categorical(cat_values=cats, bin_mask=rec.cat_mask,
+                               **common)
+        return
+    tree.split(threshold_bin=rec.threshold_bin,
+               threshold_real=dataset.real_threshold(f, rec.threshold_bin),
+               missing_type=mapper.missing_type,
+               default_left=rec.default_left, **common)
 
 
 def go_left_on_device(col: torch.Tensor, tbin: torch.Tensor,
                       default_left: torch.Tensor, missing_type: torch.Tensor,
                       nan_bin: torch.Tensor,
                       zero_bin: torch.Tensor) -> torch.Tensor:
-    """:func:`_go_left_by_bin` with the split's values as device tensors
-    (reference ``_go_left_by_bin`` under jit): a NaN-missing feature
+    """Training-time split direction over bin values, the split's values
+    as device tensors (reference ``_go_left_by_bin``, after
+    DenseBin::Split, src/io/dense_bin.hpp): a NaN-missing feature
     sends its NaN bin, a zero-missing one its zero bin, the default
     way."""
     special = (((missing_type == MissingType.NAN) & (col == nan_bin))
                | ((missing_type == MissingType.ZERO) & (col == zero_bin)))
     return torch.where(special, default_left, col <= tbin)
+
+
+class BundleTables(NamedTuple):
+    """The EFB layout on the device (reference ``BundleTables``):
+    ``member[g, b]`` / ``unmap[g, b]`` take a bundle bin back to its
+    feature and that feature's bin; ``gidx_g`` / ``gidx_b`` gather the
+    bundle histogram into per-feature histograms; ``zero_fix`` marks the
+    features whose zero bin is rebuilt from the leaf's totals."""
+    group_of: torch.Tensor      # [Fp] int64
+    member: torch.Tensor        # [Gp, Bg] int64 (-1: none)
+    unmap: torch.Tensor         # [Gp, Bg] int64
+    gidx_g: torch.Tensor        # [Fp, B] int32 (-1: empty)
+    gidx_b: torch.Tensor        # [Fp, B] int32
+    zero_fix: torch.Tensor      # [Fp] bool
+
+
+def build_bundle_tables(dataset: BinnedDataset, Fp: int, Gp: int, B: int,
+                        Bg: int, device: torch.device) -> BundleTables:
+    """Device EFB tables from the dataset's BundleLayout, padded to
+    ``Fp`` features and ``Gp`` bundle columns (reference
+    ``build_bundle_tables``)."""
+    lay = dataset.bundle
+    F, G = dataset.num_features, lay.num_groups
+    member = np.full((Gp, Bg), -1, dtype=np.int64)
+    member[:G, :lay.member.shape[1]] = lay.member
+    unmap = np.zeros((Gp, Bg), dtype=np.int64)
+    unmap[:G, :lay.unmap.shape[1]] = lay.unmap
+    group_of = np.zeros(Fp, dtype=np.int64)
+    group_of[:F] = lay.group_of
+    gidx_g = np.full((Fp, B), -1, dtype=np.int32)
+    gidx_b = np.zeros((Fp, B), dtype=np.int32)
+    gidx_g[:F, :lay.gidx_g.shape[1]] = lay.gidx_g
+    gidx_b[:F, :lay.gidx_b.shape[1]] = lay.gidx_b
+    zero_fix = np.zeros(Fp, dtype=bool)
+    zero_fix[:F] = lay.needs_zero_fix
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+    return BundleTables(group_of=t(group_of), member=t(member),
+                        unmap=t(unmap), gidx_g=t(gidx_g), gidx_b=t(gidx_b),
+                        zero_fix=t(zero_fix))
 
 
 def _put(dst: torch.Tensor, at: torch.Tensor, new: torch.Tensor,
@@ -208,14 +272,28 @@ class SerialTreeLearner:
         # features of a row with one 8-byte load; pad features have
         # num_bin 1 and never win a split
         self.Fp = -(-F // 8) * 8
-        bins = np.zeros((N, self.Fp), dtype=np.uint8)
-        bins[:, :F] = dataset.bins
+        # EFB: the device holds the bundle columns (padded to a multiple
+        # of 8 too) and the kernel sums them at Bg bins
+        self._bundled = dataset.bundle is not None
+        ncols = dataset.bundle.num_groups if self._bundled else F
+        self.Gp = -(-ncols // 8) * 8
+        bins = np.zeros((N, self.Gp if self._bundled else self.Fp),
+                        dtype=np.uint8)
+        bins[:, :ncols] = dataset.bins
         self.bins = torch.from_numpy(bins).to(device)
-        self.meta = pad_feature_meta(FeatureMeta.from_dataset(dataset, device),
-                                     self.Fp - F)
-        self._meta_host = (np.asarray(dataset.num_bin_per_feature),
-                           [m.missing_type for m in dataset.bin_mappers],
-                           [m.default_bin for m in dataset.bin_mappers])
+        self.Bg, self._btab = 0, None
+        if self._bundled:
+            self.Bg = next_pow2(max(dataset.bundle.num_bundled_bins, 2))
+            self._btab = build_bundle_tables(dataset, self.Fp, self.Gp,
+                                             self.B, self.Bg, device)
+        self.meta = pad_feature_meta(
+            FeatureMeta.from_dataset(dataset, device,
+                                     int(config.max_cat_to_onehot)),
+            self.Fp - F)
+        # static, as in the reference: an all-numerical learner runs no
+        # categorical scan and keeps the 14-column record
+        self._has_cat = self.meta.cat_positions > 0
+        self._record_width = record_width(self.B, self._has_cat)
         self.params = SplitParams.from_config(config, device)
         mask = torch.zeros(self.Fp, dtype=torch.bool, device=device)
         mask[:F] = True
@@ -281,6 +359,66 @@ class SerialTreeLearner:
                            tree_key(self._quant_base_key, tree_no),
                            self._qmax, self._qdtype)
 
+    def _leaf_histogram(self, gh: torch.Tensor,
+                        idx: Optional[torch.Tensor] = None,
+                        count: Optional[torch.Tensor] = None,
+                        totals: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        """[Fp, B, 4] histogram of the rows (all, or ``idx[:count]``).
+        Bundled (reference ``_leaf_histogram``): the kernel sums the
+        bundle columns at Bg bins and the result is unpacked, a shared
+        feature's zero bin rebuilt as ``totals`` (the rows' f32 channel
+        sums) minus its other bins. Integer rows take exact totals
+        instead, as the reference recomputes them (``serial.py:500``):
+        the sums of bundle column 0's bins, where every row sits in one
+        bin."""
+        if not self._bundled:
+            return build_histogram(self.bins, gh, self.B, idx, count)
+        bhist = build_histogram(self.bins, gh, self.Bg, idx, count)
+        if not gh.dtype.is_floating_point:
+            totals = bhist[0].sum(dim=0, dtype=bhist.dtype)
+        bt = self._btab
+        return unpack_bundle_histogram(bhist, bt.gidx_g, bt.gidx_b,
+                                       bt.zero_fix, self.meta.zero_bin,
+                                       totals)
+
+    def _go_left(self, row: torch.Tensor) -> torch.Tensor:
+        """[N] bool: the rows that the record row ``row`` sends left
+        (reference ``_partition_col`` + ``_go_left_by_bin``): the split
+        feature's own bin, read through its bundle's tables when
+        bundled, and its missing rule by gather from the device meta; a
+        categorical winner sends the bins of its mask left. Device
+        values only: no host read."""
+        meta = self.meta
+        f = torch.clamp(row[S.FEATURE], min=0.0).long().view(1)
+        zero_bin = meta.zero_bin.index_select(0, f)
+        if self._bundled:
+            bt = self._btab
+            g = bt.group_of.index_select(0, f)
+            raw = self.bins.index_select(1, g).view(-1).long()
+            owner = bt.member.index_select(0, g).view(-1).index_select(
+                0, raw)
+            col = torch.where(
+                owner == f,
+                bt.unmap.index_select(0, g).view(-1).index_select(0, raw),
+                zero_bin).to(torch.int32)
+        else:
+            col = self.bins.index_select(1, f).view(-1).to(torch.int32)
+        gl = go_left_on_device(
+            col, row[S.THRESHOLD_BIN].to(torch.int32),
+            row[S.DEFAULT_LEFT] > 0.0, meta.missing_type.index_select(0, f),
+            meta.num_bin.index_select(0, f) - 1, zero_bin)
+        if self._has_cat:
+            mask = unpack_cat_mask(row[S.CAT_WORDS:], self.B)
+            gl = torch.where(row[S.IS_CATEGORICAL] > 0.0,
+                             mask.index_select(0, col.long()), gl)
+        return gl
+
+    def _scan(self, hist, sums, parent_out, qscale) -> torch.Tensor:
+        return find_best_split(hist, sums[0], sums[1], sums[2], sums[3],
+                               self.meta, self.params, self.feature_mask,
+                               parent_out, qscale, self._has_cat)
+
     def _splittable(self, depth: int) -> bool:
         return self.max_depth <= 0 or depth < self.max_depth
 
@@ -319,18 +457,17 @@ class SerialTreeLearner:
     # the root, shared by both loops
     # ------------------------------------------------------------------
     def _new_state(self, gh: torch.Tensor) -> GrowState:
-        L, dev = self.L, self.device
+        L, dev, W = self.L, self.device, self._record_width
         acc = torch.int32 if not gh.dtype.is_floating_point else gh.dtype
         return GrowState(
             leaf_of_row=torch.empty(self.N, dtype=torch.int32, device=dev),
             gh=gh,
             hists=torch.empty((L, self.Fp, self.B, 4), dtype=acc,
                               device=dev),
-            cand=torch.empty((L, S.RECORD_WIDTH), dtype=torch.float32,
-                             device=dev),
+            cand=torch.empty((L, W), dtype=torch.float32, device=dev),
             leaf_depth=torch.empty(L, dtype=torch.int32, device=dev),
             step=torch.empty((), dtype=torch.int32, device=dev),
-            records=torch.empty((max(L - 1, 1), 1 + S.RECORD_WIDTH),
+            records=torch.empty((max(L - 1, 1), 1 + W),
                                 dtype=torch.float32, device=dev))
 
     def _root(self, state: GrowState) -> None:
@@ -339,14 +476,13 @@ class SerialTreeLearner:
         slot empty."""
         gh = state.gh
         # exact integer sums in quantized mode, dequantized once
-        sums = dequantize_sums(sum_gh(gh, self._padded_rows), self._qscale)
-        hist = build_histogram(self.bins, gh, self.B)
+        sums_raw = sum_gh(gh, self._padded_rows)
+        sums = dequantize_sums(sums_raw, self._qscale)
+        hist = self._leaf_histogram(gh, totals=sums_raw)
         # root "parent" output: its own unsmoothed output (reference:
         # SerialTreeLearner::GetParentOutput)
         parent_out = calculate_leaf_output(sums[0], sums[1], self.params)
-        info = find_best_split(hist, sums[0], sums[1], sums[2], sums[3],
-                               self.meta, self.params, self.feature_mask,
-                               parent_out, self._qscale)
+        info = self._scan(hist, sums, parent_out, self._qscale)
         state.leaf_of_row.zero_()
         state.hists.zero_()
         state.hists[0] = hist
@@ -375,7 +511,7 @@ class SerialTreeLearner:
             row = state.cand[best].clone()
             packed = torch.cat([best.to(torch.float32).view(1), row])
             host = packed.tolist()
-            rec = SplitRecord.from_row(int(host[0]), host[1:])
+            rec = SplitRecord.from_row(int(host[0]), host[1:], self.B)
             if not record_is_valid(rec):
                 break
             apply_split_record(tree, self.dataset, rec)
@@ -393,11 +529,8 @@ class SerialTreeLearner:
         """Apply ``rec`` (already replayed into the tree; ``row`` is its
         device copy) and scan both children. Updates ``state`` in
         place."""
-        leaf, f = rec.leaf, rec.feature
-        num_bin, missing, zero_bin = self._meta_host
-        col = self.bins[:, f]
-        gl = _go_left_by_bin(col, rec.threshold_bin, rec.default_left,
-                             missing[f], int(num_bin[f]) - 1, zero_bin[f])
+        leaf = rec.leaf
+        gl = self._go_left(row)
         on_leaf = state.leaf_of_row == leaf
         state.leaf_of_row.masked_fill_(on_leaf & ~gl, new_leaf)
 
@@ -405,7 +538,9 @@ class SerialTreeLearner:
         small_id = leaf if smaller_is_left else new_leaf
         idx = torch.nonzero(state.leaf_of_row == small_id).view(-1).to(
             torch.int32)
-        hist_small = build_histogram(self.bins, state.gh, self.B, idx)
+        side = S.LEFT_SUM_GRAD if smaller_is_left else S.RIGHT_SUM_GRAD
+        hist_small = self._leaf_histogram(state.gh, idx,
+                                          totals=row[side:side + 4])
         hist_large = subtract_histogram(state.hists[leaf], hist_small)
         hist_left, hist_right = ((hist_small, hist_large) if smaller_is_left
                                  else (hist_large, hist_small))
@@ -415,10 +550,8 @@ class SerialTreeLearner:
         allowed = self._splittable(child_depth)
         for child, hist, side in ((leaf, hist_left, S.LEFT_SUM_GRAD),
                                   (new_leaf, hist_right, S.RIGHT_SUM_GRAD)):
-            info = find_best_split(
-                hist, row[side], row[side + 1], row[side + 2],
-                row[side + 3], self.meta, self.params, self.feature_mask,
-                row[side + 4], self._qscale)
+            info = self._scan(hist, row[side:side + 4], row[side + 4],
+                              self._qscale)
             self._store(state.cand, child, info, allowed)
 
     # ------------------------------------------------------------------
@@ -451,11 +584,11 @@ class SerialTreeLearner:
 
     def _step(self, buf: _FusedBuffers) -> None:
         """One split of the whole tree, on the device with no host read:
-        the reference's ``_split_body`` + ``_finish_split`` (unbundled,
-        numerical). Every write is guarded by the step's validity
-        (a valid best record, and fewer than L - 1 splits so far), so a
-        step after the tree's end changes nothing."""
-        st, meta, L = buf.state, self.meta, self.L
+        the reference's ``_split_body`` + ``_finish_split``. Every write
+        is guarded by the step's validity (a valid best record, and
+        fewer than L - 1 splits so far), so a step after the tree's end
+        changes nothing."""
+        st, L = buf.state, self.L
         i = st.step
         best = torch.argmax(st.cand[:, S.GAIN]).view(1)   # first maximum
         row = st.cand.index_select(0, best).view(-1)      # a copy
@@ -463,16 +596,8 @@ class SerialTreeLearner:
         leaf = best
         new_leaf = torch.clamp(i.long() + 1, max=L - 1).view(1)
 
-        # partition (reference _split_body :473-486; _partition_col's
-        # unbundled branch): the feature's column and its missing rule
-        # by gather from the device meta
-        f = torch.clamp(row[S.FEATURE], min=0.0).long().view(1)
-        col = self.bins.index_select(1, f).view(-1).to(torch.int32)
-        gl = go_left_on_device(
-            col, row[S.THRESHOLD_BIN].to(torch.int32),
-            row[S.DEFAULT_LEFT] > 0.0, meta.missing_type.index_select(0, f),
-            meta.num_bin.index_select(0, f) - 1,
-            meta.zero_bin.index_select(0, f))
+        # partition (reference _split_body :473-486)
+        gl = self._go_left(row)
         move = (st.leaf_of_row == leaf) & ~gl & valid
         st.leaf_of_row.copy_(torch.where(move, new_leaf.to(torch.int32),
                                          st.leaf_of_row))
@@ -487,8 +612,11 @@ class SerialTreeLearner:
         buf.count.copy_(pos[-1:])
         dest = torch.where(is_small, pos - 1, self.N)
         buf.idx.scatter_(0, dest.long(), buf.rows)
-        hist_small = build_histogram(self.bins, st.gh, self.B, buf.idx,
-                                     buf.count)
+        small_totals = torch.where(
+            smaller_is_left, row[S.LEFT_SUM_GRAD:S.LEFT_SUM_GRAD + 4],
+            row[S.RIGHT_SUM_GRAD:S.RIGHT_SUM_GRAD + 4])
+        hist_small = self._leaf_histogram(st.gh, buf.idx, buf.count,
+                                          small_totals)
         hist_large = subtract_histogram(
             st.hists.index_select(0, leaf).squeeze(0), hist_small)
         hist_left = torch.where(smaller_is_left, hist_small, hist_large)
@@ -503,10 +631,8 @@ class SerialTreeLearner:
         _put(st.leaf_depth, new_leaf, child_depth[0], valid)
         for child, hist, side in ((leaf, hist_left, S.LEFT_SUM_GRAD),
                                   (new_leaf, hist_right, S.RIGHT_SUM_GRAD)):
-            info = find_best_split(
-                hist, row[side], row[side + 1], row[side + 2],
-                row[side + 3], meta, self.params, self.feature_mask,
-                row[side + 4], buf.qscale)
+            info = self._scan(hist, row[side:side + 4], row[side + 4],
+                              buf.qscale)
             if self.max_depth > 0:
                 gain = torch.where(child_depth < self.max_depth,
                                    info[S.GAIN:S.GAIN + 1], float("-inf"))
@@ -581,7 +707,7 @@ class SerialTreeLearner:
         self.grow_stats["record_reads"] += 1
         tree = Tree(self.L)
         for row in records:
-            rec = SplitRecord.from_row(int(row[0]), row[1:])
+            rec = SplitRecord.from_row(int(row[0]), row[1:], self.B)
             if not record_is_valid(rec):
                 break
             apply_split_record(tree, self.dataset, rec)

@@ -97,9 +97,12 @@ def test_bin_mappers_carried_across_bin_identically():
 
 
 def test_bundles_that_would_form_raise():
-    """Two mutually exclusive sparse columns would form an EFB bundle in
-    the reference; the port raises (ROADMAP item 11) unless bundling is
-    off, and then bins them like the reference does with it off."""
+    """Two mutually exclusive sparse columns form an EFB bundle in the
+    reference and in the port alike (the old item-11 raise is gone):
+    the same layout and the bundled matrix byte-equal (level a); with
+    bundling off, the unbundled matrix byte-equal too. What still
+    raises is a bundle wider than 256 bins (uint16 bundle columns,
+    item 26)."""
     rng = np.random.RandomState(0)
     n = 2000
     X = rng.randn(n, 3)
@@ -109,11 +112,16 @@ def test_bundles_that_would_form_raise():
     X[200:400, 2] = rng.rand(200) + 1
     ref = ref_dataset.BinnedDataset.from_matrix(
         X, ref_config.Config.from_params({"verbose": -1}))
-    assert ref.bundle is not None
-    with pytest.raises(LightGBMError, match="item 11"):
-        port_dataset.BinnedDataset.from_matrix(
-            X, port_config.Config.from_params({"device_type": "cpu",
-                                               "verbose": -1}))
+    port = port_dataset.BinnedDataset.from_matrix(
+        X, port_config.Config.from_params({"device_type": "cpu",
+                                           "verbose": -1}))
+    assert ref.bundle is not None and port.bundle is not None
+    assert port.bundle.groups == ref.bundle.groups
+    assert port.bins.tobytes() == ref.bins.tobytes()
     params = {"verbose": -1, "enable_bundle": False}
     ref, port = _both(X, params)
+    assert port.bundle is None
     assert ref.bins.tobytes() == port.bins.tobytes()
+    with pytest.raises(LightGBMError, match="item 26"):
+        port_config.Config.from_params(
+            {"device_type": "cpu", "max_bin": 300}).check_slice()

@@ -275,12 +275,40 @@ def test_device_count_entry_equals_host_count_launch(cuda, gh_dtype, F):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), n
 
 
-def _train_pair(params, X, y, rounds=3):
+@pytest.mark.parametrize("gh_dtype", ["f32", "int8", "int16"])
+def test_bundled_device_count_entry_equals_host_count_launch(cuda, gh_dtype):
+    """EFB: the kernel runs over the bundle matrix [N, Gp] at Bg bins
+    (Bg < B here, and not a multiple of 32); its device-count entry gives
+    the host-count launch's bytes, and the host-count launch the plain
+    version's (exactly for integer rows)."""
+    S, Gp, Bg = 1 << 19, 16, 72
+    bins, gh, gh8, _ = _inputs(S, Gp, Bg, seed=13)
+    rows = {"f32": gh, "int8": gh8,
+            "int16": gh8.to(torch.int16) * 100}[gh_dtype]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(14)
+    perm = torch.randperm(S, generator=g, device="cuda")
+    for n in (0, 1, 1025, 100_000, S):
+        idx = perm[:n].sort().values.to(torch.int32)
+        buf = torch.full((S + 1,), S, dtype=torch.int32, device="cuda")
+        buf[:n] = idx
+        count = torch.tensor([n], dtype=torch.int32, device="cuda")
+        got = H.build_histogram(bins, rows, Bg, buf, count)
+        want = H.build_histogram(bins, rows, Bg, idx)
+        assert got.shape == (Gp, Bg, 4)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), n
+        if gh_dtype != "f32":
+            assert torch.equal(want, H.histogram_plain(bins, rows, Bg, idx))
+
+
+def _train_pair(params, X, y, rounds=3, categorical_feature=None):
     out = []
     for fused in (True, False):
         H.reset_launch_counts()
         b = lgb.train(dict(params, tpu_fused_tree=fused),
-                      lgb.Dataset(X, label=y), num_boost_round=rounds)
+                      lgb.Dataset(X, label=y,
+                                  categorical_feature=categorical_feature),
+                      num_boost_round=rounds)
         out.append((b, H.device_launch_counts()))
     return out
 
@@ -312,6 +340,61 @@ def test_whole_tree_equals_per_split_on_cuda(cuda, extra):
     assert stats["steps"] >= splits
     assert sum(dev_f.values()) == stats["roots"] + stats["steps"]
     assert sum(dev_s.values()) == len(stepped.inner.models) + splits
+
+
+@pytest.mark.parametrize("kind", ["categorical", "bundled",
+                                  "bundled_quantized8"])
+def test_categorical_and_bundled_graph_trees_equal_per_split(cuda, kind):
+    """A categorical (both scan modes, NaN and negative categories) and
+    an EFB-bundled model on the card: the graph-replayed whole-tree loop
+    gives the per-split loop's trees, every histogram went through the
+    kernel (the bundled ones at the bundle width), and the stacked
+    predict equals the host walk."""
+    rng = np.random.RandomState(15)
+    n = 40000
+    X = rng.randn(n, 8)
+    extra, cats = {}, None
+    if kind == "categorical":
+        c1 = rng.randint(0, 30, n).astype(float)
+        c2 = rng.randint(0, 3, n).astype(float)
+        eff = rng.randn(30)
+        y = X[:, 0] + eff[c1.astype(int)] + 0.8 * (c2 == 1) > 0
+        c1[rng.rand(n) < 0.05] = np.nan
+        c1[rng.rand(n) < 0.03] = -1
+        X = np.column_stack([X, c1, c2])
+        cats = [8, 9]
+    else:
+        sparse = np.zeros((n, 24))
+        choice = rng.randint(0, 30, n)
+        hit = np.nonzero(choice < 24)[0]
+        # three values a column: few bins, so all 24 share one bundle
+        sparse[hit, choice[hit]] = rng.randint(1, 4, len(hit))
+        y = X[:, 0] + 0.8 * (sparse[:, 0] > 0) - 0.6 * (sparse[:, 5] > 0) > 0
+        X = np.column_stack([X, sparse])
+        if kind == "bundled_quantized8":
+            extra = {"use_quantized_grad": True}
+    params = dict({"objective": "binary", "num_leaves": 63,
+                   "min_data_in_leaf": 50, "verbose": -1}, **extra)
+    (fused, dev_f), (stepped, dev_s) = _train_pair(
+        params, X, y.astype(float), categorical_feature=cats)
+    learner = fused.inner.learner
+    assert learner._has_cat == (kind == "categorical")
+    assert learner._bundled == (kind != "categorical")
+    if learner._bundled:
+        assert learner.bins.shape[1] == learner.Gp < learner.Fp
+    else:
+        assert any(t.num_cat > 0 for t in fused.inner.models)
+    assert [t.to_string() for t in fused.inner.models] == \
+        [t.to_string() for t in stepped.inner.models]
+    stats = learner.grow_stats
+    assert stats["captures"] == 1
+    assert sum(dev_f.values()) == stats["roots"] + stats["steps"]
+    splits = sum(t.num_leaves - 1 for t in stepped.inner.models)
+    assert sum(dev_s.values()) == len(stepped.inner.models) + splits
+    np.testing.assert_array_equal(fused.predict(X[:5000]),
+                                  fused.predict(X[:5000],
+                                                predict_on_device=False))
+    assert fused._stacked_cache[1].entries
 
 
 def test_split_step_makes_no_sync(cuda):

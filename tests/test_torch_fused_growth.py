@@ -5,7 +5,9 @@ Mirrors tests/test_fused_growth.py (TestFusedVsSteppedParity): the
 whole-tree loop gives exactly the per-split loop's trees (per-tree
 ``to_string``) and train-score bits (level a) over exact, 8-bit and
 16-bit quantized gradients, plain and balanced bagging, ``max_depth``,
-multiclass, lambdarank and l1 with leaf renewal. A tree that ends
+multiclass, lambdarank and l1 with leaf renewal, categorical features
+(both scan modes, NaN and negative categories) and EFB-bundled columns,
+f32 and 8-bit. A tree that ends
 before ``num_leaves`` leaves the device state (partition, histograms,
 candidates, depths, records) byte-equal to the per-split loop's, the
 trees do not depend on the chunk between two counter reads, and the
@@ -51,7 +53,47 @@ def _rank_data(seed=1, num_queries=60):
     return X, np.clip(np.floor(rel + 1.5), 0, 4), group
 
 
+def _cat_data(n=2000, seed=0):
+    """_data() plus a 12-category column (sorted-subset scans; NaN and
+    negative values) and a 3-category one (one-hot mode)."""
+    X, _ = _data(n, seed)
+    rng = np.random.RandomState(seed + 100)
+    c1 = rng.randint(0, 12, n).astype(float)
+    c2 = rng.randint(0, 3, n).astype(float)
+    effect = rng.randn(12)
+    logit = (X[:, 0] + effect[c1.astype(int)] + 0.8 * (c2 == 1)
+             + 0.3 * rng.randn(n))
+    c1[rng.rand(n) < 0.05] = np.nan
+    c1[rng.rand(n) < 0.03] = -1.0
+    return np.column_stack([X, c1, c2]), (logit > 0).astype(float)
+
+
+def _bundle_data(n=2000, seed=0):
+    """_data() plus 12 mutually exclusive sparse columns (one EFB
+    bundle; the NaN and the many-zeros columns stay apart)."""
+    X, _ = _data(n, seed)
+    rng = np.random.RandomState(seed + 200)
+    sparse = np.zeros((n, 12))
+    choice = rng.randint(0, 16, n)
+    rows = np.nonzero(choice < 12)[0]
+    sparse[rows, choice[rows]] = rng.rand(len(rows)) + 0.5
+    logit = (X[:, 0] + 0.8 * (sparse[:, 0] > 0) - 0.6 * (sparse[:, 5] > 0)
+             + 0.3 * rng.randn(n))
+    return np.column_stack([X, sparse]), (logit > 0).astype(float)
+
+
+_DATA = {"categorical": _cat_data, "bundled": _bundle_data}
+
+
 def _train(params, rounds=3):
+    params = dict(params)
+    data = params.pop("data", None)
+    if data is not None:
+        X, y = _DATA[data]()
+        cats = [8, 9] if data == "categorical" else None
+        return lgb.train(params, lgb.Dataset(X, label=y,
+                                             categorical_feature=cats),
+                         num_boost_round=rounds)
     X, y = _data()
     group = None
     if params.get("objective") == "multiclass":
@@ -81,6 +123,14 @@ PARITY = {
                    "eval_at": "1,3,5"},
     "regression_l1_renewal": {"objective": "regression_l1",
                               "num_leaves": 31},
+    "categorical": {"data": "categorical", "num_leaves": 31},
+    "categorical_quantized8": {"data": "categorical",
+                               "use_quantized_grad": True},
+    "categorical_multiclass3": {"data": "categorical",
+                                "objective": "multiclass", "num_class": 3,
+                                "max_cat_to_onehot": 8},
+    "bundled": {"data": "bundled", "num_leaves": 31},
+    "bundled_quantized8": {"data": "bundled", "use_quantized_grad": True},
 }
 
 
@@ -91,6 +141,11 @@ def test_whole_tree_equals_per_split(case):
     params = dict(BASE, **PARITY[case])
     fused = _train(dict(params, tpu_fused_tree=True))
     stepped = _train(dict(params, tpu_fused_tree=False))
+    learner = fused.inner.learner
+    assert learner._has_cat == (params.get("data") == "categorical")
+    assert learner._bundled == (params.get("data") == "bundled")
+    if learner._has_cat:
+        assert any(t.num_cat > 0 for t in fused.inner.models)
     assert fused.inner.learner._fused_growth
     assert not stepped.inner.learner._fused_growth
     assert [t.to_string() for t in fused.inner.models] == \
@@ -116,9 +171,12 @@ def test_fused_tree_is_the_default():
 
 
 def _learner_and_rows(extra, seed=3):
-    X, y = _data(seed=seed)
     params = dict(BASE, **extra)
-    booster = lgb.Booster(params, lgb.Dataset(X, label=y))
+    data = params.pop("data", None)
+    X, y = (_data if data is None else _DATA[data])(seed=seed)
+    cats = [8, 9] if data == "categorical" else None
+    booster = lgb.Booster(params, lgb.Dataset(X, label=y,
+                                               categorical_feature=cats))
     learner = booster.inner.learner
     g = torch.from_numpy(
         (np.random.RandomState(seed).rand(len(y)) - y).astype(np.float32))
@@ -216,6 +274,10 @@ def _histogram_outside_mode(monkeypatch):
     pytest.param({}, id="exact"),
     pytest.param({"use_quantized_grad": True}, id="quantized8"),
     pytest.param({"num_leaves": 31, "max_depth": 3}, id="max_depth3"),
+    pytest.param({"data": "categorical"}, id="categorical"),
+    pytest.param({"data": "bundled"}, id="bundled"),
+    pytest.param({"data": "bundled", "use_quantized_grad": True},
+                 id="bundled_quantized8"),
 ])
 def test_split_step_makes_no_host_read(monkeypatch, extra):
     learner, gh = _learner_and_rows(extra)

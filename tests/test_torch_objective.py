@@ -298,7 +298,7 @@ def test_rank_lambdas_within_query_tolerance(name, extra, weighted):
     ({"objective": "none"}, "item 18"),
     ({"boosting": "dart"}, "item 16"),
     ({"linear_tree": True}, "item 15"),
-    ({"categorical_feature": "0"}, "item 11"),
+    ({"categorical_feature": "0", "max_bin": 300}, "item 26"),
 ])
 def test_other_objectives_raise_with_their_roadmap_item(params, item):
     """A custom objective, and the settings of later slices, still

@@ -109,7 +109,7 @@ def test_cpu_runs_only_when_asked(quantized):
     ({"extra_trees": True}, "item 14"),
     ({"feature_fraction_bynode": 0.5}, "item 15"),
     ({"use_quantized_grad": True, "feature_fraction": 0.5}, "item 14"),
-    ({"categorical_feature": "0"}, "item 11"),
+    ({"categorical_feature": "0", "max_bin": 300}, "item 26"),
     ({"monotone_constraints": "1,0,0,0"}, "item 15"),
     ({"interaction_constraints": "0,1"}, "item 15"),
     ({"cegb_penalty_split": 0.1}, "item 15"),

@@ -386,15 +386,29 @@ def test_text_loaded_booster_asks_for_the_card(shared):
 
 
 def test_what_does_not_stack_raises_naming_its_item(shared):
-    _, ref, _, _ = shared
+    """The LUT-node encoding and categorical nodes stack now (their
+    parity is in ``tests/test_torch_efb.py``); what still cannot stack
+    raises: average_output (item 16), linear leaves (item 15), and a
+    feature that no single quantizer can serve (``ValueError``, the
+    caller's cue for the host walk)."""
+    X, ref, _, _ = shared
     trees = _carried(ref)
-    with pytest.raises(LightGBMError, match="item 11"):
-        StackedForest(trees, 1, 6, lut=True)
+    lut = StackedForest(trees, 1, 6, lut=True)
+    assert lut.lut_nodes
+    np.testing.assert_array_equal(lut.leaves(X[:300]),
+                                  StackedForest(trees, 1, 6,
+                                                lut=False).leaves(X[:300]))
     with pytest.raises(LightGBMError, match="item 16"):
         StackedForest(trees, 1, 6, average_output=True)
     cat = _carried(ref)
-    cat[0].decision_type[0] |= 1
-    with pytest.raises(LightGBMError, match="item 11"):
+    f = cat[0].split_feature[0]
+    assert any(t.split_feature[j] == f for t in cat[1:]
+               for j in range(t.num_internal))
+    cat[0].decision_type[0] = 1
+    cat[0].threshold_in_bin[0] = 0
+    cat[0].num_cat, cat[0].cat_boundaries, cat[0].cat_threshold = \
+        1, [0, 1], [0b101]
+    with pytest.raises(ValueError, match="numerical and categorical"):
         StackedForest(cat, 1, 6)
     lin = _carried(ref)
     lin[0].is_linear = True
