@@ -110,18 +110,44 @@ Phases (each one fails the run if it fails):
    ``max_cat_to_onehot: 8`` (wilderness one-hot on the card), an 8-bit
    tree 1 at 50k rows the same on cuda and cpu;
 
+14. row and column sampling and the per-node filters on phase 4's data
+   (255 leaves, max_bin 255, min_data_in_leaf 100, lr 0.1):
+   a. ``feature_fraction 0.9`` + ``extra_trees``, 5 rounds, whole-tree
+      loop: launches == roots + steps, held-out AUC > 0.7, every split
+      feature of a tree inside that tree's mask, stacked predict == host
+      walk, a 2-round per-split rerun text-equal; ms per split beside
+      phase 4's, and the kernels and ms of one replayed step with and
+      without the extra_trees draws;
+   b. GOSS at its default rates, 13 rounds (warm-up 10): each GOSS
+      tree's in-bag rows are its top rows (ties included) plus
+      ``other_k`` sampled within 1%; held-out AUC > 0.7; the draw at all
+      10.5M rows byte-equal on the card and the CPU; its ms and memory,
+      and the threshold by ``torch.topk`` and ``torch.kthvalue``;
+   c. GOSS with 8-bit gradients, lr 0.5, 4 rounds: the int8 instance
+      only, a 3-round per-split rerun text-equal;
+   d. ``feature_fraction_bynode 0.5`` + interaction constraints (columns
+      0-13 and 14-27), 2 rounds: every root-to-leaf path inside one
+      group, one record read per split;
+   e. CEGB (split, coupled and lazy penalties; coupled 1e9 on columns
+      20-27), 2 rounds: those columns never split, the trees differ from
+      a run without penalties, the lazy fetched state after tree 1 marks
+      exactly the rows under each feature's nodes;
+   then tree 1 on cuda and cpu at phase 3's 200k rows (63 leaves) for
+   a, GOSS (lr 2.0: no warm-up), d and e must be the same tree;
+
 then time every instance over the learners' real bins of phases 9 (the
 bundle columns at Bg), 13 and 10, and print one ``{"kernels": [...]}``
 line with the launches of each kernel on each path that runs it, as its
 device counter counted them (graph replays included;
-``launches_by_path``; f32: phases 3, 4, 9, 10, 11, 12, 13; int8: phases
-7, 9; int16: phase 8). Prediction launches
+``launches_by_path``; f32: phases 3, 4, 9, 10, 11, 12, 13, 14a, 14b,
+14d, 14e; int8: phases 7, 9, 14c; int16: phase 8). Prediction launches
 no hand kernel: the stacked walk is PyTorch ops (the reference's is
 ``jnp``), so it has no row in that line.
 
-Phases 3, 4, 7-11 and 13 train through the default whole-tree loop;
-every per-split (``tpu_fused_tree=false``) rerun must give its
-whole-tree run's trees.
+Phases 3, 4, 7-11, 13 and 14a-c train through the default whole-tree
+loop (14d and 14e through the per-split loop, which per-node masks and
+CEGB take); every per-split (``tpu_fused_tree=false``) rerun must give
+its whole-tree run's trees.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a visible
@@ -825,14 +851,14 @@ def full_data(lgb):
     return ds, valid, Xv, yv
 
 
-def train_full(lgb, hist_mod, data, extra, kernel, rounds=5):
+def train_full(lgb, hist_mod, data, extra, kernel, rounds=5, tag=None):
     """Train the full-size data through ``lightgbm_tpu_torch.train``
     (:func:`train_path`). Returns (booster, launches, held-out AUC per
     round, seconds per iteration, quantize ms per tree)."""
     ds, valid, _, _ = data
     run = train_path(lgb, hist_mod, ds, valid,
                      dict(SLICE_PARAMS, num_leaves=255, **extra), kernel,
-                     rounds)
+                     rounds, tag=tag)
     return (run["booster"], run["launches"], run["evals"]["auc"],
             run["per_iter"], run["quant_ms"])
 
@@ -937,13 +963,34 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
     trees = bst.inner.models
     K = bst.inner.num_tree_per_iteration
     splits = sum(t.num_leaves - 1 for t in trees)
+    SPLIT_MS[tag] = 1e3 * sum(tree_seconds) / max(splits, 1)
     check(len(trees) == rounds * K, "expected %d trees, got %d"
           % (rounds * K, len(trees)))
     check(all(t.num_leaves > 1 for t in trees), "a tree has one leaf")
     launches = check_device_launches(hist_mod, bst, kernel, tag)
     learner = bst.inner.learner
     stats = learner.grow_stats
-    fused = learner._fused_growth
+    # the loop the config asks for: per-node masks and CEGB take the
+    # per-split loop whatever tpu_fused_tree says. The whole-tree loop
+    # reads one record buffer per tree and no split record; the
+    # per-split loop one record per split (one more for a tree that ends
+    # before num_leaves) and no record buffer
+    fused = (learner._fused_growth and not learner._cegb_enabled
+             and not learner._needs_per_node_masks())
+    if fused:
+        check(stats["split_reads"] == 0
+              and stats["record_reads"] == len(trees),
+              "%s: the whole-tree loop read %d split records and %d "
+              "record buffers for %d trees" % (
+                  tag, stats["split_reads"], stats["record_reads"],
+                  len(trees)))
+    else:
+        check(stats["record_reads"] == 0
+              and splits <= stats["split_reads"] <= splits + len(trees),
+              "%s: the per-split loop read %d record buffers and %d split "
+              "records for %d splits in %d trees" % (
+                  tag, stats["record_reads"], stats["split_reads"], splits,
+                  len(trees)))
     sync_bound = math.ceil((learner.L - 1) / serial.FUSED_CHUNK) + 2
     if fused:
         check(max(tree_syncs) <= sync_bound,
@@ -999,6 +1046,12 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
                 splits=splits)
 
 
+#: mean ms per split of each training run (tree seconds / splits), by tag
+SPLIT_MS = {}
+#: the tag of phase 4's run
+PHASE4_TAG = json.dumps({"num_leaves": 255})
+
+
 def check_predict(bst, data, device_auc):
     """Host-walk predictions of the held-out set: finite, of the right
     shape, AUC > 0.7 and equal to the device valid-score AUC."""
@@ -1020,18 +1073,18 @@ def check_predict(bst, data, device_auc):
     return a
 
 
-def check_rerun(lgb, hist_mod, data, extra, kernel, bst, what):
-    """A second run of 2 rounds through the per-split loop must give the
-    first (whole-tree) run's first two trees, text for text."""
+def check_rerun(lgb, hist_mod, data, extra, kernel, bst, what, rounds=2):
+    """A second run of ``rounds`` rounds through the per-split loop must
+    give the first (whole-tree) run's first trees, text for text."""
     again, _, _, _, _ = train_full(lgb, hist_mod, data,
                                    dict(extra, tpu_fused_tree=False),
-                                   kernel, rounds=2)
-    first = [t.to_string() for t in bst.inner.models[:2]]
+                                   kernel, rounds=rounds)
+    first = [t.to_string() for t in bst.inner.models[:rounds]]
     second = [t.to_string() for t in again.inner.models]
     check(first == second, "a per-split %s run gave other trees than the "
           "whole-tree run" % what)
-    log("%s per-split rerun (2 rounds): trees 1 and 2 text-equal to the "
-        "whole-tree run's" % what)
+    log("%s per-split rerun (%d rounds): the first %d trees text-equal to "
+        "the whole-tree run's" % (what, rounds, rounds))
 
 
 def phase_full(lgb, hist_mod, data):
@@ -2066,6 +2119,489 @@ def phase_predict(lgb, hist_mod):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: row and column sampling and the per-node filters
+# ---------------------------------------------------------------------------
+# interaction constraint groups of phase 14d: the generator's one
+# interaction term, sin(x0) * x1, lies inside the first group
+HIGGS_GROUPS = [list(range(14)), list(range(14, 28))]
+# phase 14e: CEGB vectors over the 28 columns. A split's gain is at most
+# sum over its rows of g^2 / h (Cauchy-Schwarz), about one per row for
+# the binary loss near p = 0.5, so ~1e7 at 10.5M rows: a coupled penalty
+# of 1e9 on columns 20-27 keeps them out of every tree
+CEGB_PARAMS = {"cegb_penalty_split": 1e-5,
+               "cegb_penalty_feature_coupled": [100.0] * 20 + [1e9] * 8,
+               "cegb_penalty_feature_lazy": [1e-3] * 28}
+
+
+def _record_tree_masks():
+    """Wrap the learner's ``train`` to keep each tree's feature mask as
+    the learner copied it to the card (its host copy; no device read).
+    Returns (masks, restore)."""
+    from lightgbm_tpu_torch.treelearner import serial
+    grow = serial.SerialTreeLearner.train
+    masks = []
+
+    def train(self, *args):
+        out = grow(self, *args)
+        masks.append(self._mask_host.copy())
+        return out
+    serial.SerialTreeLearner.train = train
+
+    def restore():
+        serial.SerialTreeLearner.train = grow
+    return masks, restore
+
+
+def kernels_per_replay(learner):
+    """Device kernels (copies and fills apart) of one replay of the
+    learner's captured step, by torch.profiler, and its ms (CUDA events,
+    mean of 20 replays). The step after a tree's end launches every
+    kernel of a split and changes nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    buf = learner._fused
+    for _ in range(3):
+        learner._graph.replay()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        learner._graph.replay()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    ms = cuda_ms(lambda: learner._graph.replay(), reps=20, warm=2)
+    check(int(buf.state.step) <= learner.L - 1, "replays past the tree's "
+          "end moved its step counter")
+    return len(kernels), ms
+
+
+def phase14_ff_extra_trees(lgb, hist_mod, data):
+    """14a: feature_fraction 0.9 + extra_trees, 5 rounds, whole-tree
+    loop."""
+    import torch
+    extra = {"feature_fraction": 0.9, "extra_trees": True}
+    ds, valid, Xv, _ = data
+    masks, restore = _record_tree_masks()
+    try:
+        run = train_path(lgb, hist_mod, ds, valid,
+                         dict(SLICE_PARAMS, num_leaves=255, **extra),
+                         "histogram_f32", 5, tag="14a ff + extra_trees")
+    finally:
+        restore()
+    bst = run["booster"]
+    learner = bst.inner.learner
+    check(learner._fused_growth and learner.grow_stats["captures"] == 1,
+          "14a did not train through the captured whole-tree step")
+    check(len(masks) == 5 and all(m.sum() == round(28 * 0.9) for m in masks),
+          "14a: expected 5 tree masks of %d features" % round(28 * 0.9))
+    for t, m in zip(bst.inner.models, masks):
+        used = t.split_feature_inner[:t.num_internal]
+        check(bool(m[used].all()), "14a: a split feature lies outside its "
+              "tree's mask")
+    check(np.array_equal(learner.feature_mask.cpu().numpy(), masks[-1]),
+          "14a: the learner's device mask is not the last tree's")
+    a = check_predict(bst, data, run["evals"]["auc"])
+    check_stacked(bst, Xv, "phase 14a ff + extra_trees")
+    n_et, ms_et = kernels_per_replay(learner)
+    # the same learner's step without the extra_trees draws
+    learner._extra_trees = False
+    learner._graph = None
+    learner._capture(learner._fused)
+    n_plain, ms_plain = kernels_per_replay(learner)
+    log("14a ff 0.9 + extra_trees: held-out AUC %.6f; ms per split %.3f "
+        "(phase 4 in this call: %s); one replayed step: %d kernels, %.3f "
+        "ms; without the extra_trees draws: %d kernels, %.3f ms (the "
+        "threefry draws: %+d kernels, %+.3f ms per split)"
+        % (a, SPLIT_MS["14a ff + extra_trees"],
+           "%.3f" % SPLIT_MS[PHASE4_TAG] if PHASE4_TAG in SPLIT_MS
+           else "not run",
+           n_et, ms_et, n_plain, ms_plain, n_et - n_plain,
+           ms_et - ms_plain))
+    check_rerun(lgb, hist_mod, data, extra, "histogram_f32", bst,
+                "ff + extra_trees")
+    del bst, learner
+    torch.cuda.empty_cache()
+    return run["launches"]["histogram_f32"]
+
+
+def phase14_goss(lgb, hist_mod, data):
+    """14b: GOSS at its default rates, lr 0.1, 13 rounds (warm-up 10, so
+    trees 11-13 are GOSS trees); the draw on the card against the CPU's
+    at all rows; top-k ms by torch.topk and torch.kthvalue."""
+    import torch
+    from lightgbm_tpu_torch.boosting import sample_strategy as SS
+    from lightgbm_tpu_torch.utils.prng import PRNGKey
+    extra = {"data_sample_strategy": "goss"}
+    ds, valid, _, _ = data
+    draw = SS.goss_draw
+    draws = []
+
+    def recorded(grad, hess, *args):
+        out = draw(grad, hess, *args)
+        # top rows: in bag and not scaled (the scale of a sampled row,
+        # (n - top_k) / other_k = 8 here, changes every hessian > 0)
+        draws.append(torch.stack([out[2].sum(), ((out[2] > 0)
+                                                 & (out[1] == hess)).sum()]))
+        return out
+    SS.goss_draw = recorded
+    try:
+        run = train_path(lgb, hist_mod, ds, valid,
+                         dict(SLICE_PARAMS, num_leaves=255, **extra),
+                         "histogram_f32", 13, tag="14b goss")
+    finally:
+        SS.goss_draw = draw
+    bst = run["booster"]
+    strat = bst.inner.sample_strategy
+    check(isinstance(strat, SS.GOSSStrategy) and strat.warmup == 10,
+          "14b: GOSS strategy with warm-up 10 expected")
+    n = FULL_ROWS
+    in_bag = [int(sum(t.leaf_count[:t.num_leaves]))
+              for t in bst.inner.models]
+    check(all(v == n for v in in_bag[:10]) and len(draws) == 3,
+          "14b: the 10 warm-up trees must take every row, then 3 draws")
+    for v, (bag, top) in zip(in_bag[10:], torch.stack(draws).tolist()):
+        # rows tied at the threshold are top rows too; each other row is
+        # sampled with probability other_k / (n - top_k)
+        want = strat.other_k * (n - top) / (n - strat.top_k)
+        check(v == bag and top >= strat.top_k
+              and abs(bag - top - want) <= 0.01 * strat.other_k,
+              "14b: a GOSS tree's %d in-bag rows are not top %d (top_k "
+              "%d) + %.0f sampled within 1%% of other_k %d"
+              % (v, top, strat.top_k, want, strat.other_k))
+    a = check_predict(bst, data, run["evals"]["auc"])
+    # the draw on the card and on the CPU from the same gradients
+    g, h = bst.inner.objective.get_gradients(bst.inner.train_score[:, 0])
+    key = PRNGKey(int(bst.inner.config.bagging_seed) & 0x7FFFFFFF, "cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    card = SS.goss_draw(g, h, key, 12, strat.top_k, strat.other_k)
+    end.record()
+    torch.cuda.synchronize()
+    draw_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() - before
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(threads, 8))
+    t0 = time.perf_counter()
+    cpu = SS.goss_draw(g.cpu(), h.cpu(), key.cpu(), 12, strat.top_k,
+                       strat.other_k)
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    for name, x, y in zip(("grad", "hess", "bag"), card, cpu):
+        check(torch.equal(x.cpu().view(torch.int32), y.view(torch.int32)),
+              "14b: the GOSS %s on the card differs from the CPU's" % name)
+    w = torch.abs(g * h)
+    k = strat.top_k
+    v_topk = torch.topk(w, k).values[-1]
+    v_kth = torch.kthvalue(w, n - k + 1).values
+    check(bool(v_topk == v_kth) and bool(v_topk == SS.goss_threshold(w, k)),
+          "14b: topk and kthvalue disagree")
+    topk_ms = cuda_ms(lambda: torch.topk(w, k).values[-1], reps=5)
+    kth_ms = cuda_ms(lambda: torch.kthvalue(w, n - k + 1).values, reps=5)
+    log("14b GOSS (top_rate 0.2, other_rate 0.1, lr 0.1, 13 rounds): "
+        "in-bag rows per GOSS tree %s (top_k %d + other_k %d); held-out AUC "
+        "%.6f; the draw at %d rows byte-equal on the card and the CPU "
+        "(grad, hess, bag); draw %.3f ms on the card (CPU %.1f s), device "
+        "memory it needs above its inputs %.3f GiB; the %d-th largest |g "
+        "h| by torch.topk %.3f ms, by torch.kthvalue %.3f ms (the port's "
+        "goss_threshold takes topk)"
+        % (in_bag[10:], strat.top_k, strat.other_k, a, n, draw_ms, cpu_s,
+           peak / 2 ** 30, k, topk_ms, kth_ms))
+    del bst, card, cpu, g, h, w
+    torch.cuda.empty_cache()
+    return run["launches"]["histogram_f32"]
+
+
+def phase14_goss_quantized(lgb, hist_mod, data):
+    """14c: GOSS with 8-bit gradients, lr 0.5 (warm-up 2), 4 rounds:
+    every histogram through the int8 instance; a 3-round per-split rerun
+    (tree 3 a GOSS tree) is text-equal."""
+    extra = {"data_sample_strategy": "goss", "learning_rate": 0.5,
+             "use_quantized_grad": True, "quant_grad_bits": 8}
+    bst, launches, aucs, _, _ = train_full(lgb, hist_mod, data, extra,
+                                           "histogram_i8", rounds=4,
+                                           tag="14c goss 8-bit")
+    a = check_predict(bst, data, aucs)
+    check_rerun(lgb, hist_mod, data, extra, "histogram_i8", bst,
+                "GOSS 8-bit", rounds=3)
+    log("14c GOSS + 8-bit (lr 0.5, 4 rounds, trees 3-4 GOSS): held-out "
+        "AUC %.6f; ms per split %.3f" % (a, SPLIT_MS["14c goss 8-bit"]))
+    return launches["histogram_i8"]
+
+
+def _paths_in_one_group(tree, groups):
+    def walk(node, path):
+        if node < 0:
+            return True
+        p = path | {int(tree.split_feature[node])}
+        return (any(p <= set(g) for g in groups)
+                and walk(int(tree.left_child[node]), p)
+                and walk(int(tree.right_child[node]), p))
+    return tree.num_leaves == 1 or walk(0, frozenset())
+
+
+def phase14_node_filters(lgb, hist_mod, data):
+    """14d: feature_fraction_bynode 0.5 + interaction constraints (two
+    groups of 14 columns), 2 rounds, through the per-split loop."""
+    extra = {"feature_fraction_bynode": 0.5,
+             "interaction_constraints": HIGGS_GROUPS}
+    ds, valid, _, _ = data
+    run = train_path(lgb, hist_mod, ds, valid,
+                     dict(SLICE_PARAMS, num_leaves=255, **extra),
+                     "histogram_f32", 2, tag="14d bynode + constraints")
+    bst = run["booster"]
+    check(all(_paths_in_one_group(t, HIGGS_GROUPS)
+              for t in bst.inner.models),
+          "14d: a root-to-leaf path mixes the constraint groups")
+    reads = bst.inner.learner.grow_stats["split_reads"]
+    a = check_predict(bst, data, run["evals"]["auc"])
+    log("14d bynode 0.5 + interaction constraints: every path inside one "
+        "group; %d record reads for %d splits; host syncs per tree %s; "
+        "ms per split %.3f; held-out AUC %.6f"
+        % (reads, run["splits"], run["tree_syncs"],
+           SPLIT_MS["14d bynode + constraints"], a))
+    return run["launches"]["histogram_f32"]
+
+
+def _subtree_leaves(tree, node):
+    if node < 0:
+        return [~node]
+    return (_subtree_leaves(tree, int(tree.left_child[node]))
+            + _subtree_leaves(tree, int(tree.right_child[node])))
+
+
+def phase14_cegb(lgb, hist_mod, data):
+    """14e: CEGB (split, coupled and lazy penalties), 2 rounds, through
+    the per-split loop; the lazy fetched state after tree 1 against the
+    tree's own partition."""
+    import torch
+    from lightgbm_tpu_torch.treelearner import serial
+    ds, valid, _, _ = data
+    grow = serial.SerialTreeLearner.train
+    after_tree1 = {}
+
+    def train(self, *args):
+        tree, leaf_of_row = grow(self, *args)
+        if not after_tree1:
+            after_tree1.update(tree=tree, leaf_of_row=leaf_of_row.clone(),
+                               fetched=self._cegb_fetched.clone(),
+                               used=self._cegb_used.clone())
+        return tree, leaf_of_row
+    serial.SerialTreeLearner.train = train
+    try:
+        run = train_path(lgb, hist_mod, ds, valid,
+                         dict(SLICE_PARAMS, num_leaves=255, **CEGB_PARAMS),
+                         "histogram_f32", 2, tag="14e cegb")
+    finally:
+        serial.SerialTreeLearner.train = grow
+    bst = run["booster"]
+    learner = bst.inner.learner
+    reads = bst.inner.learner.grow_stats["split_reads"]
+    used = {int(f) for t in bst.inner.models
+            for f in t.split_feature[:t.num_internal]}
+    check(not used & set(range(20, 28)),
+          "14e: a column with coupled penalty 1e9 was split on: %s"
+          % sorted(used & set(range(20, 28))))
+    plain = train_path(lgb, hist_mod, ds, valid,
+                       dict(SLICE_PARAMS, num_leaves=255), "histogram_f32",
+                       2, tag="14e without penalties")["booster"]
+    check([t.to_string() for t in plain.inner.models]
+          != [t.to_string() for t in bst.inner.models],
+          "14e: the CEGB trees equal the trees without penalties")
+    # tree 1: row r has fetched feature f iff its leaf lies under a node
+    # that splits on f; no other feature is fetched
+    t1 = after_tree1["tree"]
+    leaf_of_row = after_tree1["leaf_of_row"]
+    fetched = after_tree1["fetched"]
+    nodes = {}
+    for node in range(t1.num_internal):
+        nodes.setdefault(int(t1.split_feature_inner[node]), []).append(node)
+    for f in range(learner.F):
+        leaves = [lf for node in nodes.get(f, [])
+                  for lf in _subtree_leaves(t1, node)]
+        want = torch.isin(leaf_of_row, torch.tensor(
+            sorted(set(leaves)), dtype=leaf_of_row.dtype, device="cuda"))
+        check(torch.equal(fetched[:, f], want),
+              "14e: fetched column %d after tree 1 is not the rows that "
+              "passed a node on it" % f)
+    check(torch.equal(after_tree1["used"][:learner.F].cpu(),
+                      torch.tensor([f in nodes for f in range(learner.F)])),
+          "14e: the used-feature vector after tree 1 is not tree 1's "
+          "features")
+    a = check_predict(bst, data, run["evals"]["auc"])
+    log("14e CEGB: columns split on %s (20-27 never); trees differ from "
+        "the run without penalties; fetched after tree 1 == the rows "
+        "under each feature's nodes for all %d features; fetched state "
+        "%d bytes (bool [%d, %d]); %d record reads for %d splits; ms per "
+        "split %.3f (without penalties, whole-tree: %.3f); held-out AUC "
+        "%.6f"
+        % (sorted(used), learner.F, fetched.numel(), fetched.shape[0],
+           fetched.shape[1], reads, run["splits"], SPLIT_MS["14e cegb"],
+           SPLIT_MS["14e without penalties"], a))
+    del bst, plain, after_tree1, fetched, learner
+    torch.cuda.empty_cache()
+    return run["launches"]["histogram_f32"]
+
+
+def _split_trace(lgb, params, X, y):
+    """Tree 1 of ``params`` with, for each split of the per-split loop in
+    the order it was made, the winner (leaf, feature, threshold bin) and
+    the candidate table it won from: every leaf's [gain, feature,
+    threshold bin], read before the split."""
+    from lightgbm_tpu_torch.ops import split as S
+    from lightgbm_tpu_torch.treelearner import serial
+    split = serial.SerialTreeLearner._split
+    cols = [S.GAIN, S.FEATURE, S.THRESHOLD_BIN]
+    trace = []
+
+    def traced(self, state, rec, *args):
+        trace.append(((rec.leaf, rec.feature, rec.threshold_bin),
+                      state.cand[:, cols].cpu().numpy()))
+        return split(self, state, rec, *args)
+    serial.SerialTreeLearner._split = traced
+    try:
+        b = lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=1)
+    finally:
+        serial.SerialTreeLearner._split = split
+    return b.inner.models[0], trace
+
+
+def _ulps(a, b) -> float:
+    """|a - b| in f32 spacings at the larger magnitude."""
+    return abs(float(a) - float(b)) / float(
+        np.spacing(np.float32(max(abs(a), abs(b)))))
+
+
+def phase14_node_filters_f32_order(lgb, X, y, base):
+    """14d in f32, tree 1 on cuda against cpu, split by split. Node masks
+    are drawn from one host RNG in the order the splits are made, so the
+    trees agree as long as the split order does. Up to the first split
+    where the winners differ, the winners must agree; at that split the
+    candidate tables of both devices must hold the same candidate
+    (feature, threshold) in every leaf -- the same masks and partitions
+    -- and the two winners must be a near-tie: each device's gap
+    between them no larger than the largest cross-device gain difference
+    of one candidate in that table (the f32 rounding of the two
+    devices' histograms)."""
+    import torch
+    extra = {"feature_fraction_bynode": 0.5,
+             "interaction_constraints": HIGGS_GROUPS}
+    threads = torch.get_num_threads()
+    res = {}
+    for dev in ("cuda", "cpu"):
+        torch.set_num_threads(1 if dev == "cpu" else threads)
+        res[dev] = _split_trace(lgb, dict(base, device_type=dev, **extra),
+                                X, y)
+    torch.set_num_threads(threads)
+    (t_cuda, tr_cuda), (t_cpu, tr_cpu) = res["cuda"], res["cpu"]
+    k = next((i for i, (u, v) in enumerate(zip(tr_cuda, tr_cpu))
+              if u[0] != v[0]), None)
+    if k is None:
+        check(len(tr_cuda) == len(tr_cpu)
+              and tree_structure(t_cuda) == tree_structure(t_cpu),
+              "14d f32: the same split order, yet tree 1 differs between "
+              "cuda and cpu")
+        log("14d bynode + constraints, f32 at %d rows: tree 1 the same "
+            "tree on cuda and cpu, %d splits in the same order"
+            % (SMALL_ROWS, len(tr_cuda)))
+        return
+    (wa, ca), (wb, cb) = tr_cuda[k], tr_cpu[k]
+    live = np.isfinite(ca[:, 0]) & np.isfinite(cb[:, 0])
+    same_cands = (np.array_equal(np.isfinite(ca[:, 0]),
+                                 np.isfinite(cb[:, 0]))
+                  and np.array_equal(ca[live, 1:], cb[live, 1:]))
+    diff = np.abs(ca[live, 0].astype(np.float64) - cb[live, 0])
+    worst = int(np.flatnonzero(live)[int(np.argmax(diff))])
+    rounding = float(diff.max())
+    a, b = wa[0], wb[0]
+    gap_cuda = float(ca[a, 0]) - float(ca[b, 0])
+    gap_cpu = float(cb[b, 0]) - float(cb[a, 0])
+    log("14d bynode + constraints, f32 at %d rows: splits 1-%d the same "
+        "on cuda and cpu; split %d: cuda splits leaf %d (feature %d, bin "
+        "%d), cpu leaf %d (feature %d, bin %d); gains on cuda %.9g vs "
+        "%.9g (gap %.3g, %.1f ulp), on cpu %.9g vs %.9g (gap %.3g, %.1f "
+        "ulp); the candidate tables hold the same (feature, bin) in "
+        "every leaf: %s; largest cross-device gain difference of one "
+        "candidate %.3g (%.1f ulp, leaf %d)"
+        % (SMALL_ROWS, k, k + 1, a, wa[1], wa[2], b, wb[1], wb[2],
+           ca[a, 0], ca[b, 0], gap_cuda, _ulps(ca[a, 0], ca[b, 0]),
+           cb[b, 0], cb[a, 0], gap_cpu, _ulps(cb[a, 0], cb[b, 0]),
+           same_cands, rounding, _ulps(ca[worst, 0], cb[worst, 0]),
+           worst))
+    check(same_cands, "14d f32: at split %d the candidate tables of cuda "
+          "and cpu differ (masks or partitions differ)" % (k + 1))
+    check(a != b and 0.0 <= gap_cuda <= rounding
+          and 0.0 <= gap_cpu <= rounding,
+          "14d f32: the first differing split %d is not a near-tie "
+          "between two leaves" % (k + 1))
+
+
+def phase14_cuda_vs_cpu(lgb):
+    """Tree 1 on cuda and on cpu at phase 3's 200k rows, 63 leaves, for
+    14a's, 14d's and 14e's settings and GOSS: the same tree (structure,
+    as phase 11 compares). GOSS runs at learning_rate 2.0, whose warm-up
+    int(1 / lr) is 0, so that tree 1 is a GOSS tree. 14d's node masks
+    are drawn in the order the splits are made, so two leaves whose f32
+    gains tie within rounding, split in the other order, re-deal every
+    later mask: 14d's whole tree is compared with 8-bit gradients, whose
+    integer histograms give both devices the same sums, and in f32 up to
+    its first differing split (:func:`phase14_node_filters_f32_order`)."""
+    import torch
+    X, y = make_higgs_like(SMALL_ROWS, seed=7)
+    base = dict(SLICE_PARAMS, num_leaves=63)
+    cases = (("14a ff + extra_trees",
+              {"feature_fraction": 0.9, "extra_trees": True}),
+             ("14b GOSS", {"data_sample_strategy": "goss",
+                           "learning_rate": 2.0}),
+             ("14d bynode + constraints, 8-bit",
+              {"feature_fraction_bynode": 0.5,
+               "interaction_constraints": HIGGS_GROUPS,
+               "use_quantized_grad": True, "quant_grad_bits": 8}),
+             ("14e CEGB", CEGB_PARAMS))
+    threads = torch.get_num_threads()
+    for what, extra in cases:
+        trees = {}
+        for dev in ("cuda", "cpu"):
+            torch.set_num_threads(1 if dev == "cpu" else threads)
+            b = lgb.train(dict(base, device_type=dev, **extra),
+                          lgb.Dataset(X, label=y), num_boost_round=1)
+            trees[dev] = b.inner.models[0]
+        torch.set_num_threads(threads)
+        check(tree_structure(trees["cuda"]) == tree_structure(trees["cpu"]),
+              "%s: tree 1 differs between cuda and cpu: first splits "
+              "(leaves, features, thresholds) %s against %s"
+              % (what, [v[:12] if isinstance(v, list) else v
+                        for v in tree_splits_of(trees["cuda"])],
+                 [v[:12] if isinstance(v, list) else v
+                  for v in tree_splits_of(trees["cpu"])]))
+        log("%s at %d rows: tree 1 the same tree on cuda and cpu (%s, %d "
+            "leaves)" % (what, SMALL_ROWS,
+                         "splits in the same order"
+                         if tree_splits_of(trees["cuda"])
+                         == tree_splits_of(trees["cpu"])
+                         else "the same splits, added in another order",
+                         trees["cuda"].num_leaves))
+    phase14_node_filters_f32_order(lgb, X, y, base)
+
+
+def phase_sampling(lgb, hist_mod, data):
+    """Phase 14: returns the launches of each run by kernel and path."""
+    runs = {"histogram_f32": {}, "histogram_i8": {}}
+    f32 = runs["histogram_f32"]
+    f32["phase14a_higgs_ff_extra_trees"] = phase14_ff_extra_trees(
+        lgb, hist_mod, data)
+    f32["phase14b_higgs_goss"] = phase14_goss(lgb, hist_mod, data)
+    runs["histogram_i8"]["phase14c_higgs_goss_8bit"] = \
+        phase14_goss_quantized(lgb, hist_mod, data)
+    f32["phase14d_higgs_bynode_constraints"] = phase14_node_filters(
+        lgb, hist_mod, data)
+    f32["phase14e_higgs_cegb"] = phase14_cegb(lgb, hist_mod, data)
+    phase14_cuda_vs_cpu(lgb)
+    return runs
+
+
 def tree_splits_of(tree):
     ni = tree.num_internal
     return (tree.num_leaves, list(tree.split_feature[:ni]),
@@ -2123,7 +2659,8 @@ def time_widths(hist_mod, widths, rows_out):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
@@ -2163,7 +2700,7 @@ def main(argv=None) -> int:
         by_path["histogram_f32"]["phase3_small_binary"] = \
             run["histogram_f32"]
         lap("phase 3")
-    data = full_data(lgb) if phases & {4, 7} else None
+    data = full_data(lgb) if phases & {4, 7, 14} else None
     bins_root, f32_auc = None, None
     if 4 in phases:
         bst, run, f32_auc = phase_full(lgb, hist_mod, data)
@@ -2192,6 +2729,10 @@ def main(argv=None) -> int:
         by_path["histogram_i8"]["phase7_higgs_binary_8bit"] = \
             run["histogram_i8"]
         lap("phase 7")
+    if 14 in phases:
+        for kernel, paths in phase_sampling(lgb, hist_mod, data).items():
+            by_path[kernel].update(paths)
+        lap("phase 14")
     del data
     if 8 in phases:
         run = phase_small(lgb, hist_mod,

@@ -1,16 +1,17 @@
-"""Row sampling: stateless bagging.
+"""Row sampling: stateless bagging and GOSS.
 
-Port of the bagging half of ``lightgbm_tpu/boosting/sample_strategy.py``
-(reference: src/boosting/bagging.hpp:26; balanced pos/neg variant at
-:88-103). A strategy returns a full-length f32 in-bag indicator (0/1);
-the learner multiplies the gradients by it and counts in-bag rows in the
-histogram's count channel.
+Port of ``lightgbm_tpu/boosting/sample_strategy.py`` (reference:
+src/boosting/bagging.hpp:26, balanced pos/neg variant at :88-103;
+src/boosting/goss.hpp:30). A strategy returns a full-length f32 in-bag
+indicator (0/1), and GOSS its rescaled gradients; the learner multiplies
+the gradients by the indicator and counts in-bag rows in the histogram's
+count channel.
 
-The draw for iteration ``i`` is stateless: ``u < frac`` with
-``u = uniform(fold_in(PRNGKey(bagging_seed & 0x7FFFFFFF), i //
-bagging_freq), (N,))`` under the port's threefry (``utils/prng.py``),
-so the indicator equals the reference's byte for byte and needs no
-sampler state. GOSS is ROADMAP item 14.
+Every draw is stateless: ``u = uniform(fold_in(PRNGKey(bagging_seed &
+0x7FFFFFFF), d), (N,))`` under the port's threefry (``utils/prng.py``),
+with ``d = i // bagging_freq`` for bagging and ``d = i`` for GOSS at
+iteration ``i``, so the indicator equals the reference's byte for byte
+and needs no sampler state. Every draw runs on the gradients' device.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.log import unsupported
+from ..utils import log
 from ..utils.prng import PRNGKey, fold_in, uniform
 
 
@@ -54,6 +55,53 @@ class SampleStrategy:
                            Optional[torch.Tensor]]:
         """Returns (grad, hess, bag); bag is None for all rows."""
         return grad, hess, None
+
+
+def goss_threshold(w: torch.Tensor, top_k: int) -> torch.Tensor:
+    """The ``top_k``-th largest value of ``w`` (0-d, on ``w``'s device):
+    the reference's ``jax.lax.top_k(w, top_k)[0][-1]``. Only the value
+    counts (rows equal to it are all top rows, in whatever order top-k
+    returns them). ``torch.topk`` finds it faster than
+    ``torch.kthvalue`` (the same value) at top_k = 2.1M of 10.5M rows on
+    an H100; ``chip_smoke.py`` phase 14b times both (PERF.md §6)."""
+    return torch.topk(w, top_k).values[-1]
+
+
+def goss_draw(grad: torch.Tensor, hess: torch.Tensor, base_key: torch.Tensor,
+              iter_idx: int, top_k: int, other_k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One GOSS draw (reference ``GOSSStrategy._goss``,
+    lightgbm_tpu/boosting/sample_strategy.py:244): keep the rows whose
+    ``w = sum_k |g_k * h_k|`` reaches the ``top_k``-th largest, sample
+    each other row with probability ``other_k / (n - top_k)`` and scale
+    a sampled row's gradient and hessian by ``(n - top_k) / other_k``.
+    ``grad`` and ``hess`` are f32 [N] or [N, K]. Returns (scaled grad,
+    scaled hess, f32 [N] in-bag indicator).
+
+    The rounding is the reference's, bit for bit: ``w`` sums the class
+    columns left to right (XLA's reduce order over a row); the
+    probability is an f32 quotient of f32 operands (JAX divides a
+    Python int by an int32 array in f32) and ``u < prob`` compares f32
+    with f32; the scale is the float64 quotient rounded once to f32 (a
+    Python float meeting an f32 array)."""
+    g2 = torch.abs(grad * hess)
+    if g2.dim() == 1:
+        w = g2
+    else:
+        w = g2[:, 0]
+        for k in range(1, g2.shape[1]):
+            w = w + g2[:, k]
+    n = w.shape[0]
+    is_top = w >= goss_threshold(w, top_k)
+    prob = float(np.float32(other_k) / np.float32(max(n - top_k, 1)))
+    u = uniform(fold_in(base_key, int(iter_idx)), (n,))
+    sampled = ~is_top & (u < prob)
+    bag = (is_top | sampled).to(torch.float32)
+    multiply = float(np.float32((n - top_k) / other_k))
+    scale = torch.where(sampled, multiply, 1.0)
+    if grad.dim() > 1:
+        scale = scale[:, None]
+    return grad * scale, hess * scale, bag
 
 
 class BaggingStrategy(SampleStrategy):
@@ -109,12 +157,51 @@ class BaggingStrategy(SampleStrategy):
         return grad, hess, self._bag
 
 
+class GOSSStrategy(SampleStrategy):
+    """Gradient-based one-side sampling (reference ``GOSSStrategy``;
+    upstream goss.hpp:30-165): :func:`goss_draw` every iteration from
+    ``int(1 / learning_rate)`` on, every row in bag before (the warm-up,
+    goss.hpp:33). ``top_k = max(1, int(N * top_rate))`` and ``other_k =
+    max(1, int(N * other_rate))``."""
+
+    def __init__(self, config, num_data: int, device: torch.device):
+        super().__init__(config, num_data, device)
+        if config.top_rate + config.other_rate > 1.0:
+            log.fatal("top_rate + other_rate must be <= 1.0 for GOSS")
+        if config.top_rate <= 0.0 or config.other_rate <= 0.0:
+            log.fatal("top_rate and other_rate must be positive for GOSS")
+        if config.bagging_freq > 0 and config.bagging_fraction != 1.0:
+            log.fatal("Cannot use bagging in GOSS")
+        log.info("Using GOSS")
+        self._base_key = PRNGKey(int(config.bagging_seed) & 0x7FFFFFFF,
+                                 device)
+        self.refresh_config(config)
+
+    def refresh_config(self, config) -> None:
+        """Re-read the rates and the learning rate (the warm-up reads it
+        live, as the reference's ``refresh_config`` does). The reference
+        keeps the rates of its construction; here a ``reset_parameter``
+        of ``top_rate`` / ``other_rate`` takes effect at the next draw,
+        as upstream's ``GOSSStrategy::ResetSampleConfig`` does."""
+        self.config = config
+        self.top_k = max(1, int(self.num_data * config.top_rate))
+        self.other_k = max(1, int(self.num_data * config.other_rate))
+        self.warmup = int(1.0 / max(config.learning_rate, 1e-12))
+
+    def bagging(self, iter_idx, grad, hess):
+        if iter_idx < self.warmup:
+            return grad, hess, None
+        return goss_draw(grad, hess, self._base_key, iter_idx, self.top_k,
+                         self.other_k)
+
+
 def create_sample_strategy(config, num_data: int, device: torch.device
                            ) -> SampleStrategy:
     """reference: SampleStrategy::CreateSampleStrategy
-    (src/boosting/sample_strategy.cpp:12)."""
+    (src/boosting/sample_strategy.cpp:12); ``boosting=goss`` reaches here
+    as ``data_sample_strategy=goss`` (``Config._post_process``)."""
     if config.data_sample_strategy == "goss":
-        unsupported("data_sample_strategy=goss", "item 14")
+        return GOSSStrategy(config, num_data, device)
     balanced = (config.pos_bagging_fraction < 1.0
                 or config.neg_bagging_fraction < 1.0)
     if ((config.bagging_fraction < 1.0 or balanced)

@@ -21,6 +21,7 @@ What differs for the PyTorch/CUDA port:
 from __future__ import annotations
 
 import dataclasses
+import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Union
 
@@ -461,6 +462,10 @@ class Config:
             log.fatal("top_rate + other_rate cannot be larger than 1.0")
         if self.quant_grad_bits not in (8, 16):
             log.fatal("quant_grad_bits must be 8 or 16")
+        if isinstance(self.interaction_constraints, str) \
+                and self.interaction_constraints.strip():
+            self.interaction_constraints = _parse_constraint_groups(
+                self.interaction_constraints)
         self._warn_unimplemented()
         log.set_verbosity(self.verbosity)
 
@@ -478,27 +483,12 @@ class Config:
         unsupported = log.unsupported
         if self.boosting != "gbdt":
             unsupported("boosting=%s" % self.boosting, "item 16")
-        if self.data_sample_strategy == "goss":
-            unsupported("data_sample_strategy=goss", "item 14")
-        if self.feature_fraction < 1.0:
-            unsupported("feature_fraction < 1", "item 14")
-        if self.extra_trees:
-            unsupported("extra_trees", "item 14")
-        if self.feature_fraction_bynode < 1.0:
-            unsupported("feature_fraction_bynode < 1", "item 15")
         if any(int(v) != 0 for v in self.monotone_constraints):
-            unsupported("monotone_constraints", "item 15")
-        if self.interaction_constraints:
-            unsupported("interaction_constraints", "item 15")
-        if (self.cegb_penalty_split > 0.0
-                or self.cegb_penalty_feature_lazy
-                or self.cegb_penalty_feature_coupled):
-            unsupported("cost-effective gradient boosting (cegb_*)",
-                        "item 15")
+            unsupported("monotone_constraints", "item 15b")
         if self.linear_tree:
-            unsupported("linear_tree", "item 15")
+            unsupported("linear_tree", "item 15b")
         if self.forcedsplits_filename:
-            unsupported("forced splits", "item 15")
+            unsupported("forced splits", "item 15b")
         if self.max_bin > 255 or any(int(v) > 255
                                      for v in self.max_bin_by_feature):
             unsupported("max_bin > 255", "item 26")
@@ -586,6 +576,19 @@ def _coerce(fld: dataclasses.Field, value: Any) -> Any:
     if tp.startswith("str"):
         return str(value)
     return value
+
+
+def _parse_constraint_groups(text: str) -> List[List[int]]:
+    """The text form of ``interaction_constraints``, ``[0,1,2],[2,3]``,
+    as lists of feature indices (upstream
+    ``Common::StringToArrayofArrays``: only bracketed groups count, so
+    text without one sets no constraint, with a warning here)."""
+    groups = [[int(v) for v in g.split(",") if v.strip()]
+              for g in re.findall(r"\[([^\]]*)\]", text)]
+    if text.strip() and not groups:
+        log.warning("interaction_constraints=%r holds no [...] group; "
+                    "no interaction constraint applies" % text)
+    return groups
 
 
 def _parse_list(value: Any, typ) -> list:

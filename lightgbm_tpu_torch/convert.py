@@ -69,7 +69,7 @@ def trees_from_numpy(dicts: Sequence[Dict[str, object]]) -> List[Tree]:
     trees = []
     for d in dicts:
         if bool(d.get("is_linear", False)):
-            unsupported("linear trees", "item 15")
+            unsupported("linear trees", "item 15b")
         nl = int(d["num_leaves"])
         t = Tree(max(nl, 1))
         t.num_leaves = nl

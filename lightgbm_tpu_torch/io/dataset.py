@@ -293,6 +293,15 @@ class BinnedDataset:
     def real_feature_index(self, inner_feature: int) -> int:
         return self.used_feature_map[inner_feature]
 
+    def inner_feature_index(self, real_feature: int) -> int:
+        """The inner index of original column ``real_feature``, -1 when
+        the column is not used (reference ``inner_feature_index``,
+        lightgbm_tpu/io/dataset.py:382)."""
+        try:
+            return self.used_feature_map.index(real_feature)
+        except ValueError:
+            return -1
+
     def feature_infos(self) -> List[str]:
         infos = ["none"] * self.num_total_features
         for f, bm in zip(self.used_feature_map, self.bin_mappers):

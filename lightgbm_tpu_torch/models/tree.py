@@ -20,7 +20,7 @@ Conventions (same as reference):
   (uint32 words, tree.h ``cat_threshold_``); NaN, negative and unseen
   categories go right
 
-Linear trees (text with ``is_linear=1``) raise on load (item 15).
+Linear trees (text with ``is_linear=1``) raise on load (item 15b).
 """
 from __future__ import annotations
 
@@ -371,7 +371,7 @@ class Tree:
                 kv[k.strip()] = v.strip()
         nl = int(kv["num_leaves"])
         if int(kv.get("is_linear", 0)):
-            unsupported("linear trees", "item 15")
+            unsupported("linear trees", "item 15b")
         t = cls(max(nl, 1))
         t.num_leaves = nl
         t.shrinkage = float(kv.get("shrinkage", 1.0))

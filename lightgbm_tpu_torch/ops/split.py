@@ -29,8 +29,15 @@ right): one-hot (a single bin left, for features of at most
 (eligible bins sorted by g / (h + cat_smooth) with a stable sort,
 prefixes of at most ``max_cat_threshold`` bins, l2 raised by ``cat_l2``,
 evaluated once per ``min_data_per_group`` rows). The winner's left bins
-come back packed into the record. Monotone bounds are a later slice
-(ROADMAP item 15).
+come back packed into the record.
+
+Two optional inputs, as in the reference's ``find_best_split``
+(lightgbm_tpu/ops/split.py:287-288): ``rand_bins`` (extra_trees: one
+random candidate per feature and mode, from :func:`make_rand_bins`) and
+``gain_penalty`` (CEGB: a per-feature penalty subtracted from every
+candidate's gain before the argmax). Without them the scan runs exactly
+the ops it runs without extra_trees and CEGB. Monotone bounds are a
+later slice (ROADMAP item 15b).
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ import torch
 import torch.nn.functional as TF
 
 from ..io.binning import MissingType
+from ..utils.prng import fold_in, uniform
 from .quantize import dequantize_hist
 
 _NEG_INF = float("-inf")
@@ -115,6 +123,9 @@ class SplitParams(NamedTuple):
     cat_smooth: torch.Tensor
     min_data_per_group: torch.Tensor
     max_cat_threshold: int
+    # CEGB scalars (cost_effective_gradient_boosting.hpp:80-87)
+    cegb_tradeoff: torch.Tensor
+    cegb_penalty_split: torch.Tensor
 
     @classmethod
     def from_config(cls, config, device: torch.device) -> "SplitParams":
@@ -132,7 +143,9 @@ class SplitParams(NamedTuple):
                    cat_l2=f32(config.cat_l2),
                    cat_smooth=f32(config.cat_smooth),
                    min_data_per_group=f32(config.min_data_per_group),
-                   max_cat_threshold=int(config.max_cat_threshold))
+                   max_cat_threshold=int(config.max_cat_threshold),
+                   cegb_tradeoff=f32(config.cegb_tradeoff),
+                   cegb_penalty_split=f32(config.cegb_penalty_split))
 
 
 class FeatureMeta(NamedTuple):
@@ -261,6 +274,53 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     return out.view(*x.shape[:-1], nb * _SCAN_BASE)[..., :B]
 
 
+def make_rand_bins(keys: torch.Tensor, meta: FeatureMeta,
+                   params: SplitParams):
+    """extra_trees (config.h:368): one random candidate per feature and
+    node (reference ``make_rand_bins``, lightgbm_tpu/ops/split.py:250;
+    upstream's rand.NextInt calls, feature_histogram.hpp:109,321,402).
+
+    ``keys`` holds node keys ``[..., 2]`` (one node's ``[2]``, or both
+    children of a split as ``[2, 2]``). Feature f of a node draws
+    ``uniform(fold_in(node_key, f), (3,))``, so its draw depends only on
+    (key, f), never on the padded feature count; every node and feature
+    is drawn in one hash call per stage. Returns int32 ``[..., F]``
+    tensors: the numerical threshold ``floor(u0 * max(num_bin - 2, 1))``,
+    the one-hot bin ``1 + floor(u1 * max(num_bin - 1, 1))`` and the
+    sorted-subset position ``floor(u2 * max(min(max_cat_threshold,
+    (num_bin + 1) // 2), 1))``."""
+    F = meta.num_bin.shape[0]
+    fids = torch.arange(F, dtype=torch.int64, device=keys.device)
+    u = uniform(fold_in(keys[..., None, :], fids), (3,))
+    nb = meta.num_bin
+    rand_num = torch.floor(
+        u[..., 0] * torch.clamp(nb - 2, min=1)).to(torch.int32)
+    rand_oh = 1 + torch.floor(
+        u[..., 1] * torch.clamp(nb - 1, min=1)).to(torch.int32)
+    max_thr = torch.clamp(torch.clamp((nb + 1) // 2,
+                                      max=params.max_cat_threshold), min=1)
+    rand_sorted = torch.floor(u[..., 2] * max_thr).to(torch.int32)
+    return rand_num, rand_oh, rand_sorted
+
+
+def cegb_penalty(params: SplitParams, count: torch.Tensor,
+                 used: torch.Tensor, coupled: torch.Tensor,
+                 unfetched: Optional[torch.Tensor] = None,
+                 lazy: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """f32 [F] CEGB gain penalty of scanning one leaf (reference
+    ``_cegb_penalty``, lightgbm_tpu/treelearner/serial.py:598; upstream
+    CostEfficientGradientBoosting::DeltaGain,
+    cost_effective_gradient_boosting.hpp:80-99): the split penalty
+    scaled by the leaf's row count, the coupled penalty of features the
+    model has not used yet, and in lazy mode the per-row fetch cost of
+    the leaf's rows that have not fetched the feature, all times
+    ``cegb_tradeoff``."""
+    pen = params.cegb_penalty_split * count + coupled * (~used)
+    if lazy is not None:
+        pen = pen + lazy * unfetched
+    return params.cegb_tradeoff * pen
+
+
 def _at(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """``a[i]`` for a 1-d ``a`` and a 0-d index on the device, as a 0-d
     tensor. Indexing with the tensor itself would read it back to the
@@ -275,7 +335,10 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
                     params: SplitParams, feature_mask: torch.Tensor,
                     parent_output: torch.Tensor,
                     hist_scale: Optional[torch.Tensor] = None,
-                    has_categorical: bool = False) -> torch.Tensor:
+                    has_categorical: bool = False,
+                    rand_bins: Optional[tuple] = None,
+                    gain_penalty: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """Scan one leaf histogram for its best (feature, threshold).
 
     hist : f32 [F, B, 4] sums of (grad, hess, in-bag count, total count);
@@ -287,6 +350,11 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
     parent_output : f32 0-d, the leaf's own output (path smoothing)
     has_categorical : static; scan the categorical features of ``meta``
         too (and return the wider record of :func:`record_width`)
+    rand_bins : extra_trees; the node's (numerical threshold, one-hot
+        bin, sorted-subset position) per feature (:func:`make_rand_bins`),
+        the one candidate of each mode
+    gain_penalty : CEGB; f32 [F] subtracted from every candidate's gain
+        (:func:`cegb_penalty`)
 
     Returns one f32 record row (see the column constants); an invalid
     record has gain -inf and feature -1.
@@ -326,6 +394,9 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
     valid_t = (bin_ids < t_max) & feature_mask[:, None]
     if has_categorical:
         valid_t = valid_t & ~meta.is_categorical[:, None]
+    if rand_bins is not None:
+        # extra_trees: only the feature's random threshold is a candidate
+        valid_t = valid_t & (bin_ids == rand_bins[0][:, None])
 
     def split_gain(lg, lh, lc):
         rg, rh, rc = sum_grad - lg, sum_hess - lh, sum_count - lc
@@ -359,7 +430,8 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
     variants = [gain_r - shift, gain_l - shift]
     if has_categorical:
         cat = _categorical_scan(g, h, c, tc, sum_grad, sum_hess, sum_count,
-                                meta, params, feature_mask, bounded_gain)
+                                meta, params, feature_mask, bounded_gain,
+                                rand_bins)
         # the categorical baseline scores the stored parent output
         # under path smoothing (reference fh.hpp:294-303)
         shift_cat = torch.where(
@@ -370,7 +442,12 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
         variants += [cat["gain_oh"] - shift_cat, cat["gain_f"] - shift_cat,
                      cat["gain_r"] - shift_cat]
 
-    flat = torch.stack(variants).reshape(-1)
+    gains = torch.stack(variants)
+    if gain_penalty is not None:
+        # CEGB: threshold-independent, so it reorders features without
+        # moving a feature's best threshold
+        gains = gains - gain_penalty[None, :, None]
+    flat = gains.reshape(-1)
     best = torch.argmax(flat)
     best_gain = _at(flat, best)
     variant, rem = best // (F * B), best % (F * B)
@@ -427,7 +504,7 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
 
 def _categorical_scan(g, h, c, tc, sum_grad, sum_hess, sum_count,
                       meta: FeatureMeta, params: SplitParams,
-                      feature_mask, bounded_gain) -> dict:
+                      feature_mask, bounded_gain, rand_bins=None) -> dict:
     """The categorical variants of a leaf scan (reference:
     FindBestThresholdCategoricalInner, feature_histogram.hpp:278-520, as
     vectorized by ``lightgbm_tpu/ops/split.py:439-535``): [F, B] gains of
@@ -450,6 +527,8 @@ def _categorical_scan(g, h, c, tc, sum_grad, sum_hess, sum_count,
     gain_oh = (bounded_gain(g, h + kEps, c)
                + bounded_gain(sum_grad - g, sum_hess - h - kEps,
                               sum_count - c))
+    if rand_bins is not None:
+        oh_ok = oh_ok & (bin_ids == rand_bins[1][:, None])
     gain_oh = torch.where(oh_ok, gain_oh, _NEG_INF)
 
     # sorted-subset mode: eligible bins by g / (h + cat_smooth), stably
@@ -504,6 +583,10 @@ def _categorical_scan(g, h, c, tc, sum_grad, sum_hess, sum_count,
     gains = (bounded_gain(lg, lh, lc, cat_l2)
              + bounded_gain(rg, rh, rc, cat_l2))
     gains = torch.where(can_eval, gains, _NEG_INF)
+    if rand_bins is not None:
+        # extra_trees: only the random prefix length, both directions
+        gains = torch.where(rand_bins[2][:, None] == bin_ids, gains,
+                            _NEG_INF)
     return dict(gain_oh=gain_oh, gain_f=gains[0], gain_r=gains[1],
                 stats_f=(lg[0], lh[0], lc[0], ltc[0]),
                 stats_r=(lg[1], lh[1], lc[1], ltc[1]),

@@ -54,7 +54,7 @@ per class in tree order from 0, the same IEEE adds in the same order as
 the host, and reads back ``[n, K]``. ``predict_raw_device`` is the
 throughput path: a Kahan-compensated f32 sum, read back as f32.
 
-Linear leaves are ROADMAP item 15 and ``average_output`` (random forest)
+Linear leaves are ROADMAP item 15b and ``average_output`` (random forest)
 item 16; each raises naming its item.
 """
 from __future__ import annotations
@@ -136,7 +136,7 @@ class StackedForest:
         if average_output:
             unsupported("average_output models (random forest)", "item 16")
         if any(getattr(t, "is_linear", False) for t in models):
-            unsupported("linear trees", "item 15")
+            unsupported("linear trees", "item 15b")
         K = max(int(num_tree_per_iteration), 1)
         if len(models) % K != 0:
             raise ValueError("len(models)=%d is not a multiple of "

@@ -44,6 +44,26 @@ lightgbm_tpu/treelearner/serial.py:346-411): the device holds the
 histogram the scan reads; the partition reads a feature's bin back
 through its bundle's member / unmap tables.
 
+Sampling and the per-node filters (reference ``SerialTreeLearner.train``,
+lightgbm_tpu/treelearner/serial.py:1140-1205; ``capabilities.py``):
+
+- ``feature_fraction`` gives each tree a mask, copied into the one
+  ``feature_mask`` tensor before the root (never a new tensor: the
+  captured step reads that storage on every replay);
+- ``extra_trees`` scans one random threshold per feature and node
+  (``ops/split.py::make_rand_bins``) under the tree's key
+  ``PRNGKey((extra_seed + 7919 * tree) & 0x7FFFFFFF)``, filled into one
+  device key before the root; the root folds in node id 0, a split's
+  children ``2 * new_leaf`` and ``2 * new_leaf + 1`` from the device's
+  ``new_leaf``, so the whole-tree step stays free of host reads;
+- GOSS reaches the learner as scaled gradients and a bag
+  (``boosting/sample_strategy.py``);
+- CEGB, then per-node masks (``feature_fraction_bynode``,
+  ``interaction_constraints``), take the per-split loop whatever
+  ``tpu_fused_tree`` says: their masks and penalties follow host state
+  that each split changes, so they read one record per split
+  (``grow_stats["split_reads"]``), as in the reference.
+
 Quantized-gradient mode (``use_quantized_grad``; reference:
 ``CapabilityMixin._init_quantization`` / ``_quantize_stage``,
 lightgbm_tpu/treelearner/capabilities.py:109-162) stages each tree's
@@ -70,11 +90,13 @@ from ..ops.quantize import (dequantize_sums, effective_quant_max,
                             quant_dtype, quant_warn_capped, quantize_gh,
                             sum_gh, tree_key)
 from ..ops.split import (FeatureMeta, SplitParams, calculate_leaf_output,
-                         cat_mask_of_row, find_best_split, pad_feature_meta,
-                         record_width, unpack_cat_mask)
+                         cat_mask_of_row, cegb_penalty, find_best_split,
+                         make_rand_bins, pad_feature_meta, record_width,
+                         unpack_cat_mask)
 from ..utils import log, next_pow2
 from ..utils.log import LightGBMError
-from ..utils.prng import PRNGKey
+from ..utils.prng import PRNGKey, fold_in
+from .capabilities import CapabilityMixin
 
 #: whole-tree loop: split steps per chunk between two reads of the step
 #: counter (a tree that ends early stops at the end of its chunk; the
@@ -250,7 +272,7 @@ class _FusedBuffers(NamedTuple):
     qscale: Optional[torch.Tensor]  # [2] f32 (quantized mode)
 
 
-class SerialTreeLearner:
+class SerialTreeLearner(CapabilityMixin):
     """Leaf-wise grower over a device-resident binned dataset."""
 
     def __init__(self, config, dataset: BinnedDataset,
@@ -295,9 +317,17 @@ class SerialTreeLearner:
         self._has_cat = self.meta.cat_positions > 0
         self._record_width = record_width(self.B, self._has_cat)
         self.params = SplitParams.from_config(config, device)
-        mask = torch.zeros(self.Fp, dtype=torch.bool, device=device)
-        mask[:F] = True
-        self.feature_mask = mask
+        # the tree's feature mask: each tree's is copied into this one
+        # tensor (the captured step reads its storage)
+        self._mask_host = np.zeros(self.Fp, dtype=bool)
+        self._mask_host[:F] = True
+        self.feature_mask = torch.from_numpy(self._mask_host.copy()).to(
+            device)
+        self._extra_trees = bool(config.extra_trees)
+        self._extra_seed = int(config.extra_seed)
+        # the tree's extra_trees key [0, seed], refilled before each root
+        self._extra_key = PRNGKey(0, device)
+        self._init_capabilities(config)
         self._ones = torch.ones(N, dtype=torch.float32, device=device)
         # the reference pads its rows to a multiple of 4096 above N; its
         # f32 root sums add the zero rows too (ops/quantize.py::sum_gh)
@@ -309,22 +339,28 @@ class SerialTreeLearner:
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         #: what the loops did since the learner was made: roots (one per
         #: tree), split steps run (eagerly or replayed), graph replays and
-        #: captures, capture ms, host reads of the step counter and of
-        #: the records
+        #: captures, capture ms, host reads of the step counter, of the
+        #: tree's records (one per tree) and, in the per-split loop, of
+        #: each split's record
         self.grow_stats: Dict[str, float] = dict.fromkeys(
             ("roots", "steps", "replays", "captures", "capture_ms",
-             "flag_reads", "record_reads"), 0)
+             "flag_reads", "record_reads", "split_reads"), 0)
 
     def reset_config(self, config) -> None:
-        """New split parameters, depth limit and loop choice between
-        trees (reference: ``ops_refresh.refresh_learner_params``). The
-        captured step holds the old ones (its parameter tensors and
-        ``max_depth``), so the graph is dropped and the next tree
-        captures it again."""
+        """New split parameters, depth limit, loop choice and sampling
+        between trees (reference: ``ops_refresh.refresh_learner_params``;
+        ``feature_fraction`` and ``feature_fraction_bynode`` are read
+        from the config at each tree). The captured step holds the old
+        ones (its parameter tensors, ``max_depth`` and whether it draws
+        extra_trees thresholds), so the graph is dropped and the next
+        tree captures it again. ``extra_trees`` takes effect here as in
+        upstream LightGBM; the reference keeps its first value."""
         self.config = config
         self.params = SplitParams.from_config(config, self.device)
         self.max_depth = int(config.max_depth)
         self._fused_growth = bool(config.tpu_fused_tree)
+        self._extra_trees = bool(config.extra_trees)
+        self._extra_seed = int(config.extra_seed)
         self._graph = None
 
     def _init_quantization(self, config) -> None:
@@ -414,10 +450,47 @@ class SerialTreeLearner:
                              mask.index_select(0, col.long()), gl)
         return gl
 
-    def _scan(self, hist, sums, parent_out, qscale) -> torch.Tensor:
+    def _scan(self, hist, sums, parent_out, qscale, mask=None,
+              rand_bins=None, penalty=None) -> torch.Tensor:
         return find_best_split(hist, sums[0], sums[1], sums[2], sums[3],
-                               self.meta, self.params, self.feature_mask,
-                               parent_out, qscale, self._has_cat)
+                               self.meta, self.params,
+                               self.feature_mask if mask is None else mask,
+                               parent_out, qscale, self._has_cat,
+                               rand_bins, penalty)
+
+    def _draws_thresholds(self) -> bool:
+        """extra_trees is on (CEGB ignores it)."""
+        return self._extra_trees and not self._cegb_enabled
+
+    def _rand_bins(self, node_ids: torch.Tensor) -> tuple:
+        """The extra_trees candidates of nodes ``node_ids`` (int64 [c] on
+        the device): three int32 [c, Fp] tensors, from the tree's key
+        folded with each node id."""
+        keys = fold_in(self._extra_key, node_ids)
+        return make_rand_bins(keys, self.meta, self.params)
+
+    def _child_rand_bins(self, new_leaf) -> tuple:
+        """Both children's extra_trees candidates, node ids ``2 *
+        new_leaf`` and ``2 * new_leaf + 1`` (``new_leaf`` a host int, or
+        the step's device tensor), or (None, None) without
+        extra_trees."""
+        if not self._draws_thresholds():
+            return None, None
+        rb = self._rand_bins(2 * new_leaf
+                             + torch.arange(2, device=self.device))
+        return tuple(tuple(r[c] for r in rb) for c in (0, 1))
+
+    def _set_tree_mask(self, mask: np.ndarray) -> None:
+        """Copy the tree's mask into ``feature_mask`` when it changed (on
+        the card from pinned memory, with no host sync)."""
+        if np.array_equal(mask, self._mask_host):
+            return
+        self._mask_host = mask
+        src = torch.from_numpy(mask)
+        if self.device.type == "cuda":
+            self.feature_mask.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            self.feature_mask.copy_(src)
 
     def _splittable(self, depth: int) -> bool:
         return self.max_depth <= 0 or depth < self.max_depth
@@ -446,11 +519,20 @@ class SerialTreeLearner:
         else:
             gh = torch.stack([grad * ind, hess * ind, ind, self._ones],
                              dim=1)
-        if self._fused_growth:
+        self._set_tree_mask(self._sample_features())
+        if self._draws_thresholds():
+            self._extra_key[1].fill_(
+                (self._extra_seed + 7919 * self._tree_idx) & 0x7FFFFFFF)
+        if self._cegb_enabled:
+            tree, state = self._grow_stepped(gh, cegb=True)
+        elif self._needs_per_node_masks():
+            tree, state = self._grow_stepped(gh, node_masks=True)
+        elif self._fused_growth:
             tree, state = self._grow_fused(gh)
             # the state's buffers are the next tree's
             return tree, state.leaf_of_row.clone()
-        tree, state = self._grow_stepped(gh)
+        else:
+            tree, state = self._grow_stepped(gh)
         return tree, state.leaf_of_row
 
     # ------------------------------------------------------------------
@@ -482,7 +564,21 @@ class SerialTreeLearner:
         # root "parent" output: its own unsmoothed output (reference:
         # SerialTreeLearner::GetParentOutput)
         parent_out = calculate_leaf_output(sums[0], sums[1], self.params)
-        info = self._scan(hist, sums, parent_out, self._qscale)
+        rand_bins = penalty = None
+        if self._draws_thresholds():
+            zero = torch.zeros(1, dtype=torch.int64, device=self.device)
+            rand_bins = tuple(r[0] for r in self._rand_bins(zero))
+        if self._cegb_enabled:
+            unfetched = None
+            if self._cegb_has_lazy:
+                unfetched = (~self._cegb_fetched).sum(
+                    0, dtype=torch.int32).to(torch.float32)
+            penalty = cegb_penalty(self.params, sums[3], self._cegb_used,
+                                   self._cegb_coupled, unfetched,
+                                   self._cegb_lazy if unfetched is not None
+                                   else None)
+        info = self._scan(hist, sums, parent_out, self._qscale,
+                          rand_bins=rand_bins, penalty=penalty)
         state.leaf_of_row.zero_()
         state.hists.zero_()
         state.hists[0] = hist
@@ -499,18 +595,29 @@ class SerialTreeLearner:
     # ------------------------------------------------------------------
     # the per-split loop (tpu_fused_tree=false)
     # ------------------------------------------------------------------
-    def _grow_stepped(self, gh: torch.Tensor) -> Tuple[Tree, GrowState]:
-        """One host step per split: read the best record back, replay it
-        into the tree, then split on the device."""
+    def _grow_stepped(self, gh: torch.Tensor, node_masks: bool = False,
+                      cegb: bool = False) -> Tuple[Tree, GrowState]:
+        """One host step per split: read the best record back (one read
+        per split, ``grow_stats["split_reads"]``; the row list's
+        ``torch.nonzero`` syncs too), replay it into the tree, then split
+        on the device. With ``node_masks`` (interaction constraints,
+        ``feature_fraction_bynode``; reference ``train_stepwise``) the
+        host tracks each leaf's feature path and draws both children's
+        masks after the split, left then right; the root scans with the
+        tree mask alone. ``cegb`` scans the children with CEGB penalties
+        that follow the used and fetched state the split leaves behind
+        (reference ``train_cegb``)."""
         state = self._new_state(gh)
         self._root(state)
         tree = Tree(self.L)
+        paths = [frozenset()] * self.L
         for new_leaf in range(1, self.L):
             best = torch.argmax(state.cand[:, S.GAIN])
             # a copy: the children's candidates overwrite cand[leaf]
             row = state.cand[best].clone()
             packed = torch.cat([best.to(torch.float32).view(1), row])
             host = packed.tolist()
+            self.grow_stats["split_reads"] += 1
             rec = SplitRecord.from_row(int(host[0]), host[1:], self.B)
             if not record_is_valid(rec):
                 break
@@ -520,18 +627,56 @@ class SerialTreeLearner:
             state.step.fill_(new_leaf)
             state.leaf_depth[rec.leaf] = child_depth
             state.leaf_depth[new_leaf] = child_depth
-            self._split(state, rec, row, new_leaf, child_depth)
+            masks = (None, None)
+            if node_masks:
+                path = paths[rec.leaf] | {rec.feature}
+                paths[rec.leaf] = paths[new_leaf] = path
+                masks = tuple(self._node_mask(self.feature_mask, path)
+                              for _ in range(2))
+            self._split(state, rec, row, new_leaf, child_depth, masks, cegb)
             self.grow_stats["steps"] += 1
         return tree, state
 
+    def _cegb_penalties(self, rec: SplitRecord, row: torch.Tensor,
+                        on_leaf: torch.Tensor, gl: torch.Tensor):
+        """Mark the split's feature used and, in lazy mode, fetched by
+        every row of the split leaf; return both children's CEGB
+        penalties (reference ``_cegb_step_fn_cached``). As in the
+        reference, and unlike upstream LightGBM, a coupled penalty
+        stored in another leaf's candidate is not refunded when its
+        feature becomes used: it keeps the penalty until that leaf is
+        scanned again as a child."""
+        f = rec.feature
+        self._cegb_used[f] = True
+        unf = (None, None)
+        lazy = None
+        if self._cegb_has_lazy:
+            rows = torch.nonzero(on_leaf).view(-1)
+            self._cegb_fetched[:, f].index_fill_(0, rows, True)
+            unfetched = ~self._cegb_fetched.index_select(0, rows)
+            gl_rows = gl.index_select(0, rows)[:, None]
+            # counts of 0/1 below 2^24 rows: exact integers, exact in f32
+            unf = tuple((unfetched & side).sum(0, dtype=torch.int32).to(
+                torch.float32) for side in (gl_rows, ~gl_rows))
+            lazy = self._cegb_lazy
+        return tuple(
+            cegb_penalty(self.params, row[count], self._cegb_used,
+                         self._cegb_coupled, u, lazy)
+            for count, u in ((S.LEFT_TOTAL_COUNT, unf[0]),
+                             (S.RIGHT_TOTAL_COUNT, unf[1])))
+
     def _split(self, state: GrowState, rec: SplitRecord, row: torch.Tensor,
-               new_leaf: int, child_depth: int) -> None:
+               new_leaf: int, child_depth: int, masks=(None, None),
+               cegb: bool = False) -> None:
         """Apply ``rec`` (already replayed into the tree; ``row`` is its
-        device copy) and scan both children. Updates ``state`` in
-        place."""
+        device copy) and scan both children, under ``masks`` (each None
+        for the tree mask) and, with ``cegb``, CEGB penalties. Updates
+        ``state`` in place."""
         leaf = rec.leaf
         gl = self._go_left(row)
         on_leaf = state.leaf_of_row == leaf
+        pens = (self._cegb_penalties(rec, row, on_leaf, gl) if cegb
+                else (None, None))
         state.leaf_of_row.masked_fill_(on_leaf & ~gl, new_leaf)
 
         smaller_is_left = rec.left_total_count <= rec.right_total_count
@@ -548,10 +693,12 @@ class SerialTreeLearner:
         state.hists[new_leaf] = hist_right
 
         allowed = self._splittable(child_depth)
-        for child, hist, side in ((leaf, hist_left, S.LEFT_SUM_GRAD),
-                                  (new_leaf, hist_right, S.RIGHT_SUM_GRAD)):
+        rand_bins = self._child_rand_bins(new_leaf)
+        for c, (child, hist, side) in enumerate((
+                (leaf, hist_left, S.LEFT_SUM_GRAD),
+                (new_leaf, hist_right, S.RIGHT_SUM_GRAD))):
             info = self._scan(hist, row[side:side + 4], row[side + 4],
-                              self._qscale)
+                              self._qscale, masks[c], rand_bins[c], pens[c])
             self._store(state.cand, child, info, allowed)
 
     # ------------------------------------------------------------------
@@ -629,10 +776,12 @@ class SerialTreeLearner:
         child_depth = st.leaf_depth.index_select(0, leaf) + 1
         _put(st.leaf_depth, leaf, child_depth[0], valid)
         _put(st.leaf_depth, new_leaf, child_depth[0], valid)
-        for child, hist, side in ((leaf, hist_left, S.LEFT_SUM_GRAD),
-                                  (new_leaf, hist_right, S.RIGHT_SUM_GRAD)):
+        rand_bins = self._child_rand_bins(new_leaf)
+        for c, (child, hist, side) in enumerate((
+                (leaf, hist_left, S.LEFT_SUM_GRAD),
+                (new_leaf, hist_right, S.RIGHT_SUM_GRAD))):
             info = self._scan(hist, row[side:side + 4], row[side + 4],
-                              buf.qscale)
+                              buf.qscale, rand_bins=rand_bins[c])
             if self.max_depth > 0:
                 gain = torch.where(child_depth < self.max_depth,
                                    info[S.GAIN:S.GAIN + 1], float("-inf"))

@@ -321,8 +321,8 @@ def test_reset_parameter_takes_effect_at_the_next_tree():
     assert last.num_leaves == 2 and last.shrinkage == 0.5
     assert last.leaf_count[:2].min() >= 50
     assert bst.inner.learner.max_depth == 1
-    with pytest.raises(LightGBMError, match="item 14"):
-        bst.reset_parameter({"feature_fraction": 0.5})
+    with pytest.raises(LightGBMError, match="item 15b"):
+        bst.reset_parameter({"monotone_constraints": [1] + [0] * 9})
 
 
 # ----------------------------------------------------------------------

@@ -521,3 +521,98 @@ def test_histogram_launches_on_the_tensors_card():
                   lgb.Dataset(X, label=y), num_boost_round=2)
     assert [t.to_string() for t in b.inner.models] == \
         [t.to_string() for t in c.inner.models]
+
+
+# ----------------------------------------------------------------------
+# sampling: GOSS, feature_fraction, extra_trees
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("K", [1, 3])
+def test_goss_draw_card_equals_cpu(cuda, K):
+    from lightgbm_tpu_torch.boosting.sample_strategy import goss_draw
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    n = 300_000
+    shape = (n,) if K == 1 else (n, K)
+    grad = torch.randn(shape, generator=g, device="cuda")
+    hess = torch.rand(shape, generator=g, device="cuda") + 0.05
+    grad[:5000] = 0.75                    # a block tied at one weight
+    hess[:5000] = 0.5
+    key = prng.PRNGKey(3, "cuda")
+    card = goss_draw(grad, hess, key, 7, n // 5, n // 10)
+    cpu = goss_draw(grad.cpu(), hess.cpu(), key.cpu(), 7, n // 5, n // 10)
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+def test_make_rand_bins_card_equals_cpu(cuda):
+    from lightgbm_tpu_torch.ops import split as S
+    rng = np.random.RandomState(14)
+    nb = rng.randint(1, 256, 40).astype(np.int32)
+
+    def meta(dev):
+        t = torch.from_numpy(nb).to(dev)
+        return S.FeatureMeta(num_bin=t, missing_type=torch.zeros_like(t),
+                             zero_bin=torch.zeros_like(t))
+    params = S.SplitParams(*([None] * 10), max_cat_threshold=32,
+                           cegb_tradeoff=None, cegb_penalty_split=None)
+    for seed in (6, 2 ** 31 - 1):
+        ids = torch.tensor([0, 1, 2, 509, 510])
+        keys = prng.fold_in(prng.PRNGKey(seed), ids)
+        cpu = S.make_rand_bins(keys, meta("cpu"), params)
+        card = S.make_rand_bins(keys.cuda(), meta("cuda"), params)
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b)
+
+
+def _sampling_learner(extra, seed=15):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(30000, 12)
+    y = (X[:, 0] + 0.5 * X[:, 1] ** 2 + rng.randn(30000) * 0.3 > 0.5)
+    params = dict({"objective": "binary", "num_leaves": 63,
+                   "min_data_in_leaf": 50, "verbose": -1}, **extra)
+    b = lgb.train(params, lgb.Dataset(X, label=y.astype(float)),
+                  num_boost_round=1)
+    learner = b.inner.learner
+    assert learner._graph is not None
+    g = torch.from_numpy((rng.rand(30000) - y).astype(np.float32)).cuda()
+    gh = torch.stack([g, torch.full_like(g, 0.25), torch.ones_like(g),
+                      torch.ones_like(g)], dim=1)
+    return learner, gh
+
+
+def test_extra_trees_replays_equal_eager_steps(cuda):
+    """The captured extra_trees step (its node keys folded from the
+    device's new_leaf) replays the eager steps' records byte for byte,
+    and the per-split loop grows the same tree."""
+    learner, gh = _sampling_learner({"extra_trees": True,
+                                     "feature_fraction": 0.8})
+    learner._extra_key[1].fill_(4242)
+    tree_graph, st = learner._grow_fused(gh)
+    replayed = st.records.clone()
+    assert learner.grow_stats["replays"] > 0
+    buf = learner._fused_buffers(gh)
+    learner._root(buf.state)
+    for _ in range(learner.L - 1):
+        learner._step(buf)
+    assert torch.equal(buf.state.records.view(torch.int32),
+                       replayed.view(torch.int32))
+    tree_stepped, _ = learner._grow_stepped(gh)
+    assert tree_graph.to_string() == tree_stepped.to_string()
+
+
+def test_tree_mask_reaches_the_replayed_graph(cuda):
+    """A mask copied into ``feature_mask`` between two trees steers the
+    replayed step: the copy lands in the storage the graph was captured
+    with (a new tensor bound to the attribute would be ignored by every
+    replay)."""
+    learner, gh = _sampling_learner({})
+    ptr = learner.feature_mask.data_ptr()
+    for features in ([3, 7, 9], [0, 1, 2, 4]):
+        allowed = np.zeros(learner.Fp, dtype=bool)
+        allowed[features] = True
+        learner._set_tree_mask(allowed)
+        assert learner.feature_mask.data_ptr() == ptr
+        tree, _ = learner._grow_fused(gh)
+        used = set(tree.split_feature_inner[:tree.num_internal].tolist())
+        assert tree.num_leaves > 8 and used <= set(features)
+        assert learner.grow_stats["captures"] == 1

@@ -278,12 +278,17 @@ def _histogram_outside_mode(monkeypatch):
     pytest.param({"data": "bundled"}, id="bundled"),
     pytest.param({"data": "bundled", "use_quantized_grad": True},
                  id="bundled_quantized8"),
+    pytest.param({"feature_fraction": 0.5, "extra_trees": True},
+                 id="ff_extra_trees"),
 ])
 def test_split_step_makes_no_host_read(monkeypatch, extra):
     learner, gh = _learner_and_rows(extra)
     if learner._quantized:
         gh, learner._qscale = learner._quantize_stage(
             gh[:, 0].contiguous(), gh[:, 1].contiguous(), gh[:, 2], 1)
+    if learner._extra_trees:
+        learner._set_tree_mask(learner._sample_features())
+        learner._extra_key[1].fill_(12345)
     buf = learner._fused_buffers(gh)
     learner._root(buf.state)
     _histogram_outside_mode(monkeypatch)

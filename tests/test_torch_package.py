@@ -5,7 +5,8 @@
   source scan);
 - ``device_type="cuda"`` (the default) without a visible GPU raises
   instead of running on the CPU;
-- every setting outside this slice raises and names its ROADMAP item;
+- every setting outside the port raises and names its ROADMAP item, and
+  the settings of the sampling slice train;
 - ``chip_smoke.py`` fails without a GPU and prints no result.
 """
 import os
@@ -102,19 +103,34 @@ def test_cpu_runs_only_when_asked(quantized):
     assert Config.from_params({"device": "gpu"}).device_type == "cuda"
 
 
+@pytest.mark.parametrize("params", [
+    {"boosting": "goss"},
+    {"data_sample_strategy": "goss"},
+    {"feature_fraction": 0.5},
+    {"extra_trees": True},
+    {"feature_fraction_bynode": 0.5},
+    {"use_quantized_grad": True, "feature_fraction": 0.5},
+    {"interaction_constraints": "[0,1],[2,3]"},
+    {"cegb_penalty_split": 0.1},
+])
+def test_sampling_and_node_filters_train(params):
+    """Settings of the sampling slice train on the CPU and give a valid
+    model text (they raised before the slice)."""
+    X, y = _tiny()
+    bst = lgb.train(dict({"objective": "binary", "device_type": "cpu",
+                          "verbose": -1, "learning_rate": 0.5}, **params),
+                    lgb.Dataset(X, label=y), num_boost_round=3)
+    text = bst.model_to_string()
+    assert text.startswith("tree") and "end of trees" in text
+    again = lgb.Booster(model_str=text, params={"device_type": "cpu"})
+    np.testing.assert_array_equal(again.predict(X), bst.predict(X))
+
+
 @pytest.mark.parametrize("params,item", [
-    ({"boosting": "goss"}, "item 14"),
-    ({"data_sample_strategy": "goss"}, "item 14"),
-    ({"feature_fraction": 0.5}, "item 14"),
-    ({"extra_trees": True}, "item 14"),
-    ({"feature_fraction_bynode": 0.5}, "item 15"),
-    ({"use_quantized_grad": True, "feature_fraction": 0.5}, "item 14"),
     ({"categorical_feature": "0", "max_bin": 300}, "item 26"),
-    ({"monotone_constraints": "1,0,0,0"}, "item 15"),
-    ({"interaction_constraints": "0,1"}, "item 15"),
-    ({"cegb_penalty_split": 0.1}, "item 15"),
-    ({"linear_tree": True}, "item 15"),
-    ({"forcedsplits_filename": "splits.json"}, "item 15"),
+    ({"monotone_constraints": "1,0,0,0"}, "item 15b"),
+    ({"linear_tree": True}, "item 15b"),
+    ({"forcedsplits_filename": "splits.json"}, "item 15b"),
     ({"boosting": "dart"}, "item 16"),
     ({"objective": "none"}, "item 18"),
     ({"boosting": "rf"}, "item 16"),
