@@ -135,19 +135,46 @@ Phases (each one fails the run if it fails):
    then tree 1 on cuda and cpu at phase 3's 200k rows (63 leaves) for
    a, GOSS (lr 2.0: no warm-up), d and e must be the same tree;
 
+15. monotone constraints, forced splits and linear trees on phase 4's
+   data (255 leaves): +1 on the 4 columns most positively correlated
+   with the label in 100k training rows, -1 on the 2 most negative;
+   a. the basic method, 5 rounds through the captured whole-tree step:
+      launches == roots + steps, held-out predictions exactly monotone
+      along a 64-point grid of each constrained column (stacked path), a
+      2-round per-split rerun text-equal;
+   b. the intermediate method, 2 rounds, and the advanced method, 1
+      round (the host-tracked per-split loop): AUC >= basic's after as
+      many rounds - 0.002, the grid check, ms and syncs per split,
+      rescans per tree;
+   c. monotone_penalty 2.0: no constrained column at depth 0 or 1;
+   d. three forced nodes (the root on column 0, its children on 1 and
+      2), 3 rounds in f32 and in 8-bit: every tree starts with them, and
+      2-round per-split reruns are text-equal;
+   e. linear trees (linear_lambda 0.1) on the first 2,097,152 training
+      rows, 3 rounds: the fit's ms per tree, stacked predict == the host
+      f64 walk, ``raw_device`` within Kahan's bound of its own terms and
+      within the f32 rounding bound of the host f64 walk, the text round
+      trip;
+   then tree 1 on cuda and cpu at 200k rows (63 leaves) for basic
+   (f32), intermediate (8-bit), forced (f32) and linear (f32) must be
+   the same tree, and the card's linear fit, run again on the CPU from
+   the same inputs, within rtol 1e-9;
+
 then time every instance over the learners' real bins of phases 9 (the
 bundle columns at Bg), 13 and 10, and print one ``{"kernels": [...]}``
 line with the launches of each kernel on each path that runs it, as its
 device counter counted them (graph replays included;
 ``launches_by_path``; f32: phases 3, 4, 9, 10, 11, 12, 13, 14a, 14b,
-14d, 14e; int8: phases 7, 9, 14c; int16: phase 8). Prediction launches
+14d, 14e, 15a-e; int8: phases 7, 9, 14c, 15d; int16: phase 8).
+Prediction launches
 no hand kernel: the stacked walk is PyTorch ops (the reference's is
 ``jnp``), so it has no row in that line.
 
-Phases 3, 4, 7-11, 13 and 14a-c train through the default whole-tree
-loop (14d and 14e through the per-split loop, which per-node masks and
-CEGB take); every per-split (``tpu_fused_tree=false``) rerun must give
-its whole-tree run's trees.
+Phases 3, 4, 7-11, 13, 14a-c, 15a and 15c-e train through the default
+whole-tree loop (14d, 14e and 15b through the per-split loop, which
+per-node masks, CEGB and the intermediate and advanced monotone methods
+take); every per-split (``tpu_fused_tree=false``) rerun must give its
+whole-tree run's trees.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a visible
@@ -226,9 +253,15 @@ def make_higgs_like(n_rows: int, n_features: int = 28, seed: int = 0):
 
 
 def auc(y: np.ndarray, score: np.ndarray) -> float:
+    """ROC AUC; tied scores share their mean rank (half credit for a
+    tied positive-negative pair, as the library's metric counts it)."""
     order = np.argsort(score, kind="stable")
-    ranks = np.empty(len(score), dtype=np.float64)
-    ranks[order] = np.arange(1, len(score) + 1)
+    s = score[order]
+    n = len(s)
+    starts = np.flatnonzero(np.r_[True, s[1:] != s[:-1]])
+    ends = np.r_[starts[1:], n]
+    ranks = np.empty(n, dtype=np.float64)
+    ranks[order] = np.repeat((starts + 1 + ends) / 2.0, ends - starts)
     pos = y > 0
     n_pos, n_neg = pos.sum(), (~pos).sum()
     return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2)
@@ -835,13 +868,25 @@ def log_launch_sizes(timer: _EventTimer, kernel: str) -> None:
     log("%s by rows per launch: %s" % (kernel, "; ".join(parts)))
 
 
-def full_data(lgb):
+#: phase 15e's rows: the first LINEAR_ROWS training rows of full_data
+LINEAR_ROWS = 1 << 21
+HEAD = {}
+
+
+def full_data(lgb, keep_head=False):
     """The full-size data of phases 4 and 7: 10.5M Higgs-shaped training
-    rows binned at max_bin 255, and a 500k held-out set."""
+    rows binned at max_bin 255, and a 500k held-out set. With
+    ``keep_head`` the training rows and labels stay in ``HEAD`` (phase
+    15a-c bins them again with monotone constraints), and a copy of the
+    first LINEAR_ROWS (phase 15e)."""
     t0 = time.perf_counter()
     X, y = make_higgs_like(FULL_ROWS + HELD_OUT_ROWS)
     Xt, yt = X[:FULL_ROWS], y[:FULL_ROWS]
     Xv, yv = X[FULL_ROWS:], y[FULL_ROWS:]
+    if keep_head:
+        HEAD["X"] = X[:LINEAR_ROWS].copy()
+        HEAD["y"] = y[:LINEAR_ROWS].copy()
+        HEAD["Xt"], HEAD["yt"] = Xt, yt
     log("full size: generated %d + %d rows x %d in %.1f s"
         % (FULL_ROWS, HELD_OUT_ROWS, X.shape[1], time.perf_counter() - t0))
     t0 = time.perf_counter()
@@ -975,8 +1020,14 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
     # reads one record buffer per tree and no split record; the
     # per-split loop one record per split (one more for a tree that ends
     # before num_leaves) and no record buffer
+    # (and so do the intermediate and advanced monotone methods, which
+    # read one more record after each split's rescans); forced splits
+    # read one record each before either loop
+    mono = learner._mono_tracker is not None
     fused = (learner._fused_growth and not learner._cegb_enabled
-             and not learner._needs_per_node_masks())
+             and not mono and (learner._forced is not None
+                               or not learner._needs_per_node_masks()))
+    forced = stats["forced_reads"]
     if fused:
         check(stats["split_reads"] == 0
               and stats["record_reads"] == len(trees),
@@ -985,18 +1036,23 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
                   tag, stats["split_reads"], stats["record_reads"],
                   len(trees)))
     else:
+        most = (2 * splits if mono else splits) + len(trees)
         check(stats["record_reads"] == 0
-              and splits <= stats["split_reads"] <= splits + len(trees),
+              and splits - forced <= stats["split_reads"] <= most,
               "%s: the per-split loop read %d record buffers and %d split "
               "records for %d splits in %d trees" % (
                   tag, stats["record_reads"], stats["split_reads"], splits,
                   len(trees)))
-    sync_bound = math.ceil((learner.L - 1) / serial.FUSED_CHUNK) + 2
+    # a forced split is a host-stepped split with two host syncs: the
+    # read of its record (``tolist``) and the partition's ``nonzero``
+    # (SerialTreeLearner._apply_forced and _split)
+    sync_bound = (math.ceil((learner.L - 1) / serial.FUSED_CHUNK) + 2
+                  + math.ceil(2 * forced / len(trees)))
     if fused:
         check(max(tree_syncs) <= sync_bound,
               "%s: %d host syncs in a tree, more than ceil((L-1)/%d) + 2 "
-              "= %d" % (tag, max(tree_syncs), serial.FUSED_CHUNK,
-                        sync_bound))
+              "(+ 2 per forced split) = %d"
+              % (tag, max(tree_syncs), serial.FUSED_CHUNK, sync_bound))
     hist_ms = hist_timer.total_ms()
     quant_ms = quant_timer.each_ms()
     log("train %s: %.3f s for %d rounds (%d trees); seconds per tree: %s; "
@@ -1008,7 +1064,8 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
            [t.num_leaves for t in trees]))
     log("%s loop: ms per split (tree seconds / splits): %s; host syncs per "
         "tree: %s (sync debug mode; bound for the whole-tree loop "
-        "ceil((L-1)/%d) + 2 = %d); graph captures %d, capture ms %.1f; "
+        "ceil((L-1)/%d) + 2, plus 2 per forced split = %d); graph "
+        "captures %d, capture ms %.1f; "
         "replays per tree %.1f; device launches of %s %d == roots %d + "
         "steps %d (replays %d), splits %d; counter reads %d, record "
         "reads %d"
@@ -1043,7 +1100,7 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
                 evals=evals["held_out"], per_iter=per_iter,
                 tree_seconds=tree_seconds, quant_ms=quant_ms,
                 grad_ms=grad_ms, peak=peak, tree_syncs=tree_syncs,
-                splits=splits)
+                splits=splits, fused=fused)
 
 
 #: mean ms per split of each training run (tree seconds / splits), by tag
@@ -1976,7 +2033,7 @@ def time_dispatch(forest, Xb):
         "sum_f64": cuda_ms(lambda: P._sum_leaf_values_f64(
             leaves, forest._leaf_f64, K), reps=5),
         "sum_kahan_f32": cuda_ms(lambda: P._raw_from_leaves(
-            leaves, forest._nodes, K), reps=5),
+            P.stacked_leaf_values(Xd, leaves, forest._nodes), K), reps=5),
         "copy_out": cuda_ms(lambda: raw.cpu(), reps=5),
     }
 
@@ -2602,6 +2659,459 @@ def phase_sampling(lgb, hist_mod, data):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 15: monotone constraints, forced splits, linear trees
+# ---------------------------------------------------------------------------
+def higgs_constraints(rows: int = 100_000):
+    """+1 on the 4 columns most positively correlated with the label in
+    the first ``rows`` training rows, -1 on the 2 most negative."""
+    X = HEAD["X"][:rows].astype(np.float64)
+    y = HEAD["y"][:rows]
+    corr = np.array([np.corrcoef(X[:, j], y)[0, 1]
+                     for j in range(X.shape[1])])
+    order = np.argsort(corr)
+    mc = [0] * X.shape[1]
+    for j in order[-4:]:
+        mc[int(j)] = 1
+    for j in order[:2]:
+        mc[int(j)] = -1
+    check(all(corr[j] > 0 for j in order[-4:])
+          and all(corr[j] < 0 for j in order[:2]),
+          "15: the constrained columns' correlations have the wrong sign")
+    log("15 constraints: +1 on columns %s (corr %s), -1 on %s (corr %s)"
+        % ([int(j) for j in order[-4:]],
+           " ".join("%.4f" % corr[j] for j in order[-4:]),
+           [int(j) for j in order[:2]],
+           " ".join("%.4f" % corr[j] for j in order[:2])))
+    return mc
+
+
+def constrained(lgb, data, mc):
+    """Phase 4's training rows and held-out set as Datasets with the
+    monotone constraints ``mc``, built through the Dataset entry point
+    (the 10.5M training rows are binned again)."""
+    _, _, Xv, yv = data
+    t0 = time.perf_counter()
+    dsm = lgb.Dataset(HEAD["Xt"], label=HEAD["yt"],
+                      params=dict(SLICE_PARAMS,
+                                  monotone_constraints=mc)).construct()
+    vm = lgb.Dataset(Xv, label=yv, reference=dsm).construct()
+    log("15a-c: the training rows binned again with monotone_constraints "
+        "in %.3f s" % (time.perf_counter() - t0))
+    return dsm, vm
+
+
+def check_monotone_grid(bst, Xv, mc, what, rows=1000, points=64):
+    """Raw predictions (stacked path) of ``rows`` held-out rows with each
+    constrained column set to a 64-point grid over its 1-99% range must
+    be monotone in the constraint's direction, exactly."""
+    X = Xv[:rows]
+    worst = {}
+    for j, sign in enumerate(mc):
+        if not sign:
+            continue
+        lo, hi = np.percentile(X[:, j], [1, 99])
+        grid = np.linspace(lo, hi, points).astype(np.float32)
+        Xg = np.repeat(X[None], points, axis=0)
+        Xg[:, :, j] = grid[:, None]
+        pred = bst.predict(Xg.reshape(-1, X.shape[1]), raw_score=True)
+        d = np.diff(pred.reshape(points, rows), axis=0) * sign
+        worst[j] = float(d.min())
+        check(worst[j] >= 0.0, "%s: predictions fall along column %d "
+              "against its +%d constraint (step %.3g)"
+              % (what, j, sign, worst[j]))
+    pred = stacked_predictor(bst)
+    check(pred is not None and sum(pred.entries.values()) > 0,
+          "%s: the grid did not go through the stacked path" % what)
+    log("%s: predictions monotone on %d held-out rows x %d grid points in "
+        "each constrained column (stacked path; smallest step along the "
+        "constraint per column: %s)"
+        % (what, rows, points, " ".join("%d: %.3g" % kv
+                                         for kv in worst.items())))
+
+
+def rerun_equal(lgb, hist_mod, ds, valid, params, kernel, bst, what,
+                rounds=2):
+    """A per-split run of ``rounds`` rounds must give ``bst``'s first
+    trees, text for text."""
+    again = train_path(lgb, hist_mod, ds, valid,
+                       dict(params, tpu_fused_tree=False), kernel, rounds,
+                       tag="%s per-split rerun" % what)["booster"]
+    first = [t.to_string() for t in bst.inner.models[:rounds]]
+    check(first == [t.to_string() for t in again.inner.models],
+          "%s: the per-split rerun gave other trees" % what)
+    log("%s per-split rerun (%d rounds): text-equal to the whole-tree "
+        "run's first %d trees" % (what, rounds, rounds))
+
+
+def phase15_basic(lgb, hist_mod, data, mc):
+    """15a: basic monotone, 5 rounds through the captured whole-tree
+    step; returns the constrained (train, valid) Datasets, the launches
+    and the held-out AUC per round."""
+    _, _, Xv, _ = data
+    dsm, valid = constrained(lgb, data, mc)
+    params = dict(SLICE_PARAMS, num_leaves=255, monotone_constraints=mc)
+    tag = "15a basic monotone"
+    run = train_path(lgb, hist_mod, dsm, valid, params, "histogram_f32", 5,
+                     tag=tag)
+    bst = run["booster"]
+    learner = bst.inner.learner
+    check(learner._has_mono and run["fused"]
+          and learner.grow_stats["captures"] == 1,
+          "15a did not train through the captured whole-tree step")
+    a = check_predict(bst, data, run["evals"]["auc"])
+    check_monotone_grid(bst, Xv, mc, "15a")
+    log("15a basic monotone: s per iteration %s; ms per split %.3f "
+        "(phase 4 in this call: %s); host syncs per tree %s; held-out "
+        "AUC %.6f"
+        % (" ".join("%.3f" % v for v in run["per_iter"]), SPLIT_MS[tag],
+           "%.3f" % SPLIT_MS[PHASE4_TAG] if PHASE4_TAG in SPLIT_MS
+           else "not run", run["tree_syncs"], a))
+    rerun_equal(lgb, hist_mod, dsm, valid, params, "histogram_f32", bst,
+                "15a basic monotone")
+    del bst, learner
+    return (dsm, valid), run["launches"]["histogram_f32"], \
+        run["evals"]["auc"]
+
+
+def phase15_methods(lgb, hist_mod, data, sets, mc, basic_aucs):
+    """15b: the intermediate method, 2 rounds, and the advanced method,
+    1 round (~60 s a tree at full size), on the constrained ``sets``."""
+    Xv = data[2]
+    dsm, valid = sets
+    out = {}
+    for method, rounds in (("intermediate", 2), ("advanced", 1)):
+        tag = "15b %s" % method
+        basic_auc = basic_aucs[rounds - 1]
+        run = train_path(lgb, hist_mod, dsm, valid,
+                         dict(SLICE_PARAMS, num_leaves=255,
+                              monotone_constraints=mc,
+                              monotone_constraints_method=method),
+                         "histogram_f32", rounds, tag=tag)
+        bst = run["booster"]
+        learner = bst.inner.learner
+        stats = learner.grow_stats
+        check(learner._mono_tracker is not None and not run["fused"],
+              "%s did not take the host-tracked per-split loop" % tag)
+        a = check_predict(bst, data, run["evals"]["auc"])
+        check(a >= basic_auc - 0.002, "%s: held-out AUC %.6f below basic's "
+              "%.6f - 0.002 after %d rounds" % (tag, a, basic_auc, rounds))
+        check_monotone_grid(bst, Xv, mc, tag)
+        splits = run["splits"]
+        log("%s: ms per split %.3f (tree seconds / splits); host syncs per "
+            "split %.2f (%s per tree); record reads per split %.2f; "
+            "rescans per tree %.1f; held-out AUC %.6f (basic after %d "
+            "rounds %.6f)"
+            % (tag, SPLIT_MS[tag], sum(run["tree_syncs"]) / splits,
+               run["tree_syncs"], stats["split_reads"] / splits,
+               stats["rescans"] / len(bst.inner.models), a, rounds,
+               basic_auc))
+        out["phase15b_higgs_%s" % method] = run["launches"]["histogram_f32"]
+        del bst, learner
+    return out
+
+
+def _shallow_features(tree, depth: int):
+    """The split columns of the nodes at depth <= ``depth``."""
+    out, frontier = [], [0] if tree.num_leaves > 1 else []
+    for _ in range(depth + 1):
+        nxt = []
+        for node in frontier:
+            out.append(int(tree.split_feature[node]))
+            nxt += [int(c) for c in (tree.left_child[node],
+                                     tree.right_child[node]) if c >= 0]
+        frontier = nxt
+    return out
+
+
+def phase15_penalty(lgb, hist_mod, data, sets, mc):
+    """15c: monotone_penalty 2.0 with the basic method, 2 rounds: no
+    constrained column splits at depth 0 or 1."""
+    dsm, valid = sets
+    run = train_path(lgb, hist_mod, dsm, valid,
+                     dict(SLICE_PARAMS, num_leaves=255,
+                          monotone_constraints=mc, monotone_penalty=2.0),
+                     "histogram_f32", 2, tag="15c monotone_penalty 2.0")
+    shallow = [_shallow_features(t, 1) for t in run["booster"].inner.models]
+    check(all(mc[f] == 0 for fs in shallow for f in fs),
+          "15c: a constrained column splits at depth 0 or 1: %s" % shallow)
+    log("15c monotone_penalty 2.0: the columns split at depths 0-1 of each "
+        "tree: %s (none constrained)" % shallow)
+    return run["launches"]["histogram_f32"]
+
+
+def forced_spec():
+    """Three forced nodes: the root on column 0 and its children on
+    columns 1 and 2, each at the column's median in the head rows."""
+    med = np.median(HEAD["X"][:100_000, :3], axis=0)
+    return {"feature": 0, "threshold": float(med[0]),
+            "left": {"feature": 1, "threshold": float(med[1])},
+            "right": {"feature": 2, "threshold": float(med[2])}}
+
+
+def phase15_forced(lgb, hist_mod, data, path):
+    """15d: forced splits, 3 rounds in f32 and in 8-bit through the
+    whole-tree loop; every tree starts with the three forced nodes, and
+    2-round per-split reruns are text-equal."""
+    ds, valid, _, _ = data
+    spec = forced_spec()
+    out = {}
+    for bits, kernel in (("f32", "histogram_f32"), ("8-bit",
+                                                     "histogram_i8")):
+        extra = {"forcedsplits_filename": path}
+        if bits == "8-bit":
+            extra.update(use_quantized_grad=True, quant_grad_bits=8)
+        params = dict(SLICE_PARAMS, num_leaves=255, **extra)
+        tag = "15d forced %s" % bits
+        run = train_path(lgb, hist_mod, ds, valid, params, kernel, 3,
+                         tag=tag)
+        bst = run["booster"]
+        stats = bst.inner.learner.grow_stats
+        check(run["fused"] and stats["forced_reads"] == 9,
+              "%s: expected the whole-tree loop and 3 forced reads per "
+              "tree, got %d reads" % (tag, stats["forced_reads"]))
+        mappers = bst.inner.train_data.bin_mappers
+        want = [(n["feature"], int(mappers[n["feature"]].value_to_bin(
+            np.asarray([n["threshold"]]))[0]))
+            for n in (spec, spec["left"], spec["right"])]
+        for t in bst.inner.models:
+            got = [(int(t.split_feature[i]), int(t.threshold_in_bin[i]))
+                   for i in range(3)]
+            check(got == want and not t.split_gain[:3].any(),
+                  "%s: a tree's first nodes %s are not the forced %s"
+                  % (tag, got, want))
+        log("%s: every tree's first three nodes are the forced (column, "
+            "bin) %s, gain 0; s per iteration %s; ms per split %.3f; "
+            "held-out AUC %.6f"
+            % (tag, want, " ".join("%.3f" % v for v in run["per_iter"]),
+               SPLIT_MS[tag], run["evals"]["auc"][-1]))
+        rerun_equal(lgb, hist_mod, ds, valid, params, kernel, bst, tag)
+        out[kernel] = run["launches"][kernel]
+        del bst
+    return out
+
+
+def linear_f32_bound(trees, X, leaves):
+    """[n] bound on |f32 raw_device - f64 host walk| of a linear forest,
+    from the host's trees: a leaf with k fitted features gives ``const +
+    sum(coeff * x)`` in f32 within (k + 3) f32 ulp of ``m = |const| +
+    sum |coeff * x|`` (the constant's and each coefficient's rounding to
+    f32, each product, the sum), and the Kahan sum over trees adds 2 ulp
+    of each term; so eps32 * sum over trees of (k + 5) * m, with m =
+    |leaf_value| at a leaf without a fit or a row with NaN in one of its
+    features. ``leaves`` [n, T] are the host walk's leaf ids."""
+    X = np.asarray(X, dtype=np.float64)
+    out = np.zeros(X.shape[0])
+    for t, tree in enumerate(trees):
+        nl = tree.num_leaves
+        coeff = np.zeros((nl, X.shape[1]))
+        used = np.zeros((nl, X.shape[1]), dtype=bool)
+        for lf in range(nl):
+            feats = tree.leaf_features[lf]
+            coeff[lf, feats] = tree.leaf_coeff[lf]
+            used[lf, feats] = True
+        k = used.sum(axis=1)
+        lf = leaves[:, t]
+        u = used[lf]
+        terms = np.where(u, np.abs(coeff[lf] * X), 0.0)
+        lin = np.abs(np.asarray(tree.leaf_const[:nl]))[lf] + terms.sum(1)
+        plain = (k[lf] == 0) | (np.isnan(X) & u).any(axis=1)
+        m = np.where(plain, np.abs(tree.leaf_value[:nl])[lf], lin)
+        out += (k[lf] + 5) * m
+    return np.finfo(np.float32).eps * out
+
+
+def phase15_linear(lgb, hist_mod, data):
+    """15e: linear trees (linear_lambda 0.1), 3 rounds on the first
+    LINEAR_ROWS training rows."""
+    import torch
+    from lightgbm_tpu_torch.boosting import gbdt as G
+    _, _, Xv, yv = data
+    params = dict(SLICE_PARAMS, num_leaves=255, linear_tree=True,
+                  linear_lambda=0.1)
+    t0 = time.perf_counter()
+    dsl = lgb.Dataset(HEAD["X"], label=HEAD["y"], params=params).construct()
+    vl = lgb.Dataset(Xv, label=yv, reference=dsl, params=params).construct()
+    log("15e linear trees: depth cut to the first %d of the %d training "
+        "rows (a Dataset that keeps raw rows bins them again); binning "
+        "seconds %.3f" % (LINEAR_ROWS, FULL_ROWS,
+                          time.perf_counter() - t0))
+    fit = G.fit_linear_leaves
+    fit_ms = []
+
+    def timed_fit(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fit(*args, **kwargs)
+        torch.cuda.synchronize()
+        fit_ms.append(1e3 * (time.perf_counter() - t))
+    G.fit_linear_leaves = timed_fit
+    try:
+        run = train_path(lgb, hist_mod, dsl, vl, params, "histogram_f32", 3,
+                         tag="15e linear")
+    finally:
+        G.fit_linear_leaves = fit
+    bst = run["booster"]
+    trees = bst.inner.models
+    fitted = [sum(bool(f) for f in t.leaf_features[:t.num_leaves])
+              for t in trees]
+    check(all(t.is_linear for t in trees) and min(fitted) > 0,
+          "15e: trees without linear leaves (%s)" % fitted)
+    a = check_predict(bst, data, run["evals"]["auc"])
+    Xs = Xv[:100_000]
+    check_stacked(bst, Xs, "15e linear")
+    forest = stacked_predictor(bst).forest
+    raw32 = forest.predict_raw_device(Xs)[:, 0].double().cpu().numpy()
+    vals = forest.tree_values_device(Xs).double().cpu().numpy()
+    bound = 2 * np.finfo(np.float32).eps * np.abs(vals).sum(axis=0)
+    err = np.abs(raw32 - vals.sum(axis=0))
+    check(bool(np.all(err <= bound)), "15e: raw_device off the f64 sum of "
+          "its f32 terms by %.3g, Kahan's bound %.3g"
+          % (float(err.max()), float(bound.max())))
+    # the card's f32 linear leaves against the host's f64 walk, which
+    # shares none of their code
+    host = bst.predict(Xs, raw_score=True, predict_on_device=False)
+    host_bound = linear_f32_bound(trees, Xs, bst.predict(
+        Xs, pred_leaf=True, predict_on_device=False))
+    host_err = np.abs(raw32 - host)
+    check(bool(np.all(host_err <= host_bound)), "15e: raw_device off the "
+          "host f64 walk by %.3g where its f32 rounding bound is %.3g"
+          % (float(host_err.max()),
+             float(host_bound[int(np.argmax(host_err))])))
+    text = bst.model_to_string()
+    again = lgb.Booster(model_str=text, params={"device_type": "cpu"})
+
+    def trees_of(s):
+        return s[s.index("Tree=0"):s.index("end of trees")]
+    check(trees_of(again.model_to_string()) == trees_of(text)
+          and np.array_equal(again.predict(Xs[:4096],
+                                           predict_on_device=False),
+                             bst.predict(Xs[:4096],
+                                         predict_on_device=False)),
+          "15e: the linear model text does not round-trip")
+    log("15e linear: fit ms per tree %s; fitted leaves per tree %s; s per "
+        "iteration %s; ms per split %.3f; held-out AUC %.6f; raw_device "
+        "within Kahan's bound of its own terms (max err %.3g, bound at that "
+        "row %.3g) and within the f32 rounding bound of the host f64 walk "
+        "(max err %.3g, bound at that row %.3g); the text round-trips"
+        % (" ".join("%.3f" % v for v in fit_ms), fitted,
+           " ".join("%.3f" % v for v in run["per_iter"]),
+           SPLIT_MS["15e linear"], a, float(err.max()),
+           float(bound[int(np.argmax(err))]), float(host_err.max()),
+           float(host_bound[int(np.argmax(host_err))])))
+    del bst, dsl, vl
+    torch.cuda.empty_cache()
+    return run["launches"]["histogram_f32"]
+
+
+def phase15_cuda_vs_cpu(lgb, mc, path):
+    """Tree 1 on cuda and on cpu at phase 3's 200k rows (63 leaves):
+    basic monotone (f32), intermediate (8-bit), forced (f32) and linear
+    (f32) must be the same tree; the linear fit of the card's tree 1,
+    run again on the CPU from the same inputs, gives its coefficients
+    within rtol 1e-9."""
+    import copy
+    import torch
+    from lightgbm_tpu_torch.boosting import gbdt as G
+    X, y = make_higgs_like(SMALL_ROWS, seed=7)
+    base = dict(SLICE_PARAMS, num_leaves=63)
+    cases = (("15 basic monotone, f32", {"monotone_constraints": mc}),
+             ("15 intermediate, 8-bit",
+              {"monotone_constraints": mc,
+               "monotone_constraints_method": "intermediate",
+               "use_quantized_grad": True, "quant_grad_bits": 8}),
+             ("15 forced, f32", {"forcedsplits_filename": path}),
+             ("15 linear, f32", {"linear_tree": True, "linear_lambda": 0.1}))
+    fit = G.fit_linear_leaves
+    captured = []
+
+    def capture(tree, *args):
+        before = copy.deepcopy(tree)
+        fit(tree, *args)
+        captured.append((before, args, copy.deepcopy(tree)))
+    threads = torch.get_num_threads()
+    for what, extra in cases:
+        trees = {}
+        for dev in ("cuda", "cpu"):
+            torch.set_num_threads(1 if dev == "cpu" else threads)
+            G.fit_linear_leaves = capture if dev == "cuda" else fit
+            try:
+                b = lgb.train(dict(base, device_type=dev, **extra),
+                              lgb.Dataset(X, label=y), num_boost_round=1)
+            finally:
+                G.fit_linear_leaves = fit
+            trees[dev] = b.inner.models[0]
+        torch.set_num_threads(threads)
+        check(tree_structure(trees["cuda"]) == tree_structure(trees["cpu"]),
+              "%s: tree 1 differs between cuda and cpu: first splits %s "
+              "against %s"
+              % (what, [v[:12] if isinstance(v, list) else v
+                        for v in tree_splits_of(trees["cuda"])],
+                 [v[:12] if isinstance(v, list) else v
+                  for v in tree_splits_of(trees["cpu"])]))
+        note = ""
+        if "linear_tree" in extra:
+            tree, args, card = captured[-1]
+            fit(tree, *[a.cpu() if isinstance(a, torch.Tensor) else a
+                        for a in args])
+            nl = card.num_leaves
+            check(tree.leaf_features[:nl] == card.leaf_features[:nl]
+                  and any(card.leaf_features[:nl]),
+                  "%s: the CPU refit chose other leaf features" % what)
+            rel = max(float(np.max(np.abs(np.subtract(a, b))
+                                   / np.maximum(np.abs(a), 1e-300)))
+                      for a, b in zip(tree.leaf_coeff[:nl],
+                                      card.leaf_coeff[:nl]) if a)
+            check(rel <= 1e-9, "%s: the card's fit differs from the CPU's "
+                  "on the same inputs by rtol %.3g" % (what, rel))
+            cpu_rel = max(float(np.max(np.abs(np.subtract(a, b))
+                                       / np.maximum(np.abs(a), 1e-300)))
+                          for a, b in zip(trees["cpu"].leaf_coeff[:nl],
+                                          trees["cuda"].leaf_coeff[:nl])
+                          if a)
+            note = ("; coefficients: the card's fit against the CPU's on "
+                    "the same inputs rtol %.3g, against the CPU run's "
+                    "own tree rtol %.3g" % (rel, cpu_rel))
+        log("%s at %d rows: tree 1 the same tree on cuda and cpu (%s, %d "
+            "leaves)%s" % (what, SMALL_ROWS,
+                           "splits in the same order"
+                           if tree_splits_of(trees["cuda"])
+                           == tree_splits_of(trees["cpu"])
+                           else "the same splits, added in another order",
+                           trees["cuda"].num_leaves, note))
+
+
+def phase_constraints(lgb, hist_mod, data):
+    """Phase 15: returns the launches of each run by kernel and path."""
+    import tempfile
+    import torch
+    runs = {"histogram_f32": {}, "histogram_i8": {}}
+    f32 = runs["histogram_f32"]
+    mc = higgs_constraints()
+    sets, f32["phase15a_higgs_monotone_basic"], aucs = phase15_basic(
+        lgb, hist_mod, data, mc)
+    f32.update(phase15_methods(lgb, hist_mod, data, sets, mc, aucs))
+    f32["phase15c_higgs_monotone_penalty"] = phase15_penalty(
+        lgb, hist_mod, data, sets, mc)
+    del sets
+    HEAD.pop("Xt")
+    HEAD.pop("yt")
+    torch.cuda.empty_cache()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    try:
+        with os.fdopen(fd, "w") as fh:
+            json.dump(forced_spec(), fh)
+        forced = phase15_forced(lgb, hist_mod, data, path)
+        f32["phase15d_higgs_forced"] = forced["histogram_f32"]
+        runs["histogram_i8"]["phase15d_higgs_forced_8bit"] = \
+            forced["histogram_i8"]
+        f32["phase15e_higgs_linear"] = phase15_linear(lgb, hist_mod, data)
+        phase15_cuda_vs_cpu(lgb, mc, path)
+    finally:
+        os.remove(path)
+    return runs
+
+
 def tree_splits_of(tree):
     ni = tree.num_internal
     return (tree.num_leaves, list(tree.split_feature[:ni]),
@@ -2660,7 +3170,7 @@ def time_widths(hist_mod, widths, rows_out):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
@@ -2700,7 +3210,8 @@ def main(argv=None) -> int:
         by_path["histogram_f32"]["phase3_small_binary"] = \
             run["histogram_f32"]
         lap("phase 3")
-    data = full_data(lgb) if phases & {4, 7, 14} else None
+    data = (full_data(lgb, keep_head=15 in phases)
+            if phases & {4, 7, 14, 15} else None)
     bins_root, f32_auc = None, None
     if 4 in phases:
         bst, run, f32_auc = phase_full(lgb, hist_mod, data)
@@ -2733,6 +3244,10 @@ def main(argv=None) -> int:
         for kernel, paths in phase_sampling(lgb, hist_mod, data).items():
             by_path[kernel].update(paths)
         lap("phase 14")
+    if 15 in phases:
+        for kernel, paths in phase_constraints(lgb, hist_mod, data).items():
+            by_path[kernel].update(paths)
+        lap("phase 15")
     del data
     if 8 in phases:
         run = phase_small(lgb, hist_mod,

@@ -64,8 +64,9 @@ class Dataset:
         if self.reference is not None:
             self.reference.construct()
         config = Config.from_params(self.params)
-        if hasattr(self.data, "tocsc"):
+        if hasattr(self.data, "tocsc") and not config.linear_tree:
             # scipy sparse stays sparse: from_matrix bins it per column
+            # (linear trees keep the dense rows, as in the reference)
             data = self.data
         else:
             data = _to_2d_float(self.data)
@@ -82,7 +83,8 @@ class Dataset:
             group=self.group, init_score=self.init_score,
             feature_names=feature_names, categorical_feature=cat,
             reference=(self.reference._handle
-                       if self.reference is not None else None))
+                       if self.reference is not None else None),
+            keep_raw_data=bool(config.linear_tree))
         if self.free_raw_data:
             self.data = None
         return self
@@ -168,6 +170,9 @@ class Dataset:
         h.num_bin_per_feature = src.num_bin_per_feature
         h.max_num_bin = src.max_num_bin
         h.bundle = src.bundle
+        h.monotone_constraints = src.monotone_constraints
+        if src.raw_data is not None:
+            h.raw_data = src.raw_data[idx]
         md = Metadata(len(idx))
         md.set_label(np.asarray(src.metadata.label)[idx])
         if src.metadata.weights is not None:
@@ -426,6 +431,8 @@ class Booster:
         fp = hashlib.blake2b(digest_size=8)
         for t in models:
             fp.update(t.leaf_value[:t.num_leaves].tobytes())
+            if t.is_linear:
+                fp.update(t.leaf_const[:t.num_leaves].tobytes())
         key = (len(inner.models), fp.hexdigest(), start_iteration,
                num_iteration)
         cached = getattr(self, "_stacked_cache", None)

@@ -11,6 +11,12 @@ and the replay of an ``init_model`` walk binned rows on the device
 (``ops/predict.py``). Prediction over raw rows is the host walk here;
 ``Booster.predict`` sends device batches through ``serve/``.
 
+Linear trees (``linear_tree``; reference gbdt.py:110-116,414-430,
+708-716) fit each new tree's leaves on the learner's device from the
+training rows' raw values, kept on the device beside the bins
+(``models/linear.py``); the training and validation scores of a linear
+tree come from those raw rows on the device too.
+
 Multiclass objectives grow K trees per iteration, one per class column
 of the [N, K] score (the model list is iteration-major: tree ``i * K +
 k`` is class k of iteration i). Objectives with leaf renewal (l1,
@@ -27,10 +33,12 @@ import torch
 from ..config import Config
 from ..io.dataset import BinnedDataset
 from ..metric import Metric, create_metric, resolve_metric_names
+from ..models.linear import fit_linear_leaves, linear_values_device
 from ..models.tree import Tree, kCategoricalMask, parse_tree_blocks
 from ..objective import (ObjectiveFunction, create_objective,
                          load_objective_from_string)
-from ..ops.predict import build_device_tree, tree_output_on_device
+from ..ops.predict import (build_device_tree, predict_leaf_on_device,
+                           tree_output_on_device)
 from ..treelearner import create_tree_learner
 from ..utils import log, next_pow2
 from .sample_strategy import create_sample_strategy
@@ -38,12 +46,16 @@ from .sample_strategy import create_sample_strategy
 kEpsilon = 1e-15
 
 
-def device_tree_outputs(tree: Tree, bins: torch.Tensor,
-                        bin_meta) -> Optional[torch.Tensor]:
+def device_tree_outputs(tree: Tree, bins: torch.Tensor, bin_meta,
+                        raw: Optional[torch.Tensor] = None
+                        ) -> Optional[torch.Tensor]:
     """[n] f32 output of one tree over binned rows ``bins`` [n, F] or,
     EFB-bundled, [n, G] (uint8, any device), by the walk of
-    ``ops/predict.py``. ``bin_meta`` is the GBDT's :class:`BinMeta`.
-    Returns None for a zero-valued stump."""
+    ``ops/predict.py``. ``bin_meta`` is the GBDT's :class:`BinMeta`. A
+    linear tree evaluates its leaves over ``raw``, the same rows' raw
+    values on the device, in f64 (without them, its constant leaf
+    values, as in the reference). Returns None for a zero-valued
+    stump."""
     dtree = build_device_tree(tree, bin_meta[:3], bins.device,
                               bin_meta.num_bins, bin_meta.bundle)
     if dtree is None:
@@ -52,7 +64,19 @@ def device_tree_outputs(tree: Tree, bins: torch.Tensor,
                               float(np.float32(tree.leaf_value[0])),
                               dtype=torch.float32, device=bins.device)
         return None
+    if tree.is_linear and raw is not None:
+        return linear_values_device(
+            tree, raw, predict_leaf_on_device(bins, dtree)).float()
     return tree_output_on_device(bins, dtree)
+
+
+def raw_rows_on(dataset: BinnedDataset,
+                device: torch.device) -> Optional[torch.Tensor]:
+    """The dataset's kept raw rows on ``device`` (None when not kept)."""
+    if dataset.raw_data is None:
+        return None
+    return torch.from_numpy(np.ascontiguousarray(dataset.raw_data)).to(
+        device)
 
 
 class BinMeta(NamedTuple):
@@ -87,6 +111,7 @@ class ValidData:
         self.dataset = dataset
         self.metrics = metrics
         self.bins = torch.from_numpy(dataset.bins).to(device)
+        self.raw = raw_rows_on(dataset, device)
         self.scores_dev = torch.from_numpy(
             initial_score(dataset.metadata, dataset.num_data,
                           num_tree_per_iteration)).to(device)
@@ -97,7 +122,7 @@ class ValidData:
 
     def add_tree(self, tree: Tree, class_id: int, bin_meta,
                  sign: float = 1.0) -> None:
-        delta = device_tree_outputs(tree, self.bins, bin_meta)
+        delta = device_tree_outputs(tree, self.bins, bin_meta, self.raw)
         if delta is not None:
             self.scores_dev[:, class_id].add_(delta, alpha=sign)
 
@@ -147,6 +172,7 @@ class GBDT:
             self.feature_names: List[str] = []
             self.feature_infos: List[str] = []
             self.label_idx = 0
+            self.monotone_constraints: List[int] = []
 
     # ------------------------------------------------------------------
     def _init_train(self, train_data: BinnedDataset) -> None:
@@ -158,12 +184,30 @@ class GBDT:
             self.objective.init(train_data.metadata, train_data.num_data,
                                 self.device)
             K = self.objective.num_model_per_iteration
+            if (self.objective.is_renew_tree_output
+                    and any(int(v) != 0
+                            for v in config.monotone_constraints)):
+                # leaf renewal overwrites the clamped outputs, so
+                # monotonicity cannot hold (reference gbdt.py:241-247;
+                # upstream gbdt.cpp:94)
+                log.fatal("Cannot use ``monotone_constraints`` in %s "
+                          "objective, please disable it."
+                          % config.objective)
         self.num_tree_per_iteration = K
         self.num_data = train_data.num_data
         self.max_feature_idx = train_data.num_total_features - 1
         self.feature_names = list(train_data.feature_names)
         self.feature_infos = train_data.feature_infos()
         self.label_idx = 0
+        mc = train_data.monotone_constraints
+        self.monotone_constraints = ([] if mc is None
+                                     else [int(v) for v in np.asarray(mc)])
+        self._raw = None
+        if config.linear_tree:
+            if train_data.raw_data is None:
+                log.fatal("linear_tree requires raw data; construct the "
+                          "Dataset with keep_raw_data=True")
+            self._raw = raw_rows_on(train_data, self.device)
         self.learner = create_tree_learner(config, train_data, self.device)
         self.sample_strategy = create_sample_strategy(
             config, train_data.num_data, self.device)
@@ -247,6 +291,13 @@ class GBDT:
                 tree, leaf_of_row = self.learner.train(gk, hk, bag)
             if tree is not None and tree.num_leaves > 1:
                 should_continue = True
+                if self.config.linear_tree:
+                    # raw rows keep every original column and
+                    # split_feature holds original column indices
+                    fit_linear_leaves(
+                        tree, self._raw, gk, hk, leaf_of_row,
+                        float(self.config.linear_lambda),
+                        None if bag is None else bag > 0)
                 if (self.objective is not None
                         and self.objective.is_renew_tree_output):
                     self._renew_tree_output(tree, leaf_of_row, k, bag)
@@ -297,7 +348,8 @@ class GBDT:
         bins = self.learner.bins
         for k in range(K):
             tree = self.models[-K + k]
-            delta = device_tree_outputs(tree, bins, self._bin_meta)
+            delta = device_tree_outputs(tree, bins, self._bin_meta,
+                                        self._raw)
             if delta is not None:
                 self.train_score[:, k].sub_(delta)
             for vd in self.valid_data:
@@ -317,7 +369,8 @@ class GBDT:
         bins = self.learner.bins
         K = self.num_tree_per_iteration
         for i, tree in enumerate(self.models):
-            delta = device_tree_outputs(tree, bins, self._bin_meta)
+            delta = device_tree_outputs(tree, bins, self._bin_meta,
+                                        self._raw)
             if delta is not None:
                 self.train_score[:, i % K] += delta
         self._has_init_score = True
@@ -380,11 +433,16 @@ class GBDT:
                       class_id: int) -> None:
         """Device gather of the tree's f32 leaf outputs over the
         learner's final partition (reference: GBDT::UpdateScore,
-        gbdt.cpp:475; leaf values cast to f32 as at gbdt.py:722-727)."""
-        lv = torch.from_numpy(
-            tree.leaf_value[:tree.num_leaves].astype(np.float32)).to(
-            self.device)
-        self.train_score[:, class_id] += lv[leaf_of_row.long()]
+        gbdt.cpp:475; leaf values cast to f32 as at gbdt.py:722-727); a
+        linear tree's f64 outputs over the raw rows, cast to f32."""
+        if tree.is_linear:
+            self.train_score[:, class_id] += linear_values_device(
+                tree, self._raw, leaf_of_row).float()
+        else:
+            lv = torch.from_numpy(
+                tree.leaf_value[:tree.num_leaves].astype(np.float32)).to(
+                self.device)
+            self.train_score[:, class_id] += lv[leaf_of_row.long()]
         for vd in self.valid_data:
             vd.add_tree(tree, class_id, self._bin_meta)
 
@@ -496,6 +554,9 @@ class GBDT:
         if self.objective is not None:
             lines.append("objective=%s" % self.objective.to_string())
         lines.append("feature_names=" + " ".join(self.feature_names))
+        if self.monotone_constraints:
+            lines.append("monotone_constraints=" + " ".join(
+                str(v) for v in self.monotone_constraints))
         lines.append("feature_infos=" + " ".join(self.feature_infos))
         models = self._used_models(start_iteration, num_iteration)
         tree_strs = ["Tree=%d\n%s\n" % (i, tree.to_string())
@@ -535,7 +596,7 @@ class GBDT:
             d["objective"] = self.objective.to_string()
         d["average_output"] = False
         d["feature_names"] = list(self.feature_names)
-        d["monotone_constraints"] = []
+        d["monotone_constraints"] = list(self.monotone_constraints)
         infos: Dict = {}
         for name, info in zip(self.feature_names, self.feature_infos):
             if info.startswith("["):

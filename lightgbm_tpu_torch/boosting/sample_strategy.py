@@ -175,17 +175,17 @@ class GOSSStrategy(SampleStrategy):
         log.info("Using GOSS")
         self._base_key = PRNGKey(int(config.bagging_seed) & 0x7FFFFFFF,
                                  device)
+        self.top_k = max(1, int(num_data * config.top_rate))
+        self.other_k = max(1, int(num_data * config.other_rate))
         self.refresh_config(config)
 
     def refresh_config(self, config) -> None:
-        """Re-read the rates and the learning rate (the warm-up reads it
-        live, as the reference's ``refresh_config`` does). The reference
-        keeps the rates of its construction; here a ``reset_parameter``
-        of ``top_rate`` / ``other_rate`` takes effect at the next draw,
-        as upstream's ``GOSSStrategy::ResetSampleConfig`` does."""
+        """Re-read the learning rate (the warm-up reads it live, as the
+        reference's ``refresh_config`` does). ``top_rate`` and
+        ``other_rate`` keep the values of the construction, as in the
+        reference (upstream's ``GOSSStrategy::ResetSampleConfig`` would
+        take new ones)."""
         self.config = config
-        self.top_k = max(1, int(self.num_data * config.top_rate))
-        self.other_k = max(1, int(self.num_data * config.other_rate))
         self.warmup = int(1.0 / max(config.learning_rate, 1e-12))
 
     def bagging(self, iter_idx, grad, hess):

@@ -470,7 +470,15 @@ class Config:
         log.set_verbosity(self.verbosity)
 
     def _warn_unimplemented(self) -> None:
-        """CPU-layout hints are accepted and have no effect here."""
+        """An unknown monotone method becomes ``basic`` with a warning (as
+        in the reference); CPU-layout hints are accepted and have no
+        effect here."""
+        if self.monotone_constraints_method not in (
+                "basic", "intermediate", "advanced"):
+            log.warning("unknown monotone_constraints_method=%s; "
+                        "falling back to 'basic'"
+                        % self.monotone_constraints_method)
+            self.monotone_constraints_method = "basic"
         if self.force_col_wise or self.force_row_wise:
             log.warning("force_col_wise/force_row_wise are CPU histogram "
                         "layout hints; this build always uses one "
@@ -483,12 +491,6 @@ class Config:
         unsupported = log.unsupported
         if self.boosting != "gbdt":
             unsupported("boosting=%s" % self.boosting, "item 16")
-        if any(int(v) != 0 for v in self.monotone_constraints):
-            unsupported("monotone_constraints", "item 15b")
-        if self.linear_tree:
-            unsupported("linear_tree", "item 15b")
-        if self.forcedsplits_filename:
-            unsupported("forced splits", "item 15b")
         if self.max_bin > 255 or any(int(v) > 255
                                      for v in self.max_bin_by_feature):
             unsupported("max_bin > 255", "item 26")

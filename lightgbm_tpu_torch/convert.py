@@ -15,7 +15,6 @@ import numpy as np
 from .io.binning import BinMapper
 from .io.efb import BundleLayout
 from .models.tree import Tree
-from .utils.log import unsupported
 
 _TREE_INT_FIELDS = ("split_feature", "split_feature_inner",
                     "threshold_in_bin", "decision_type", "left_child",
@@ -65,11 +64,11 @@ def trees_from_numpy(dicts: Sequence[Dict[str, object]]) -> List[Tree]:
     with categorical nodes also gives ``num_cat``, ``cat_boundaries``
     and ``cat_threshold`` (its bitset words), and may give
     ``cat_bin_masks`` (node -> bool mask over the node's bins, for the
-    binned walks). Missing optional arrays stay zero."""
+    binned walks). A linear tree (``is_linear``) also gives
+    ``leaf_const`` and, per leaf, ``leaf_features`` (original columns)
+    and ``leaf_coeff``. Missing optional arrays stay zero."""
     trees = []
     for d in dicts:
-        if bool(d.get("is_linear", False)):
-            unsupported("linear trees", "item 15b")
         nl = int(d["num_leaves"])
         t = Tree(max(nl, 1))
         t.num_leaves = nl
@@ -90,5 +89,16 @@ def trees_from_numpy(dicts: Sequence[Dict[str, object]]) -> List[Tree]:
         t.cat_bin_masks = {int(k): np.asarray(v, dtype=bool)
                            for k, v in dict(d.get("cat_bin_masks")
                                             or {}).items()}
+        if bool(d.get("is_linear", False)):
+            t.is_linear = True
+            t.leaf_const = np.zeros(t.max_leaves)
+            const = np.asarray(d["leaf_const"], dtype=np.float64)
+            t.leaf_const[:min(len(const), t.max_leaves)] = \
+                const[:t.max_leaves]
+            feats = [[int(f) for f in fs] for fs in d["leaf_features"]]
+            coefs = [[float(c) for c in cs] for cs in d["leaf_coeff"]]
+            pad = [[] for _ in range(t.max_leaves - len(feats))]
+            t.leaf_features = (feats + pad)[:t.max_leaves]
+            t.leaf_coeff = (coefs + [[] for _ in pad])[:t.max_leaves]
         trees.append(t)
     return trees

@@ -94,6 +94,9 @@ class BinnedDataset:
     bin_mappers : one BinMapper per *used* (non-trivial) feature
     used_feature_map : original column index per used feature
     bundle : the EFB layout (``io/efb.py`` BundleLayout) or None
+    monotone_constraints : int8 [num_used_features] (-1, 0, +1) of the
+        used features, or None when the config sets none
+    raw_data : the dense input matrix, kept for linear trees (or None)
     """
 
     def __init__(self) -> None:
@@ -106,6 +109,8 @@ class BinnedDataset:
         self.max_num_bin: int = 0
         self.num_bin_per_feature: np.ndarray = np.zeros(0, dtype=np.int32)
         self.bundle: Optional[BundleLayout] = None
+        self.monotone_constraints: Optional[np.ndarray] = None
+        self.raw_data: Optional[np.ndarray] = None
 
     # ------------------------------------------------------------------
     @classmethod
@@ -119,7 +124,8 @@ class BinnedDataset:
                         Sequence[Union[int, str]]] = None,
                     reference: Optional["BinnedDataset"] = None,
                     mappers: Optional[List[BinMapper]] = None,
-                    bundle: Optional[BundleLayout] = None
+                    bundle: Optional[BundleLayout] = None,
+                    keep_raw_data: bool = False
                     ) -> "BinnedDataset":
         """Bin a dense float matrix or a scipy sparse matrix.
 
@@ -134,6 +140,9 @@ class BinnedDataset:
             package's mappers across this way); with them the data is
             bundled by ``bundle`` (``convert.bundle_layout_from_numpy``)
             and left unbundled when that is None.
+        keep_raw_data : keep the dense matrix as ``raw_data`` (linear
+            trees fit and predict over raw values); sparse input is
+            fatal with it, as in the reference.
         """
         is_sparse = hasattr(data, "tocsc")
         if is_sparse:
@@ -143,6 +152,8 @@ class BinnedDataset:
                 # copy first: tocsc() may alias the caller's matrix
                 data = data.copy()
                 data.sum_duplicates()
+            if keep_raw_data:
+                log.fatal("keep_raw_data/linear_tree requires dense input")
         else:
             data = np.asarray(data)
             if data.dtype not in (np.float32, np.float64):
@@ -164,6 +175,7 @@ class BinnedDataset:
             self.num_bin_per_feature = reference.num_bin_per_feature
             self.max_num_bin = reference.max_num_bin
             self.bundle = reference.bundle
+            self.monotone_constraints = reference.monotone_constraints
         else:
             if categorical_feature is None and config.categorical_feature:
                 categorical_feature = config.categorical_feature
@@ -191,6 +203,7 @@ class BinnedDataset:
                 self.num_bin_per_feature) else 1
             if self.max_num_bin > 256:
                 log.unsupported("more than 256 bins per feature", "item 26")
+            self._set_constraints(config)
             if bundle is not None:
                 self.bundle = bundle
             elif (sample_bin_cols and config.enable_bundle
@@ -216,6 +229,9 @@ class BinnedDataset:
                 bins[:, j] = binned_col(j)
             self.bins = bins
 
+        if keep_raw_data:
+            self.raw_data = data
+
         self.metadata = Metadata(n)
         if label is not None:
             self.metadata.set_label(label)
@@ -223,6 +239,16 @@ class BinnedDataset:
         self.metadata.set_group(group)
         self.metadata.set_init_score(init_score)
         return self
+
+    def _set_constraints(self, config: Config) -> None:
+        """``monotone_constraints`` (one value per column) mapped to the
+        used features (reference ``_set_constraints``)."""
+        if config.monotone_constraints:
+            mc = np.zeros(len(self.bin_mappers), dtype=np.int8)
+            for j, f in enumerate(self.used_feature_map):
+                if f < len(config.monotone_constraints):
+                    mc[j] = config.monotone_constraints[f]
+            self.monotone_constraints = mc
 
     # ------------------------------------------------------------------
     def _find_bundles(self, sample_bin_cols: List[np.ndarray],

@@ -20,7 +20,10 @@ Conventions (same as reference):
   (uint32 words, tree.h ``cat_threshold_``); NaN, negative and unseen
   categories go right
 
-Linear trees (text with ``is_linear=1``) raise on load (item 15b).
+Linear trees (``is_linear``; tree.h ``leaf_const_`` / ``leaf_features_``
+/ ``leaf_coeff_``) carry a ridge fit per leaf over the raw values of the
+features on its path (``models/linear.py``); their text adds
+``leaf_const``, ``num_features``, ``leaf_features`` and ``leaf_coeff``.
 """
 from __future__ import annotations
 
@@ -29,7 +32,6 @@ from typing import Dict, List
 import numpy as np
 
 from ..io.binning import MissingType, kZeroThreshold
-from ..utils.log import unsupported
 
 kCategoricalMask = 1
 kDefaultLeftMask = 2
@@ -78,6 +80,12 @@ class Tree:
         # walks of the training session (not serialized; a text-loaded
         # tree gets it from GBDT.align_trees_to_dataset)
         self.cat_bin_masks: Dict[int, np.ndarray] = {}
+        # linear leaves: const + coeff . x[features] per leaf (a leaf
+        # without features keeps its leaf_value)
+        self.is_linear = False
+        self.leaf_const = np.zeros(0)
+        self.leaf_features: List[List[int]] = []
+        self.leaf_coeff: List[List[float]] = []
 
     # ------------------------------------------------------------------
     def split(self, leaf: int, feature: int, feature_inner: int,
@@ -196,6 +204,10 @@ class Tree:
         """reference: Tree::Shrinkage (tree.h:113)."""
         self.leaf_value[:self.num_leaves] *= rate
         self.internal_value[:max(self.num_leaves - 1, 0)] *= rate
+        if self.is_linear:
+            self.leaf_const[:self.num_leaves] *= rate
+            self.leaf_coeff = [[c * rate for c in cs]
+                               for cs in self.leaf_coeff]
         self.shrinkage *= rate
 
     def add_bias(self, val: float) -> None:
@@ -208,7 +220,11 @@ class Tree:
         self.leaf_value[leaf] = _sane(value)
 
     def predict(self, X: np.ndarray) -> np.ndarray:
-        return self.leaf_value[self.predict_leaf_index(X)]
+        leaf = self.predict_leaf_index(X)
+        if self.is_linear:
+            from .linear import linear_predict
+            return linear_predict(self, X, leaf)
+        return self.leaf_value[leaf]
 
     def predict_leaf_index(self, X: np.ndarray) -> np.ndarray:
         """Lockstep vectorized traversal: all rows advance one level per
@@ -297,7 +313,19 @@ class Tree:
                     "cat_threshold=" + " ".join(
                         str(v) for v in self.cat_threshold),
                 ]
-        lines += ["is_linear=0"]
+        if self.is_linear:
+            lines += [
+                "is_linear=1",
+                "leaf_const=" + _arr_to_str(self.leaf_const[:nl], True),
+                "num_features=" + " ".join(
+                    str(len(self.leaf_features[i])) for i in range(nl)),
+                "leaf_features=" + " ".join(
+                    str(f) for i in range(nl) for f in self.leaf_features[i]),
+                "leaf_coeff=" + " ".join(
+                    _fmt(c) for i in range(nl) for c in self.leaf_coeff[i]),
+            ]
+        else:
+            lines += ["is_linear=0"]
         lines += [f"shrinkage={_fmt(self.shrinkage)}", ""]
         return "\n".join(lines)
 
@@ -323,6 +351,8 @@ class Tree:
                     "leaf_weight": float(self.leaf_weight[leaf]),
                     "leaf_count": int(self.leaf_count[leaf]),
                 }
+                if self.is_linear:
+                    memo[idx].update(self._linear_json(leaf))
                 continue
             dt = int(self.decision_type[idx])
             if dt & kCategoricalMask:
@@ -348,6 +378,11 @@ class Tree:
             }
         return memo[index]
 
+    def _linear_json(self, leaf: int) -> dict:
+        return {"leaf_const": float(self.leaf_const[leaf]),
+                "leaf_features": list(self.leaf_features[leaf]),
+                "leaf_coeff": [float(c) for c in self.leaf_coeff[leaf]]}
+
     def to_json(self) -> dict:
         """JSON-dump structure (reference: Tree::ToJSON,
         src/io/tree.cpp:411-429)."""
@@ -356,6 +391,8 @@ class Tree:
              "shrinkage": float(self.shrinkage)}
         if self.num_leaves == 1:
             d["tree_structure"] = {"leaf_value": float(self.leaf_value[0])}
+            if self.is_linear:
+                d["tree_structure"].update(self._linear_json(0))
         else:
             d["tree_structure"] = self._node_to_json(0)
         return d
@@ -370,8 +407,6 @@ class Tree:
                 k, v = line.split("=", 1)
                 kv[k.strip()] = v.strip()
         nl = int(kv["num_leaves"])
-        if int(kv.get("is_linear", 0)):
-            unsupported("linear trees", "item 15b")
         t = cls(max(nl, 1))
         t.num_leaves = nl
         t.shrinkage = float(kv.get("shrinkage", 1.0))
@@ -412,6 +447,24 @@ class Tree:
             t.internal_weight[:ni] = farr("internal_weight", ni)
         if "internal_count" in kv:
             t.internal_count[:ni] = farr("internal_count", ni, np.int64)
+        if int(kv.get("is_linear", 0)):
+            t.is_linear = True
+            t.leaf_const = np.zeros(max(nl, 1))
+            t.leaf_const[:nl] = farr("leaf_const", nl)
+            nfeat = [int(v) for v in kv.get("num_features", "").split()]
+            flat_feats = [int(v)
+                          for v in kv.get("leaf_features", "").split()]
+            flat_coef = [float(v)
+                         for v in kv.get("leaf_coeff", "").split()]
+            t.leaf_features, t.leaf_coeff = [], []
+            pos = 0
+            for c in nfeat:
+                t.leaf_features.append(flat_feats[pos:pos + c])
+                t.leaf_coeff.append(flat_coef[pos:pos + c])
+                pos += c
+            while len(t.leaf_features) < t.max_leaves:
+                t.leaf_features.append([])
+                t.leaf_coeff.append([])
         t.num_cat = int(kv.get("num_cat", 0))
         if t.num_cat > 0:
             t.cat_boundaries = [int(v)

@@ -16,6 +16,9 @@ row's current node, and a child pointer < 0 encodes leaf ``~index``
   the device against the model's own thresholds, and the walk advances
   all T trees at once over a ``[T, n]`` node tensor, one pass per level.
   Leaf values are summed per class with a Kahan-compensated f32 sum.
+  Linear leaves (:class:`LinearLeaves`) replace a leaf's value by its
+  f32 ``const + coeff . x`` over the row's raw values where it has a fit
+  and none of its features is NaN.
 
 A categorical node decides by one gather from a boolean table over its
 feature's values (its LUT row); a categorical feature's "bin" is its
@@ -331,14 +334,45 @@ def _walk_stacked(bins_t: torch.Tensor, nodes: StackedNodes,
     return torch.where(node < 0, ~node, 0)
 
 
-def _raw_from_leaves(leaves: torch.Tensor, nodes: StackedNodes,
-                     K: int) -> torch.Tensor:
-    """[T, n] leaf ids -> [n, K] f32 raw scores. Trees are
+class LinearLeaves(NamedTuple):
+    """The linear leaves of a stacked forest: per tree and leaf a constant
+    and up to C coefficients over raw feature columns. ``valid`` masks
+    the pad lanes (a NaN in a pad column must not send a row to the
+    constant); ``has`` marks the leaves with a fit."""
+    const: torch.Tensor     # [T, NL] f32
+    coeff: torch.Tensor     # [T, NL, C] f32 (0 pad)
+    feat: torch.Tensor      # [T, NL, C] int64 raw column (0 pad)
+    valid: torch.Tensor     # [T, NL, C] bool
+    has: torch.Tensor       # [T, NL] bool
+
+
+def stacked_leaf_values(X: torch.Tensor, leaves: torch.Tensor,
+                        nodes: StackedNodes,
+                        lin: Optional[LinearLeaves] = None) -> torch.Tensor:
+    """[T, n] f32 value of every row in every tree: its leaf's value, or,
+    at a linear leaf with a fit and no NaN among the row's values of its
+    features, ``const + sum(coeff * x)`` in f32 over the raw rows ``X``
+    [n, F] (reference ``_linear_leaf_values``)."""
+    lf = leaves.long()
+    vals = nodes.leaf_value.gather(1, lf)                   # [T, n]
+    if lin is None:
+        return vals
+    T, n = lf.shape
+    idx = lf[:, :, None].expand(T, n, lin.feat.shape[2])
+    xv = X[None].expand(T, *X.shape).gather(2, lin.feat.gather(1, idx))
+    lanes = lin.valid.gather(1, idx)
+    bad = (torch.isnan(xv) & lanes).any(dim=2)
+    s = lin.const.gather(1, lf) + torch.where(
+        lanes, lin.coeff.gather(1, idx) * xv, 0.0).sum(dim=2)
+    return torch.where(lin.has.gather(1, lf) & ~bad, s, vals)
+
+
+def _raw_from_leaves(vals: torch.Tensor, K: int) -> torch.Tensor:
+    """[T, n] f32 values -> [n, K] f32 raw scores. Trees are
     iteration-major (tree i is class i % K); each class sums its trees
     in iteration order with Kahan compensation, which lands within ~1
     ulp of the correctly rounded sum where a plain f32 running sum drifts
     by ~sqrt(T)/2 ulp."""
-    vals = nodes.leaf_value.gather(1, leaves.long())        # [T, n]
     per_iter = vals.view(-1, K, vals.shape[1])              # [I, K, n]
     s = torch.zeros(per_iter.shape[1:], dtype=vals.dtype,
                     device=vals.device)
@@ -370,9 +404,9 @@ def stacked_forest_leaves(X, qt, nodes, trips, cat_lut=None):
     return _walk_stacked(_quantize_rows_impl(X, qt), nodes, trips, cat_lut)
 
 
-def stacked_forest_raw(X, qt, nodes, trips, K, cat_lut=None):
-    return _raw_from_leaves(
-        stacked_forest_leaves(X, qt, nodes, trips, cat_lut), nodes, K)
+def stacked_forest_raw(X, qt, nodes, trips, K, cat_lut=None, lin=None):
+    leaves = stacked_forest_leaves(X, qt, nodes, trips, cat_lut)
+    return _raw_from_leaves(stacked_leaf_values(X, leaves, nodes, lin), K)
 
 
 def stacked_forest_leaves_dd(Xhi, Xlo, qt, nodes, trips, cat_lut=None):
@@ -380,7 +414,10 @@ def stacked_forest_leaves_dd(Xhi, Xlo, qt, nodes, trips, cat_lut=None):
                          cat_lut)
 
 
-def stacked_forest_raw_dd(Xhi, Xlo, qt, nodes, trips, K, cat_lut=None):
-    return _raw_from_leaves(
-        stacked_forest_leaves_dd(Xhi, Xlo, qt, nodes, trips, cat_lut),
-        nodes, K)
+def stacked_forest_raw_dd(Xhi, Xlo, qt, nodes, trips, K, cat_lut=None,
+                          lin=None):
+    """The dd walk; linear leaves evaluate over the rows' f32 parts
+    ``Xhi`` (as in the reference)."""
+    leaves = stacked_forest_leaves_dd(Xhi, Xlo, qt, nodes, trips, cat_lut)
+    return _raw_from_leaves(stacked_leaf_values(Xhi, leaves, nodes, lin),
+                            K)

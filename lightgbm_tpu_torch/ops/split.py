@@ -36,8 +36,19 @@ Two optional inputs, as in the reference's ``find_best_split``
 random candidate per feature and mode, from :func:`make_rand_bins`) and
 ``gain_penalty`` (CEGB: a per-feature penalty subtracted from every
 candidate's gain before the argmax). Without them the scan runs exactly
-the ops it runs without extra_trees and CEGB. Monotone bounds are a
-later slice (ROADMAP item 15b).
+the ops it runs without extra_trees and CEGB.
+
+Monotone constraints (``has_monotone``, a static switch like
+``has_categorical``; reference lightgbm_tpu/ops/split.py:334-426,570-680,
+upstream BasicLeafConstraints, monotone_constraints.hpp): every output
+is clamped into the leaf's ``[min_output, max_output]``, a numerical
+split of a +1 (-1) feature whose left output exceeds (falls below) its
+right one is rejected, gains of monotone features shrink with the
+leaf's depth under ``monotone_penalty``, and the record carries the
+bounds its children inherit (the mid-point of the two outputs caps the
+monotone side). ``bound_arrays`` (the advanced method) clamps each
+threshold by the running extrema of per-(feature, bin) bounds instead.
+A learner with no monotone feature runs none of it.
 """
 from __future__ import annotations
 
@@ -70,12 +81,45 @@ CAT_WORD_BITS = 16
 kEps = 1e-15
 
 
-def record_width(num_bins: int, has_categorical: bool) -> int:
+# a scan with monotone features appends, after the columns above, the
+# bounds the winner's children inherit
+(LEFT_MIN, LEFT_MAX, RIGHT_MIN, RIGHT_MAX) = range(4)
+
+
+def record_width(num_bins: int, has_categorical: bool,
+                 has_monotone: bool = False) -> int:
     """Columns of a record row: :data:`RECORD_WIDTH`, plus the winner's
-    kind and its mask words when the scan has categorical features."""
-    if not has_categorical:
-        return RECORD_WIDTH
-    return CAT_WORDS + -(-num_bins // CAT_WORD_BITS)
+    kind and its mask words when the scan has categorical features, plus
+    four child bounds when it has monotone features."""
+    width = RECORD_WIDTH
+    if has_categorical:
+        width = CAT_WORDS + -(-num_bins // CAT_WORD_BITS)
+    return width + (4 if has_monotone else 0)
+
+
+class RecordLayout(NamedTuple):
+    """Where the optional columns of a learner's record rows sit, from
+    the learner's static switches (a row's length alone cannot tell a
+    categorical row from a monotone one)."""
+    num_bins: int
+    has_categorical: bool = False
+    has_monotone: bool = False
+
+    @property
+    def width(self) -> int:
+        return record_width(self.num_bins, self.has_categorical,
+                            self.has_monotone)
+
+    @property
+    def cat_words(self) -> slice:
+        """The columns of the winner's packed left-bin mask."""
+        return slice(CAT_WORDS,
+                     CAT_WORDS + -(-self.num_bins // CAT_WORD_BITS))
+
+    @property
+    def bounds(self) -> int:
+        """The first of the four child-bound columns (LEFT_MIN, ...)."""
+        return record_width(self.num_bins, self.has_categorical)
 
 
 def pack_cat_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -101,7 +145,9 @@ def unpack_cat_mask(words: torch.Tensor, num_bins: int) -> torch.Tensor:
 def cat_mask_of_row(row, num_bins: int) -> np.ndarray:
     """Host twin of :func:`unpack_cat_mask` over a record row read back
     as floats."""
-    words = np.asarray(row[CAT_WORDS:], dtype=np.float64).astype(np.int64)
+    nw = -(-num_bins // CAT_WORD_BITS)
+    words = np.asarray(row[CAT_WORDS:CAT_WORDS + nw],
+                       dtype=np.float64).astype(np.int64)
     bits = (words[:, None] >> np.arange(CAT_WORD_BITS)) & 1
     return bits.reshape(-1)[:num_bins] > 0
 
@@ -126,6 +172,9 @@ class SplitParams(NamedTuple):
     # CEGB scalars (cost_effective_gradient_boosting.hpp:80-87)
     cegb_tradeoff: torch.Tensor
     cegb_penalty_split: torch.Tensor
+    # monotone split gain penalty (config.h:503); read only by a scan
+    # with monotone features
+    monotone_penalty: torch.Tensor
 
     @classmethod
     def from_config(cls, config, device: torch.device) -> "SplitParams":
@@ -145,7 +194,8 @@ class SplitParams(NamedTuple):
                    min_data_per_group=f32(config.min_data_per_group),
                    max_cat_threshold=int(config.max_cat_threshold),
                    cegb_tradeoff=f32(config.cegb_tradeoff),
-                   cegb_penalty_split=f32(config.cegb_penalty_split))
+                   cegb_penalty_split=f32(config.cegb_penalty_split),
+                   monotone_penalty=f32(config.monotone_penalty))
 
 
 class FeatureMeta(NamedTuple):
@@ -153,13 +203,15 @@ class FeatureMeta(NamedTuple):
     ``is_categorical`` and ``use_onehot`` bool [F] (None: all
     numerical). ``cat_positions`` (host int) is the most prefix
     positions a sorted-subset scan can evaluate, the largest
-    num_bin // 2 of a categorical feature."""
+    num_bin // 2 of a categorical feature. ``monotone`` is the int32
+    [F] constraint (-1, 0, +1), None when no feature has one."""
     num_bin: torch.Tensor
     missing_type: torch.Tensor
     zero_bin: torch.Tensor
     is_categorical: Optional[torch.Tensor] = None
     use_onehot: Optional[torch.Tensor] = None
     cat_positions: int = 0
+    monotone: Optional[torch.Tensor] = None
 
     @classmethod
     def from_dataset(cls, dataset, device: torch.device,
@@ -172,6 +224,8 @@ class FeatureMeta(NamedTuple):
         num_bin = np.asarray(dataset.num_bin_per_feature, dtype=np.int32)
         is_cat = np.asarray([m.bin_type == BinType.CATEGORICAL
                              for m in dataset.bin_mappers], dtype=bool)
+        mc = getattr(dataset, "monotone_constraints", None)
+        has_mono = mc is not None and bool(np.any(np.asarray(mc) != 0))
         return cls(
             num_bin=i32(num_bin),
             missing_type=i32([m.missing_type for m in dataset.bin_mappers]),
@@ -180,7 +234,8 @@ class FeatureMeta(NamedTuple):
             use_onehot=torch.from_numpy(
                 is_cat & (num_bin <= max_cat_to_onehot)).to(device),
             cat_positions=int((num_bin[is_cat] // 2).max())
-            if is_cat.any() else 0)
+            if is_cat.any() else 0,
+            monotone=i32(mc) if has_mono else None)
 
 
 def pad_feature_meta(meta: FeatureMeta, pad: int) -> FeatureMeta:
@@ -198,7 +253,8 @@ def pad_feature_meta(meta: FeatureMeta, pad: int) -> FeatureMeta:
                          missing_type=padv(meta.missing_type, 0),
                          zero_bin=padv(meta.zero_bin, 0),
                          is_categorical=padv(meta.is_categorical, False),
-                         use_onehot=padv(meta.use_onehot, False))
+                         use_onehot=padv(meta.use_onehot, False),
+                         monotone=padv(meta.monotone, 0))
 
 
 def threshold_l1(s: torch.Tensor, l1: torch.Tensor) -> torch.Tensor:
@@ -337,7 +393,12 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
                     hist_scale: Optional[torch.Tensor] = None,
                     has_categorical: bool = False,
                     rand_bins: Optional[tuple] = None,
-                    gain_penalty: Optional[torch.Tensor] = None
+                    gain_penalty: Optional[torch.Tensor] = None,
+                    has_monotone: bool = False,
+                    min_output: Optional[torch.Tensor] = None,
+                    max_output: Optional[torch.Tensor] = None,
+                    leaf_depth: Optional[torch.Tensor] = None,
+                    bound_arrays: Optional[tuple] = None
                     ) -> torch.Tensor:
     """Scan one leaf histogram for its best (feature, threshold).
 
@@ -355,6 +416,16 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
         the one candidate of each mode
     gain_penalty : CEGB; f32 [F] subtracted from every candidate's gain
         (:func:`cegb_penalty`)
+    has_monotone : static; ``meta.monotone`` holds constraints: clamp
+        every output into [``min_output``, ``max_output``] (f32 0-d,
+        None for -inf / +inf), reject splits against a feature's
+        direction, shrink monotone gains by ``leaf_depth`` (f32 0-d; no
+        penalty when None) and append the children's bounds
+    bound_arrays : the advanced method; (min_c, max_c) f32 [F, B]
+        per-(feature, bin) bounds (pad bins -inf / +inf) that replace
+        the leaf-wide pair: a threshold's left child is clamped by the
+        running extrema over bins [0, t], its right child over [t + 1,
+        B), and a threshold whose interval inverts is rejected
 
     Returns one f32 record row (see the column constants); an invalid
     record has gain -inf and feature -1.
@@ -363,14 +434,39 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
     dev = hist.device
     hist = dequantize_hist(hist, hist_scale)
     g, h, c, tc = hist[..., 0], hist[..., 1], hist[..., 2], hist[..., 3]
+    if has_monotone:
+        if min_output is None:
+            min_output = torch.full((), _NEG_INF, device=dev)
+        if max_output is None:
+            max_output = torch.full((), float("inf"), device=dev)
+    flat_min, flat_max = min_output, max_output
+    if bound_arrays is not None:
+        min_c, max_c = bound_arrays                              # [F, B]
+        lmin_b = torch.cummax(min_c, dim=1).values
+        lmax_b = torch.cummin(max_c, dim=1).values
+        rmin_b = TF.pad(torch.cummax(min_c.flip(1), dim=1).values.flip(1)
+                        [:, 1:], (0, 1), value=_NEG_INF)
+        rmax_b = TF.pad(torch.cummin(max_c.flip(1), dim=1).values.flip(1)
+                        [:, 1:], (0, 1), value=float("inf"))
+        bounds_ok = (lmin_b <= lmax_b) & (rmin_b <= rmax_b)
+        # categorical splits take the leaf-wide clamp: the most
+        # restrictive piece (pad bins are neutral)
+        flat_min = min_c.amax(dim=1)[:, None]
+        flat_max = max_c.amin(dim=1)[:, None]
 
-    def bounded_output(sg, sh, n, l2=None):
+    def bounded_output(sg, sh, n, l2=None, lo=None, hi=None):
         out = calculate_leaf_output(sg, sh, params, l2)
-        return smooth_output(out, n, parent_output, params)
+        out = smooth_output(out, n, parent_output, params)
+        if not has_monotone:
+            return out
+        lo = min_output if lo is None else lo
+        hi = max_output if hi is None else hi
+        return torch.minimum(torch.maximum(out, lo), hi)
 
     def bounded_gain(sg, sh, n, l2=None):
-        return leaf_gain_given_output(sg, sh, bounded_output(sg, sh, n, l2),
-                                      params, l2)
+        return leaf_gain_given_output(
+            sg, sh, bounded_output(sg, sh, n, l2, flat_min, flat_max),
+            params, l2)
 
     # the four channels' prefix sums in one call: [4, F, B]
     left_g, left_h, left_c, left_tc = prefix_sum(hist.permute(2, 0, 1))
@@ -404,8 +500,17 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
               & (rc >= params.min_data_in_leaf)
               & (lh >= params.min_sum_hessian_in_leaf)
               & (rh >= params.min_sum_hessian_in_leaf))
-        out_l = bounded_output(lg, lh, lc)
-        out_r = bounded_output(rg, rh, rc)
+        if bound_arrays is not None:
+            out_l = bounded_output(lg, lh, lc, lo=lmin_b, hi=lmax_b)
+            out_r = bounded_output(rg, rh, rc, lo=rmin_b, hi=rmax_b)
+            ok = ok & bounds_ok
+        else:
+            out_l = bounded_output(lg, lh, lc)
+            out_r = bounded_output(rg, rh, rc)
+        if has_monotone:
+            mono = meta.monotone[:, None]
+            ok = ok & ~(((mono > 0) & (out_l > out_r))
+                        | ((mono < 0) & (out_l < out_r)))
         gain = (leaf_gain_given_output(lg, lh, out_l, params)
                 + leaf_gain_given_output(rg, rh, out_r, params))
         return torch.where(ok & valid_t, gain, _NEG_INF)
@@ -447,6 +552,19 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
         # CEGB: threshold-independent, so it reorders features without
         # moving a feature's best threshold
         gains = gains - gain_penalty[None, :, None]
+    if has_monotone and leaf_depth is not None:
+        # monotone split gain penalty (upstream
+        # ComputeMonotoneSplitGainPenalty, monotone_constraints.hpp:355):
+        # gains of splits on monotone features shrink with depth
+        p = params.monotone_penalty
+        d = leaf_depth.to(torch.float32)
+        factor = torch.where(
+            p >= d + 1.0, 1e-10,
+            torch.where(p <= 1.0, 1.0 - p / torch.exp2(d) + 1e-10,
+                        1.0 - torch.exp2(p - 1.0 - d) + 1e-10))
+        mult = torch.where((meta.monotone != 0) & (p > 0.0), factor, 1.0)
+        gains = torch.where(torch.isfinite(gains),
+                            gains * mult[None, :, None], gains)
     flat = gains.reshape(-1)
     best = torch.argmax(flat)
     best_gain = _at(flat, best)
@@ -488,18 +606,47 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
     rtc = sum_total_count - ltc
 
     is_valid = torch.isfinite(best_gain) & (best_gain > 0.0)
-    out_left = bounded_output(lg, lh, lc, out_l2)
-    out_right = bounded_output(rg, rh, rc, out_l2)
+    if bound_arrays is not None:
+        # the winner's outputs carry the clamp its gain was scored with
+        if has_categorical:
+            def w_bound(per_t, flat):
+                return torch.where(is_cat_winner, _at(flat[:, 0], feature),
+                                   _at(per_t.reshape(-1), rem))
+        else:
+            def w_bound(per_t, flat):
+                return _at(per_t.reshape(-1), rem)
+        out_left = bounded_output(lg, lh, lc, out_l2,
+                                  w_bound(lmin_b, flat_min),
+                                  w_bound(lmax_b, flat_max))
+        out_right = bounded_output(rg, rh, rc, out_l2,
+                                   w_bound(rmin_b, flat_min),
+                                   w_bound(rmax_b, flat_max))
+    else:
+        out_left = bounded_output(lg, lh, lc, out_l2)
+        out_right = bounded_output(rg, rh, rc, out_l2)
     neg_one = torch.full((), -1.0, dtype=torch.float32, device=dev)
     row = torch.stack([
         torch.where(is_valid, best_gain, _NEG_INF),
         torch.where(is_valid, feature.float(), neg_one),
         tbin.float(), default_left.float(),
         lg, lh, lc, ltc, out_left, rg, rh, rc, rtc, out_right])
-    if not has_categorical:
+    if has_categorical:
+        row = torch.cat([row, is_cat_winner.float().view(1),
+                         pack_cat_mask(cat_mask)])
+    if not has_monotone:
         return row
-    return torch.cat([row, is_cat_winner.float().view(1),
-                      pack_cat_mask(cat_mask)])
+    # the children's bounds (upstream BasicLeafConstraints::Update): the
+    # mid-point of the two outputs caps the monotone side
+    mc_w = _at(meta.monotone, feature)
+    if has_categorical:
+        mc_w = torch.where(is_cat_winner, 0, mc_w)
+    mid = (out_left + out_right) / 2.0
+    return torch.cat([row, torch.stack([
+        torch.where(mc_w < 0, torch.maximum(min_output, mid), min_output),
+        torch.where(mc_w > 0, torch.minimum(max_output, mid), max_output),
+        torch.where(mc_w > 0, torch.maximum(min_output, mid), min_output),
+        torch.where(mc_w < 0, torch.minimum(max_output, mid),
+                    max_output)])])
 
 
 def _categorical_scan(g, h, c, tc, sum_grad, sum_hess, sum_count,

@@ -54,8 +54,16 @@ per class in tree order from 0, the same IEEE adds in the same order as
 the host, and reads back ``[n, K]``. ``predict_raw_device`` is the
 throughput path: a Kahan-compensated f32 sum, read back as f32.
 
-Linear leaves are ROADMAP item 15b and ``average_output`` (random forest)
-item 16; each raises naming its item.
+**Linear leaves** (``linear_tree``) pack their per-leaf constants,
+coefficients and raw feature columns into :class:`LinearLeaves`;
+``predict_raw_device`` evaluates them on the device in f32 over the
+rows, while ``predict`` / ``predict_raw`` keep their contract: the
+device's leaf ids, then every tree's f64 value (the linear ones by
+``models/linear.py::linear_predict``) added on the host in tree order,
+as the host walk does.
+
+``average_output`` (random forest) is ROADMAP item 16 and raises naming
+it.
 """
 from __future__ import annotations
 
@@ -66,11 +74,13 @@ import numpy as np
 import torch
 
 from ..io.binning import MissingType, kZeroThreshold
+from ..models.linear import linear_predict
 from ..models.tree import Tree, kCategoricalMask, kDefaultLeftMask
-from ..ops.predict import (QuantizerTables, QuantizerTablesDD, StackedNodes,
-                           _sum_leaf_values_f64, stacked_forest_leaves,
-                           stacked_forest_leaves_dd, stacked_forest_raw,
-                           stacked_forest_raw_dd)
+from ..ops.predict import (LinearLeaves, QuantizerTables, QuantizerTablesDD,
+                           StackedNodes, _sum_leaf_values_f64,
+                           stacked_forest_leaves, stacked_forest_leaves_dd,
+                           stacked_forest_raw, stacked_forest_raw_dd,
+                           stacked_leaf_values)
 from ..utils import next_pow2
 from ..utils.log import unsupported
 
@@ -135,8 +145,9 @@ class StackedForest:
             raise ValueError("StackedForest needs at least one tree")
         if average_output:
             unsupported("average_output models (random forest)", "item 16")
-        if any(getattr(t, "is_linear", False) for t in models):
-            unsupported("linear trees", "item 15b")
+        self.has_linear = any(t.is_linear for t in models)
+        # the host f64 exact path evaluates linear trees over the rows
+        self._models = models if self.has_linear else None
         K = max(int(num_tree_per_iteration), 1)
         if len(models) % K != 0:
             raise ValueError("len(models)=%d is not a multiple of "
@@ -309,6 +320,8 @@ class StackedForest:
         self._nodes_dd = nodes_cmp._replace(tbin=t(tbin_dd))
         self._cat_lut_dd = t(cat_lut) if has_cat else None
         self._leaf_f64 = t(leaf_f64)
+        self._lin = (self._pack_linear(models, T, NL) if self.has_linear
+                     else None)
         used_t = t(np.asarray(used, dtype=np.int64))
         cat_used = t(k_used == _KIND_CAT) if has_cat else None
         self._qt = QuantizerTables(
@@ -323,6 +336,35 @@ class StackedForest:
         self._device = torch.device("cpu")
         #: bytes copied to and from the device by this placement's calls
         self.transfer_bytes = {"to_device": 0, "from_device": 0}
+
+    @staticmethod
+    def _pack_linear(models: List[Tree], T: int, NL: int) -> LinearLeaves:
+        """The linear leaves as [T, NL(, C)] arrays, C the most
+        features of a fitted leaf (reference ``_pack_linear``)."""
+        C = max(1, max((len(t.leaf_coeff[leaf]) for t in models
+                        if t.is_linear for leaf in range(t.num_leaves)),
+                       default=1))
+        const = np.zeros((T, NL), dtype=np.float32)
+        coeff = np.zeros((T, NL, C), dtype=np.float32)
+        feat = np.zeros((T, NL, C), dtype=np.int64)
+        valid = np.zeros((T, NL, C), dtype=bool)
+        has = np.zeros((T, NL), dtype=bool)
+        for ti, tree in enumerate(models):
+            if not tree.is_linear:
+                continue
+            for leaf in range(tree.num_leaves):
+                feats = tree.leaf_features[leaf]
+                if not feats:
+                    continue   # no fit: the leaf value serves
+                k = len(feats)
+                has[ti, leaf] = True
+                const[ti, leaf] = tree.leaf_const[leaf]
+                coeff[ti, leaf, :k] = tree.leaf_coeff[leaf]
+                feat[ti, leaf, :k] = feats
+                valid[ti, leaf, :k] = True
+        t = torch.from_numpy
+        return LinearLeaves(const=t(const), coeff=t(coeff), feat=t(feat),
+                            valid=t(valid), has=t(has))
 
     # ------------------------------------------------------------------
     @classmethod
@@ -357,6 +399,8 @@ class StackedForest:
         cp._cat_lut_dd = (None if self._cat_lut_dd is None
                           else self._cat_lut_dd.to(device))
         cp._leaf_f64 = self._leaf_f64.to(device)
+        if self._lin is not None:
+            cp._lin = put(self._lin)
         cp._qt = put(self._qt)
         cp._qt_dd = put(self._qt_dd)
         cp._device = device
@@ -433,11 +477,23 @@ class StackedForest:
     def predict_raw(self, X, dd=None) -> np.ndarray:
         """Raw scores byte-equal to ``GBDT.predict_raw``: the f64 leaf
         values of the device's leaf ids, added per class in tree order on
-        the device ([n] or [n, K])."""
-        raw = _sum_leaf_values_f64(self.leaves_device(X, dd),
-                                   self._leaf_f64, self.num_classes)
-        out = self._to_host(raw)
-        return out[:, 0] if self.num_classes == 1 else out
+        the device ([n] or [n, K]). With linear trees the leaf ids come
+        back and the host adds every tree's f64 value in tree order, the
+        linear ones over the f64 rows, as the host walk does."""
+        K = self.num_classes
+        if self.has_linear:
+            leaves = self.leaves(X, dd)
+            X64 = self._check_shape(np.asarray(X, dtype=np.float64))
+            lv = self._leaf_f64.cpu().numpy()
+            out = np.zeros((leaves.shape[0], K), dtype=np.float64)
+            for i, tree in enumerate(self._models):
+                out[:, i % K] += (linear_predict(tree, X64, leaves[:, i])
+                                  if tree.is_linear
+                                  else lv[i][leaves[:, i]])
+        else:
+            out = self._to_host(_sum_leaf_values_f64(
+                self.leaves_device(X, dd), self._leaf_f64, K))
+        return out[:, 0] if K == 1 else out
 
     def predict(self, X, raw_score: bool = False, dd=None) -> np.ndarray:
         """Transformed output, byte-equal to the host ``Booster.predict``
@@ -450,14 +506,23 @@ class StackedForest:
     def predict_raw_device(self, X, dd=None) -> torch.Tensor:
         """[n, K] f32 raw scores summed on the device with Kahan
         compensation (the throughput path: within ~2 f32 ulp of the f64
-        sum, not byte-equal to it), left on the device."""
+        sum of the trees' f32 values, not byte-equal to it; linear leaves
+        evaluate in f32), left on the device."""
         mode, Xp = self._route(X, dd)
         if mode == "dd":
             hi, lo = self.encode_dd(Xp)
             return stacked_forest_raw_dd(
                 self._to_device(hi), self._to_device(lo), self._qt_dd,
                 self._nodes_dd, self.trips, self.num_classes,
-                self._cat_lut_dd)
+                self._cat_lut_dd, self._lin)
         return stacked_forest_raw(self._to_device(Xp), self._qt,
                                   self._nodes, self.trips, self.num_classes,
-                                  self._cat_lut)
+                                  self._cat_lut, self._lin)
+
+    def tree_values_device(self, X) -> torch.Tensor:
+        """[T, n] f32 value of every f32 row in every tree on the device,
+        linear leaves included: the terms ``predict_raw_device`` sums."""
+        Xd = self._to_device(self._route(X, dd=False)[1])
+        leaves = stacked_forest_leaves(Xd, self._qt, self._nodes,
+                                       self.trips, self._cat_lut)
+        return stacked_leaf_values(Xd, leaves, self._nodes, self._lin)

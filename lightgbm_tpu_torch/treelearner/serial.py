@@ -64,6 +64,25 @@ lightgbm_tpu/treelearner/serial.py:1140-1205; ``capabilities.py``):
   that each split changes, so they read one record per split
   (``grow_stats["split_reads"]``), as in the reference.
 
+Monotone constraints, forced splits (reference
+lightgbm_tpu/treelearner/serial.py:91-95,436-452,705-835,1074-1131):
+
+- the basic method runs in every loop: a monotone learner's scan (a
+  static switch) clamps each leaf's outputs into the bounds its
+  candidate row carries and writes the bounds each child inherits into
+  the row, so the whole-tree step reads them from the device like the
+  rest of the record; the root scans under (-inf, +inf), at depth 0;
+- ``monotone_constraints_method=intermediate`` and ``advanced`` take
+  the per-split loop of ``capabilities.py``'s ``_grow_monotone``: host-tracked
+  bounds (``monotone.py``), one record read per split, rescans of the
+  leaves whose bounds tightened and one read after them
+  (``grow_stats["rescans"]``);
+- forced splits (``forcedsplits_filename``) are applied breadth-first
+  after the root, each from a cumsum of its leaf's stored histogram
+  row (gain 0, one record read each), then the loop the config asks for
+  goes on; the whole-tree loop starts its step counter after them, and
+  its replay applies those first records whatever their gain.
+
 Quantized-gradient mode (``use_quantized_grad``; reference:
 ``CapabilityMixin._init_quantization`` / ``_quantize_stage``,
 lightgbm_tpu/treelearner/capabilities.py:109-162) stages each tree's
@@ -89,10 +108,10 @@ from ..ops.histogram import (build_histogram, subtract_histogram,
 from ..ops.quantize import (dequantize_sums, effective_quant_max,
                             quant_dtype, quant_warn_capped, quantize_gh,
                             sum_gh, tree_key)
-from ..ops.split import (FeatureMeta, SplitParams, calculate_leaf_output,
-                         cat_mask_of_row, cegb_penalty, find_best_split,
-                         make_rand_bins, pad_feature_meta, record_width,
-                         unpack_cat_mask)
+from ..ops.split import (FeatureMeta, RecordLayout, SplitParams,
+                         calculate_leaf_output, cat_mask_of_row,
+                         cegb_penalty, find_best_split, make_rand_bins,
+                         pad_feature_meta, prefix_sum, unpack_cat_mask)
 from ..utils import log, next_pow2
 from ..utils.log import LightGBMError
 from ..utils.prng import PRNGKey, fold_in
@@ -127,14 +146,16 @@ class SplitRecord(NamedTuple):
 
     @classmethod
     def from_row(cls, leaf: int, row: List[float],
-                 num_bins: int = 0) -> "SplitRecord":
-        """From a record row of :func:`find_best_split`; a wider
-        (categorical) row's mask is unpacked over ``num_bins`` bins."""
-        cat = len(row) > S.RECORD_WIDTH and row[S.IS_CATEGORICAL] > 0
+                 layout: RecordLayout) -> "SplitRecord":
+        """From a record row of :func:`find_best_split` in the learner's
+        ``layout`` (its switches say which optional columns the row has;
+        its length alone cannot); a categorical winner's mask is
+        unpacked over its bins."""
+        cat = layout.has_categorical and row[S.IS_CATEGORICAL] > 0
         return cls(leaf, row[S.GAIN], int(row[S.FEATURE]),
                    int(row[S.THRESHOLD_BIN]), bool(row[S.DEFAULT_LEFT]),
                    *row[S.LEFT_SUM_GRAD:S.RECORD_WIDTH], cat,
-                   cat_mask_of_row(row, num_bins) if cat else None)
+                   cat_mask_of_row(row, layout.num_bins) if cat else None)
 
 
 class GrowState(NamedTuple):
@@ -313,9 +334,12 @@ class SerialTreeLearner(CapabilityMixin):
                                      int(config.max_cat_to_onehot)),
             self.Fp - F)
         # static, as in the reference: an all-numerical learner runs no
-        # categorical scan and keeps the 14-column record
+        # categorical scan and keeps the 14-column record; a learner
+        # with no monotone feature runs no monotone part of the scan
         self._has_cat = self.meta.cat_positions > 0
-        self._record_width = record_width(self.B, self._has_cat)
+        self._has_mono = self.meta.monotone is not None
+        self.layout = RecordLayout(self.B, self._has_cat, self._has_mono)
+        self._record_width = self.layout.width
         self.params = SplitParams.from_config(config, device)
         # the tree's feature mask: each tree's is copied into this one
         # tensor (the captured step reads its storage)
@@ -338,29 +362,31 @@ class SerialTreeLearner(CapabilityMixin):
         self._fused: Optional[_FusedBuffers] = None
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         #: what the loops did since the learner was made: roots (one per
-        #: tree), split steps run (eagerly or replayed), graph replays and
-        #: captures, capture ms, host reads of the step counter, of the
-        #: tree's records (one per tree) and, in the per-split loop, of
-        #: each split's record
+        #: tree), split steps run (eagerly or replayed; a forced split is
+        #: one), graph replays and captures, capture ms, host reads of
+        #: the step counter, of the tree's records (one per tree), of
+        #: single records (per split in the per-split loop, and after
+        #: the rescans of the intermediate and advanced monotone
+        #: methods), of forced-split records (one per forced node
+        #: tried), and those rescans
         self.grow_stats: Dict[str, float] = dict.fromkeys(
             ("roots", "steps", "replays", "captures", "capture_ms",
-             "flag_reads", "record_reads", "split_reads"), 0)
+             "flag_reads", "record_reads", "split_reads", "forced_reads",
+             "rescans"), 0)
 
     def reset_config(self, config) -> None:
-        """New split parameters, depth limit, loop choice and sampling
-        between trees (reference: ``ops_refresh.refresh_learner_params``;
+        """New split parameters, depth limit and loop choice between trees
+        (reference: ``ops_refresh.refresh_learner_params``;
         ``feature_fraction`` and ``feature_fraction_bynode`` are read
         from the config at each tree). The captured step holds the old
-        ones (its parameter tensors, ``max_depth`` and whether it draws
-        extra_trees thresholds), so the graph is dropped and the next
-        tree captures it again. ``extra_trees`` takes effect here as in
-        upstream LightGBM; the reference keeps its first value."""
+        ones (its parameter tensors and ``max_depth``), so the graph is
+        dropped and the next tree captures it again. ``extra_trees`` and
+        ``extra_seed`` keep their first values, as in the reference
+        (upstream LightGBM would take the new ones)."""
         self.config = config
         self.params = SplitParams.from_config(config, self.device)
         self.max_depth = int(config.max_depth)
         self._fused_growth = bool(config.tpu_fused_tree)
-        self._extra_trees = bool(config.extra_trees)
-        self._extra_seed = int(config.extra_seed)
         self._graph = None
 
     def _init_quantization(self, config) -> None:
@@ -445,22 +471,44 @@ class SerialTreeLearner(CapabilityMixin):
             row[S.DEFAULT_LEFT] > 0.0, meta.missing_type.index_select(0, f),
             meta.num_bin.index_select(0, f) - 1, zero_bin)
         if self._has_cat:
-            mask = unpack_cat_mask(row[S.CAT_WORDS:], self.B)
+            mask = unpack_cat_mask(row[self.layout.cat_words], self.B)
             gl = torch.where(row[S.IS_CATEGORICAL] > 0.0,
                              mask.index_select(0, col.long()), gl)
         return gl
 
     def _scan(self, hist, sums, parent_out, qscale, mask=None,
-              rand_bins=None, penalty=None) -> torch.Tensor:
+              rand_bins=None, penalty=None, bounds=(None, None),
+              depth=None, bound_arrays=None) -> torch.Tensor:
+        """One leaf's scan; ``bounds`` (min, max output; None for -inf,
+        +inf), ``depth`` and ``bound_arrays`` reach a monotone learner's
+        scan only."""
         return find_best_split(hist, sums[0], sums[1], sums[2], sums[3],
                                self.meta, self.params,
                                self.feature_mask if mask is None else mask,
                                parent_out, qscale, self._has_cat,
-                               rand_bins, penalty)
+                               rand_bins, penalty, self._has_mono,
+                               bounds[0], bounds[1], depth, bound_arrays)
+
+    def _child_bounds(self, row: torch.Tensor, c: int) -> tuple:
+        """Child ``c``'s (min, max) output bounds from a monotone
+        learner's record row (device values), else (None, None)."""
+        if not self._has_mono:
+            return None, None
+        at = self.layout.bounds + 2 * c
+        return row[at], row[at + 1]
+
+    def _depth(self, depth: int) -> Optional[torch.Tensor]:
+        """A leaf depth as the f32 0-d tensor a monotone scan's gain
+        penalty reads (None for other learners)."""
+        if not self._has_mono:
+            return None
+        return torch.full((), float(depth), device=self.device)
 
     def _draws_thresholds(self) -> bool:
-        """extra_trees is on (CEGB ignores it)."""
-        return self._extra_trees and not self._cegb_enabled
+        """extra_trees is on (CEGB and the intermediate and advanced
+        monotone methods ignore it)."""
+        return (self._extra_trees and not self._cegb_enabled
+                and self._mono_tracker is None)
 
     def _rand_bins(self, node_ids: torch.Tensor) -> tuple:
         """The extra_trees candidates of nodes ``node_ids`` (int64 [c] on
@@ -499,7 +547,7 @@ class SerialTreeLearner(CapabilityMixin):
                allowed: bool) -> None:
         if not allowed:
             info = info.clone()
-            info[S.GAIN] = float("-inf")
+            info[S.GAIN].fill_(float("-inf"))
         cand[leaf] = info
 
     def train(self, grad: torch.Tensor, hess: torch.Tensor,
@@ -525,7 +573,9 @@ class SerialTreeLearner(CapabilityMixin):
                 (self._extra_seed + 7919 * self._tree_idx) & 0x7FFFFFFF)
         if self._cegb_enabled:
             tree, state = self._grow_stepped(gh, cegb=True)
-        elif self._needs_per_node_masks():
+        elif self._mono_tracker is not None:
+            tree, state = self._grow_monotone(gh)
+        elif self._needs_per_node_masks() and self._forced is None:
             tree, state = self._grow_stepped(gh, node_masks=True)
         elif self._fused_growth:
             tree, state = self._grow_fused(gh)
@@ -577,8 +627,12 @@ class SerialTreeLearner(CapabilityMixin):
                                    self._cegb_coupled, unfetched,
                                    self._cegb_lazy if unfetched is not None
                                    else None)
+        # the root scans at depth 0 (the reference's CEGB root gives no
+        # depth, so no monotone penalty)
         info = self._scan(hist, sums, parent_out, self._qscale,
-                          rand_bins=rand_bins, penalty=penalty)
+                          rand_bins=rand_bins, penalty=penalty,
+                          depth=None if self._cegb_enabled
+                          else self._depth(0))
         state.leaf_of_row.zero_()
         state.hists.zero_()
         state.hists[0] = hist
@@ -606,27 +660,25 @@ class SerialTreeLearner(CapabilityMixin):
         masks after the split, left then right; the root scans with the
         tree mask alone. ``cegb`` scans the children with CEGB penalties
         that follow the used and fetched state the split leaves behind
-        (reference ``train_cegb``)."""
+        (reference ``train_cegb``). Forced splits come first (not with
+        CEGB, which ignores them, as in the reference)."""
         state = self._new_state(gh)
         self._root(state)
         tree = Tree(self.L)
+        start = 1
+        if self._forced is not None and not cegb:
+            start += self._apply_forced(tree, state)
         paths = [frozenset()] * self.L
-        for new_leaf in range(1, self.L):
-            best = torch.argmax(state.cand[:, S.GAIN])
-            # a copy: the children's candidates overwrite cand[leaf]
-            row = state.cand[best].clone()
-            packed = torch.cat([best.to(torch.float32).view(1), row])
-            host = packed.tolist()
-            self.grow_stats["split_reads"] += 1
-            rec = SplitRecord.from_row(int(host[0]), host[1:], self.B)
+        for new_leaf in range(start, self.L):
+            rec, row, packed = self._read_best(state)
             if not record_is_valid(rec):
                 break
             apply_split_record(tree, self.dataset, rec)
             child_depth = int(tree.leaf_depth[rec.leaf])
             state.records[new_leaf - 1] = packed
             state.step.fill_(new_leaf)
-            state.leaf_depth[rec.leaf] = child_depth
-            state.leaf_depth[new_leaf] = child_depth
+            state.leaf_depth[rec.leaf].fill_(child_depth)
+            state.leaf_depth[new_leaf].fill_(child_depth)
             masks = (None, None)
             if node_masks:
                 path = paths[rec.leaf] | {rec.feature}
@@ -636,6 +688,157 @@ class SerialTreeLearner(CapabilityMixin):
             self._split(state, rec, row, new_leaf, child_depth, masks, cegb)
             self.grow_stats["steps"] += 1
         return tree, state
+
+    def _read_best(self, state: GrowState, with_gains: bool = False):
+        """The best candidate, read back (one host read): its record, its
+        device row (a copy: the children's candidates overwrite
+        ``cand[leaf]``) and the row packed after its leaf; with
+        ``with_gains`` also every leaf's candidate gain (host floats)."""
+        best = torch.argmax(state.cand[:, S.GAIN])
+        row = state.cand[best].clone()
+        packed = torch.cat([best.to(torch.float32).view(1), row])
+        parts = [packed, state.cand[:, S.GAIN]] if with_gains else [packed]
+        host = torch.cat(parts).tolist()
+        self.grow_stats["split_reads"] += 1
+        W = self._record_width
+        rec = SplitRecord.from_row(int(host[0]), host[1:1 + W], self.layout)
+        if with_gains:
+            return rec, row, packed, host[1 + W:]
+        return rec, row, packed
+
+    # ------------------------------------------------------------------
+    # forced splits (reference _apply_forced_splits, _forced_fn_cached)
+    # ------------------------------------------------------------------
+    def _forced_row(self, state: GrowState, leaf: int, f: int,
+                    tbin: int) -> torch.Tensor:
+        """The record row of splitting ``leaf`` on inner feature ``f`` at
+        bin ``tbin``: left sums from the prefix sum of the leaf's stored
+        histogram row up to ``tbin`` (exact when integer), gain 0,
+        unsmoothed outputs, ``default_left`` where the prefix put the
+        missing rows; a monotone row keeps the leaf candidate's child
+        bounds."""
+        hrow = state.hists[leaf, f]                          # [B, 4]
+        if hrow.dtype.is_floating_point:
+            cum = prefix_sum(hrow.t().contiguous()).t()
+        else:
+            cum = torch.cumsum(hrow, dim=0, dtype=hrow.dtype)
+        left = dequantize_sums(cum[tbin], self._qscale)
+        right = dequantize_sums(cum[-1], self._qscale) - left
+        mapper = self.dataset.bin_mappers[f]
+        dl = (tbin >= mapper.num_bin - 1
+              if mapper.missing_type == MissingType.NAN
+              else mapper.default_bin <= tbin)
+        row = torch.zeros(self._record_width, dtype=torch.float32,
+                          device=self.device)
+        # fill_ takes the scalar as a kernel argument: an item assignment
+        # would copy it from the host and wait for the card
+        row[S.FEATURE].fill_(float(f))
+        row[S.THRESHOLD_BIN].fill_(float(tbin))
+        row[S.DEFAULT_LEFT].fill_(float(dl))
+        for side, sums in ((S.LEFT_SUM_GRAD, left),
+                           (S.RIGHT_SUM_GRAD, right)):
+            row[side:side + 4] = sums
+            row[side + 4] = calculate_leaf_output(sums[0], sums[1],
+                                                  self.params)
+        if self._has_mono:
+            at = self.layout.bounds
+            row[at:at + 4] = state.cand[leaf, at:at + 4]
+        return row
+
+    def _apply_forced(self, tree: Tree, state: GrowState) -> int:
+        """Apply the forced-split tree breadth-first after the root
+        (upstream SerialTreeLearner::ForceSplits,
+        serial_tree_learner.cpp:451): one record read
+        (``grow_stats["forced_reads"]``) and one split per node; a split
+        that leaves a side empty is skipped with a warning, its subtree
+        too. Records and the step counter are written in place. Returns
+        the splits applied."""
+        next_leaf = 1
+        queue = [(0, self._forced)]
+        while queue and next_leaf < self.L:
+            leaf, spec = queue.pop(0)
+            if not isinstance(spec, dict) or "feature" not in spec:
+                continue
+            inner = self.dataset.inner_feature_index(int(spec["feature"]))
+            if inner < 0:
+                continue
+            mapper = self.dataset.bin_mappers[inner]
+            tbin = int(mapper.value_to_bin(
+                np.asarray([float(spec.get("threshold", 0.0))]))[0])
+            row = self._forced_row(state, leaf, inner, tbin)
+            packed = torch.cat([torch.full((1,), float(leaf),
+                                           device=self.device), row])
+            host = packed.tolist()
+            self.grow_stats["forced_reads"] += 1
+            rec = SplitRecord.from_row(leaf, host[1:], self.layout)
+            if not (rec.left_total_count > 0.5
+                    and rec.right_total_count > 0.5):
+                log.warning("Forced split on feature %d leaves an empty "
+                            "side; skipped" % int(spec["feature"]))
+                continue
+            apply_split_record(tree, self.dataset, rec)
+            child_depth = int(tree.leaf_depth[leaf])
+            state.records[next_leaf - 1] = packed
+            state.leaf_depth[leaf].fill_(child_depth)
+            state.leaf_depth[next_leaf].fill_(child_depth)
+            self._split(state, rec, row, next_leaf, child_depth)
+            self.grow_stats["steps"] += 1
+            if "left" in spec:
+                queue.append((leaf, spec["left"]))
+            if "right" in spec:
+                queue.append((next_leaf, spec["right"]))
+            next_leaf += 1
+        state.step.fill_(next_leaf - 1)
+        return next_leaf - 1
+
+    # ------------------------------------------------------------------
+    # the steps of the intermediate and advanced monotone methods
+    # (driven by CapabilityMixin._grow_monotone)
+    # ------------------------------------------------------------------
+    def _mono_step(self, state: GrowState, rec: SplitRecord,
+                   row: torch.Tensor, new_leaf: int, child_depth: int,
+                   bounds: tuple) -> None:
+        """Split ``rec`` with the children's bounds the host tracker set
+        (reference ``_mono_step_fn_cached``): the row's bound columns
+        take ``bounds`` (lmin, lmax, rmin, rmax), then the split and
+        both children's scans as in the per-split loop."""
+        row = row.clone()
+        at = self.layout.bounds
+        row[at:at + 4] = self._host_to_device(np.asarray(bounds))
+        self._split(state, rec, row, new_leaf, child_depth)
+
+    def _host_to_device(self, a: np.ndarray) -> torch.Tensor:
+        """An f32 copy of host values on the learner's device, taken now
+        (the tracker changes its arrays later); on the card from pinned
+        memory without a host sync."""
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _mono_rescan(self, state: GrowState, leaf: int, sums: tuple,
+                     bounds: tuple, depth: int,
+                     bound_arrays: Optional[tuple] = None) -> None:
+        """Scan ``leaf``'s stored histogram again under new bounds and
+        store its candidate (upstream RecomputeBestSplitForLeaf,
+        serial_tree_learner.cpp:800; reference ``_rescan_fn_cached``):
+        ``sums`` are its (grad, hess, count, total) as host floats,
+        ``bounds`` its (min, max) output, or ``bound_arrays`` the
+        advanced method's [Fp, B] host arrays."""
+        dev = self.device
+        sg, sh, c, tc = (torch.full((), float(v), device=dev) for v in sums)
+        own = calculate_leaf_output(sg, sh, self.params)
+        parent_out = torch.where(self.params.path_smooth > 1e-10, own, 0.0)
+        lo_hi = tuple(None if b is None else torch.full((), float(b),
+                                                        device=dev)
+                      for b in bounds)
+        arrays = (None if bound_arrays is None else
+                  tuple(self._host_to_device(a) for a in bound_arrays))
+        info = self._scan(state.hists[leaf], (sg, sh, c, tc), parent_out,
+                          self._qscale, bounds=lo_hi,
+                          depth=self._depth(depth), bound_arrays=arrays)
+        self._store(state.cand, leaf, info, self._splittable(depth))
+        self.grow_stats["rescans"] += 1
 
     def _cegb_penalties(self, rec: SplitRecord, row: torch.Tensor,
                         on_leaf: torch.Tensor, gl: torch.Tensor):
@@ -694,11 +897,13 @@ class SerialTreeLearner(CapabilityMixin):
 
         allowed = self._splittable(child_depth)
         rand_bins = self._child_rand_bins(new_leaf)
+        depth = self._depth(child_depth)
         for c, (child, hist, side) in enumerate((
                 (leaf, hist_left, S.LEFT_SUM_GRAD),
                 (new_leaf, hist_right, S.RIGHT_SUM_GRAD))):
             info = self._scan(hist, row[side:side + 4], row[side + 4],
-                              self._qscale, masks[c], rand_bins[c], pens[c])
+                              self._qscale, masks[c], rand_bins[c], pens[c],
+                              self._child_bounds(row, c), depth)
             self._store(state.cand, child, info, allowed)
 
     # ------------------------------------------------------------------
@@ -777,11 +982,14 @@ class SerialTreeLearner(CapabilityMixin):
         _put(st.leaf_depth, leaf, child_depth[0], valid)
         _put(st.leaf_depth, new_leaf, child_depth[0], valid)
         rand_bins = self._child_rand_bins(new_leaf)
+        depth = child_depth[0].to(torch.float32) if self._has_mono else None
         for c, (child, hist, side) in enumerate((
                 (leaf, hist_left, S.LEFT_SUM_GRAD),
                 (new_leaf, hist_right, S.RIGHT_SUM_GRAD))):
             info = self._scan(hist, row[side:side + 4], row[side + 4],
-                              buf.qscale, rand_bins=rand_bins[c])
+                              buf.qscale, rand_bins=rand_bins[c],
+                              bounds=self._child_bounds(row, c),
+                              depth=depth)
             if self.max_depth > 0:
                 gain = torch.where(child_depth < self.max_depth,
                                    info[S.GAIN:S.GAIN + 1], float("-inf"))
@@ -826,15 +1034,20 @@ class SerialTreeLearner(CapabilityMixin):
         self.grow_stats["steps"] += 1
 
     def _grow_fused(self, gh: torch.Tensor) -> Tuple[Tree, GrowState]:
-        """The reference's ``_train_fused``: the root, then up to L - 1
-        split steps on the device (graph replays on CUDA, in chunks of
-        :data:`FUSED_CHUNK` with one read of the step counter between
-        chunks), then one read of the tree's records, replayed into the
-        host Tree."""
+        """The reference's ``_train_fused``: the root, the forced splits
+        (host-stepped, their records written in place), then up to L - 1
+        split steps in all on the device (graph replays on CUDA, in
+        chunks of :data:`FUSED_CHUNK` with one read of the step counter
+        between chunks), then one read of the tree's records, replayed
+        into the host Tree after the forced ones."""
         buf = self._fused_buffers(gh)
         self._root(buf.state)
-        done, steps = 0, self.L - 1
-        if self.device.type == "cuda" and self._graph is None:
+        tree = Tree(self.L)
+        forced = (self._apply_forced(tree, buf.state)
+                  if self._forced is not None else 0)
+        done, steps = 0, self.L - 1 - forced
+        if (self.device.type == "cuda" and self._graph is None
+                and steps > 0):
             self._capture(buf)
             done = 1
         while done < steps:
@@ -850,13 +1063,13 @@ class SerialTreeLearner(CapabilityMixin):
                 # one flag read per chunk: a step that found no valid
                 # split left the counter behind the steps run
                 self.grow_stats["flag_reads"] += 1
-                if int(buf.state.step) < done:
+                if int(buf.state.step) < forced + done:
                     break
         records = buf.state.records.cpu().tolist()
         self.grow_stats["record_reads"] += 1
-        tree = Tree(self.L)
-        for row in records:
-            rec = SplitRecord.from_row(int(row[0]), row[1:], self.B)
+        # the forced records (gain 0) are in the tree already
+        for row in records[forced:]:
+            rec = SplitRecord.from_row(int(row[0]), row[1:], self.layout)
             if not record_is_valid(rec):
                 break
             apply_split_record(tree, self.dataset, rec)

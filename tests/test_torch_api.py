@@ -321,8 +321,23 @@ def test_reset_parameter_takes_effect_at_the_next_tree():
     assert last.num_leaves == 2 and last.shrinkage == 0.5
     assert last.leaf_count[:2].min() >= 50
     assert bst.inner.learner.max_depth == 1
-    with pytest.raises(LightGBMError, match="item 15b"):
-        bst.reset_parameter({"monotone_constraints": [1] + [0] * 9})
+    # monotone constraints belong to the dataset: set between
+    # iterations they leave the next tree as the reference leaves it
+    # (unconstrained here), level (b)
+    params = {"objective": "regression", "num_leaves": 15, "verbose": -1}
+    ref = ref_lgb.train(params, ref_lgb.Dataset(X, label=y),
+                        num_boost_round=1)
+    bst = lgb.train(dict(CPU, **params), lgb.Dataset(X, label=y),
+                    num_boost_round=1)
+    for b in (ref, bst):
+        b.reset_parameter({"monotone_constraints": [1] + [0] * 7})
+        b.update()
+    assert not bst.inner.learner._has_mono
+    a, b = ref.inner.models[-1], bst.inner.models[-1]
+    assert _splits(a) == _splits(b)
+    np.testing.assert_allclose(b.leaf_value[:b.num_leaves],
+                               a.leaf_value[:a.num_leaves],
+                               rtol=1e-4, atol=1e-6)
 
 
 # ----------------------------------------------------------------------

@@ -3,6 +3,9 @@
 These need an NVIDIA GPU and nvcc; elsewhere they skip. Run them on the
 card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
+import json
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -554,7 +557,8 @@ def test_make_rand_bins_card_equals_cpu(cuda):
         return S.FeatureMeta(num_bin=t, missing_type=torch.zeros_like(t),
                              zero_bin=torch.zeros_like(t))
     params = S.SplitParams(*([None] * 10), max_cat_threshold=32,
-                           cegb_tradeoff=None, cegb_penalty_split=None)
+                           cegb_tradeoff=None, cegb_penalty_split=None,
+                           monotone_penalty=None)
     for seed in (6, 2 ** 31 - 1):
         ids = torch.tensor([0, 1, 2, 509, 510])
         keys = prng.fold_in(prng.PRNGKey(seed), ids)
@@ -616,3 +620,110 @@ def test_tree_mask_reaches_the_replayed_graph(cuda):
         used = set(tree.split_feature_inner[:tree.num_internal].tolist())
         assert tree.num_leaves > 8 and used <= set(features)
         assert learner.grow_stats["captures"] == 1
+
+
+def test_monotone_graph_replays_equal_eager_steps(cuda):
+    """The captured step of a monotone learner (bounds read from the
+    candidate rows on the card, the depth penalty from the device depth)
+    replays the eager steps' records byte for byte, and the per-split
+    loop grows the same tree."""
+    rng = np.random.RandomState(5)
+    X = rng.randn(30000, 10)
+    y = X[:, 0] + np.sin(2 * X[:, 1]) - X[:, 2] + 0.3 * rng.randn(30000)
+    params = {"objective": "regression", "num_leaves": 63,
+              "min_data_in_leaf": 50, "verbose": -1,
+              "monotone_constraints": [1, -1, -1] + [0] * 7,
+              "monotone_penalty": 1.0}
+    b = lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=1)
+    learner = b.inner.learner
+    assert learner._graph is not None and learner._has_mono
+    g = torch.from_numpy((rng.rand(30000) - 0.5).astype(np.float32)).cuda()
+    gh = torch.stack([g, torch.full_like(g, 0.25), torch.ones_like(g),
+                      torch.ones_like(g)], dim=1)
+    tree_graph, st = learner._grow_fused(gh)
+    replayed = st.records.clone()
+    assert learner.grow_stats["replays"] > 0
+    buf = learner._fused_buffers(gh)
+    learner._root(buf.state)
+    for _ in range(learner.L - 1):
+        learner._step(buf)
+    assert torch.equal(buf.state.records.view(torch.int32),
+                       replayed.view(torch.int32))
+    tree_stepped, _ = learner._grow_stepped(gh)
+    assert tree_graph.to_string() == tree_stepped.to_string()
+
+
+def test_forced_split_makes_two_syncs(cuda, tmp_path):
+    """Each forced split on the card waits for it twice: the read of its
+    record and the partition's ``nonzero`` (sync debug mode, after a
+    warm tree). chip_smoke.py bounds a whole-tree tree's syncs by this."""
+    rng = np.random.RandomState(12)
+    X = rng.randn(20000, 6)
+    y = (X[:, 0] + X[:, 3] + rng.randn(20000) * 0.3 > 0).astype(float)
+    spec = tmp_path / "forced.json"
+    spec.write_text(json.dumps({
+        "feature": 0, "threshold": 0.0,
+        "left": {"feature": 1, "threshold": 0.2},
+        "right": {"feature": 2, "threshold": -0.2}}))
+    booster = lgb.Booster({"objective": "binary", "num_leaves": 31,
+                           "verbose": -1,
+                           "forcedsplits_filename": str(spec)},
+                          lgb.Dataset(X, label=y))
+    booster.update()                      # warm: the capture, the kernels
+    learner = booster.inner.learner
+    apply, counts = learner._apply_forced, []
+
+    def counted(tree, state):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                n = apply(tree, state)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts.append((n, sum("synchroniz" in str(w.message)
+                              for w in caught)))
+        return n
+    learner._apply_forced = counted
+    booster.update()
+    assert counts == [(3, 6)]
+
+
+def test_device_linear_fit_equals_cpu(cuda):
+    """The linear fit on the card (cuBLAS products, a cuSOLVER batched
+    solve) gives the CPU's coefficients within rtol 1e-9 on the same
+    tree, rows and gradients; the leaf whose path column is constant
+    keeps its constant on both."""
+    from lightgbm_tpu_torch.models import linear
+    from lightgbm_tpu_torch.models.tree import Tree
+    rng = np.random.RandomState(6)
+    n = 20000
+    X = rng.randn(n, 5)
+    X[:, 0] = np.maximum(X[:, 0], 0.0)
+    X[rng.rand(n) < 0.05, 2] = np.nan
+    y = 3.0 * (X[:, 0] > 0) + X[:, 1] + 0.5 * X[:, 0] * X[:, 3]
+    b = lgb.train({"objective": "regression", "num_leaves": 8,
+                   "verbose": -1, "device_type": "cpu"},
+                  lgb.Dataset(X, label=y), num_boost_round=1)
+    text = b.inner.models[0].to_string()
+    leaf = b.inner.models[0].predict_leaf_index(X)
+    grad, hess = rng.randn(n), rng.rand(n) + 0.5
+    mask = rng.rand(n) < 0.9
+    for lam in (0.0, 0.1):
+        fits = []
+        for dev in ("cpu", "cuda"):
+            tree = Tree.from_string(text)
+            t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+            linear.fit_linear_leaves(tree, t(X), t(grad), t(hess),
+                                     t(leaf), lam, t(mask))
+            fits.append(tree)
+        a, c = fits
+        nl = a.num_leaves
+        assert a.leaf_features[:nl] == c.leaf_features[:nl]
+        assert any(a.leaf_features[:nl])
+        for lf in range(nl):
+            np.testing.assert_allclose(c.leaf_coeff[lf], a.leaf_coeff[lf],
+                                       rtol=1e-9, atol=0)
+        np.testing.assert_allclose(c.leaf_const[:nl], a.leaf_const[:nl],
+                                   rtol=1e-9, atol=1e-12)

@@ -280,6 +280,8 @@ def _histogram_outside_mode(monkeypatch):
                  id="bundled_quantized8"),
     pytest.param({"feature_fraction": 0.5, "extra_trees": True},
                  id="ff_extra_trees"),
+    pytest.param({"monotone_constraints": [1, -1, 0, 0, 1, 0, 0, 0],
+                  "monotone_penalty": 1.0}, id="monotone"),
 ])
 def test_split_step_makes_no_host_read(monkeypatch, extra):
     learner, gh = _learner_and_rows(extra)
@@ -297,6 +299,7 @@ def test_split_step_makes_no_host_read(monkeypatch, extra):
             learner._step(buf)
     assert mode.reads == []
     assert int(buf.state.step) > 0
+    assert learner._has_mono == ("monotone_constraints" in extra)
 
 
 def test_the_host_read_check_sees_the_per_split_loop(monkeypatch):

@@ -297,7 +297,7 @@ def test_rank_lambdas_within_query_tolerance(name, extra, weighted):
 @pytest.mark.parametrize("params,item", [
     ({"objective": "none"}, "item 18"),
     ({"boosting": "dart"}, "item 16"),
-    ({"linear_tree": True}, "item 15"),
+    ({"max_bin_by_feature": [300, 255, 255, 255]}, "item 26"),
     ({"categorical_feature": "0", "max_bin": 300}, "item 26"),
 ])
 def test_other_objectives_raise_with_their_roadmap_item(params, item):

@@ -126,11 +126,39 @@ def test_sampling_and_node_filters_train(params):
     np.testing.assert_array_equal(again.predict(X), bst.predict(X))
 
 
+@pytest.mark.parametrize("params", [
+    {"monotone_constraints": "1,-1,0,0"},
+    {"monotone_constraints": [1, -1, 0, 0],
+     "monotone_constraints_method": "intermediate"},
+    {"mc": [1, -1, 0, 0], "monotone_constraints_method": "advanced"},
+    {"monotone_constraints": [1, 0, 0, 1], "monotone_penalty": 1.0},
+    {"linear_tree": True, "linear_lambda": 0.5},
+    {"forcedsplits_filename": "FORCED"},
+], ids=["monotone", "intermediate", "advanced", "penalty", "linear",
+        "forced"])
+def test_monotone_forced_linear_train_save_load(params, tmp_path):
+    """Monotone constraints, forced splits and linear trees train, save,
+    load and predict (they raised before this slice)."""
+    if params.get("forcedsplits_filename") == "FORCED":
+        path = tmp_path / "forced.json"
+        path.write_text('{"feature": 1, "threshold": 0.0}')
+        params = {"forcedsplits_filename": str(path)}
+    X, y = _tiny()
+    bst = lgb.train(dict({"objective": "binary", "device_type": "cpu",
+                          "verbose": -1, "learning_rate": 0.5}, **params),
+                    lgb.Dataset(X, label=y), num_boost_round=3)
+    text = bst.model_to_string()
+    assert text.startswith("tree") and "end of trees" in text
+    again = lgb.Booster(model_str=text, params={"device_type": "cpu"})
+    np.testing.assert_array_equal(again.predict(X), bst.predict(X))
+    assert ("is_linear=1" in text) == ("linear_tree" in params)
+
+
 @pytest.mark.parametrize("params,item", [
     ({"categorical_feature": "0", "max_bin": 300}, "item 26"),
-    ({"monotone_constraints": "1,0,0,0"}, "item 15b"),
-    ({"linear_tree": True}, "item 15b"),
-    ({"forcedsplits_filename": "splits.json"}, "item 15b"),
+    ({"tpu_eval_iterations": 4}, "item 17"),
+    ({"num_machines": 2}, "item 22"),
+    ({"gpu_use_dp": True}, "item 26"),
     ({"boosting": "dart"}, "item 16"),
     ({"objective": "none"}, "item 18"),
     ({"boosting": "rf"}, "item 16"),

@@ -26,6 +26,7 @@ from lightgbm_tpu.serve.forest import round_down_f32 as ref_round_down
 
 import lightgbm_tpu_torch as lgb
 from lightgbm_tpu_torch.convert import trees_from_numpy
+from lightgbm_tpu_torch.models.linear import fit_linear_leaves
 from lightgbm_tpu_torch.models.tree import Tree
 from lightgbm_tpu_torch.ops import predict as P
 from lightgbm_tpu_torch.serve import (BucketedPredictor, StackedForest,
@@ -386,11 +387,12 @@ def test_text_loaded_booster_asks_for_the_card(shared):
 
 
 def test_what_does_not_stack_raises_naming_its_item(shared):
-    """The LUT-node encoding and categorical nodes stack now (their
-    parity is in ``tests/test_torch_efb.py``); what still cannot stack
-    raises: average_output (item 16), linear leaves (item 15), and a
-    feature that no single quantizer can serve (``ValueError``, the
-    caller's cue for the host walk)."""
+    """The LUT-node encoding, categorical nodes and linear leaves stack
+    now (their parity is in ``tests/test_torch_efb.py`` and
+    ``tests/test_torch_forced_linear.py``); what still cannot stack
+    raises: average_output (item 16) and a feature that no single
+    quantizer can serve (``ValueError``, the caller's cue for the host
+    walk)."""
     X, ref, _, _ = shared
     trees = _carried(ref)
     lut = StackedForest(trees, 1, 6, lut=True)
@@ -411,9 +413,15 @@ def test_what_does_not_stack_raises_naming_its_item(shared):
     with pytest.raises(ValueError, match="numerical and categorical"):
         StackedForest(cat, 1, 6)
     lin = _carried(ref)
-    lin[0].is_linear = True
-    with pytest.raises(LightGBMError, match="item 15"):
-        StackedForest(lin, 1, 6)
+    rng = np.random.RandomState(3)
+    t = torch.from_numpy
+    fit_linear_leaves(lin[0], t(X), t(rng.randn(len(X))),
+                      t(rng.rand(len(X)) + 0.5),
+                      t(lin[0].predict_leaf_index(X)), 0.1)
+    assert any(lin[0].leaf_features[:lin[0].num_leaves])
+    host = sum(t.predict(X[:300]) for t in lin)
+    np.testing.assert_array_equal(StackedForest(lin, 1, 6).predict_raw(
+        X[:300]), host)
     mixed = _carried(ref)
     f = mixed[0].split_feature[0]
     t, j = next((t, j) for t in mixed[1:] for j in range(t.num_internal)

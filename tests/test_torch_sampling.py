@@ -122,11 +122,12 @@ def test_goss_warmup_and_refresh():
                                                   learning_rate=0.1)))
     assert port.warmup == ref.warmup == 10
     assert port.bagging(9, tg, th)[2] is None
-    # the rates take effect at the next draw, as upstream's
-    # ResetSampleConfig (the reference keeps its first ones)
+    # the rates keep their first values, as in the reference
     port.refresh_config(Config.from_params(dict(params, top_rate=0.4)))
-    assert (port.top_k, port.other_k) == (200, 50)
-    assert port.bagging(10, tg, th)[2].sum() >= 200
+    ref.refresh_config(RefConfig.from_params(dict(params, top_rate=0.4)))
+    assert (port.top_k, port.other_k) == (ref.top_k, ref.other_k) \
+        == (100, 50)
+    assert port.bagging(10, tg, th)[2].sum() >= 100
 
 
 @pytest.mark.parametrize("params,match", [
@@ -315,19 +316,38 @@ def test_whole_tree_equals_per_split_with_sampling():
 
 
 def test_reset_parameter_reaches_the_sampling():
-    """feature_fraction and extra_trees set between iterations take
-    effect at the next tree."""
+    """feature_fraction set between iterations takes effect at the next
+    tree; extra_trees, top_rate and other_rate keep their first values,
+    as in the reference: after one GOSS round and a reset, both
+    packages grow the same two trees (level b; the last one a GOSS
+    tree)."""
     X, y = _data()
-    bst = lgb.train(dict(BASE, device_type="cpu"), lgb.Dataset(X, label=y),
-                    num_boost_round=1)
-    bst.reset_parameter({"feature_fraction": 0.2, "extra_trees": True})
-    bst.update()
-    learner = bst.inner.learner
-    assert learner._extra_trees and learner._graph is None
+    params = dict(BASE, boosting="goss", learning_rate=0.5)
+    ref = ref_lgb.train(params, ref_lgb.Dataset(X, label=y),
+                        num_boost_round=1)
+    port = lgb.train(dict(params, device_type="cpu"),
+                     lgb.Dataset(X, label=y), num_boost_round=1)
+    for b in (ref, port):
+        b.reset_parameter({"feature_fraction": 0.2, "extra_trees": True,
+                           "top_rate": 0.3})
+        b.update()
+        b.update()
+    learner = port.inner.learner
+    assert not learner._extra_trees and learner._graph is None
+    goss = port.inner.sample_strategy
+    assert (goss.top_k, goss.other_k, goss.warmup) == \
+        (ref.inner.sample_strategy.top_k, ref.inner.sample_strategy.other_k,
+         2)
     mask = learner.feature_mask.numpy()
     assert mask.sum() == 2
-    last = bst.inner.models[-1]
+    last = port.inner.models[-1]
     assert mask[last.split_feature_inner[:last.num_internal]].all()
+    assert len(ref.inner.models) == len(port.inner.models) == 3
+    for i, (a, b) in enumerate(zip(ref.inner.models, port.inner.models)):
+        assert _splits(a) == _splits(b), "tree %d differs" % i
+        np.testing.assert_allclose(b.leaf_value[:b.num_leaves],
+                                   a.leaf_value[:a.num_leaves],
+                                   rtol=1e-4, atol=1e-6)
 
 
 # ----------------------------------------------------------------------
@@ -352,6 +372,21 @@ CONFIG_CASES = [
     {"cegb_tradeoff": 0.5, "cegb_penalty_split": 0.1},
     {"cegb_penalty_feature_coupled": [1.0, 2.0],
      "cegb_penalty_feature_lazy": "0.5,0.25"},
+    {"monotone_constraints": [1, -1, 0]},
+    {"mc": "1,0,-1"},
+    {"monotone_constraint": [0, 1]},
+    {"monotonic_cst": "-1,1"},
+    {"monotone_constraints_method": "intermediate"},
+    {"monotone_constraining_method": "advanced"},
+    {"monotone_constraints_method": "precise"},
+    {"monotone_penalty": 2.0},
+    {"ms_penalty": 1.5},
+    {"monotone_splits_penalty": 0.5},
+    {"forcedsplits_filename": "forced.json"},
+    {"fs": "splits.json"},
+    {"forced_splits": "a.json"},
+    {"linear_tree": True, "linear_lambda": 0.1},
+    {"linear_trees": "true"},
 ]
 
 
