@@ -8,21 +8,28 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases (each one fails the run if it fails):
 1. print the card and its power limit; build every CUDA kernel of the
    port from ``lightgbm_tpu_torch/csrc`` (one ``nvcc`` per source, all
-   started together) and print the build seconds; count each kernel's
-   atomic instructions in its SASS and fail if the f32 instance holds a
-   compare-and-swap;
-2. hold every kernel instance (f32, int8 -> int32, int16 -> int32)
-   against its plain PyTorch version on the card: random rows with and
+   started together: ``histogram.cu`` for uint8 bins and
+   ``histogram_u16.cu`` for uint16 bins) and print the build seconds;
+   count each kernel's atomic instructions in its SASS and fail if a
+   float instance (f32 or f64 sums) holds a compare-and-swap;
+2. hold every kernel instance (f32, f32 rows into f64 sums rounded once
+   to f32, int8 -> int32, int16 -> int32; over uint8 and over uint16
+   bins) against its plain PyTorch version on the card: random rows with and
    without row-index lists (of half the rows, 1, 31, 1000 and 100k
    rows), every row in one bin of every feature, Fp = 8, 40 and 64
    beside 32, Fp = 56 and 136 at the root shapes of phase 9 unbundled
    and phase 10, and bundle columns (Gp = 16 at Bg = 256, phase 9's
    shape, and at Bg = 72), with children of 1, 1000 and 100k rows; two
-   f32 calls on the same inputs must give the same bytes; the
-   device-count entry (row count read from device memory) must give the
-   host-count launch's bytes for every instance at n = 0, 1, 1023,
-   1024, 1025, 10k, 100k, 1M and all rows, at Fp = 32 and 136 and at the
-   bundle shape Gp = 16, Bg = 72;
+   f32 calls on the same inputs must give the same bytes (two f64 calls
+   too); the f64 sums must be the plain f64 sums rounded once (a value
+   may round the other way only at a rounding midpoint); the uint16
+   instances likewise at B = 512 (Fp 40), 1024 (Fp 32 and 136) and 4096
+   (Fp 8), with every row in one bin and every row in the last 256-bin
+   slab; the device-count entry (row count read from device memory)
+   must give the host-count launch's bytes for every instance at n = 0,
+   1, 1023, 1024, 1025, 10k, 100k, 1M and all rows, at Fp = 32 and 136
+   and at the bundle shape Gp = 16, Bg = 72, and over uint16 bins at
+   B = 1024 and 4096;
 3. train the binary slice at a small size on ``cuda`` and on ``cpu`` and
    compare the first tree and the held-out AUC;
 4. train the full-size slice (10.5M Higgs-shaped rows x 28 features,
@@ -31,23 +38,24 @@ Phases (each one fails the run if it fails):
    predict a 500k held-out set, and check that every histogram went
    through the kernel (its device counter == roots + split steps, and
    steps >= splits); print ms per split, host syncs per tree, capture
-   ms, replays per tree and peak memory; a second run of 2 rounds with
-   the per-split loop (``tpu_fused_tree=false``) must give the same two
+   ms, replays per tree and peak memory; a second run of 1 round with
+   the per-split loop (``tpu_fused_tree=false``) must give the same
    trees, text for text (the two loops agree, and f32 histograms and
    scans are deterministic);
 5. time every kernel at the main path's root shape, and with row-index
    lists of 10k, 100k and 1M rows (L2 flushed), against its plain
    version, one library call and its memory bound, and its device-count
-   entry at the same sizes; time a split scan with its prefix sums in
-   the reference's order and with a cumsum;
+   entry at the same sizes (the uint16 instances over phase 16's bins);
+   time a split scan with its prefix sums in the reference's order and
+   with a cumsum;
 6. draw the quantized-gradient rows (threefry ``uniform`` and
    ``quantize_gh``) at 10.5M rows on the card and on the CPU from the
    same inputs: they must be byte-equal;
 7. train the full-size data of phase 4 with quantized gradients
    (``quant_grad_bits=8``, 5 rounds): every histogram must go through the
    int8 instance (launches == roots + steps, no f32 launch), the
-   held-out AUC must pass 0.7, and a per-split rerun of 2 rounds must
-   give the same two trees, text for text;
+   held-out AUC must pass 0.7, and a per-split rerun of 1 round must
+   give the same tree, text for text;
 8. train 200k rows with ``quant_grad_bits=16`` and bagging on ``cuda``
    and on ``cpu``: tree 1 must make the same splits, through the int16
    instance on the card;
@@ -57,7 +65,7 @@ Phases (each one fails the run if it fails):
    over the bundle columns; held-out multi_logloss falls every round,
    multi_error ends below the majority class's 0.512, the device
    validation scores equal the host walk within 1e-4, f32 launches ==
-   roots + steps over the 35 trees; a 2-round per-split rerun is
+   roots + steps over the 35 trees; a 1-round per-split rerun is
    text-equal; a 2-round unbundled f32 run reaches the held-out loss
    within 1e-4 (its prediction gap and structure-equal trees printed);
    on the same gradients the bundled learner's histograms of the root
@@ -68,20 +76,20 @@ Phases (each one fails the run if it fails):
    the same rows as a scipy CSR matrix bin to the same bytes and train
    2 text-equal rounds; the LUT-node encoding of the stacked forest
    gives the compare encoding's and the host walk's leaves and bytes
-   (ms per bucket for both); 2 rounds at 8 bits go through the int8
+   (ms per bucket for both); 1 round at 8 bits goes through the int8
    instance only and equal an unbundled 8-bit run text for text, and
    an 8-bit tree 1 at 50k rows is the same on cuda and cpu; softmax
    gradient ms and memory;
 10. lambdarank at MSLR-WEB30K's shape (2,270,296 rows x 136 in 18,919
    queries of at most 1,251 docs, synthetic from a seed; 255 leaves,
    min_data_in_leaf 100, ndcg@1,3,5 on 2,000 held-out queries, 5
-   rounds): ndcg@5 rises, launches == roots + steps, a 2-round
+   rounds): ndcg@5 rises, launches == roots + steps, a 1-round
    per-split rerun is text-equal; the gradient stage's ms and memory;
-   then a whole-tree and a per-split 2-round rank_xendcg run must give
+   then a whole-tree and a per-split 1-round rank_xendcg run must give
    the same trees;
 11. every other objective (l1, huber, fair, quantile, mape, poisson,
    gamma, tweedie, cross_entropy, cross_entropy_lambda, multiclassova)
-   on phase 3's rows, 63 leaves, 3 rounds, cuda vs cpu: tree 1 the same
+   on phase 3's rows, 63 leaves, 1 round, cuda vs cpu: tree 1 the same
    tree, renewed leaf values (l1, quantile, mape) equal; renewal ms;
 
 12. prediction through the stacked forest: train binary (255 leaves,
@@ -89,8 +97,9 @@ Phases (each one fails the run if it fails):
    predict the reference bench's batch (262,144 rows of
    ``make_higgs_like(seed=1)``) through ``Booster.predict`` in auto
    mode (it must dispatch the stacked path), ``predict_raw_device`` and
-   ``pred_leaf``, against the host walk: leaf ids equal, values and raw
-   scores byte-equal, the Kahan f32 sum within Kahan's bound of the f64
+   ``pred_leaf``, against the host walk: leaf ids equal (on the first
+   65,536 rows), values and raw scores byte-equal (on every row), the
+   Kahan f32 sum within Kahan's bound of the f64
    sum of the same f32 leaf values (2 f32 ulp of the sum of their
    magnitudes); a 4096-row f64 batch (the dd path)
    byte-equal; rows/s of the host walk, the stacked ``value`` path and
@@ -106,7 +115,7 @@ Phases (each one fails the run if it fails):
    columns: 12 columns, ``categorical_feature=[10, 11]``, 5 rounds):
    phase 9's checks, categorical nodes in the model text, the stacked
    path equal to the host walk on rows with NaN, negative and unseen
-   categories, a per-split rerun text-equal, 2 rounds with
+   categories, a 1-round per-split rerun text-equal, 1 round with
    ``max_cat_to_onehot: 8`` (wilderness one-hot on the card), an 8-bit
    tree 1 at 50k rows the same on cuda and cpu;
 
@@ -115,7 +124,7 @@ Phases (each one fails the run if it fails):
    a. ``feature_fraction 0.9`` + ``extra_trees``, 5 rounds, whole-tree
       loop: launches == roots + steps, held-out AUC > 0.7, every split
       feature of a tree inside that tree's mask, stacked predict == host
-      walk, a 2-round per-split rerun text-equal; ms per split beside
+      walk, a 1-round per-split rerun text-equal; ms per split beside
       phase 4's, and the kernels and ms of one replayed step with and
       without the extra_trees draws;
    b. GOSS at its default rates, 13 rounds (warm-up 10): each GOSS
@@ -141,7 +150,7 @@ Phases (each one fails the run if it fails):
    a. the basic method, 5 rounds through the captured whole-tree step:
       launches == roots + steps, held-out predictions exactly monotone
       along a 64-point grid of each constrained column (stacked path), a
-      2-round per-split rerun text-equal;
+      1-round per-split rerun text-equal;
    b. the intermediate method, 2 rounds, and the advanced method, 1
       round (the host-tracked per-split loop): AUC >= basic's after as
       many rounds - 0.002, the grid check, ms and syncs per split,
@@ -149,7 +158,7 @@ Phases (each one fails the run if it fails):
    c. monotone_penalty 2.0: no constrained column at depth 0 or 1;
    d. three forced nodes (the root on column 0, its children on 1 and
       2), 3 rounds in f32 and in 8-bit: every tree starts with them, and
-      2-round per-split reruns are text-equal;
+      1-round per-split reruns are text-equal;
    e. linear trees (linear_lambda 0.1) on the first 2,097,152 training
       rows, 3 rounds: the fit's ms per tree, stacked predict == the host
       f64 walk, ``raw_device`` within Kahan's bound of its own terms and
@@ -160,18 +169,40 @@ Phases (each one fails the run if it fails):
    the same tree, and the card's linear fit, run again on the CPU from
    the same inputs, within rtol 1e-9;
 
+16. wide bins: phase 4's rows binned again at max_bin 1023 (uint16
+   bins, B = 1024, 255 leaves, min_data_in_leaf 100, lr 0.1): f32 for 5
+   rounds through the uint16 f32 instance only (held-out AUC > 0.7 and
+   equal to the device scores', stacked predict == host walk, a 2-round
+   per-split rerun text-equal; ms per split beside phase 4's), 8-bit for
+   3 rounds and 16-bit for 2 through their uint16 instances, tree 1 at
+   200k rows the same on cuda and cpu;
+17. f64 histogram sums (``tpu_use_f64_hist``): phase 4's Dataset for 3
+   rounds and phase 16's for 2, through the f64 instances; then phase
+   9's Covertype rows bundled and unbundled for 2 rounds each, and
+   whether their predictions hold the reference's bundle contract
+   (rtol 1e-4) is reported (phase 9 reports the f32 pair);
+18. DART (drop_rate 0.1, skip_drop 0) and random forest (bagging 0.632
+   every round, feature_fraction 0.9) for 5 rounds each on phase 4's
+   Dataset: DART's drop sets and tree weights the same on cuda and on a
+   CPU run, ``average_output`` in the RF text, both predicting through
+   the stacked path == the host walk; then ``Booster.refit`` of phase
+   12's model's first 20 iterations on 200k fresh rows on cuda and cpu,
+   leaf values within 1e-5;
+
 then time every instance over the learners' real bins of phases 9 (the
 bundle columns at Bg), 13 and 10, and print one ``{"kernels": [...]}``
 line with the launches of each kernel on each path that runs it, as its
 device counter counted them (graph replays included;
 ``launches_by_path``; f32: phases 3, 4, 9, 10, 11, 12, 13, 14a, 14b,
-14d, 14e, 15a-e; int8: phases 7, 9, 14c, 15d; int16: phase 8).
+14d, 14e, 15a-e, 18; int8: phases 7, 9, 14c, 15d; int16: phase 8;
+f64: phase 17; the uint16 instances: phase 16, and f64 phase 17); each
+instance must have been timed and launched by some path.
 Prediction launches
 no hand kernel: the stacked walk is PyTorch ops (the reference's is
 ``jnp``), so it has no row in that line.
 
-Phases 3, 4, 7-11, 13, 14a-c, 15a and 15c-e train through the default
-whole-tree loop (14d, 14e and 15b through the per-split loop, which
+Phases 3, 4, 7-11, 13, 14a-c, 15a, 15c-e and 16-18 train through the
+default whole-tree loop (14d, 14e and 15b through the per-split loop, which
 per-node masks, CEGB and the intermediate and advanced monotone methods
 take); every per-split (``tpu_fused_tree=false``) rerun must give its
 whole-tree run's trees.
@@ -189,6 +220,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -201,6 +233,9 @@ F32_OPS_PER_S = 67e12           # H100 SXM float32 rate outside tensor cores
 INT8_OPS_PER_S = 1979e12        # H100 SXM int8 rate (the table's int8 row;
 #                                 the published table has no other
 #                                 integer row, so int16 rows use it too)
+F64_OPS_PER_S = 34e12           # H100 SXM float64 rate outside tensor cores
+#                                 (NVIDIA's H100 data sheet; the f64 adds
+#                                 of the f64-sum instances)
 
 # tolerance of the f32 kernel against an f64 plain sum: the kernel adds
 # f32 values in a fixed order of its own (lanes, rows, blocks), not the
@@ -212,6 +247,12 @@ INT8_OPS_PER_S = 1979e12        # H100 SXM int8 rate (the table's int8 row;
 # The count channels are sums of 0/1 below 2^24, exact in any order,
 # and must match exactly.
 REL_TOL = 1e-5
+
+#: rounds of each per-split (``tpu_fused_tree=false``) rerun that must
+#: give its whole-tree run's trees: one tree holds the two loops to the
+#: same splits, and the script stays inside its time (14c keeps 3, its
+#: first GOSS tree; phase 16, the wide bins' own path, 2)
+RERUN_ROUNDS = 1
 
 FULL_ROWS = 10_500_000
 HELD_OUT_ROWS = 500_000
@@ -310,10 +351,12 @@ def phase_device_and_build(csrc):
 
 def log_atomics(csrc, lib_path: str) -> None:
     """Count the atomic instructions of each kernel in a built library's
-    SASS, and fail if a function of the f32 instance (mangled template
-    arguments ``<float, float>`` / ``<float>``) holds a compare-and-swap
-    atomic (``ATOMS.CAS*``, ``ATOMS.CAST.SPIN``: the loop an f32 add in
-    shared memory compiles to on this card)."""
+    SASS, and fail if a function of a float instance (mangled template
+    arguments ``<float, float, float, ...>``, ``<float, double, float,
+    ...>`` and the sums ``<float, float>``, ``<double, float>``) holds a
+    compare-and-swap atomic (``ATOMS.CAS*``, ``ATOMS.CAST.SPIN``: the
+    loop a float add in shared memory compiles to on this card), or if
+    the library has no float instance to check."""
     cuobjdump = os.path.join(os.path.dirname(csrc._nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
         log("cuobjdump not found; atomic instructions not counted")
@@ -331,15 +374,20 @@ def log_atomics(csrc, lib_path: str) -> None:
             if fn is not None and tok.startswith(("ATOM", "RED")):
                 counts[fn][tok] = counts[fn].get(tok, 0) + 1
     check(bool(counts), "no kernel function in the SASS of %s" % lib_path)
+    floats = 0
     for fn, c in sorted(counts.items()):
         log("atomic instructions in %s: %s" % (fn, json.dumps(c,
                                                              sort_keys=True)))
-        if "IffE" in fn or "IfE" in fn:
+        if re.search(r"hist_(rows|sum)_kernelI(ff|fdf|df)", fn):
+            floats += 1
             check(not any(".CAS" in t for t in c),
-                  "the f32 instance %s still holds a CAS atomic: %s"
+                  "the float instance %s still holds a CAS atomic: %s"
                   % (fn, c))
-    log("no compare-and-swap atomic in the f32 instance (%d functions)"
-        % len(counts))
+    check(floats > 0, "no float instance found in the SASS of %s"
+          % lib_path)
+    log("no compare-and-swap atomic in the %d functions of the float "
+        "instances (f32 and f64 sums; %d functions in all)"
+        % (floats, len(counts)))
 
 
 # ---------------------------------------------------------------------------
@@ -384,12 +432,18 @@ def cuda_ms_cold(fn, reps: int = 10, warm: int = 1) -> float:
 # ---------------------------------------------------------------------------
 # phase 2: every kernel against its plain version
 # ---------------------------------------------------------------------------
-def make_hist_inputs(S: int, Fp: int, B: int, seed: int):
+def make_hist_inputs(S: int, Fp: int, B: int, seed: int, low: int = 0):
+    """Random rows: bins in [low, B) (uint16 when B > 256, the wide
+    bins' dtype), f32 gh with a bag, int8 rows and int16 rows as large
+    as the int32 accumulator allows at S rows, and a sorted list of half
+    the rows."""
     import torch
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    bins = torch.randint(0, B, (S, Fp), generator=g, device="cuda",
-                         dtype=torch.int32).to(torch.uint8)
+    bins = torch.randint(low, B, (S, Fp), generator=g, device="cuda",
+                         dtype=torch.int32)
+    bins = (bins.to(torch.int16).view(torch.uint16) if B > 256
+            else bins.to(torch.uint8))
     bag = (torch.rand(S, generator=g, device="cuda") < 0.8).float()
     gh = torch.stack([torch.randn(S, generator=g, device="cuda") * bag,
                       torch.rand(S, generator=g, device="cuda") * bag,
@@ -440,6 +494,39 @@ def compare_int(hist_mod, bins, gh_int, B, idx):
           "%s histogram is not byte-equal to its plain version (idx=%s)"
           % (gh_int.dtype, idx is not None))
     return 0.0
+
+
+def compare_f64(hist_mod, bins, gh, B, idx):
+    """The f64-sum instance (f32 rows, f64 adds, one rounding to f32)
+    against the plain version's f64 sum over the same rows: every value
+    must be that sum rounded to f32, except where the f64 sum lies so
+    close to the midpoint of two f32 values that two f64 orders may round
+    it to either neighbour: within 1e-11 of the sum of |x| over the bin's
+    rows (an f64 sum in any order is within n eps64 sum|x| of the exact
+    one; eps64 = 1.1e-16). Returns (max abs error against the f64 sum,
+    values off the plain version's rounding)."""
+    import torch
+    got = hist_mod.build_histogram(bins, gh, B, idx, f64=True)
+    torch.cuda.synchronize()
+    ref = hist_mod.histogram_plain(bins, gh.double(), B, idx)
+    check(got.dtype == torch.float32, "the f64 instance returned %s"
+          % got.dtype)
+    off = got != ref.float()
+    if bool(off.any()):
+        a, r = got[off].double(), ref[off]
+        hi = torch.nextafter(a.float(), torch.full_like(a.float(),
+                                                        float("inf")))
+        lo = torch.nextafter(a.float(), torch.full_like(a.float(),
+                                                        float("-inf")))
+        other = torch.where(r > a, hi, lo).double()
+        mid = (a + other) / 2
+        mag = hist_mod.histogram_plain(bins, gh.double().abs(), B, idx)
+        near = (r - mid).abs() <= 1e-11 * mag[off]
+        check(bool(near.all()),
+              "f64 histogram is not the rounded f64 sum: %d values off, "
+              "not at a rounding midpoint (idx=%s)"
+              % (int((~near).sum()), idx is not None))
+    return float((got.double() - ref).abs().max()), int(off.sum())
 
 
 def sub_index(S: int, n: int, seed: int):
@@ -496,24 +583,76 @@ def phase_kernels(hist_mod):
                    wgh8, wgh16, bg, sub_index(rows, n, seed=n + bg))
                   for n in (1, 1000, 100_000)]
     errs = dict.fromkeys(hist_mod.launch_counts, 0.0)
+    check_cases(hist_mod, cases, errs, "")
+    return errs
+
+
+def check_cases(hist_mod, cases, errs, prefix):
+    """Every instance of one bin dtype (``prefix`` "" for uint8, "u16_"
+    for uint16) on each case against its plain version: f32 within
+    REL_TOL x sum|x| per bin (counts exact), the f64 sums rounded once
+    (:func:`compare_f64`), int8 and int16 byte-equal; then two f32 and
+    two f64 calls on the first, second and seventh case byte-equal."""
+    import torch
     for label, cb, cgh, cgh8, cgh16, cB, cidx in cases:
         e = compare_f32(hist_mod, cb, cgh, cB, cidx)
-        errs["histogram_f32"] = max(errs["histogram_f32"], e)
+        errs["histogram_%sf32" % prefix] = max(
+            errs["histogram_%sf32" % prefix], e)
+        e64, off = compare_f64(hist_mod, cb, cgh, cB, cidx)
+        errs["histogram_%sf64" % prefix] = max(
+            errs["histogram_%sf64" % prefix], e64)
         compare_int(hist_mod, cb, cgh8, cB, cidx)
         compare_int(hist_mod, cb, cgh16, cB, cidx)
-        log("kernel check [%s] S=%d Fp=%d B=%d C=4: f32 max_abs_err %.3g "
-            "(tol %.0e x sum|x| per bin, counts exact), int8 and int16 "
-            "byte-equal" % (label, cb.shape[0] if cidx is None
+        log("kernel check [%s] %s S=%d Fp=%d B=%d C=4: f32 max_abs_err "
+            "%.3g (tol %.0e x sum|x| per bin, counts exact); f64 sums "
+            "rounded once, max_abs_err %.3g against the f64 sum, %d values "
+            "off the plain rounding at a midpoint; int8 and int16 "
+            "byte-equal" % (label, cb.dtype, cb.shape[0] if cidx is None
                             else cidx.shape[0], cb.shape[1], cB, e,
-                            REL_TOL))
+                            REL_TOL, e64, off))
     for label, cb, cgh, _, _, cB, cidx in (cases[0], cases[1], cases[6]):
-        first = hist_mod.build_histogram(cb, cgh, cB, cidx)
-        second = hist_mod.build_histogram(cb, cgh, cB, cidx)
-        check(torch.equal(first.view(torch.int32), second.view(torch.int32)),
-              "two f32 calls on the same inputs differ [%s]" % label)
-    log("f32 determinism: two calls on the same inputs byte-equal [random, "
-        "random idx S/2, one bin]")
-    return errs
+        for f64 in (False, True):
+            first = hist_mod.build_histogram(cb, cgh, cB, cidx, f64=f64)
+            second = hist_mod.build_histogram(cb, cgh, cB, cidx, f64=f64)
+            check(torch.equal(first.view(torch.int32),
+                              second.view(torch.int32)),
+                  "two %s calls on the same inputs differ [%s]"
+                  % ("f64" if f64 else "f32", label))
+    log("f32 and f64 determinism (%s bins): two calls on the same inputs "
+        "byte-equal [%s]" % (cases[0][1].dtype, ", ".join(
+            c[0] for c in (cases[0], cases[1], cases[6]))))
+
+
+#: wide bins: (B, Fp, seed) of the uint16 checks; B = 1024 at Fp = 32 is
+#: phase 16's learner shape (max_bin 1023)
+WIDE_SHAPES = ((512, 40, 31), (1024, 32, 32), (1024, 136, 33),
+               (4096, 8, 34))
+
+
+def phase_wide_kernels(hist_mod, errs):
+    """The uint16 build of every instance (f32, f64, int8, int16) at
+    B = 512, 1024 and 4096 against its plain version: random rows, all
+    rows and row-index lists of half the rows, 1, 31, 1000 and 100k
+    rows, every row in one bin, every row in the last 256-bin slab, at
+    Fp = 8, 32, 40 and 136; two f32 and two f64 calls byte-equal. Adds
+    to ``errs``."""
+    import torch
+    S = 1 << 20
+    for B, fp, seed in WIDE_SHAPES:
+        bins, gh, gh8, gh16, idx = make_hist_inputs(S, fp, B, seed)
+        last = make_hist_inputs(S, fp, B, seed + 100, low=B - 256)[0]
+        hot = torch.full_like(bins.view(torch.int16), B - 1).view(
+            torch.uint16)
+        cases = [("random", bins, gh, gh8, gh16, B, None),
+                 ("random, idx S/2", bins, gh, gh8, gh16, B, idx)]
+        cases += [("random, idx %d" % n, bins, gh, gh8, gh16, B,
+                   sub_index(S, n, seed=n + B)) for n in (1, 31, 1000,
+                                                          100_000)]
+        cases += [("one bin", hot, gh, gh8, gh16, B, None),
+                  ("last slab", last, gh, gh8, gh16, B, None),
+                  ("last slab, idx S/2", last, gh, gh8, gh16, B, idx)]
+        check_cases(hist_mod, cases, errs, "u16_")
+        del bins, gh, gh8, gh16, idx, last, hot, cases
 
 
 def count_buffer(idx, S: int):
@@ -535,30 +674,39 @@ def phase_device_count_entry(hist_mod):
     launch over the same sorted row list: byte-equal at every n of
     ``DEVICE_COUNT_ROWS`` and all rows, at Fp = 32 (one feature group,
     132 row blocks at most), Fp = 136 (five groups, 26 row blocks) and
-    the bundle shape Gp = 16 at Bg = 72 bins; n = 0 must give zeros."""
+    the bundle shape Gp = 16 at Bg = 72 bins over uint8 bins, and over
+    uint16 bins at B = 1024 (Fp = 32: 4 groups) and B = 4096 (Fp = 8);
+    n = 0 must give zeros."""
     import torch
     S = 1 << 20
     checked = 0
-    for Fp, B, seed in ((32, 256, 13), (136, 256, 14), (16, 72, 15)):
+    for Fp, B, seed in ((32, 256, 13), (136, 256, 14), (16, 72, 15),
+                        (32, 1024, 16), (8, 4096, 17)):
         bins, gh, gh8, gh16, _ = make_hist_inputs(S, Fp, B, seed=seed)
         for n in DEVICE_COUNT_ROWS + (S,):
             idx = sub_index(S, n, seed=n + Fp) if n < S else torch.arange(
                 S, dtype=torch.int32, device="cuda")
             buf, count = count_buffer(idx, S)
-            for rows in (gh, gh8, gh16):
-                got = hist_mod.build_histogram(bins, rows, B, buf, count)
-                want = hist_mod.build_histogram(bins, rows, B, idx)
+            for rows, f64 in ((gh, False), (gh, True), (gh8, False),
+                              (gh16, False)):
+                got = hist_mod.build_histogram(bins, rows, B, buf, count,
+                                               f64=f64)
+                want = hist_mod.build_histogram(bins, rows, B, idx,
+                                                f64=f64)
                 torch.cuda.synchronize()
                 check(torch.equal(got.view(torch.int32),
                                   want.view(torch.int32)),
-                      "device-count entry (%s, Fp=%d, B=%d, n=%d) differs "
-                      "from the host-count launch" % (rows.dtype, Fp, B, n))
+                      "device-count entry (%s%s, %s bins, Fp=%d, B=%d, "
+                      "n=%d) differs from the host-count launch"
+                      % (rows.dtype, " f64 sums" if f64 else "",
+                         bins.dtype, Fp, B, n))
                 check(n > 0 or not got.any(),
                       "device-count entry with no rows is not zero")
                 checked += 1
     log("device-count entry: byte-equal to the host-count launch in %d "
-        "cases (f32, int8, int16; Fp 32 and 136 at B 256, the bundle "
-        "shape Gp 16 at Bg 72; n = %s and all %d rows)"
+        "cases (f32, f64 sums, int8, int16; uint8 bins at Fp 32 and 136 "
+        "at B 256 and the bundle shape Gp 16 at Bg 72, uint16 bins at Fp "
+        "32, B 1024 and Fp 8, B 4096; n = %s and all %d rows)"
         % (checked, ", ".join(str(n) for n in DEVICE_COUNT_ROWS), S))
 
 
@@ -566,44 +714,52 @@ def phase_device_count_entry(hist_mod):
 # phase 5: timing at the main path's root shape and at child sizes
 # ---------------------------------------------------------------------------
 def hist_bound_ms(S: int, Fp: int, B: int, C: int, gh_bytes: int,
-                  with_idx: bool):
-    moved = S * Fp + S * C * gh_bytes + (4 * S if with_idx else 0) \
-        + Fp * B * C * 4
+                  with_idx: bool, bin_bytes: int = 1, f64: bool = False):
+    """The least time of one histogram call: its bytes once (bins, gh,
+    the row list, the output) at the card's memory rate, or its adds at
+    the rate of their type (f32, f64 for the f64 sums, int8 for the
+    integer rows), whichever is larger."""
+    moved = S * Fp * bin_bytes + S * C * gh_bytes \
+        + (4 * S if with_idx else 0) + Fp * B * C * 4
     ops = S * Fp * C
-    rate = F32_OPS_PER_S if gh_bytes == 4 else INT8_OPS_PER_S
+    rate = (F64_OPS_PER_S if f64 else F32_OPS_PER_S) if gh_bytes == 4 \
+        else INT8_OPS_PER_S
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
-def time_histogram(hist_mod, bins, gh, B, name, idx=None):
+def time_histogram(hist_mod, bins, gh, B, name, idx=None, f64=False):
     """Kernel, plain and ``index_add_`` ms and the bound of one call:
     all rows (warm repeats; 336 MB of bins exceed the L2 anyway), or a
-    child's row-index list with the L2 flushed before each call."""
+    child's row-index list with the L2 flushed before each call. With
+    ``f64`` the f64-sum instance (and an f64 ``index_add_``)."""
     import torch
     Fp, C = bins.shape[1], gh.shape[1]
     S = bins.shape[0] if idx is None else idx.shape[0]
     timer = cuda_ms if idx is None else cuda_ms_cold
-    kernel_ms = timer(lambda: hist_mod.build_histogram(bins, gh, B, idx))
-    plain_ms = timer(lambda: hist_mod.histogram_plain(bins, gh, B, idx),
+    kernel_ms = timer(lambda: hist_mod.build_histogram(bins, gh, B, idx,
+                                                       f64=f64))
+    plain_ms = timer(lambda: hist_mod.histogram_plain(bins, gh, B, idx,
+                                                      f64=f64),
                      reps=3, warm=1)
-    acc = hist_mod.acc_dtype(gh.dtype)
-    rb, rg = (bins, gh) if idx is None else (bins[idx.long()],
-                                               gh[idx.long()])
+    acc = hist_mod.acc_dtype(gh.dtype, f64)
+    rg = gh if idx is None else gh[idx.long()]
     flat = (torch.arange(Fp, dtype=torch.int64, device="cuda")[None, :]
-            * B + rb.long()).reshape(-1)
+            * B + hist_mod.bin_values(bins, idx)).reshape(-1)
     vals = rg.to(acc)[:, None, :].expand(S, Fp, C).reshape(-1, C)
     out = torch.zeros(Fp * B, C, dtype=acc, device="cuda")
     library_ms = timer(lambda: out.index_add_(0, flat, vals), reps=3,
                        warm=1)
-    del flat, vals, out, rb, rg
+    del flat, vals, out, rg
     bound, by = hist_bound_ms(S, Fp, B, C, gh.element_size(),
-                              idx is not None)
-    log("%s at S=%d%s Fp=%d B=%d C=%d: kernel %.4f ms, plain %.4f ms, "
-        "index_add_ %.4f ms, bound %.4f ms (%s)"
+                              idx is not None, bins.element_size(), f64)
+    log("%s at S=%d%s Fp=%d B=%d C=%d (%s bins): kernel %.4f ms, plain "
+        "%.4f ms, index_add_ %.4f ms, bound %.4f ms (%s)"
         % (name, S, "" if idx is None else " (row-index list, L2 flushed)",
-           Fp, B, C, kernel_ms, plain_ms, library_ms, bound, by))
+           Fp, B, C, bins.dtype, kernel_ms, plain_ms, library_ms, bound,
+           by))
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound, bound_by=by)
 
@@ -627,42 +783,67 @@ def phase_timing(hist_mod, bins, B, errs):
                                 compare_f32(hist_mod, bins, gh, B, None))
     compare_int(hist_mod, bins, gh8, B, None)
     compare_int(hist_mod, bins, gh16, B, None)
+    e64, _ = compare_f64(hist_mod, bins, gh, B, None)
+    errs["histogram_f64"] = max(errs["histogram_f64"], e64)
     log("kernel check at the root shape S=%d: int8 and int16 (|q| <= %d) "
-        "byte-equal" % (S, q16))
-    # the int16 instance has no Pallas counterpart: the TPU package sends
-    # int16 rows through its einsum (_tile_histogram)
-    replaces = {"histogram_f32": "lightgbm_tpu/ops/histogram.py:223",
-                "histogram_i8": "lightgbm_tpu/ops/histogram.py:223",
-                "histogram_i16": "lightgbm_tpu/ops/histogram.py:202"}
+        "byte-equal, f64 sums rounded once (max_abs_err %.3g)"
+        % (S, q16, e64))
+    return time_instances(hist_mod, bins, B, gh, gh8, gh16, errs, "")
+
+
+#: the TPU function each instance replaces. The int16 and f64 instances
+#: have no Pallas counterpart: the TPU package sends int16 rows through
+#: its einsum (_tile_histogram) and f64 sums through its einsum and
+#: segment-sum path (build_histogram)
+REPLACES = {"f32": "lightgbm_tpu/ops/histogram.py:223",
+            "i8": "lightgbm_tpu/ops/histogram.py:223",
+            "i16": "lightgbm_tpu/ops/histogram.py:202",
+            "f64": "lightgbm_tpu/ops/histogram.py:387"}
+
+
+def time_instances(hist_mod, bins, B, gh, gh8, gh16, errs, prefix):
+    """One kernels-line row per instance of the bins' dtype (``prefix``
+    "" for uint8, "u16_" for uint16): its ms at the root shape beside its
+    bound, plain and ``index_add_`` times, at children of 10k, 100k and
+    1M rows (logged), and its device-count entry at the root list and
+    the children."""
+    import torch
+    S = bins.shape[0]
+    source = ("lightgbm_tpu_torch/csrc/histogram.cu" if not prefix else
+              "lightgbm_tpu_torch/csrc/histogram_u16.cu")
     rows = []
     children = [sub_index(S, n, seed=n) for n in (10_000, 100_000,
                                                    1_000_000)]
     everything = torch.arange(S, dtype=torch.int32, device="cuda")
-    for name, rows_gh in (("histogram_f32", gh), ("histogram_i8", gh8),
-                          ("histogram_i16", gh16)):
-        t = time_histogram(hist_mod, bins, rows_gh, B, name)
+    for tag, rows_gh, f64 in (("f32", gh, False), ("f64", gh, True),
+                              ("i8", gh8, False), ("i16", gh16, False)):
+        name = "histogram_" + prefix + tag
+        t = time_histogram(hist_mod, bins, rows_gh, B, name, f64=f64)
         rows.append(dict(
-            name=name, route="cuda",
-            source="lightgbm_tpu_torch/csrc/histogram.cu",
-            replaces=replaces[name], launches=0,
-            max_abs_err=errs[name], **t))
-        for idx in children:
-            time_histogram(hist_mod, bins, rows_gh, B, name, idx)
+            name=name, route="cuda", source=source, replaces=REPLACES[tag],
+            launches=0, max_abs_err=errs[name], bins=str(bins.dtype), B=B,
+            **t))
+        rows[-1]["children_ms"] = {
+            str(idx.shape[0]): time_histogram(hist_mod, bins, rows_gh, B,
+                                              name, idx, f64=f64)["ms"]
+            for idx in children}
         rows[-1]["device_count_ms"] = {
             str(idx.shape[0]): time_device_count(hist_mod, bins, rows_gh, B,
-                                                 name, idx)
+                                                 name, idx, f64=f64)
             for idx in [everything] + children}
     return rows
 
 
-def time_device_count(hist_mod, bins, gh, B, name, idx):
+def time_device_count(hist_mod, bins, gh, B, name, idx, f64=False):
     """ms of the device-count entry over ``idx`` (all rows: warm
     repeats; a child's list: L2 flushed before each call), beside the
     host-count launch over the same list."""
     buf, count = count_buffer(idx, bins.shape[0])
     timer = cuda_ms if idx.shape[0] == bins.shape[0] else cuda_ms_cold
-    ms = timer(lambda: hist_mod.build_histogram(bins, gh, B, buf, count))
-    host_ms = timer(lambda: hist_mod.build_histogram(bins, gh, B, idx))
+    ms = timer(lambda: hist_mod.build_histogram(bins, gh, B, buf, count,
+                                                f64=f64))
+    host_ms = timer(lambda: hist_mod.build_histogram(bins, gh, B, idx,
+                                                     f64=f64))
     log("%s device-count entry at n=%d (row-index list%s): %.4f ms; "
         "host-count launch over the same list %.4f ms"
         % (name, idx.shape[0], "" if idx.shape[0] == bins.shape[0]
@@ -734,12 +915,12 @@ def tree_splits(booster):
             for t in booster.inner.models]
 
 
-def phase_small(lgb, hist_mod, extra, kernel, auc_tol):
-    """Train at 200k rows on cuda and on cpu; tree 1 must make the same
-    splits, and the cuda run must go through ``kernel``. The held-out
-    AUCs must agree within ``auc_tol`` where that is given (f32 sums run
-    in another order on the card, so later trees may fork at
-    near-ties)."""
+def phase_small(lgb, hist_mod, extra, kernel, auc_tol, rounds=3):
+    """Train ``rounds`` rounds at 200k rows on cuda and on cpu; tree 1
+    must make the same splits, and the cuda run must go through
+    ``kernel``. The held-out AUCs must agree within ``auc_tol`` where
+    that is given (f32 sums run in another order on the card, so later
+    trees may fork at near-ties)."""
     X, y = make_higgs_like(SMALL_ROWS + 50_000, seed=7)
     Xt, yt, Xv, yv = X[:SMALL_ROWS], y[:SMALL_ROWS], X[SMALL_ROWS:], \
         y[SMALL_ROWS:]
@@ -754,7 +935,7 @@ def phase_small(lgb, hist_mod, extra, kernel, auc_tol):
         evals = {}
         hist_mod.reset_launch_counts()
         t0 = time.perf_counter()
-        bst = lgb.train(params, ds, num_boost_round=3,
+        bst = lgb.train(params, ds, num_boost_round=rounds,
                         valid_sets=[lgb.Dataset(Xv, label=yv, reference=ds)],
                         valid_names=["held_out"],
                         callbacks=[lgb.record_evaluation(evals)])
@@ -774,11 +955,11 @@ def phase_small(lgb, hist_mod, extra, kernel, auc_tol):
                                                       res["cpu"][1]))
     launches = res["cuda"][3]
     check(sum(res["cpu"][2].values()) == 0, "the cpu run launched a kernel")
-    log("small slice (%d rows, 63 leaves, 3 rounds, %s): tree 1 splits "
+    log("small slice (%d rows, 63 leaves, %d round(s), %s): tree 1 splits "
         "equal on cuda and cpu; held-out AUC cuda %.6f cpu %.6f; %d "
         "launches of %s on cuda"
-        % (SMALL_ROWS, json.dumps(extra), res["cuda"][1], res["cpu"][1],
-           launches[kernel], kernel))
+        % (SMALL_ROWS, rounds, json.dumps(extra), res["cuda"][1],
+           res["cpu"][1], launches[kernel], kernel))
     return launches
 
 
@@ -842,7 +1023,7 @@ class _EventTimer:
         return sum(self.each_ms())
 
 
-def hist_rows(bins, gh, num_bins, idx=None, count=None):
+def hist_rows(bins, gh, num_bins, idx=None, count=None, f64=False):
     """Rows summed by one ``build_histogram`` call; a count on the
     device is kept as a copy (no host read in the call) and read after
     the run."""
@@ -1130,7 +1311,8 @@ def check_predict(bst, data, device_auc):
     return a
 
 
-def check_rerun(lgb, hist_mod, data, extra, kernel, bst, what, rounds=2):
+def check_rerun(lgb, hist_mod, data, extra, kernel, bst, what,
+                rounds=RERUN_ROUNDS):
     """A second run of ``rounds`` rounds through the per-split loop must
     give the first (whole-tree) run's first trees, text for text."""
     again, _, _, _, _ = train_full(lgb, hist_mod, data,
@@ -1140,12 +1322,12 @@ def check_rerun(lgb, hist_mod, data, extra, kernel, bst, what, rounds=2):
     second = [t.to_string() for t in again.inner.models]
     check(first == second, "a per-split %s run gave other trees than the "
           "whole-tree run" % what)
-    log("%s per-split rerun (%d rounds): the first %d trees text-equal to "
-        "the whole-tree run's" % (what, rounds, rounds))
+    log("%s per-split rerun (%d round(s)): the first %d tree(s) text-equal "
+        "to the whole-tree run's" % (what, rounds, rounds))
 
 
 def phase_full(lgb, hist_mod, data):
-    """The main path at full size (f32 gradients), and a 2-round rerun
+    """The main path at full size (f32 gradients), and a 1-round rerun
     that must give the same trees (the f32 histograms and scans are
     deterministic); returns (booster, launches, held-out AUC)."""
     bst, launches, aucs, _, _ = train_full(lgb, hist_mod, data, {},
@@ -1209,7 +1391,7 @@ def phase_quantize():
 # ---------------------------------------------------------------------------
 def phase_full_quantized(lgb, hist_mod, data, f32_auc):
     """Quantized-gradient training (8 bits) on the data of phase 4; a
-    second run of 2 rounds must give the same first two trees."""
+    per-split rerun of 1 round must give the same first tree."""
     extra = {"use_quantized_grad": True, "quant_grad_bits": 8}
     bst, launches, aucs, per_iter, quant_ms = train_full(
         lgb, hist_mod, data, extra, "histogram_i8")
@@ -1387,16 +1569,17 @@ def phase_covertype(lgb, hist_mod):
     log("phase 9 covertype bundled: G = %d (Gp = %d) bundle columns at "
         "Bg = %d bins, against Fp = %d features at B = %d"
         % (lay.num_groups, learner.Gp, learner.Bg, learner.Fp, learner.B))
+    R = RERUN_ROUNDS
     again = train_path(lgb, hist_mod, ds, valid,
                        dict(params, tpu_fused_tree=False), "histogram_f32",
-                       2, tag="covertype bundled per-split rerun")[
+                       R, tag="covertype bundled per-split rerun")[
         "booster"]
-    check([t.to_string() for t in bst.inner.models[:14]]
+    check([t.to_string() for t in bst.inner.models[:7 * R]]
           == [t.to_string() for t in again.inner.models],
           "a per-split covertype run gave other trees than the whole-tree "
           "run")
-    log("covertype per-split rerun (2 rounds): all 14 trees text-equal to "
-        "the whole-tree run's")
+    log("covertype per-split rerun (%d round(s)): all %d trees text-equal "
+        "to the whole-tree run's" % (R, 7 * R))
     del again
     launches = {"phase9_covertype_bundled": run["launches"]["histogram_f32"]}
     # unbundled, 2 rounds, against the reference's contract for bundles
@@ -1443,33 +1626,34 @@ def phase_covertype(lgb, hist_mod):
     check(dss.handle.bins.tobytes() == ds.handle.bins.tobytes(),
           "CSR bins differ from the dense bundled bins")
     sparse = train_path(lgb, hist_mod, dss, valids, params, "histogram_f32",
-                        2, tag="covertype CSR 2 rounds")["booster"]
-    check([t.to_string() for t in bst.inner.models[:14]]
+                        R, tag="covertype CSR")["booster"]
+    check([t.to_string() for t in bst.inner.models[:7 * R]]
           == [t.to_string() for t in sparse.inner.models],
           "CSR covertype run gave other trees than the dense run")
     log("covertype as a CSR matrix (%d stored values): bins byte-equal to "
-        "the dense bundled bins (built in %.1f s); 2 rounds text-equal to "
-        "the dense run's" % (Xs.nnz, t_sparse))
+        "the dense bundled bins (built in %.1f s); %d round(s) text-equal "
+        "to the dense run's" % (Xs.nnz, t_sparse, R))
     del sparse, dss, valids, Xs
     time_lut_encoding(bst, Xv, "phase 9 covertype bundled")
     bins = (learner.bins, learner.Bg)
     del bst, learner
     q8 = dict(params, use_quantized_grad=True, quant_grad_bits=8)
-    qrun = train_path(lgb, hist_mod, ds, valid, q8, "histogram_i8", 2,
+    qrun = train_path(lgb, hist_mod, ds, valid, q8, "histogram_i8", R,
                       tag="covertype multiclass bundled 8-bit")
     launches["phase9_covertype_bundled_8bit"] = \
         qrun["launches"]["histogram_i8"]
     qplain = train_path(lgb, hist_mod, ds0, valid0,
-                        dict(q8, enable_bundle=False), "histogram_i8", 2,
+                        dict(q8, enable_bundle=False), "histogram_i8", R,
                         tag="covertype multiclass unbundled 8-bit")
     check([t.to_string() for t in qrun["booster"].inner.models]
           == [t.to_string() for t in qplain["booster"].inner.models],
           "8-bit bundled and unbundled covertype runs gave other trees")
-    log("covertype 8-bit: bundled and unbundled 2-round runs text-equal "
-        "(all 14 trees; integer histograms, exact zero bins); held-out "
+    log("covertype 8-bit: bundled and unbundled %d-round runs text-equal "
+        "(all %d trees; integer histograms, exact zero bins); held-out "
         "multi_logloss %s (f32 %s)"
-        % (" ".join("%.6f" % v for v in qrun["evals"]["multi_logloss"]),
-           " ".join("%.6f" % v for v in run["evals"]["multi_logloss"][:2])))
+        % (R, 7 * R,
+           " ".join("%.6f" % v for v in qrun["evals"]["multi_logloss"]),
+           " ".join("%.6f" % v for v in run["evals"]["multi_logloss"][:R])))
     del qrun, qplain, ds0, valid0
     first_tree_cuda_vs_cpu(lgb, Xt, yt, params, "phase 9 covertype")
     return launches, bins
@@ -1651,7 +1835,7 @@ def phase_covertype_categorical(lgb, hist_mod):
     sorted subset), 7 classes, 255 leaves, 5 rounds through the
     whole-tree loop; phase 9's checks, categorical nodes in the model
     text, the stacked path (auto mode) on rows with NaN, negative and
-    unseen categories, a 2-round per-split rerun, 2 rounds with
+    unseen categories, a 1-round per-split rerun, 1 round with
     ``max_cat_to_onehot: 8`` (wilderness in one-hot mode) and an 8-bit
     tree 1 at 50k rows on cuda and cpu. Returns the launches by path and
     the learner's bins for timing."""
@@ -1699,22 +1883,23 @@ def phase_covertype_categorical(lgb, hist_mod):
     check_stacked(bst, unusual_categories(Xv),
                   "phase 13 covertype categorical, NaN / negative / "
                   "unseen categories")
+    R = RERUN_ROUNDS
     again = train_path(lgb, hist_mod, ds, valid,
                        dict(params, tpu_fused_tree=False), "histogram_f32",
-                       2, tag="covertype categorical per-split rerun")[
+                       R, tag="covertype categorical per-split rerun")[
         "booster"]
-    check([t.to_string() for t in bst.inner.models[:14]]
+    check([t.to_string() for t in bst.inner.models[:7 * R]]
           == [t.to_string() for t in again.inner.models],
           "a per-split categorical covertype run gave other trees than the "
           "whole-tree run")
-    log("covertype categorical per-split rerun (2 rounds): all 14 trees "
-        "text-equal to the whole-tree run's")
+    log("covertype categorical per-split rerun (%d round(s)): all %d trees "
+        "text-equal to the whole-tree run's" % (R, 7 * R))
     launches = {"phase13_covertype_categorical":
                 run["launches"]["histogram_f32"]}
     bins = (learner.bins, learner.B)
     del bst, again, learner
     oh = dict(params, max_cat_to_onehot=8)
-    ohrun = train_path(lgb, hist_mod, ds, valid, oh, "histogram_f32", 2,
+    ohrun = train_path(lgb, hist_mod, ds, valid, oh, "histogram_f32", R,
                        tag="covertype categorical, wilderness one-hot")
     wild_oh, _ = cat_nodes(ohrun["booster"], 10)
     check(len(wild_oh) > 0 and all(len(c) == 1 for c in wild_oh),
@@ -1787,7 +1972,7 @@ def phase_mslr(lgb, hist_mod):
     """lambdarank at MSLR-WEB30K's shape: 2,270,296 rows x 136 features
     in 18,919 queries (at most 1,251 docs), 255 leaves,
     min_data_in_leaf 100, ndcg@1,3,5 on 2,000 held-out queries, 5
-    rounds; a 2-round rerun must give the same trees; then 2 rounds of
+    rounds; a 1-round rerun must give the same tree; then 1 round of
     rank_xendcg, twice, with equal trees. Returns the f32 launches and
     the learner's bins for timing."""
     from lightgbm_tpu_torch.objective.rank import LambdarankNDCG
@@ -1822,15 +2007,16 @@ def phase_mslr(lgb, hist_mod):
                  for k in ("ndcg@1", "ndcg@3", "ndcg@5")]
                 + [float(np.mean(run["per_iter"])),
                    " ".join("%.3f" % v for v in run["grad_ms"])]))
+    R = RERUN_ROUNDS
     again = train_path(lgb, hist_mod, ds, valid,
                        dict(params, tpu_fused_tree=False), "histogram_f32",
-                       2, tag="mslr lambdarank per-split rerun")["booster"]
-    check([t.to_string() for t in bst.inner.models[:2]]
+                       R, tag="mslr lambdarank per-split rerun")["booster"]
+    check([t.to_string() for t in bst.inner.models[:R]]
           == [t.to_string() for t in again.inner.models],
           "a per-split lambdarank run gave other trees than the whole-tree "
           "run")
-    log("mslr lambdarank per-split rerun (2 rounds): trees 1 and 2 "
-        "text-equal to the whole-tree run's")
+    log("mslr lambdarank per-split rerun (%d round(s)): text-equal to the "
+        "whole-tree run's first trees" % R)
     launches = run["launches"]["histogram_f32"]
     bins = bst.inner.learner.bins
     del bst, again
@@ -1839,7 +2025,7 @@ def phase_mslr(lgb, hist_mod):
     texts = []
     for fused in (True, False):
         r = train_path(lgb, hist_mod, ds, valid,
-                       dict(xe, tpu_fused_tree=fused), "histogram_f32", 2,
+                       dict(xe, tpu_fused_tree=fused), "histogram_f32", R,
                        grad_cls=RankXENDCG,
                        tag="mslr rank_xendcg %s" % ("whole-tree" if fused
                                                     else "per-split"))
@@ -1847,9 +2033,9 @@ def phase_mslr(lgb, hist_mod):
         launches += r["launches"]["histogram_f32"]
     check(texts[0] == texts[1], "the per-split rank_xendcg run gave other "
           "trees than the whole-tree run")
-    log("mslr rank_xendcg: whole-tree and per-split 2-round runs "
+    log("mslr rank_xendcg: whole-tree and per-split %d-round runs "
         "text-equal; held-out ndcg@5 %s"
-        % " ".join("%.6f" % v for v in r["evals"]["ndcg@5"]))
+        % (R, " ".join("%.6f" % v for v in r["evals"]["ndcg@5"])))
     return launches, bins
 
 
@@ -1881,7 +2067,7 @@ def other_objective_labels(X: np.ndarray, seed: int):
 
 def phase_other_objectives(lgb, hist_mod):
     """Each remaining objective at phase 3's 200k Higgs-shaped rows
-    (binned once), 63 leaves, 3 rounds, on cuda and on cpu: tree 1 must
+    (binned once), 63 leaves, 1 round, on cuda and on cpu: tree 1 must
     have the same structure (:func:`tree_structure`), the cuda run must
     go through the f32 instance only, and for l1, quantile and mape the
     renewed leaf values of tree 1 must be equal. Host-clock ms of each
@@ -1918,7 +2104,7 @@ def phase_other_objectives(lgb, hist_mod):
             try:
                 t0 = time.perf_counter()
                 b = lgb.train(dict(params, device_type=dev), ds,
-                              num_boost_round=3)
+                              num_boost_round=1)
                 secs = time.perf_counter() - t0
             finally:
                 gbdt.GBDT._renew_tree_output = renew
@@ -1942,7 +2128,7 @@ def phase_other_objectives(lgb, hist_mod):
                   "%s: renewed leaf values of tree 1 differ between cuda "
                   "and cpu" % name)
         total += launches["histogram_f32"]
-        log("objective %s (63 leaves, 3 rounds, %d trees): tree 1 the same "
+        log("objective %s (63 leaves, 1 round, %d trees): tree 1 the same "
             "tree on cuda and cpu (%s)%s; cuda %.3f s, cpu %.3f s; %d "
             "launches of histogram_f32%s"
             % (name, len(cuda_trees),
@@ -2056,6 +2242,7 @@ def phase_predict(lgb, hist_mod):
     run = train_path(lgb, hist_mod, ds, valid, params, "histogram_f32",
                      100, tag="phase 12 binary, 255 leaves, 100 rounds")
     bst = run["booster"]
+    PHASE12["model"] = bst.model_to_string(num_iteration=REFIT_ITERATIONS)
     launches = {"phase12_binary_100_rounds": run["launches"]["histogram_f32"]}
     Xp, _ = make_higgs_like(PREDICT_ROWS, seed=1)
     n = PREDICT_ROWS
@@ -2066,7 +2253,10 @@ def phase_predict(lgb, hist_mod):
     # the host walk's values: its raw scores through the objective's
     # convert_output, as GBDT.predict computes them
     host_val = bst.inner.objective.convert_output(host_raw)
-    host_leaf = bst.predict(Xp, pred_leaf=True, predict_on_device=False)
+    # leaf ids on the first bucket (the raw scores of every row are held
+    # byte-equal below)
+    host_leaf = bst.predict(Xp[:1 << 16], pred_leaf=True,
+                            predict_on_device=False)
     # Booster.predict in auto mode: must take the stacked path
     bst._stacked_cache = None
     bst.predict(Xp[:4096])                 # packs and places the forest
@@ -2088,7 +2278,7 @@ def phase_predict(lgb, hist_mod):
     raw = bst.predict(Xp, raw_score=True)
     check(np.array_equal(raw, host_raw),
           "stacked raw scores differ from the host walk")
-    leaf = bst.predict(Xp, pred_leaf=True)
+    leaf = bst.predict(Xp[:1 << 16], pred_leaf=True)
     check(np.array_equal(leaf, host_leaf),
           "stacked leaf ids differ from the host walk")
     # the throughput path: the Kahan f32 sum of the whole batch in one
@@ -2127,8 +2317,9 @@ def phase_predict(lgb, hist_mod):
     log("phase 12 predict, %d rows x %d trees (255 leaves, trips %d): "
         "host walk %.0f rows/s (%.3f s raw); stacked value path (auto "
         "mode, 4 buckets of 65536) %.0f rows/s (%.3f s); raw_device (one "
-        "pass, Kahan f32) %.0f rows/s (%.3f s); leaf ids equal, value and "
-        "raw byte-equal to the host walk; raw_device from the f64 sum of "
+        "pass, Kahan f32) %.0f rows/s (%.3f s); leaf ids equal (first "
+        "65536 rows), value and raw byte-equal to the host walk (every "
+        "row); raw_device from the f64 sum of "
         "its f32 leaf values: at most %.3f f32 ulp of sum |leaf values| "
         "(bound 2), in f32 ulp of the sum itself at most %.1f, median "
         "%.3f, %.2f%% of rows within 2; from the host's f64 sum of f64 "
@@ -2731,7 +2922,7 @@ def check_monotone_grid(bst, Xv, mc, what, rows=1000, points=64):
 
 
 def rerun_equal(lgb, hist_mod, ds, valid, params, kernel, bst, what,
-                rounds=2):
+                rounds=RERUN_ROUNDS):
     """A per-split run of ``rounds`` rounds must give ``bst``'s first
     trees, text for text."""
     again = train_path(lgb, hist_mod, ds, valid,
@@ -2852,7 +3043,7 @@ def forced_spec():
 def phase15_forced(lgb, hist_mod, data, path):
     """15d: forced splits, 3 rounds in f32 and in 8-bit through the
     whole-tree loop; every tree starts with the three forced nodes, and
-    2-round per-split reruns are text-equal."""
+    1-round per-split reruns are text-equal."""
     ds, valid, _, _ = data
     spec = forced_spec()
     out = {}
@@ -3133,6 +3324,330 @@ def tree_structure(tree, node: int = 0):
             tree_structure(tree, int(tree.right_child[node])))
 
 
+# ---------------------------------------------------------------------------
+# phase 16: wide bins (max_bin 1023: uint16 bins, B = 1024)
+# ---------------------------------------------------------------------------
+WIDE_MAX_BIN = 1023
+#: phase 12's model text (its first REFIT_ITERATIONS iterations),
+#: refit in phase 18
+PHASE12 = {}
+REFIT_ITERATIONS = 20
+
+
+def wide_data(lgb, data):
+    """Phase 4's 10.5M training rows binned again at max_bin 1023 (uint16
+    bins), and the held-out rows aligned to them."""
+    _, _, Xv, yv = data
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(HEAD["Xt"], label=HEAD["yt"],
+                     params=dict(SLICE_PARAMS,
+                                 max_bin=WIDE_MAX_BIN)).construct()
+    valid = lgb.Dataset(Xv, label=yv, reference=ds).construct()
+    h = ds.handle
+    nb = h.num_bin_per_feature
+    check(h.bins.dtype == np.uint16 and h.max_num_bin > 256,
+          "max_bin %d binned to %s with at most %d bins"
+          % (WIDE_MAX_BIN, h.bins.dtype, h.max_num_bin))
+    log("phase 16 binning seconds at max_bin %d: %.3f; bins per feature "
+        "%d-%d (uint16 matrix, %d MB)"
+        % (WIDE_MAX_BIN, time.perf_counter() - t0, int(nb.min()),
+           int(nb.max()), h.bins.nbytes >> 20))
+    return ds, valid, Xv, yv
+
+
+def phase_wide(lgb, hist_mod, data, errs, rows):
+    """Training at max_bin 1023 on phase 4's rows: f32 for 5 rounds (held-
+    out AUC > 0.7 and equal to the device scores', stacked predict ==
+    host walk, a 2-round per-split rerun text-equal), 8-bit for 3 rounds
+    and 16-bit for 2, each through its uint16 instance only (device
+    launches == roots + steps); ms per split and syncs per tree beside
+    phase 4's; tree 1 at 200k rows the same on cuda and cpu; then the
+    uint16 instances timed over the learner's own bins (appended to
+    ``rows`` when phase 5 made them). Returns (launches by kernel and
+    path, the binned data)."""
+    import torch
+    wdata = wide_data(lgb, data)
+    extra = {"max_bin": WIDE_MAX_BIN}
+    tag = "phase 16 max_bin 1023 f32"
+    bst, launches, aucs, _, _ = train_full(lgb, hist_mod, wdata, extra,
+                                           "histogram_u16_f32", tag=tag)
+    learner = bst.inner.learner
+    check(learner.bins.dtype == torch.uint16 and learner.B == 1024,
+          "phase 16: the learner holds %s bins at B = %d"
+          % (learner.bins.dtype, learner.B))
+    a = check_predict(bst, wdata, aucs)
+    check_stacked(bst, wdata[2][:100_000], "phase 16 max_bin 1023")
+    check_rerun(lgb, hist_mod, wdata, extra, "histogram_u16_f32", bst,
+                "max_bin 1023 f32", rounds=2)
+    by_path = {"histogram_u16_f32": {
+        "phase16_higgs_max_bin_1023": launches["histogram_u16_f32"]}}
+    log("phase 16 against phase 4 in this call: ms per split %.3f at "
+        "max_bin 1023 (B = 1024, uint16) vs %s at max_bin 255; held-out "
+        "AUC %.6f"
+        % (SPLIT_MS[tag], "%.3f" % SPLIT_MS[PHASE4_TAG]
+           if PHASE4_TAG in SPLIT_MS else "not run", a))
+    bins = learner.bins
+    del bst, learner
+    qtag = "phase 16 max_bin 1023 8-bit"
+    q, qlaunch, qaucs, _, _ = train_full(
+        lgb, hist_mod, wdata, dict(extra, use_quantized_grad=True),
+        "histogram_u16_i8", rounds=3, tag=qtag)
+    check_predict(q, wdata, qaucs)
+    by_path["histogram_u16_i8"] = {
+        "phase16_higgs_max_bin_1023_8bit": qlaunch["histogram_u16_i8"]}
+    del q
+    q16, q16launch, _, _, _ = train_full(
+        lgb, hist_mod, wdata, dict(extra, use_quantized_grad=True,
+                                   quant_grad_bits=16),
+        "histogram_u16_i16", rounds=2, tag="phase 16 max_bin 1023 16-bit")
+    by_path["histogram_u16_i16"] = {
+        "phase16_higgs_max_bin_1023_16bit": q16launch["histogram_u16_i16"]}
+    del q16
+    small = phase_small(lgb, hist_mod, extra, "histogram_u16_f32", None,
+                        rounds=1)
+    by_path["histogram_u16_f32"]["phase16_small_max_bin_1023"] = \
+        small["histogram_u16_f32"]
+    if rows is not None:
+        S = bins.shape[0]
+        g = torch.Generator(device="cuda")
+        g.manual_seed(16)
+        gh = torch.stack([torch.randn(S, generator=g, device="cuda"),
+                          torch.rand(S, generator=g, device="cuda"),
+                          torch.ones(S, device="cuda"),
+                          torch.ones(S, device="cuda")], dim=1).contiguous()
+        gh8 = torch.randint(-127, 128, (S, 4), generator=g, device="cuda",
+                            dtype=torch.int32).to(torch.int8)
+        q = (2 ** 31 - 1) // S
+        gh16 = torch.randint(-q, q + 1, (S, 4), generator=g, device="cuda",
+                             dtype=torch.int32).to(torch.int16)
+        errs["histogram_u16_f32"] = max(
+            errs["histogram_u16_f32"], compare_f32(hist_mod, bins, gh, 1024,
+                                                   None))
+        errs["histogram_u16_f64"] = max(
+            errs["histogram_u16_f64"],
+            compare_f64(hist_mod, bins, gh, 1024, None)[0])
+        compare_int(hist_mod, bins, gh8, 1024, None)
+        compare_int(hist_mod, bins, gh16, 1024, None)
+        rows.extend(time_instances(hist_mod, bins, 1024, gh, gh8, gh16,
+                                   errs, "u16_"))
+        del gh, gh8, gh16
+    del bins
+    return by_path, wdata
+
+
+# ---------------------------------------------------------------------------
+# phase 17: f64 histograms
+# ---------------------------------------------------------------------------
+def phase_f64(lgb, hist_mod, data, wdata):
+    """f64 histogram sums (``tpu_use_f64_hist``) on phase 4's Dataset (3
+    rounds, uint8 bins) and phase 16's (2 rounds, uint16 bins): every
+    histogram through the f64 instance of the bins' dtype, held-out AUC
+    > 0.7 and equal to the device scores'. Returns the launches by
+    kernel and path."""
+    f64 = {"tpu_use_f64_hist": True}
+    bst, launches, aucs, _, _ = train_full(lgb, hist_mod, data, f64,
+                                           "histogram_f64", rounds=3,
+                                           tag="phase 17 f64 sums")
+    a = check_predict(bst, data, aucs)
+    by_path = {"histogram_f64": {
+        "phase17_higgs_f64": launches["histogram_f64"]}}
+    del bst
+    out = {}
+    if wdata is not None:
+        wb, wl, waucs, _, _ = train_full(
+            lgb, hist_mod, wdata, dict(f64, max_bin=WIDE_MAX_BIN),
+            "histogram_u16_f64", rounds=2,
+            tag="phase 17 f64 sums max_bin 1023")
+        out["wide"] = check_predict(wb, wdata, waucs)
+        by_path["histogram_u16_f64"] = {
+            "phase17_higgs_max_bin_1023_f64": wl["histogram_u16_f64"]}
+        del wb
+    log("phase 17 f64 sums: held-out AUC %.6f after 3 rounds (uint8 bins)"
+        "%s; ms per split %.3f against phase 4's f32 %s in this call"
+        % (a, "; %.6f after 2 rounds at max_bin 1023" % out["wide"]
+           if out else "", SPLIT_MS["phase 17 f64 sums"],
+           "%.3f" % SPLIT_MS[PHASE4_TAG] if PHASE4_TAG in SPLIT_MS
+           else "not run"))
+    return by_path
+
+
+def phase_f64_covertype(lgb, hist_mod):
+    """Phase 9's Covertype rows bundled (EFB at its default) and
+    unbundled, 2 rounds each with f64 histogram sums: the gap between
+    their predictions against the reference's contract for bundles
+    (rtol 1e-4; phase 9 logs the f32 gap). A finding: the run reports
+    whether the f64 pair holds it and fails only on the launches.
+    Returns the f64 launches by path."""
+    t0 = time.perf_counter()
+    X, y = make_covertype_like(COVERTYPE_ROWS + COVERTYPE_HELD_OUT, seed=9)
+    Xt, yt = X[:COVERTYPE_ROWS], y[:COVERTYPE_ROWS]
+    Xv, yv = X[COVERTYPE_ROWS:], y[COVERTYPE_ROWS:]
+    params = {"objective": "multiclass", "num_class": 7, "num_leaves": 255,
+              "learning_rate": 0.1, "max_bin": 255,
+              "metric": "multi_logloss,multi_error", "verbosity": -1,
+              "tpu_use_f64_hist": True}
+    runs = {}
+    for bundled in (True, False):
+        p = dict(params, enable_bundle=bundled)
+        ds, valid = covertype_splits(Xt, yt, Xv, yv, lgb, p)
+        run = train_path(lgb, hist_mod, ds, valid, p, "histogram_f64", 2,
+                         tag="phase 17 covertype f64 %s"
+                         % ("bundled" if bundled else "unbundled"))
+        check(run["booster"].inner.learner._bundled == bundled,
+              "phase 17 covertype: enable_bundle=%s" % bundled)
+        runs[bundled] = run
+    b, u = runs[True]["booster"], runs[False]["booster"]
+    p_b = b.predict(Xv, predict_on_device=False)
+    p_u = u.predict(Xv, predict_on_device=False)
+    same = sum(tree_structure(x) == tree_structure(z)
+               for x, z in zip(b.inner.models, u.inner.models))
+    gap = np.abs(p_b - p_u)
+    within = bool(np.allclose(p_b, p_u, rtol=1e-4, atol=1e-5))
+    log("phase 17 covertype bundled vs unbundled with f64 sums (2 rounds, "
+        "%.1f s): %d of 14 trees structure-equal; predictions max |diff| "
+        "%.3g, %.4f%% of values beyond rtol 1e-4 + atol 1e-5; the "
+        "reference's bundle contract (rtol 1e-4) holds: %s; held-out "
+        "multi_logloss round 2 %.6f vs %.6f"
+        % (time.perf_counter() - t0, same, float(gap.max()),
+           100.0 * float(np.mean(gap > 1e-5 + 1e-4 * np.abs(p_u))), within,
+           runs[True]["evals"]["multi_logloss"][1],
+           runs[False]["evals"]["multi_logloss"][1]))
+    return {"phase17_covertype_f64_bundled":
+            runs[True]["launches"]["histogram_f64"],
+            "phase17_covertype_f64_unbundled":
+            runs[False]["launches"]["histogram_f64"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: DART, random forest and refit
+# ---------------------------------------------------------------------------
+def _record_drops():
+    """Wrap DART's drop selection to keep every iteration's drop set.
+    Returns (drops, restore)."""
+    from lightgbm_tpu_torch.boosting.dart import DART
+    select = DART._select_dropping_trees
+    drops = []
+
+    def recorded(self):
+        select(self)
+        drops.append(list(self.drop_index))
+    DART._select_dropping_trees = recorded
+
+    def restore():
+        DART._select_dropping_trees = select
+    return drops, restore
+
+
+def phase_boosting(lgb, hist_mod, data):
+    """DART (drop_rate 0.1, skip_drop 0, 5 rounds) and RF (bagging 0.632
+    every round, feature_fraction 0.9, 5 rounds) on phase 4's Dataset
+    through the whole-tree loop: launches == roots + steps, held-out AUC
+    > 0.7 and equal to the device scores', stacked predict == host walk;
+    ``average_output`` in the RF text; DART's drop sets (and tree
+    weights) on the card equal those of a CPU run at 200k rows with the
+    same seed (50k rows: the drops depend on the RNG and the tree
+    weights only). The stacked checks run on 100k held-out rows. Returns
+    the f32 launches by path."""
+    import torch
+    # skip_drop 0: at its default of 0.5 half the iterations drop
+    # nothing, and 5 rounds at drop_rate 0.1 would likely drop no tree
+    dart = {"boosting": "dart", "drop_rate": 0.1, "skip_drop": 0.0}
+    drops, restore = _record_drops()
+    try:
+        bst, launches, aucs, _, _ = train_full(
+            lgb, hist_mod, data, dart, "histogram_f32",
+            tag="phase 18 dart")
+        card = (list(drops), list(bst.inner.tree_weight))
+        drops.clear()
+        # the drops come from the host RNG and the tree weights: any rows
+        # that grow a tree each iteration draw them the same
+        X, y = make_higgs_like(50_000, seed=7)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            cpu = lgb.train(dict(SLICE_PARAMS, num_leaves=63,
+                                 device_type="cpu", **dart),
+                            lgb.Dataset(X, label=y), num_boost_round=5)
+        finally:
+            torch.set_num_threads(threads)
+        host = (list(drops), list(cpu.inner.tree_weight))
+    finally:
+        restore()
+    check(card == host, "DART drop sets or tree weights differ between "
+          "cuda (%s) and cpu (%s)" % (card, host))
+    check(any(card[0]), "DART dropped no tree in 5 rounds")
+    a = check_predict(bst, data, aucs)
+    check_stacked(bst, data[2][:100_000], "phase 18 dart")
+    log("phase 18 DART: drop sets per iteration %s, tree weights %s, the "
+        "same on cuda and cpu; held-out AUC %.6f"
+        % (card[0], " ".join("%.6f" % w for w in card[1]), a))
+    by_path = {"phase18_higgs_dart": launches["histogram_f32"]}
+    del bst, cpu
+    rf = {"boosting": "rf", "bagging_fraction": 0.632, "bagging_freq": 1,
+          "feature_fraction": 0.9}
+    bst, launches, aucs, _, _ = train_full(lgb, hist_mod, data, rf,
+                                           "histogram_f32",
+                                           tag="phase 18 rf")
+    text = bst.model_to_string()
+    check("\naverage_output\n" in text and bst.inner.average_output,
+          "the RF model text has no average_output line")
+    a = check_predict(bst, data, aucs)
+    check_stacked(bst, data[2][:100_000], "phase 18 rf")
+    again = lgb.Booster(model_str=text)
+    check(np.array_equal(again.predict(data[2][:100_000]),
+                         bst.predict(data[2][:100_000],
+                                     predict_on_device=False)),
+          "the RF text round trip predicts other values")
+    log("phase 18 RF: average_output in the text, the text round trip "
+        "and the stacked path equal the host walk; held-out AUC %.6f" % a)
+    by_path["phase18_higgs_rf"] = launches["histogram_f32"]
+    return by_path
+
+
+def phase_refit(lgb):
+    """``Booster.refit`` of phase 12's model (255 leaves; its first
+    REFIT_ITERATIONS trees, which keeps the CPU refit short; as many
+    trees trained at 200k rows when phase 12 did not run) on 200k fresh
+    rows, on the card and on the CPU from the same model text: every
+    leaf value within 1e-5 absolute (f32 per-leaf sums in another order
+    on each device), the refit model's stacked predict == host walk on
+    the card."""
+    import torch
+    model = PHASE12.get("model")
+    if model is None:
+        X, y = make_higgs_like(SMALL_ROWS, seed=7)
+        model = lgb.train(dict(SLICE_PARAMS, num_leaves=255),
+                          lgb.Dataset(X, label=y),
+                          num_boost_round=REFIT_ITERATIONS).model_to_string()
+    Xr, yr = make_higgs_like(SMALL_ROWS, seed=11)
+    card = lgb.Booster(model_str=model)
+    cpu = lgb.Booster(model_str=model, params={"device_type": "cpu"})
+    before = [t.leaf_value[:t.num_leaves].copy() for t in card.inner.models]
+    _, t_card = timed(lambda: card.refit(Xr, yr))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t0 = time.perf_counter()
+        cpu.refit(Xr, yr)
+        t_cpu = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+    gap, moved = 0.0, 0
+    for a, b, old in zip(card.inner.models, cpu.inner.models, before):
+        va, vb = a.leaf_value[:a.num_leaves], b.leaf_value[:b.num_leaves]
+        gap = max(gap, float(np.abs(va - vb).max()))
+        moved += int(np.sum(va != old))
+    check(gap <= 1e-5, "refit leaf values differ between cuda and cpu by "
+          "%.3g" % gap)
+    check(moved > 0, "refit changed no leaf value")
+    check_stacked(card, Xr[:65_536], "phase 18 refit")
+    log("phase 18 refit of a %d-tree model on %d rows: %.3f s on the card "
+        "(one stacked leaf walk, per-leaf f32 sums), %.3f s on the cpu; "
+        "%d leaf values changed; leaf values cuda vs cpu max |diff| %.3g "
+        "(tol 1e-5)" % (len(card.inner.models), SMALL_ROWS, t_card, t_cpu,
+                        moved, gap))
+
+
 def time_widths(hist_mod, widths, rows_out):
     """Every instance at the new widths' root shapes (the real bins of
     phases 9 and 10) and at children of 10k, 100k and 1M rows (fewer
@@ -3155,22 +3670,29 @@ def time_widths(hist_mod, widths, rows_out):
             torch.int16)
         children = [sub_index(S, n, seed=n) for n in (10_000, 100_000,
                                                        1_000_000) if n < S]
-        for row, rows_gh in zip(rows_out, (gh, gh8, gh16)):
+        for row in rows_out:
+            tag = row["name"].rsplit("_", 1)[1]
+            if row["bins"] != str(bins.dtype):
+                continue
+            rows_gh = {"f32": gh, "f64": gh, "i8": gh8, "i16": gh16}[tag]
+            f64 = tag == "f64"
             times = [dict(width=label, S=S, Fp=bins.shape[1], B=B,
                           **time_histogram(hist_mod, bins, rows_gh, B,
-                                           row["name"]))]
+                                           row["name"], f64=f64))]
             for idx in children:
                 times.append(dict(width=label, S=idx.shape[0],
                                   Fp=bins.shape[1], B=B, child=True,
                                   **time_histogram(hist_mod, bins, rows_gh,
-                                                   B, row["name"], idx)))
+                                                   B, row["name"], idx,
+                                                   f64=f64)))
             row.setdefault("widths", []).extend(times)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
+                            "18",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
@@ -3200,6 +3722,7 @@ def main(argv=None) -> int:
     errs = dict.fromkeys(hist_mod.launch_counts, 0.0)
     if 2 in phases:
         errs = phase_kernels(hist_mod)
+        phase_wide_kernels(hist_mod, errs)
         phase_device_count_entry(hist_mod)
         lap("phase 2")
     import lightgbm_tpu_torch as lgb
@@ -3210,8 +3733,8 @@ def main(argv=None) -> int:
         by_path["histogram_f32"]["phase3_small_binary"] = \
             run["histogram_f32"]
         lap("phase 3")
-    data = (full_data(lgb, keep_head=15 in phases)
-            if phases & {4, 7, 14, 15} else None)
+    data = (full_data(lgb, keep_head=bool(phases & {15, 16}))
+            if phases & {4, 7, 14, 15, 16, 17, 18} else None)
     bins_root, f32_auc = None, None
     if 4 in phases:
         bst, run, f32_auc = phase_full(lgb, hist_mod, data)
@@ -3240,6 +3763,21 @@ def main(argv=None) -> int:
         by_path["histogram_i8"]["phase7_higgs_binary_8bit"] = \
             run["histogram_i8"]
         lap("phase 7")
+    # phase 16 bins phase 4's training rows again (phase 15 drops them)
+    wdata = None
+    if 16 in phases:
+        paths, wdata = phase_wide(lgb, hist_mod, data, errs, rows)
+        for kernel, counts in paths.items():
+            by_path[kernel].update(counts)
+        lap("phase 16 (with the max_bin 1023 binning)")
+    if 17 in phases:
+        for kernel, counts in phase_f64(lgb, hist_mod, data, wdata).items():
+            by_path[kernel].update(counts)
+        lap("phase 17 (higgs)")
+    del wdata
+    if 18 in phases:
+        by_path["histogram_f32"].update(phase_boosting(lgb, hist_mod, data))
+        lap("phase 18 (dart, rf)")
     if 14 in phases:
         for kernel, paths in phase_sampling(lgb, hist_mod, data).items():
             by_path[kernel].update(paths)
@@ -3248,12 +3786,13 @@ def main(argv=None) -> int:
         for kernel, paths in phase_constraints(lgb, hist_mod, data).items():
             by_path[kernel].update(paths)
         lap("phase 15")
+    HEAD.clear()
     del data
     if 8 in phases:
         run = phase_small(lgb, hist_mod,
                           {"use_quantized_grad": True, "quant_grad_bits": 16,
                            "bagging_fraction": 0.8, "bagging_freq": 1},
-                          "histogram_i16", None)
+                          "histogram_i16", None, rounds=1)
         by_path["histogram_i16"]["phase8_small_16bit_bagging"] = \
             run["histogram_i16"]
         lap("phase 8")
@@ -3289,10 +3828,21 @@ def main(argv=None) -> int:
     if 12 in phases:
         by_path["histogram_f32"].update(phase_predict(lgb, hist_mod))
         lap("phase 12")
+    if 17 in phases:
+        by_path["histogram_f64"].update(phase_f64_covertype(lgb, hist_mod))
+        lap("phase 17 (covertype)")
+    if 18 in phases:
+        phase_refit(lgb)
+        lap("phase 18 (refit)")
     if rows is not None:
         for row in rows:
             row["launches_by_path"] = by_path[row["name"]]
             row["launches"] = sum(by_path[row["name"]].values())
+        if phases >= {2, 4, 5, 16, 17}:
+            check(len(rows) == len(hist_mod.launch_counts)
+                  and all(row["launches"] > 0 for row in rows),
+                  "an instance is not timed or was launched by no path: %s"
+                  % {row["name"]: row["launches"] for row in rows})
         log(json.dumps({"kernels": rows}))
     log("chip_smoke seconds: %.1f" % (time.perf_counter() - t_start))
     log(card)

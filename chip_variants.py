@@ -38,8 +38,8 @@ SOURCE = os.path.join(HERE, "lightgbm_tpu_torch", "csrc", "histogram.cu")
 VARIANTS = {
     "kernel as it is": [],
     "tile staging, zeroing, flush and sum pass only (wrong)": [
-        ("if (nfw > 0) {                       // warp-uniform",
-         "if (nfw < 0) {")],
+        ("if (npw > 0) {                       // warp-uniform",
+         "if (npw < 0) {")],
     "int accumulators [Fg, B, C] like the f32 ones": [
         ("constexpr bool kChannelMajor = std::is_same<ACC, int>::value;",
          "constexpr bool kChannelMajor = false;")],
@@ -58,7 +58,7 @@ VARIANTS = {
 SUM_ONLY = """
 extern "C" int lgbm_sum_only_f32(const void* scratch, void* out, int blocks,
                                  long long n, void* stream) {
-  hist_sum_kernel<float><<<(unsigned)((n + 255) / 256), 256, 0,
+  hist_sum_kernel<float, float><<<(unsigned)((n + 255) / 256), 256, 0,
       (cudaStream_t)stream>>>((const float*)scratch, (float*)out, blocks, n,
                               nullptr, 0, 0);
   return (int)cudaGetLastError();
@@ -96,9 +96,9 @@ def build(csrc, out_dir):
 def caller(H, torch, lib, symbol, bins, gh, B, idx):
     fn = getattr(lib, symbol)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # bins, gh, idx, out, scratch, launches; S; Fp, B, C, Fg, groups, T,
-    # blocks; rows_per_block; smem; stream (ops/histogram.py::_kernel_fn)
-    fn.argtypes = [vp] * 6 + [i64] + [i32] * 7 + [i64, i32, vp]
+    # bins, gh, idx, out, scratch, launches; S; Fp, B, C, Fg, groups, Fs,
+    # T, blocks; rows_per_block; smem; stream (ops/histogram.py::_kernel_fn)
+    fn.argtypes = [vp] * 6 + [i64] + [i32] * 8 + [i64, i32, vp]
     fn.restype = ctypes.c_int
     F, C = bins.shape[1], gh.shape[1]
     S = bins.shape[0] if idx is None else idx.shape[0]
@@ -114,7 +114,7 @@ def caller(H, torch, lib, symbol, bins, gh, B, idx):
                   None if idx is None else idx.data_ptr(), out.data_ptr(),
                   None if scratch is None else scratch.data_ptr(), None, S,
                   F, B, C, plan.features_per_group, plan.groups,
-                  plan.tile_rows,
+                  plan.stage_features, plan.tile_rows,
                   plan.blocks, plan.rows_per_block, plan.smem_bytes, stream)
         if code != 0:
             raise SystemExit("launch failed: cuda error %d" % code)

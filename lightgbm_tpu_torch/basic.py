@@ -15,6 +15,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .boosting import create_boosting
 from .boosting.gbdt import GBDT
 from .config import Config, resolve_device
 from .io.dataset import BinnedDataset, Metadata
@@ -231,8 +232,8 @@ class Booster:
                 train_set.params = dict(self.params,
                                         **(train_set.params or {}))
             train_set.construct()
-            self.inner = GBDT(self.config, train_set.handle,
-                              resolve_device(self.config))
+            self.inner = create_boosting(self.config, train_set.handle,
+                                         resolve_device(self.config))
         elif model_file is not None or model_str is not None:
             if model_str is None:
                 with open(model_file) as fh:
@@ -451,6 +452,39 @@ class Booster:
             self._decline("the model cannot stack: %s" % cached[2])
             return None
         return cached[1].predict(X, output_kind=kind)
+
+    # ------------------------------------------------------------------
+    def refit(self, data, label, weight=None,
+              decay_rate: Optional[float] = None) -> "Booster":
+        """New leaf values from ``(data, label)`` over the trees' frozen
+        structure (reference: Booster.refit -> GBDT::RefitTree): one
+        stacked-forest leaf walk and per-leaf f32 gradient sums on the
+        booster's device (``boosting/refit.py``). Changes this booster in
+        place and returns it; the stacked predict cache re-keys itself
+        on the new leaf values. ``decay_rate`` defaults to
+        ``refit_decay_rate``: ``new = decay * old + (1 - decay) *
+        shrinkage * optimum`` per leaf."""
+        from .boosting.refit import refit_model_device
+        from .serve import StackedForest
+        X = _to_2d_float(data)
+        y = np.asarray(label, dtype=np.float64)
+        if X.shape[0] != len(y):
+            raise ValueError("refit data has %d rows but %d labels"
+                             % (X.shape[0], len(y)))
+        if decay_rate is None:
+            decay_rate = float(self.config.refit_decay_rate)
+        inner = self.inner
+        # refit keeps the structure and the walk reads only structure, so
+        # one packed forest serves every refit until trees are added
+        key = (len(inner.models), sum(t.num_leaves for t in inner.models))
+        cached = getattr(self, "_refit_forest", None)
+        if cached is None or cached[0] != key:
+            cached = (key, StackedForest.from_gbdt(inner).place(
+                self._device()))
+            self._refit_forest = cached
+        refit_model_device(inner, X, y, weight=weight,
+                           decay_rate=decay_rate, forest=cached[1])
+        return self
 
     # ------------------------------------------------------------------
     def model_to_string(self, num_iteration: Optional[int] = None,

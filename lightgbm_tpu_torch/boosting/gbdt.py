@@ -50,7 +50,7 @@ def device_tree_outputs(tree: Tree, bins: torch.Tensor, bin_meta,
                         raw: Optional[torch.Tensor] = None
                         ) -> Optional[torch.Tensor]:
     """[n] f32 output of one tree over binned rows ``bins`` [n, F] or,
-    EFB-bundled, [n, G] (uint8, any device), by the walk of
+    EFB-bundled, [n, G] (uint8 or uint16, any device), by the walk of
     ``ops/predict.py``. ``bin_meta`` is the GBDT's :class:`BinMeta`. A
     linear tree evaluates its leaves over ``raw``, the same rows' raw
     values on the device, in f64 (without them, its constant leaf
@@ -122,12 +122,19 @@ class ValidData:
 
     def add_tree(self, tree: Tree, class_id: int, bin_meta,
                  sign: float = 1.0) -> None:
+        """Add ``sign`` times the tree's f32 outputs (an f32 ``delta *
+        sign`` first, as the reference; -1 takes a tree off)."""
         delta = device_tree_outputs(tree, self.bins, bin_meta, self.raw)
         if delta is not None:
-            self.scores_dev[:, class_id].add_(delta, alpha=sign)
+            if sign != 1.0:
+                delta = delta * float(np.float32(sign))
+            self.scores_dev[:, class_id] += delta
 
     def add_const(self, val: float, class_id: int) -> None:
         self.scores_dev[:, class_id] += float(np.float32(val))
+
+    def multiply(self, factor: float, class_id: int) -> None:
+        self.scores_dev[:, class_id] *= float(np.float32(factor))
 
 
 def initial_score(metadata, num_data: int, K: int) -> np.ndarray:
@@ -158,6 +165,9 @@ class GBDT:
         self.num_init_iteration = 0
         self.best_iteration = -1
         self.shrinkage_rate = float(config.learning_rate)
+        # the model's output is the mean of its iterations' trees (random
+        # forest; the model text's ``average_output`` line)
+        self.average_output = False
         # objective=none takes num_class trees per iteration from a
         # callable objective (class-major gradients)
         self.num_class = (max(int(config.num_class), 1)
@@ -503,6 +513,8 @@ class GBDT:
         else:
             for i, tree in enumerate(models):
                 out[:, i % K] += tree.predict(X)
+        if self.average_output and models:
+            out /= max(len(models) // K, 1)
         return out[:, 0] if K == 1 else out
 
     def predict(self, X: np.ndarray, raw_score: bool = False,
@@ -553,6 +565,8 @@ class GBDT:
                  "max_feature_idx=%d" % self.max_feature_idx]
         if self.objective is not None:
             lines.append("objective=%s" % self.objective.to_string())
+        if self.average_output:
+            lines.append("average_output")
         lines.append("feature_names=" + " ".join(self.feature_names))
         if self.monotone_constraints:
             lines.append("monotone_constraints=" + " ".join(
@@ -594,7 +608,7 @@ class GBDT:
         }
         if self.objective is not None:
             d["objective"] = self.objective.to_string()
-        d["average_output"] = False
+        d["average_output"] = bool(self.average_output)
         d["feature_names"] = list(self.feature_names)
         d["monotone_constraints"] = list(self.monotone_constraints)
         infos: Dict = {}
@@ -629,8 +643,7 @@ class GBDT:
                 k, v = lines[i].split("=", 1)
                 kv[k] = v
             elif lines[i].strip() == "average_output":
-                log.unsupported("average_output models (random forest)",
-                                "item 16")
+                self.average_output = True
             i += 1
         self.num_class = int(kv.get("num_class", 1))
         self.num_tree_per_iteration = int(

@@ -17,6 +17,10 @@ What differs for the PyTorch/CUDA port:
   tensors. Any other value raises.
 - :meth:`Config.check_slice` raises for every setting this port does not
   run yet, naming the ROADMAP item that brings it.
+- f64 histograms (:attr:`Config.f64_histograms`): the reference drops
+  ``tpu_use_f64_hist`` with a warning unless JAX runs with
+  ``jax_enable_x64``; torch always has f64, so the port does what the
+  reference does with x64 on. ``gpu_use_dp`` asks for the same.
 """
 from __future__ import annotations
 
@@ -346,7 +350,8 @@ class Config:
     # gpu_device_id picks the CUDA card; the fields below the reference
     # build added for the TPU are accepted by name so parameter dicts
     # interchange. check_slice raises for those that need a later slice
-    # (f64 histograms, batched iterations). tpu_fused_tree selects the
+    # (batched iterations); gpu_use_dp and tpu_use_f64_hist ask for f64
+    # histogram sums (f64_histograms). tpu_fused_tree selects the
     # learner's loop, as in the reference: the whole-tree loop (true,
     # the default) or the per-split loop (false), which give the same
     # trees. Only the out-of-core frontier width, tpu_frontier_splits,
@@ -489,14 +494,6 @@ class Config:
         not here yet (never ignore one silently). Each message names the
         ROADMAP queue-1 item that will bring it."""
         unsupported = log.unsupported
-        if self.boosting != "gbdt":
-            unsupported("boosting=%s" % self.boosting, "item 16")
-        if self.max_bin > 255 or any(int(v) > 255
-                                     for v in self.max_bin_by_feature):
-            unsupported("max_bin > 255", "item 26")
-        if self.tpu_use_f64_hist or self.gpu_use_dp:
-            unsupported("f64 histograms (tpu_use_f64_hist / gpu_use_dp)",
-                        "item 26")
         if self.tpu_batch_iterations > 1 or self.tpu_eval_iterations > 1:
             unsupported("tpu_batch_iterations / tpu_eval_iterations",
                         "item 17")
@@ -504,6 +501,23 @@ class Config:
             unsupported("tree_learner=%s" % self.tree_learner, "item 22")
         if self.num_machines > 1 or self.num_gpu > 1:
             unsupported("num_machines / num_gpu > 1", "item 22")
+
+    @property
+    def f64_histograms(self) -> bool:
+        """Whether the learner sums f32 histograms in f64 (rounded once
+        to f32): ``tpu_use_f64_hist``, or its upstream name
+        ``gpu_use_dp`` (the reference reads only the first). Ignored,
+        with the reference's warning, under ``use_quantized_grad``, whose
+        integer sums are exact already (reference
+        ``ops/histogram.py::resolve_hist_impl``)."""
+        if not (self.tpu_use_f64_hist or self.gpu_use_dp):
+            return False
+        if self.use_quantized_grad:
+            log.warning("tpu_use_f64_hist is ignored under "
+                        "use_quantized_grad (integer histogram "
+                        "accumulation is already exact)")
+            return False
+        return True
 
     @staticmethod
     def _resolve_metrics(metrics: Any) -> List[str]:

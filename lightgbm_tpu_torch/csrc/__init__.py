@@ -3,8 +3,9 @@
 Each ``<name>.cu`` here has a plain C interface. :func:`load` compiles it
 at first use with ``nvcc`` for ``sm_90a`` into a shared library under
 ``lightgbm_tpu_torch/_build/`` (listed in ``.gitignore``) and opens it
-with ``ctypes``. The library's file name carries a hash of the source,
-so an edited source builds anew and a stale library is never loaded.
+with ``ctypes``. The library's file name carries a hash of every source
+in this directory (``histogram_u16.cu`` includes ``histogram.cu``), so
+an edited source builds anew and a stale library is never loaded.
 
 Nothing is compiled or loaded when this module is imported: the CPU
 tests import every module on a machine without ``nvcc``.
@@ -47,11 +48,12 @@ def sources() -> List[str]:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(_HERE, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode()
-                              ).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, digest))
+    h = hashlib.sha1(name.encode() + " ".join(NVCC_FLAGS).encode())
+    for f in sorted(os.listdir(_HERE)):
+        if f.endswith((".cu", ".cuh")):
+            with open(os.path.join(_HERE, f), "rb") as fh:
+                h.update(fh.read())
+    return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, h.hexdigest()[:12]))
 
 
 def build(names: Sequence[str],

@@ -4,8 +4,8 @@ Host-side NumPy port of ``lightgbm_tpu/io/binning.py`` (reference:
 include/LightGBM/bin.h:61 ``BinMapper``; src/io/bin.cpp:78
 ``GreedyFindBin``, :256 ``FindBinWithZeroAsOneBin``, :336
 ``BinMapper::FindBin``, bin.h:492 ``ValueToBin``). Binning runs once at
-load time on the host; the resulting uint8 bin matrix is what lives in
-device memory.
+load time on the host; the resulting uint8 bin matrix (uint16 past 256
+bins) is what lives in device memory.
 
 The greedy bin search is the NumPy loop of the reference; the reference
 dispatches columns with more than 512 distinct values to a native

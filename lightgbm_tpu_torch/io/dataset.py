@@ -7,7 +7,8 @@ DatasetLoader::ConstructFromSampleData, src/io/dataset_loader.cpp:593):
   sample rows -> BinMapper.find_bin per feature (numerical or
   categorical) -> drop trivial features -> EFB bundles of mostly-zero
   columns (``io/efb.py``, on by default as in the reference) ->
-  value_to_bin over the full columns -> one row-major uint8 matrix,
+  value_to_bin over the full columns -> one row-major uint8 matrix
+  (uint16 when a feature or a bundle has more than 256 bins),
   [N, G] bundle columns when bundled, [N, F] features otherwise.
 
 Dense arrays and scipy sparse matrices are taken; sparse input stays
@@ -89,7 +90,8 @@ class Metadata:
 class BinnedDataset:
     """Quantized training data.
 
-    bins : np.ndarray uint8, [num_data, num_used_features], or the
+    bins : np.ndarray uint8 (uint16 past 256 bins), [num_data,
+        num_used_features], or the
         bundled [num_data, num_groups] matrix when ``bundle`` is set
     bin_mappers : one BinMapper per *used* (non-trivial) feature
     used_feature_map : original column index per used feature
@@ -201,30 +203,29 @@ class BinnedDataset:
                 [m.num_bin for m in self.bin_mappers], dtype=np.int32)
             self.max_num_bin = int(self.num_bin_per_feature.max()) if len(
                 self.num_bin_per_feature) else 1
-            if self.max_num_bin > 256:
-                log.unsupported("more than 256 bins per feature", "item 26")
             self._set_constraints(config)
             if bundle is not None:
                 self.bundle = bundle
             elif (sample_bin_cols and config.enable_bundle
                   and len(self.bin_mappers) > 1):
                 self._find_bundles(sample_bin_cols, config)
-            if (self.bundle is not None
-                    and self.bundle.num_bundled_bins > 256):
-                log.unsupported("EFB bundles of more than 256 bins "
-                                "(uint16 bundle columns)", "item 26")
 
         def binned_col(j: int) -> np.ndarray:
             return columns.binned(self.used_feature_map[j],
                                   self.bin_mappers[j], n)
 
+        # uint8 bins while every feature (or bundle) has at most 256
+        # bins, else uint16 (reference io/dataset.py:261-269)
         if self.bundle is not None:
             zero_bins = np.asarray([m.default_bin for m in self.bin_mappers],
                                    dtype=np.int32)
+            dtype = (np.uint8 if self.bundle.num_bundled_bins <= 256
+                     else np.uint16)
             self.bins = bundle_columns(binned_col, self.bundle, zero_bins, n,
-                                       np.uint8)
+                                       dtype)
         else:
-            bins = np.empty((n, len(self.bin_mappers)), dtype=np.uint8)
+            dtype = np.uint8 if self.max_num_bin <= 256 else np.uint16
+            bins = np.empty((n, len(self.bin_mappers)), dtype=dtype)
             for j in range(len(self.bin_mappers)):
                 bins[:, j] = binned_col(j)
             self.bins = bins

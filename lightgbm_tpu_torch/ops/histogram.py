@@ -2,9 +2,13 @@
 
 Port of ``lightgbm_tpu/ops/histogram.py``. The TPU package runs the
 Pallas kernel ``_hist_kernel_body``; here :func:`build_histogram` runs
-the hand-written CUDA kernel ``csrc/histogram.cu`` on CUDA tensors and
-its plain PyTorch version (:func:`histogram_plain`, a flat
-``index_add_`` mirroring ``_segment_histogram``) on CPU tensors. Which
+the hand-written CUDA kernel ``csrc/histogram.cu`` (uint8 bins; its
+uint16 build ``csrc/histogram_u16.cu`` for ``max_bin > 255``) on CUDA
+tensors and its plain PyTorch version (:func:`histogram_plain`, a flat
+``index_add_`` mirroring ``_segment_histogram``) on CPU tensors. Each
+bin type has four instances: f32 rows into f32 sums, f32 rows into f64
+sums rounded once to f32 (``tpu_use_f64_hist``), and int8 and int16
+rows into int32 sums. Which
 one runs depends only on where the tensors lie: a CUDA tensor reaches
 the kernel or an exception, never the plain version.
 
@@ -38,31 +42,51 @@ import torch
 from ..utils.log import LightGBMError
 from .quantize import acc_dtype as quant_acc_dtype
 
+def _instances():
+    """The kernel's instances: (bins dtype, gh dtype, f64 sums) ->
+    (launch count name, C entry, output dtype, accumulator dtype,
+    library); uint16 bins (max_bin > 255) take the library built from
+    histogram_u16.cu."""
+    out = {}
+    for bins, lib, pre in ((torch.uint8, "histogram", ""),
+                           (torch.uint16, "histogram_u16", "u16_")):
+        for gh, f64, tag, out_dtype, acc in (
+                (torch.float32, False, "f32", torch.float32, torch.float32),
+                (torch.float32, True, "f64", torch.float32, torch.float64),
+                (torch.int8, False, "i8", torch.int32, torch.int32),
+                (torch.int16, False, "i16", torch.int32, torch.int32)):
+            out[(bins, gh, f64)] = ("histogram_" + pre + tag,
+                                    "lgbm_histogram_" + pre + tag,
+                                    out_dtype, acc, lib)
+    return out
+
+
+_KERNEL_OF = _instances()
+
 #: kernel launches per instance since the last :func:`reset_launch_counts`
 #: (the wrapper adds one exactly where it launches its kernel; a graph
 #: capture counts once, its replays not at all)
-launch_counts: Dict[str, int] = {"histogram_f32": 0, "histogram_i8": 0,
-                                 "histogram_i16": 0}
+launch_counts: Dict[str, int] = {v[0]: 0 for v in _KERNEL_OF.values()}
 #: the device counters, one uint64 per (instance, device): the kernel adds
 #: one on every launch, replays of a captured graph included
 _device_counters: Dict[Tuple[str, int], torch.Tensor] = {}
 
-_KERNEL_OF = {torch.float32: ("histogram_f32", "lgbm_histogram_f32",
-                              torch.float32),
-              torch.int8: ("histogram_i8", "lgbm_histogram_i8",
-                           torch.int32),
-              torch.int16: ("histogram_i16", "lgbm_histogram_i16",
-                            torch.int32)}
+_GH_DTYPES = (torch.float32, torch.int8, torch.int16)
 _MAX_C = 8
-_MAX_B = 256
+#: bins per histogram at most, by bin dtype
+_MAX_B = {torch.uint8: 256, torch.uint16: 65536}
 
 #: shared memory one block may use on an H100 (bytes)
 MAX_SMEM = 232448
-#: warps per block (csrc/histogram.cu kWarps); each owns Fg / 16 features
+#: warps per block (csrc/histogram.cu kWarps); each owns Fg / 16
+#: (feature, slab) pairs
 WARPS = 16
-#: features of one group: the kernel has instances for 1 and 2 features
-#: per warp
+#: (feature, slab) pairs of one group: the kernel has instances for 1 and
+#: 2 pairs per warp
 GROUP_FEATURES = (16, 32)
+#: bins per slab at most (csrc/histogram.cu kSlab): a feature of B > 256
+#: bins is cut into ceil(B / 256) slabs, each owned by one warp
+SLAB_BINS = 256
 #: rows staged per tile: at most this, at least MIN_TILE_ROWS
 MAX_TILE_ROWS = 1024
 MIN_TILE_ROWS = 128
@@ -88,9 +112,11 @@ def device_plan(n: int, num_sms: int, groups: int) -> Tuple[int, int]:
 
 class LaunchPlan(NamedTuple):
     """How one call of ``csrc/histogram.cu`` is laid out."""
-    groups: int                 # feature groups (blockIdx.y)
-    features_per_group: int     # Fg, 16 or 32; the last group may hold
-    #                             fewer features
+    groups: int                 # groups of (feature, slab) pairs
+    #                             (blockIdx.y)
+    features_per_group: int     # Fg, 16 or 32 pairs; the last group may
+    #                             hold fewer (with one slab a pair is a
+    #                             feature)
     warps: int                  # warps per block
     tile_rows: int              # rows staged per tile (double-buffered)
     blocks: int                 # row blocks (blockIdx.x)
@@ -99,40 +125,62 @@ class LaunchPlan(NamedTuple):
     scratch_shape: Optional[Tuple[int, int, int, int]]  # per-block
     #                             partials [blocks, Fp, B, C]; None for one
     #                             block (it writes the output itself)
+    slab_bins: int              # SB = min(B, 256) bins per slab
+    slabs: int                  # slabs per feature, ceil(B / SB)
+    stage_features: int         # Fs: features staged per tile row
 
     def feature_ranges(self, Fp: int) -> List[Tuple[int, int]]:
-        """[begin, end) of each group's features."""
-        g = self.features_per_group
-        return [(k * g, min((k + 1) * g, Fp)) for k in range(self.groups)]
+        """[begin, end) of the features each group stages (with one slab,
+        its own features; with more, a feature's slabs may span two
+        groups)."""
+        return [_group_features(k, self.features_per_group, self.slabs, Fp)
+                for k in range(self.groups)]
+
+
+def _group_features(g: int, fg: int, slabs: int, Fp: int) -> Tuple[int, int]:
+    """[begin, end) of group g's features (``csrc/histogram.cu``
+    ``group_features``)."""
+    p0, p1 = g * fg, min((g + 1) * fg, Fp * slabs)
+    return p0 // slabs, (p1 - 1) // slabs + 1
 
 
 def launch_plan(S: int, Fp: int, B: int, C: int, gh_dtype: torch.dtype,
-                num_sms: int) -> LaunchPlan:
+                num_sms: int, bins_dtype: torch.dtype = torch.uint8,
+                f64: bool = False) -> LaunchPlan:
     """The kernel's launch for S rows of Fp features, B bins and C stats.
 
-    A block holds the [Fg, B, C] 4-byte accumulators of its feature group
-    and two tiles of ``tile_rows`` rows (Fg bin bytes and C gh values
-    each) in shared memory. Groups are as few as fit (one at the main
-    path's Fp = 32, B = 256, C = 4: 128 KB of accumulators beside 96 KB
-    of tiles); row blocks are at most one per SM across the groups and
-    take at least ``MIN_ROWS_PER_BLOCK`` rows each. Raises
-    ``LightGBMError`` for a shape the kernel does not take."""
-    if gh_dtype not in _KERNEL_OF:
+    A feature's B bins are cut into slabs of ``min(B, 256)`` bins; a
+    block holds the [Fg, SB, C] accumulators of its group's Fg (feature,
+    slab) pairs (4 bytes each, 8 with ``f64``) and two tiles of
+    ``tile_rows`` rows (the group's features' bins and C gh values each)
+    in shared memory. Groups are as few as fit (one at the main path's
+    Fp = 32, B = 256, C = 4: 128 KB of accumulators beside 96 KB of
+    tiles; four at B = 1024 with uint16 bins); row blocks are at most one
+    per SM across the groups and take at least ``MIN_ROWS_PER_BLOCK``
+    rows each. Raises ``LightGBMError`` for a shape the kernel does not
+    take (f64 sums at 256-bin slabs fit at most 6 stat columns; the
+    learner's rows have 4)."""
+    if gh_dtype not in _GH_DTYPES:
         raise LightGBMError("histogram kernel takes float32 or int8/int16 "
                             "gh rows, got %s" % gh_dtype)
+    if bins_dtype not in _MAX_B:
+        raise LightGBMError("histogram kernel takes uint8 or uint16 bins, "
+                            "got %s" % bins_dtype)
     if Fp <= 0 or Fp % 8 != 0:
         raise LightGBMError("histogram kernel needs the feature axis "
                             "padded to a multiple of 8, got %d" % Fp)
     if not (1 <= C <= _MAX_C):
         raise LightGBMError("histogram kernel takes 1..%d stat columns, "
                             "got %d" % (_MAX_C, C))
-    if not (1 <= B <= _MAX_B):
+    if not (1 <= B <= _MAX_B[bins_dtype]):
         raise LightGBMError("histogram kernel takes at most %d bins, got "
-                            "%d" % (_MAX_B, B))
+                            "%d" % (_MAX_B[bins_dtype], B))
     if S < 1 or num_sms < 1:
         raise LightGBMError("histogram launch plan needs rows and SMs, got "
                             "S=%d num_sms=%d" % (S, num_sms))
-    groups, fg, tile, smem = _group_plan(Fp, B, C, C * gh_dtype.itemsize)
+    acc_bytes = 8 if f64 and gh_dtype.is_floating_point else 4
+    groups, fg, tile, smem, sb, slabs, fs = _group_plan(
+        Fp, B, C, C * gh_dtype.itemsize, bins_dtype.itemsize, acc_bytes)
     blocks = max(1, min(num_sms // groups, -(-S // MIN_ROWS_PER_BLOCK)))
     per_block = -(-S // blocks)
     blocks = -(-S // per_block)
@@ -140,28 +188,45 @@ def launch_plan(S: int, Fp: int, B: int, C: int, gh_dtype: torch.dtype,
                       tile_rows=tile, blocks=blocks,
                       rows_per_block=per_block, smem_bytes=smem,
                       scratch_shape=(blocks, Fp, B, C) if blocks > 1
-                      else None)
+                      else None, slab_bins=sb, slabs=slabs,
+                      stage_features=fs)
 
 
 @functools.lru_cache(maxsize=None)
-def _group_plan(Fp: int, B: int, C: int, gh_bytes: int):
-    """(groups, features per group, tile rows, shared bytes) of a shape;
-    the learner asks for one shape per training run."""
-    per_feature = B * C * 4
+def _group_plan(Fp: int, B: int, C: int, gh_bytes: int, bin_bytes: int,
+                acc_bytes: int):
+    """(groups, pairs per group, tile rows, shared bytes, slab bins,
+    slabs, staged features) of a shape; the learner asks for one shape
+    per training run."""
+    sb = min(B, SLAB_BINS)
+    slabs = -(-B // sb)
+    pairs = Fp * slabs
+    per_pair = sb * C * acc_bytes
+
+    def staged(fg):
+        # the tile row holds the widest group's features; with one slab
+        # it is Fg wide (as many as the group may hold)
+        if slabs == 1:
+            return fg
+        groups = -(-pairs // fg)
+        return max(b - a for a, b in (_group_features(g, fg, slabs, Fp)
+                                      for g in range(groups)))
 
     def smem(fg, rows):
-        return fg * per_feature + 2 * rows * (fg + gh_bytes)
+        return fg * per_pair + 2 * rows * (staged(fg) * bin_bytes + gh_bytes)
 
     fits = [fg for fg in GROUP_FEATURES
             if smem(fg, MIN_TILE_ROWS) <= MAX_SMEM]
     if not fits:
         raise LightGBMError("histogram kernel: B=%d C=%d does not fit in "
                             "shared memory" % (B, C))
-    groups = -(-Fp // fits[-1])
-    fg = min(f for f in fits if f * groups >= Fp)
-    rows = (MAX_SMEM - fg * per_feature) // (2 * (fg + gh_bytes))
+    groups = -(-pairs // fits[-1])
+    fg = min(f for f in fits if f * groups >= pairs)
+    groups = -(-pairs // fg)
+    fs = staged(fg)
+    rows = (MAX_SMEM - fg * per_pair) // (2 * (fs * bin_bytes + gh_bytes))
     tile = min(MAX_TILE_ROWS, rows // 32 * 32)
-    return groups, fg, tile, smem(fg, tile)
+    return groups, fg, tile, smem(fg, tile), sb, slabs, fs
 
 
 def reset_launch_counts() -> None:
@@ -200,44 +265,66 @@ def _device_counter(name: str, device: torch.device) -> torch.Tensor:
     return t
 
 
-def acc_dtype(gh_dtype: torch.dtype) -> torch.dtype:
+def acc_dtype(gh_dtype: torch.dtype, f64: bool = False) -> torch.dtype:
     """Accumulator per gh dtype: integer rows sum in int32 (the
     reference's default; ops/quantize.py caps the rows so the sums fit),
-    floats keep f32 unless they are f64."""
+    floats keep f32 unless they are f64 or ``f64`` sums are asked for
+    (``tpu_use_f64_hist``)."""
     if not gh_dtype.is_floating_point:
         return quant_acc_dtype(gh_dtype)
-    return torch.float64 if gh_dtype == torch.float64 else torch.float32
+    return torch.float64 if f64 or gh_dtype == torch.float64 \
+        else torch.float32
+
+
+def bin_values(bins: torch.Tensor,
+               idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int64 bin values of ``bins`` (rows ``idx`` where given). uint16
+    bins are read through an int16 view (torch's uint16 is a limited
+    dtype on the card) and masked back to 0..65535."""
+    if bins.dtype == torch.uint16:
+        v = bins.view(torch.int16)
+        v = v if idx is None else v.index_select(0, idx.long())
+        return v.long() & 0xFFFF
+    v = bins if idx is None else bins.index_select(0, idx.long())
+    return v.long()
 
 
 def histogram_plain(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
                     idx: Optional[torch.Tensor] = None,
-                    count: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    count: Optional[torch.Tensor] = None,
+                    f64: bool = False) -> torch.Tensor:
     """Plain PyTorch version: one flat ``(f * B + bin)`` index and one
     ``index_add_``, the analogue of the reference's
     ``_segment_histogram``. Rows are summed in row order, as XLA's CPU
     segment_sum does, so on the CPU f32 results match it bit for bit.
-    With ``count`` only the first ``count`` rows of ``idx`` are summed."""
+    With ``count`` only the first ``count`` rows of ``idx`` are summed.
+    With ``f64`` float rows are summed in f64 and rounded to f32 once, as
+    the reference does under ``tpu_use_f64_hist`` (integer rows ignore
+    it: their sums are exact)."""
     if count is not None:
         idx = idx[:int(count)]
+    b = bin_values(bins, idx)
     if idx is not None:
-        bins = bins[idx.long()]
-        gh = gh[idx.long()]
-    S, F = bins.shape
+        gh = gh.index_select(0, idx.long())
+    S, F = b.shape
     C = gh.shape[1]
-    acc = acc_dtype(gh.dtype)
+    acc = acc_dtype(gh.dtype, f64)
     flat = (torch.arange(F, dtype=torch.int64, device=bins.device)[None, :]
-            * num_bins + bins.long()).reshape(-1)
+            * num_bins + b).reshape(-1)
     vals = gh.to(acc)[:, None, :].expand(S, F, C).reshape(-1, C)
     out = torch.zeros(F * num_bins, C, dtype=acc, device=bins.device)
     out.index_add_(0, flat, vals)
-    return out.view(F, num_bins, C)
+    out = out.view(F, num_bins, C)
+    if f64 and gh.dtype == torch.float32:
+        out = out.to(torch.float32)
+    return out
 
 
 def _check_cuda_args(bins, gh, num_bins, idx, count=None) -> None:
-    if bins.dtype != torch.uint8:
-        raise LightGBMError("histogram kernel takes uint8 bins, got %s"
-                            % bins.dtype)
-    if gh.dtype not in _KERNEL_OF:
+    if bins.dtype not in _MAX_B:
+        raise LightGBMError("histogram kernel takes uint8 or uint16 bins, "
+                            "got %s" % bins.dtype)
+    if gh.dtype not in _GH_DTYPES:
         raise LightGBMError("histogram kernel takes float32 or int8/int16 "
                             "gh rows, got %s" % gh.dtype)
     if bins.dim() != 2 or gh.dim() != 2 or gh.shape[0] != bins.shape[0]:
@@ -251,9 +338,9 @@ def _check_cuda_args(bins, gh, num_bins, idx, count=None) -> None:
     if not (1 <= gh.shape[1] <= _MAX_C):
         raise LightGBMError("histogram kernel takes 1..%d stat columns, "
                             "got %d" % (_MAX_C, gh.shape[1]))
-    if not (1 <= num_bins <= _MAX_B):
+    if not (1 <= num_bins <= _MAX_B[bins.dtype]):
         raise LightGBMError("histogram kernel takes at most %d bins, got "
-                            "%d" % (_MAX_B, num_bins))
+                            "%d" % (_MAX_B[bins.dtype], num_bins))
     if count is not None and (idx is None or count.dtype != torch.int32
                               or count.numel() != 1):
         raise LightGBMError("histogram kernel takes a row count as a "
@@ -276,22 +363,28 @@ def _check_cuda_args(bins, gh, num_bins, idx, count=None) -> None:
 
 def histogram_cuda(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
                    idx: Optional[torch.Tensor] = None,
-                   count: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch ``csrc/histogram.cu`` on PyTorch's current stream. With a
-    host row count (no ``count``) the launch is laid out by
-    :func:`launch_plan`; with ``count`` (the length of ``idx``'s list,
-    a one-element int32 tensor on the device) the device-count entry
-    plans it on the device. The kernel writes the whole output, so it is
-    allocated empty, as is the scratch for the per-block partials."""
+                   count: Optional[torch.Tensor] = None,
+                   f64: bool = False) -> torch.Tensor:
+    """Launch ``csrc/histogram.cu`` (uint8 bins) or its uint16 build
+    ``csrc/histogram_u16.cu`` on PyTorch's current stream. With a host
+    row count (no ``count``) the launch is laid out by
+    :func:`launch_plan`; with ``count`` (the length of ``idx``'s list, a
+    one-element int32 tensor on the device) the device-count entry plans
+    it on the device. The kernel writes the whole output, so it is
+    allocated empty, as is the scratch for the per-block partials (of
+    the accumulator dtype: f64 with ``f64``)."""
     _check_cuda_args(bins, gh, num_bins, idx, count)
-    name, symbol, out_dtype = _KERNEL_OF[gh.dtype]
+    f64 = bool(f64) and gh.dtype.is_floating_point
+    name, symbol, out_dtype, acc, lib = _KERNEL_OF[(bins.dtype, gh.dtype,
+                                                    f64)]
     F, C = bins.shape[1], gh.shape[1]
     S = bins.shape[0] if idx is None else idx.shape[0]
     if S == 0:
         return torch.zeros((F, num_bins, C), dtype=out_dtype,
                            device=bins.device)
     num_sms = _num_sms(bins.device)
-    plan = launch_plan(S, F, num_bins, C, gh.dtype, num_sms)
+    plan = launch_plan(S, F, num_bins, C, gh.dtype, num_sms, bins.dtype,
+                       f64)
     out = torch.empty((F, num_bins, C), dtype=out_dtype, device=bins.device)
     counter = _device_counter(name, bins.device)
     stream = torch.cuda.current_stream(bins.device).cuda_stream
@@ -300,27 +393,29 @@ def histogram_cuda(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
     with torch.cuda.device(bins.device):
         if count is None:
             scratch = (None if plan.scratch_shape is None else
-                       torch.empty(plan.scratch_shape, dtype=out_dtype,
+                       torch.empty(plan.scratch_shape, dtype=acc,
                                    device=bins.device))
-            code = _kernel_fn(symbol)(
+            code = _kernel_fn(lib, symbol)(
                 bins.data_ptr(), gh.data_ptr(),
                 None if idx is None else idx.data_ptr(), out.data_ptr(),
                 None if scratch is None else scratch.data_ptr(),
                 counter.data_ptr(), S, F, num_bins, C,
-                plan.features_per_group, plan.groups, plan.tile_rows,
-                plan.blocks, plan.rows_per_block, plan.smem_bytes, stream)
+                plan.features_per_group, plan.groups, plan.stage_features,
+                plan.tile_rows, plan.blocks, plan.rows_per_block,
+                plan.smem_bytes, stream)
         else:
             max_blocks = max(1, num_sms // plan.groups)
             scratch = (None if max_blocks == 1 else
                        torch.empty((max_blocks, F, num_bins, C),
-                                   dtype=out_dtype, device=bins.device))
-            code = _kernel_fn(symbol + "_dev")(
+                                   dtype=acc, device=bins.device))
+            code = _kernel_fn(lib, symbol + "_dev")(
                 bins.data_ptr(), gh.data_ptr(), idx.data_ptr(),
                 count.data_ptr(), out.data_ptr(),
                 None if scratch is None else scratch.data_ptr(),
                 counter.data_ptr(), F, num_bins, C,
-                plan.features_per_group, plan.groups, plan.tile_rows,
-                max_blocks, MIN_ROWS_PER_BLOCK, plan.smem_bytes, stream)
+                plan.features_per_group, plan.groups, plan.stage_features,
+                plan.tile_rows, max_blocks, MIN_ROWS_PER_BLOCK,
+                plan.smem_bytes, stream)
     launch_counts[name] += 1
     if code != 0:
         raise LightGBMError("histogram kernel launch failed: %s (cuda "
@@ -333,20 +428,20 @@ def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _kernel_fn(symbol: str):
+def _kernel_fn(lib_name: str, symbol: str):
     from .. import csrc
-    lib = csrc.load("histogram")
+    lib = csrc.load(lib_name)
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if symbol.endswith("_dev"):
             # bins, gh, idx, count, out, scratch, launches; Fp, B, C, Fg,
-            # groups, T, max_blocks, min_rows, smem; stream
-            fn.argtypes = [vp] * 7 + [i32] * 9 + [vp]
+            # groups, Fs, T, max_blocks, min_rows, smem; stream
+            fn.argtypes = [vp] * 7 + [i32] * 10 + [vp]
         else:
             # bins, gh, idx, out, scratch, launches; S; Fp, B, C, Fg,
-            # groups, T, blocks; rows_per_block; smem; stream
-            fn.argtypes = [vp] * 6 + [i64] + [i32] * 7 + [i64, i32, vp]
+            # groups, Fs, T, blocks; rows_per_block; smem; stream
+            fn.argtypes = [vp] * 6 + [i64] + [i32] * 8 + [i64, i32, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -361,21 +456,24 @@ def _error_string(code: int) -> str:
 
 def build_histogram(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
                     idx: Optional[torch.Tensor] = None,
-                    count: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    count: Optional[torch.Tensor] = None,
+                    f64: bool = False) -> torch.Tensor:
     """Accumulate (grad, hess, counts) per (feature, bin).
 
-    bins : uint8 [N, F] (F a multiple of 8 on CUDA)
+    bins : uint8 or uint16 [N, F] (F a multiple of 8 on CUDA)
     gh : f32, int8 or int16 [N, C], C <= 8
     idx : optional int32 [S] row-index list; only those rows are summed
     count : optional one-element int32 tensor on idx's device: only the
         first ``count`` rows of idx are summed (on CUDA the kernel reads it
         there, so the caller needs no host read)
+    f64 : sum f32 rows in f64 and round once to f32 (the reference's
+        ``tpu_use_f64_hist``; ignored for integer rows)
     Returns [F, num_bins, C] f32 (int32 for integer gh).
     """
     if bins.device.type == "cpu":
-        return histogram_plain(bins, gh, num_bins, idx, count)
+        return histogram_plain(bins, gh, num_bins, idx, count, f64)
     if bins.device.type == "cuda":
-        return histogram_cuda(bins, gh, num_bins, idx, count)
+        return histogram_cuda(bins, gh, num_bins, idx, count, f64)
     raise LightGBMError("no histogram kernel for device %s" % bins.device)
 
 

@@ -150,13 +150,19 @@ def _bundled_device_tree(tree: Tree, bin_meta, num_bins: int, bundle,
 
 
 def _traverse(bins: torch.Tensor, dt: DeviceTree, trips: int) -> torch.Tensor:
-    """Lockstep binned walk: [n, F] uint8 bins -> [n] int32 leaf ids."""
+    """Lockstep binned walk: [n, F] uint8 or uint16 bins -> [n] int32
+    leaf ids. uint16 bins are read through an int16 view (torch's uint16
+    is a limited dtype on the card) and masked back."""
     n = bins.shape[0]
     rows = torch.arange(n, device=bins.device)
     node = torch.zeros(n, dtype=torch.int32, device=bins.device)
+    wide = bins.dtype == torch.uint16
+    src = bins.view(torch.int16) if wide else bins
     for _ in range(trips):
         nd = node.clamp(min=0).long()
-        b = bins[rows, dt.feat[nd]].to(torch.int32)
+        b = src[rows, dt.feat[nd]].to(torch.int32)
+        if wide:
+            b = b & 0xFFFF
         gl = b <= dt.tbin[nd]
         gl = torch.where(b == dt.nan_bin[nd], dt.default_left[nd], gl)
         gl = torch.where(b == dt.zero_bin[nd], dt.default_left[nd], gl)

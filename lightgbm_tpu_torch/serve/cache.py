@@ -3,7 +3,7 @@
 Port of ``lightgbm_tpu/serve/cache.py``. Batches are padded with zero
 rows up to a power-of-two row bucket (``min_bucket`` .. ``max_bucket``),
 dispatched, and the pad is sliced off; larger batches stream through in
-``max_bucket`` chunks (``kDDBucketCap`` for double-double batches, whose
+``max_bucket`` chunks (``dd_chunk_rows`` for double-double batches, whose
 quantizer broadcasts a [rows, used features, thresholds] compare). So a
 model version sees at most ``log2(max_bucket / min_bucket) + 1`` shapes
 per output kind. The reference pads for XLA's compile cache; here every
@@ -29,8 +29,21 @@ _KINDS = ("value", "raw", "leaf", "raw_device")
 
 # the dd quantizer's lexicographic pair count broadcasts an
 # [rows, used features, thresholds] boolean compare before it reduces:
-# dd chunks stay at most this many rows, so it stays tens of MB
+# dd chunks stay at most this many rows, and at most kDDCompareCap
+# compare elements (4096 rows of 28 used features with 256 thresholds
+# each, a max_bin 255 model's), so it stays tens of MB; a wide-bin
+# model, with up to max_bin thresholds per feature, takes shorter chunks
 kDDBucketCap = 4096
+kDDCompareCap = kDDBucketCap * 28 * 256
+
+
+def dd_chunk_rows(forest) -> int:
+    """Rows per double-double chunk of ``forest``: a power of two, at
+    most kDDBucketCap, whose compare holds at most kDDCompareCap
+    elements (at least one row)."""
+    used, most = forest._qt_dd.thr_hi.shape
+    rows = max(kDDCompareCap // max(used * most, 1), 1)
+    return min(kDDBucketCap, 1 << (rows.bit_length() - 1))
 
 
 class BucketedPredictor:
@@ -93,7 +106,7 @@ class BucketedPredictor:
         if not dd:
             X = np.ascontiguousarray(X, dtype=np.float32)
         n = X.shape[0]
-        max_chunk = (min(self.max_bucket, kDDBucketCap) if dd
+        max_chunk = (min(self.max_bucket, dd_chunk_rows(self.forest)) if dd
                      else self.max_bucket)
         outs = []
         for lo in range(0, max(n, 1), max_chunk):

@@ -62,8 +62,10 @@ device's leaf ids, then every tree's f64 value (the linear ones by
 ``models/linear.py::linear_predict``) added on the host in tree order,
 as the host walk does.
 
-``average_output`` (random forest) is ROADMAP item 16 and raises naming
-it.
+``average_output`` (random forest): the raw sums are divided by the
+number of iterations, as ``GBDT.predict_raw`` divides them (in f64 on
+the host for ``predict_raw``, so it stays byte-equal to the host walk;
+by the f32 divisor for ``predict_raw_device``).
 """
 from __future__ import annotations
 
@@ -82,7 +84,6 @@ from ..ops.predict import (LinearLeaves, QuantizerTables, QuantizerTablesDD,
                            stacked_forest_raw, stacked_forest_raw_dd,
                            stacked_leaf_values)
 from ..utils import next_pow2
-from ..utils.log import unsupported
 
 
 def round_down_f32(x) -> np.ndarray:
@@ -143,8 +144,7 @@ class StackedForest:
         models = list(models)
         if not models:
             raise ValueError("StackedForest needs at least one tree")
-        if average_output:
-            unsupported("average_output models (random forest)", "item 16")
+        self.average_output = bool(average_output)
         self.has_linear = any(t.is_linear for t in models)
         # the host f64 exact path evaluates linear trees over the rows
         self._models = models if self.has_linear else None
@@ -377,7 +377,7 @@ class StackedForest:
         models = gbdt._used_models(start_iteration, num_iteration)
         return cls(models, gbdt.num_tree_per_iteration,
                    gbdt.max_feature_idx + 1, objective=gbdt.objective,
-                   lut=lut)
+                   average_output=gbdt.average_output, lut=lut)
 
     # ------------------------------------------------------------------
     def place(self, device) -> "StackedForest":
@@ -493,6 +493,8 @@ class StackedForest:
         else:
             out = self._to_host(_sum_leaf_values_f64(
                 self.leaves_device(X, dd), self._leaf_f64, K))
+        if self.average_output:
+            out /= max(self.num_trees // K, 1)
         return out[:, 0] if K == 1 else out
 
     def predict(self, X, raw_score: bool = False, dd=None) -> np.ndarray:
@@ -511,13 +513,19 @@ class StackedForest:
         mode, Xp = self._route(X, dd)
         if mode == "dd":
             hi, lo = self.encode_dd(Xp)
-            return stacked_forest_raw_dd(
+            out = stacked_forest_raw_dd(
                 self._to_device(hi), self._to_device(lo), self._qt_dd,
                 self._nodes_dd, self.trips, self.num_classes,
                 self._cat_lut_dd, self._lin)
-        return stacked_forest_raw(self._to_device(Xp), self._qt,
-                                  self._nodes, self.trips, self.num_classes,
-                                  self._cat_lut, self._lin)
+        else:
+            out = stacked_forest_raw(self._to_device(Xp), self._qt,
+                                     self._nodes, self.trips,
+                                     self.num_classes, self._cat_lut,
+                                     self._lin)
+        if self.average_output:
+            out = out / float(np.float32(
+                max(self.num_trees // self.num_classes, 1)))
+        return out
 
     def tree_values_device(self, X) -> torch.Tensor:
         """[T, n] f32 value of every f32 row in every tree on the device,

@@ -44,6 +44,15 @@ lightgbm_tpu/treelearner/serial.py:346-411): the device holds the
 histogram the scan reads; the partition reads a feature's bin back
 through its bundle's member / unmap tables.
 
+Wide bins and f64 sums (reference ``serial.py:952``,
+``ops/histogram.py::build_histogram``): the device matrix keeps the
+Dataset's dtype, uint16 past 256 bins (a feature's, or an EFB bundle's),
+and the histograms are B (or Bg) = the next power of two wide, up to
+4096 and past it, through the kernel's uint16 build; the partition reads
+a uint16 column through an int16 view. ``tpu_use_f64_hist`` /
+``gpu_use_dp`` sum the f32 rows in f64 and round each histogram once to
+f32; the learner works in f32 from there, as the reference's does.
+
 Sampling and the per-node filters (reference ``SerialTreeLearner.train``,
 lightgbm_tpu/treelearner/serial.py:1140-1205; ``capabilities.py``):
 
@@ -320,10 +329,14 @@ class SerialTreeLearner(CapabilityMixin):
         self._bundled = dataset.bundle is not None
         ncols = dataset.bundle.num_groups if self._bundled else F
         self.Gp = -(-ncols // 8) * 8
+        # the dataset's bin dtype: uint8, or uint16 past 256 bins (the
+        # kernel's uint16 build sums those)
         bins = np.zeros((N, self.Gp if self._bundled else self.Fp),
-                        dtype=np.uint8)
+                        dtype=dataset.bins.dtype)
         bins[:, :ncols] = dataset.bins
         self.bins = torch.from_numpy(bins).to(device)
+        # f64 histogram sums, rounded once to f32 (tpu_use_f64_hist)
+        self._f64 = config.f64_histograms
         self.Bg, self._btab = 0, None
         if self._bundled:
             self.Bg = next_pow2(max(dataset.bundle.num_bundled_bins, 2))
@@ -435,14 +448,25 @@ class SerialTreeLearner(CapabilityMixin):
         the sums of bundle column 0's bins, where every row sits in one
         bin."""
         if not self._bundled:
-            return build_histogram(self.bins, gh, self.B, idx, count)
-        bhist = build_histogram(self.bins, gh, self.Bg, idx, count)
+            return build_histogram(self.bins, gh, self.B, idx, count,
+                                   f64=self._f64)
+        bhist = build_histogram(self.bins, gh, self.Bg, idx, count,
+                                f64=self._f64)
         if not gh.dtype.is_floating_point:
             totals = bhist[0].sum(dim=0, dtype=bhist.dtype)
         bt = self._btab
         return unpack_bundle_histogram(bhist, bt.gidx_g, bt.gidx_b,
                                        bt.zero_fix, self.meta.zero_bin,
                                        totals)
+
+    def _bin_column(self, col: torch.Tensor) -> torch.Tensor:
+        """[N] int32 bin values of device column ``col`` (a [1] int64
+        tensor): uint16 bins are read through an int16 view (torch's
+        uint16 is a limited dtype on the card) and masked back."""
+        if self.bins.dtype == torch.uint16:
+            v = self.bins.view(torch.int16).index_select(1, col).view(-1)
+            return v.to(torch.int32) & 0xFFFF
+        return self.bins.index_select(1, col).view(-1).to(torch.int32)
 
     def _go_left(self, row: torch.Tensor) -> torch.Tensor:
         """[N] bool: the rows that the record row ``row`` sends left
@@ -457,7 +481,7 @@ class SerialTreeLearner(CapabilityMixin):
         if self._bundled:
             bt = self._btab
             g = bt.group_of.index_select(0, f)
-            raw = self.bins.index_select(1, g).view(-1).long()
+            raw = self._bin_column(g).long()
             owner = bt.member.index_select(0, g).view(-1).index_select(
                 0, raw)
             col = torch.where(
@@ -465,7 +489,7 @@ class SerialTreeLearner(CapabilityMixin):
                 bt.unmap.index_select(0, g).view(-1).index_select(0, raw),
                 zero_bin).to(torch.int32)
         else:
-            col = self.bins.index_select(1, f).view(-1).to(torch.int32)
+            col = self._bin_column(f)
         gl = go_left_on_device(
             col, row[S.THRESHOLD_BIN].to(torch.int32),
             row[S.DEFAULT_LEFT] > 0.0, meta.missing_type.index_select(0, f),

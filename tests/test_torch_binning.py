@@ -14,7 +14,6 @@ import lightgbm_tpu.io.dataset as ref_dataset
 import lightgbm_tpu_torch.config as port_config
 import lightgbm_tpu_torch.io.dataset as port_dataset
 from lightgbm_tpu_torch.convert import bin_mappers_from_numpy
-from lightgbm_tpu_torch.utils.log import LightGBMError
 
 torch.set_num_threads(1)
 
@@ -100,9 +99,11 @@ def test_bundles_that_would_form_raise():
     """Two mutually exclusive sparse columns form an EFB bundle in the
     reference and in the port alike (the old item-11 raise is gone):
     the same layout and the bundled matrix byte-equal (level a); with
-    bundling off, the unbundled matrix byte-equal too. What still
-    raises is a bundle wider than 256 bins (uint16 bundle columns,
-    item 26)."""
+    bundling off, the unbundled matrix byte-equal too. A bundle wider
+    than 256 bins (item 26, which raised before the port had it) forms
+    in both as a uint16 bundle column, byte-equal: two sparse columns
+    of 150 bins each beside a dense one of ~400 (max_bin 511) bundle
+    into one column of more than 256 bins."""
     rng = np.random.RandomState(0)
     n = 2000
     X = rng.randn(n, 3)
@@ -122,6 +123,16 @@ def test_bundles_that_would_form_raise():
     ref, port = _both(X, params)
     assert port.bundle is None
     assert ref.bins.tobytes() == port.bins.tobytes()
-    with pytest.raises(LightGBMError, match="item 26"):
-        port_config.Config.from_params(
-            {"device_type": "cpu", "max_bin": 300}).check_slice()
+    X = rng.randn(n, 3)
+    X[:, 0] = 0.0
+    X[:, 1] = 0.0
+    X[:150, 0] = np.arange(1, 151)
+    X[150:300, 1] = np.arange(1, 151)
+    X[:, 2] = rng.randint(0, 400, n)
+    ref, port = _both(X, {"verbose": -1, "max_bin": 511,
+                          "min_data_in_bin": 1})
+    assert ref.bundle is not None and port.bundle is not None
+    assert port.bundle.groups == ref.bundle.groups
+    assert port.bundle.num_bundled_bins == ref.bundle.num_bundled_bins > 256
+    assert ref.bins.dtype == port.bins.dtype == np.uint16
+    assert ref.bins.tobytes() == port.bins.tobytes()

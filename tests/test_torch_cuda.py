@@ -400,14 +400,18 @@ def test_categorical_and_bundled_graph_trees_equal_per_split(cuda, kind):
     assert fused._stacked_cache[1].entries
 
 
-def test_split_step_makes_no_sync(cuda):
+@pytest.mark.parametrize("extra", [{}, {"max_bin": 1023},
+                                   {"tpu_use_f64_hist": True}])
+def test_split_step_makes_no_sync(cuda, extra):
     """A warmed eager step raises nothing under
-    ``torch.cuda.set_sync_debug_mode("error")``: it holds no host read."""
+    ``torch.cuda.set_sync_debug_mode("error")``: it holds no host read
+    (with uint16 bins and f64 sums too)."""
     rng = np.random.RandomState(8)
     X = rng.randn(20000, 12)
     y = (X[:, 0] + rng.randn(20000) * 0.3 > 0).astype(float)
-    booster = lgb.Booster({"objective": "binary", "num_leaves": 31,
-                           "verbose": -1}, lgb.Dataset(X, label=y))
+    booster = lgb.Booster(dict({"objective": "binary", "num_leaves": 31,
+                                "verbose": -1}, **extra),
+                          lgb.Dataset(X, label=y))
     learner = booster.inner.learner
     g = torch.from_numpy((rng.rand(20000) - y).astype(np.float32)).cuda()
     gh = torch.stack([g, torch.full_like(g, 0.25), torch.ones_like(g),
@@ -727,3 +731,190 @@ def test_device_linear_fit_equals_cpu(cuda):
                                        rtol=1e-9, atol=0)
         np.testing.assert_allclose(c.leaf_const[:nl], a.leaf_const[:nl],
                                    rtol=1e-9, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# wide bins (uint16, B > 256) and f64 sums
+# ---------------------------------------------------------------------------
+def _wide_inputs(S, F, B, seed, dtype=torch.uint16):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    bins = torch.randint(0, B, (S, F), generator=g, device="cuda",
+                         dtype=torch.int32)
+    bins = (bins.to(torch.int16).view(torch.uint16)
+            if dtype == torch.uint16 else bins.to(torch.uint8))
+    gh = torch.randn(S, 4, generator=g, device="cuda")
+    gh[:, 2:] = 1.0
+    q = (2 ** 31 - 1) // S
+    rows = {"f32": gh, "f64": gh,
+            "int8": torch.randint(-127, 128, (S, 4), generator=g,
+                                  device="cuda", dtype=torch.int32
+                                  ).to(torch.int8),
+            "int16": torch.randint(-q, q + 1, (S, 4), generator=g,
+                                   device="cuda", dtype=torch.int32
+                                   ).to(torch.int16)}
+    idx = torch.randperm(S, generator=g, device="cuda")[:S // 3]
+    return bins, rows, idx.sort().values.to(torch.int32)
+
+
+def _check_against_plain(bins, rows, B, idx, kind):
+    """f32: counts exact, grad/hess within 1e-5 x the bin's sum of |x|;
+    f64 sums rounded once to f32 (:func:`_check_against_plain`'s
+    midpoint rule); int8 and int16: byte-equal to the plain version."""
+    f64 = kind == "f64"
+    got = H.build_histogram(bins, rows, B, idx, f64=f64)
+    if kind == "f32":
+        got = got.double()
+        ref = H.histogram_plain(bins, rows.double(), B, idx)
+        mag = H.histogram_plain(bins, rows.double().abs(), B, idx)
+        assert torch.equal(got[..., 2:], ref[..., 2:])
+        assert bool(((got - ref).abs() <= 1e-5 * mag).all())
+    elif f64:
+        # the f64 sum rounded once to f32: the plain version's rounding,
+        # but where the f64 sum lies at a rounding midpoint (within
+        # 1e-11 x sum|x|, past any f64 order's error)
+        ref = H.histogram_plain(bins, rows.double(), B, idx)
+        mag = H.histogram_plain(bins, rows.double().abs(), B, idx)
+        assert got.dtype == torch.float32
+        off = got != ref.float()
+        a, r = got[off], ref[off]
+        toward = torch.where(r > a.double(), float("inf"), float("-inf"))
+        mid = (a.double() + torch.nextafter(a, toward.float()).double()) / 2
+        assert bool(((r - mid).abs() <= 1e-11 * mag[off]).all())
+    else:
+        want = H.histogram_plain(bins, rows, B, idx)
+        assert got.dtype == want.dtype
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["f32", "f64", "int8", "int16"])
+@pytest.mark.parametrize("B", [512, 1024, 4096])
+def test_wide_kernel_instances_match_plain(cuda, B, kind):
+    """uint16 bins at B > 256: every instance against its plain version,
+    all rows and a row-index list, each through its own instance."""
+    bins, rows, idx = _wide_inputs(1 << 16, 40, B, seed=B)
+    name = "histogram_u16_" + {"int8": "i8", "int16": "i16"}.get(kind, kind)
+    H.reset_launch_counts()
+    for i in (None, idx):
+        _check_against_plain(bins, rows[kind], B, i, kind)
+    assert H.launch_counts[name] == 2
+    assert sum(H.launch_counts.values()) == 2
+
+
+@pytest.mark.parametrize("kind", ["f32", "f64", "int8", "int16"])
+def test_wide_kernel_adversarial_rows(cuda, kind):
+    """Every row in the last slab's last bin, every row in one bin of
+    the first slab, and bin values that skip whole slabs; Fp 8 and 136;
+    uint16 bins at B <= 256 too."""
+    S, B = 1 << 15, 1024
+    bins, rows, idx = _wide_inputs(S, 136, B, seed=21)
+    raw = bins.view(torch.int16)
+    for b in (torch.full_like(raw, B - 1).view(torch.uint16),
+              torch.full_like(raw, 3).view(torch.uint16),
+              (raw % 4 * 256 + raw % 3).view(torch.uint16)):
+        for i in (None, idx, idx[:1], idx[:31]):
+            _check_against_plain(b, rows[kind], B, i, kind)
+    narrow, nrows, nidx = _wide_inputs(S, 8, 64, seed=22)
+    for i in (None, nidx):
+        _check_against_plain(narrow, nrows[kind], 64, i, kind)
+
+
+@pytest.mark.parametrize("with_idx", [False, True])
+def test_f64_instance_on_uint8_bins(cuda, with_idx):
+    bins, rows, idx = _wide_inputs(1 << 17, 32, 256, seed=23,
+                                   dtype=torch.uint8)
+    H.reset_launch_counts()
+    _check_against_plain(bins, rows["f64"], 256, idx if with_idx else None,
+                         "f64")
+    assert H.launch_counts["histogram_f64"] == 1
+
+
+@pytest.mark.parametrize("kind", ["f32", "f64"])
+def test_wide_float_instances_are_deterministic(cuda, kind):
+    bins, rows, idx = _wide_inputs(1 << 20, 32, 1024, seed=24)
+    for i in (None, idx):
+        a = H.build_histogram(bins, rows[kind], 1024, i, f64=kind == "f64")
+        b = H.build_histogram(bins, rows[kind], 1024, i, f64=kind == "f64")
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["f32", "f64", "int8", "int16"])
+@pytest.mark.parametrize("B", [1024, 4096])
+def test_wide_device_count_entry_equals_host_count_launch(cuda, kind, B):
+    S = 1 << 19
+    bins, rows, _ = _wide_inputs(S, 32, B, seed=25)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(26)
+    perm = torch.randperm(S, generator=g, device="cuda")
+    for n in (0, 1, 1025, 100_000, S):
+        idx = perm[:n].sort().values.to(torch.int32)
+        buf = torch.full((S + 1,), S, dtype=torch.int32, device="cuda")
+        buf[:n] = idx
+        count = torch.tensor([n], dtype=torch.int32, device="cuda")
+        got = H.build_histogram(bins, rows[kind], B, buf, count,
+                                f64=kind == "f64")
+        want = H.build_histogram(bins, rows[kind], B, idx,
+                                 f64=kind == "f64")
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), n
+
+
+@pytest.mark.parametrize("extra,kernel", [
+    ({}, "histogram_u16_f32"),
+    ({"tpu_use_f64_hist": True}, "histogram_u16_f64"),
+    ({"use_quantized_grad": True}, "histogram_u16_i8")])
+def test_wide_bin_training_on_cuda(cuda, extra, kernel):
+    """max_bin 1023 on the card: every histogram through the uint16
+    instance (device launches == roots + steps, no other instance), the
+    graph trees equal the per-split loop's, tree 1 equal to the CPU's,
+    stacked predict equal to the host walk."""
+    rng = np.random.RandomState(27)
+    X = rng.randn(30000, 12)
+    y = (X[:, 0] + 0.5 * X[:, 1] ** 2 + rng.randn(30000) * 0.3 > 0.5)
+    params = dict({"objective": "binary", "num_leaves": 31,
+                   "max_bin": 1023, "verbose": -1}, **extra)
+    (fused, n1), (stepped, _) = _train_pair(params, X, y)
+    assert fused.inner.learner.bins.dtype == torch.uint16
+    assert [t.to_string() for t in fused.inner.models] == \
+        [t.to_string() for t in stepped.inner.models]
+    _launches_cover_every_split(fused, n1[kernel])
+    assert sum(n1.values()) == n1[kernel]
+    cpu = lgb.train(dict(params, device_type="cpu"),
+                    lgb.Dataset(X, label=y), num_boost_round=1)
+    assert _first_tree_splits(fused) == _first_tree_splits(cpu)
+    host = fused.predict(X[:4096], predict_on_device=False)
+    card = fused.predict(X[:4096], predict_on_device=True)
+    assert np.array_equal(host, card)
+
+
+def test_dart_rf_and_refit_on_cuda(cuda):
+    """DART's drop sets and tree weights on the card equal the CPU's for
+    the same seed, and its tree 1 too; an RF model predicts through the
+    stacked forest byte-equal to the host walk; a refit on the card
+    gives the CPU's leaf values within 1e-5 (f32 per-leaf sums in
+    another order)."""
+    rng = np.random.RandomState(31)
+    X = rng.randn(30000, 12)
+    y = (X[:, 0] + 0.5 * X[:, 1] ** 2 + rng.randn(30000) * 0.3 > 0.5)
+    base = {"objective": "binary", "num_leaves": 31, "verbose": -1}
+    dart = dict(base, boosting="dart", drop_rate=0.3, skip_drop=0.0)
+    runs = [lgb.train(dict(dart, device_type=d), lgb.Dataset(X, label=y),
+                      num_boost_round=6) for d in ("cuda", "cpu")]
+    assert runs[0].inner.tree_weight == runs[1].inner.tree_weight
+    assert _first_tree_splits(runs[0]) == _first_tree_splits(runs[1])
+    rf = lgb.train(dict(base, boosting="rf", bagging_fraction=0.6,
+                        bagging_freq=1), lgb.Dataset(X, label=y),
+                   num_boost_round=4)
+    assert np.array_equal(rf.predict(X[:4096], predict_on_device=True),
+                          rf.predict(X[:4096], predict_on_device=False))
+    model = lgb.train(base, lgb.Dataset(X, label=y),
+                      num_boost_round=5).model_to_string()
+    card = lgb.Booster(model_str=model)
+    cpu = lgb.Booster(model_str=model, params={"device_type": "cpu"})
+    X2 = rng.randn(20000, 12)
+    y2 = (X2[:, 1] > 0).astype(float)
+    card.refit(X2, y2)
+    cpu.refit(X2, y2)
+    for a, b in zip(card.inner.models, cpu.inner.models):
+        np.testing.assert_allclose(a.leaf_value[:a.num_leaves],
+                                   b.leaf_value[:b.num_leaves], rtol=0,
+                                   atol=1e-5)

@@ -7,7 +7,9 @@ whole-tree loop gives exactly the per-split loop's trees (per-tree
 16-bit quantized gradients, plain and balanced bagging, ``max_depth``,
 multiclass, lambdarank and l1 with leaf renewal, categorical features
 (both scan modes, NaN and negative categories) and EFB-bundled columns,
-f32 and 8-bit. A tree that ends
+f32 and 8-bit, wide bins (``max_bin`` 1023: uint16 bins, and uint16
+bundle columns of more than 256 bins), f64 histograms, DART and random
+forest. A tree that ends
 before ``num_leaves`` leaves the device state (partition, histograms,
 candidates, depths, records) byte-equal to the per-split loop's, the
 trees do not depend on the chunk between two counter reads, and the
@@ -131,6 +133,16 @@ PARITY = {
                                 "max_cat_to_onehot": 8},
     "bundled": {"data": "bundled", "num_leaves": 31},
     "bundled_quantized8": {"data": "bundled", "use_quantized_grad": True},
+    "wide1023": {"max_bin": 1023, "num_leaves": 31},
+    "wide1023_quantized8": {"max_bin": 1023, "use_quantized_grad": True},
+    "wide1023_f64": {"max_bin": 1023, "tpu_use_f64_hist": True},
+    "f64": {"tpu_use_f64_hist": True, "num_leaves": 31},
+    "bundled_wide1023": {"data": "bundled", "max_bin": 1023,
+                         "num_leaves": 31},
+    "bundled_f64": {"data": "bundled", "tpu_use_f64_hist": True},
+    "dart": {"boosting": "dart", "drop_rate": 0.5, "skip_drop": 0.0},
+    "rf": {"boosting": "rf", "bagging_fraction": 0.6, "bagging_freq": 1,
+           "feature_fraction": 0.8},
 }
 
 
@@ -144,6 +156,9 @@ def test_whole_tree_equals_per_split(case):
     learner = fused.inner.learner
     assert learner._has_cat == (params.get("data") == "categorical")
     assert learner._bundled == (params.get("data") == "bundled")
+    assert learner.bins.dtype == (torch.uint16 if "max_bin" in params
+                                  else torch.uint8)
+    assert learner._f64 == ("tpu_use_f64_hist" in params)
     if learner._has_cat:
         assert any(t.num_cat > 0 for t in fused.inner.models)
     assert fused.inner.learner._fused_growth
@@ -282,6 +297,8 @@ def _histogram_outside_mode(monkeypatch):
                  id="ff_extra_trees"),
     pytest.param({"monotone_constraints": [1, -1, 0, 0, 1, 0, 0, 0],
                   "monotone_penalty": 1.0}, id="monotone"),
+    pytest.param({"max_bin": 1023}, id="wide1023"),
+    pytest.param({"tpu_use_f64_hist": True}, id="f64"),
 ])
 def test_split_step_makes_no_host_read(monkeypatch, extra):
     learner, gh = _learner_and_rows(extra)

@@ -107,11 +107,15 @@ def test_zero_gh_padding_rows_vanish():
 def test_cpu_tensors_never_launch_the_kernel():
     bins, gh = _inputs(256, 8, 16, 4, seed=1)
     H.reset_launch_counts()
-    H.build_histogram(torch.from_numpy(bins), torch.from_numpy(gh), 16)
-    H.build_histogram(torch.from_numpy(bins),
-                      torch.from_numpy(gh).to(torch.int16), 16)
-    assert H.launch_counts == {"histogram_f32": 0, "histogram_i8": 0,
-                               "histogram_i16": 0}
+    tb = torch.from_numpy(bins)
+    for b in (tb, tb.to(torch.int32).to(torch.uint16)):
+        H.build_histogram(b, torch.from_numpy(gh), 16)
+        H.build_histogram(b, torch.from_numpy(gh), 16, f64=True)
+        H.build_histogram(b, torch.from_numpy(gh).to(torch.int16), 16)
+    assert set(H.launch_counts) == {
+        "histogram_" + p + k for p in ("", "u16_")
+        for k in ("f32", "f64", "i8", "i16")}
+    assert not any(H.launch_counts.values())
 
 
 def test_other_devices_raise_instead_of_falling_back():

@@ -390,9 +390,10 @@ def test_what_does_not_stack_raises_naming_its_item(shared):
     """The LUT-node encoding, categorical nodes and linear leaves stack
     now (their parity is in ``tests/test_torch_efb.py`` and
     ``tests/test_torch_forced_linear.py``); what still cannot stack
-    raises: average_output (item 16) and a feature that no single
-    quantizer can serve (``ValueError``, the caller's cue for the host
-    walk)."""
+    raises: a feature that no single quantizer can serve
+    (``ValueError``, the caller's cue for the host walk). average_output
+    (item 16) stacks, byte-equal to the reference's
+    forest."""
     X, ref, _, _ = shared
     trees = _carried(ref)
     lut = StackedForest(trees, 1, 6, lut=True)
@@ -400,8 +401,15 @@ def test_what_does_not_stack_raises_naming_its_item(shared):
     np.testing.assert_array_equal(lut.leaves(X[:300]),
                                   StackedForest(trees, 1, 6,
                                                 lut=False).leaves(X[:300]))
-    with pytest.raises(LightGBMError, match="item 16"):
-        StackedForest(trees, 1, 6, average_output=True)
+    # average_output (random forest, item 16) stacks: the
+    # raw sums over the number of iterations, byte-equal to the
+    # reference's forest
+    avg = StackedForest(trees, 1, 6, average_output=True)
+    ref_avg = RefForest(ref.inner.models, 1, 6, average_output=True)
+    np.testing.assert_array_equal(avg.predict_raw(X), ref_avg.predict_raw(X))
+    np.testing.assert_array_equal(
+        avg.predict_raw(X),
+        StackedForest(trees, 1, 6).predict_raw(X) / len(trees))
     cat = _carried(ref)
     f = cat[0].split_feature[0]
     assert any(t.split_feature[j] == f for t in cat[1:]

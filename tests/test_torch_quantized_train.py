@@ -109,8 +109,8 @@ def test_root_histogram_byte_equal(bits, monkeypatch):
     seen = {}
     build = serial.build_histogram
 
-    def capture(bins, gh, num_bins, idx=None, count=None):
-        out = build(bins, gh, num_bins, idx, count)
+    def capture(bins, gh, num_bins, idx=None, count=None, **kw):
+        out = build(bins, gh, num_bins, idx, count, **kw)
         if idx is None and "root" not in seen:
             seen.update(root=out, bins=bins, gh=gh)
         return out
