@@ -15,8 +15,8 @@ Phases (each one fails the run if it fails):
 2. hold every kernel instance (f32, f32 rows into f64 sums rounded once
    to f32, int8 -> int32, int16 -> int32; over uint8 and over uint16
    bins) against its plain PyTorch version on the card: random rows with and
-   without row-index lists (of half the rows, 1, 31, 1000 and 100k
-   rows), every row in one bin of every feature, Fp = 8, 40 and 64
+   without row-index lists (of half the rows, 1, 31, 33, 1000, 1025 and
+   100k rows), every row in one bin of every feature, Fp = 8, 40 and 64
    beside 32, Fp = 56 and 136 at the root shapes of phase 9 unbundled
    and phase 10, and bundle columns (Gp = 16 at Bg = 256, phase 9's
    shape, and at Bg = 72), with children of 1, 1000 and 100k rows; two
@@ -24,9 +24,11 @@ Phases (each one fails the run if it fails):
    too); the f64 sums must be the plain f64 sums rounded once (a value
    may round the other way only at a rounding midpoint); the uint16
    instances likewise at B = 512 (Fp 40), 1024 (Fp 32 and 136) and 4096
-   (Fp 8), with every row in one bin and every row in the last 256-bin
-   slab; the device-count entry (row count read from device memory)
-   must give the host-count launch's bytes for every instance at n = 0,
+   (Fp 8), with every row in one bin, every row in the last 256-bin
+   slab, every row in the second slab and every row outside every slab
+   (bins in [B, 2B), skipped); the device-count entry (row count read
+   from device memory) must give the host-count launch's bytes for
+   every instance at n = 0,
    1, 1023, 1024, 1025, 10k, 100k, 1M and all rows, at Fp = 32 and 136
    and at the bundle shape Gp = 16, Bg = 72, and over uint16 bins at
    B = 1024 and 4096;
@@ -553,7 +555,8 @@ def phase_kernels(hist_mod):
     cases = [("random", bins, gh, gh8, gh16, B, None),
              ("random, idx S/2", bins, gh, gh8, gh16, B, idx)]
     cases += [("random, idx %d" % n, bins, gh, gh8, gh16, B,
-               sub_index(S, n, seed=n)) for n in (1, 31, 1000, 100_000)]
+               sub_index(S, n, seed=n)) for n in (1, 31, 33, 1000, 1025,
+                                                  100_000)]
     cases += [("one bin", hot, gh, gh8, gh16, B, None),
               ("one bin, idx S/2", hot, gh, gh8, gh16, B, idx)]
     # Fp = 40: two feature groups of 32 and 8 (the last one narrower)
@@ -610,7 +613,9 @@ def check_cases(hist_mod, cases, errs, prefix):
             "byte-equal" % (label, cb.dtype, cb.shape[0] if cidx is None
                             else cidx.shape[0], cb.shape[1], cB, e,
                             REL_TOL, e64, off))
-    for label, cb, cgh, _, _, cB, cidx in (cases[0], cases[1], cases[6]):
+    again = [c for c in cases
+             if c[0] in ("random", "random, idx S/2", "one bin")]
+    for label, cb, cgh, _, _, cB, cidx in again:
         for f64 in (False, True):
             first = hist_mod.build_histogram(cb, cgh, cB, cidx, f64=f64)
             second = hist_mod.build_histogram(cb, cgh, cB, cidx, f64=f64)
@@ -620,7 +625,7 @@ def check_cases(hist_mod, cases, errs, prefix):
                   % ("f64" if f64 else "f32", label))
     log("f32 and f64 determinism (%s bins): two calls on the same inputs "
         "byte-equal [%s]" % (cases[0][1].dtype, ", ".join(
-            c[0] for c in (cases[0], cases[1], cases[6]))))
+            c[0] for c in again)))
 
 
 #: wide bins: (B, Fp, seed) of the uint16 checks; B = 1024 at Fp = 32 is
@@ -632,27 +637,37 @@ WIDE_SHAPES = ((512, 40, 31), (1024, 32, 32), (1024, 136, 33),
 def phase_wide_kernels(hist_mod, errs):
     """The uint16 build of every instance (f32, f64, int8, int16) at
     B = 512, 1024 and 4096 against its plain version: random rows, all
-    rows and row-index lists of half the rows, 1, 31, 1000 and 100k
-    rows, every row in one bin, every row in the last 256-bin slab, at
-    Fp = 8, 32, 40 and 136; two f32 and two f64 calls byte-equal. Adds
-    to ``errs``."""
+    rows and row-index lists of half the rows, 1, 31, 33, 1000, 1025 and
+    100k rows, every row in one bin, every row in the last 256-bin slab,
+    every row in the second slab, every row outside every slab (bins in
+    [B, 2B), skipped), at Fp = 8, 32, 40 and 136 (S = 2^20 rows: the
+    last tile of a row block is ragged); two f32 and two f64 calls
+    byte-equal. Adds to ``errs``."""
     import torch
     S = 1 << 20
     for B, fp, seed in WIDE_SHAPES:
         bins, gh, gh8, gh16, idx = make_hist_inputs(S, fp, B, seed)
         last = make_hist_inputs(S, fp, B, seed + 100, low=B - 256)[0]
+        second = ((bins.view(torch.int16).long() & 0xFF) + 256).to(
+            torch.int16).view(torch.uint16)
+        outside = ((bins.view(torch.int16).long() & 0xFFFF) + B).to(
+            torch.int16).view(torch.uint16)
         hot = torch.full_like(bins.view(torch.int16), B - 1).view(
             torch.uint16)
         cases = [("random", bins, gh, gh8, gh16, B, None),
                  ("random, idx S/2", bins, gh, gh8, gh16, B, idx)]
         cases += [("random, idx %d" % n, bins, gh, gh8, gh16, B,
-                   sub_index(S, n, seed=n + B)) for n in (1, 31, 1000,
-                                                          100_000)]
+                   sub_index(S, n, seed=n + B)) for n in (1, 31, 33, 1000,
+                                                          1025, 100_000)]
         cases += [("one bin", hot, gh, gh8, gh16, B, None),
                   ("last slab", last, gh, gh8, gh16, B, None),
-                  ("last slab, idx S/2", last, gh, gh8, gh16, B, idx)]
+                  ("last slab, idx S/2", last, gh, gh8, gh16, B, idx),
+                  ("second slab", second, gh, gh8, gh16, B, None),
+                  ("outside every slab", outside, gh, gh8, gh16, B, None),
+                  ("outside every slab, idx 1025", outside, gh, gh8, gh16,
+                   B, sub_index(S, 1025, seed=B))]
         check_cases(hist_mod, cases, errs, "u16_")
-        del bins, gh, gh8, gh16, idx, last, hot, cases
+        del bins, gh, gh8, gh16, idx, last, second, outside, hot, cases
 
 
 def count_buffer(idx, S: int):

@@ -1,129 +1,281 @@
 #!/usr/bin/env python3
-"""Where the histogram kernel's time goes, on one NVIDIA H100.
+"""What a change to the histogram kernel moved, and where its time goes,
+on one NVIDIA H100.
 
 Run from the root of a checkout, on a machine with one H100:
 
-    python3 chip_variants.py
+    python3 chip_variants.py --parent REV [--before-slabs REV]
 
-Builds variants of ``lightgbm_tpu_torch/csrc/histogram.cu`` made by text
-edits of the source at run time (none is kept in the repository), each
-with the package's own launch plan, and times each one's f32 and int8
-instances with CUDA events:
+``--parent`` names the commit to compare with; its
+``lightgbm_tpu_torch/csrc/histogram.cu`` is read with ``git show`` at run
+time, so no copy is kept in the repository. A copy of the repository
+without its history takes the file itself: write it first with
+``git show REV:lightgbm_tpu_torch/csrc/histogram.cu > FILE`` and pass
+``--parent-source FILE`` (and ``--before-slabs-source``). Builds, one
+``nvcc`` each, all started together:
 
-- at the main path's root shape, 10.5M rows x 32 features, B = 256,
-  C = 4, on uniform random bins and on "padded" bins (28 uniform columns
-  and 4 all-zero columns, as the learner pads 28 features to 32);
-- with a 100k-row row-index list on the padded bins, the L2 flushed
-  before each call;
+- the parent's source and the source as it is, each as the uint8 library
+  and as the uint16 build (``histogram_u16.cu`` beside it);
+- with ``--before-slabs``, a kernel from before the (feature, slab)
+  rewrite (entries without the staged-features argument; uint8 bins,
+  f32, int8 and int16 only), to settle whether that rewrite slowed the
+  uint8 instances;
+- a variant of the source as it is, made by a text edit at run time:
+  tile staging, zeroing, flush and sum pass only (no row work: wrong
+  sums, timed only), which splits a small child's time; and the source
+  as it is under two other launch plans on the children: one row block
+  (no partials, no sum pass), and the redesigned instances' row blocks
+  at 1024 rows at least (as before).
 
-the kernel as it is also with half the plan's tile rows, and times the
-block-order sum pass alone. A variant whose sums are wrong
-by design says so; the others must equal the kernel as it is. Prints one
-line per variant and instance. Without a CUDA device it exits non-zero.
+Times, with CUDA events, each instance (uint8 bins: f32, int8, int16, f64
+sums; uint16 bins: f32, f64 sums) at the main path's root shape (10.5M
+rows x 32 features, B = 256 or 1024, C = 4; warm repeats), on uniform
+random bins and on skewed ones (floor(B u^4): a quarter of the rows in
+bin 0 at B = 256, as real columns pile rows into few bins), and over
+sorted row-index lists of 10k, 100k and 1M rows (the L2 flushed before
+each call), through the host-count entry and the device-count entry, in
+turns: parent, change, change, parent (so a drift of the card's clock
+during the run falls on both). Each launch plan is its own source's
+(the parent's is rebuilt here from its arithmetic). The variants are
+timed at both roots and at 10k and 100k rows, beside the change in the
+same turns; the block-order sum pass alone at the 10k-row plans. Each
+result is held to the plain version (f32 within 1e-5 x sum |x|, f64
+sums the f64 sum rounded once, integers byte-equal); a variant that is
+wrong by design is not. Prints one line per instance and case and
+writes them all to ``chiprun_out/chip_variants.json``. Without a CUDA
+device it exits non-zero.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
+import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(HERE, "lightgbm_tpu_torch", "csrc", "histogram.cu")
+CSRC = os.path.join(HERE, "lightgbm_tpu_torch", "csrc")
+SOURCE = "lightgbm_tpu_torch/csrc/histogram.cu"
+ROOT_ROWS, FP = 10_500_000, 32
+CHILD_ROWS = (10_000, 100_000, 1_000_000)
 
-# name -> [(text in the source, replacement)]; "wrong" variants give
+# name -> [(text in the source, replacement)]; "(wrong)" variants give
 # wrong sums on purpose and are timed only
 VARIANTS = {
-    "kernel as it is": [],
-    "tile staging, zeroing, flush and sum pass only (wrong)": [
-        ("if (npw > 0) {                       // warp-uniform",
-         "if (npw < 0) {")],
-    "int accumulators [Fg, B, C] like the f32 ones": [
-        ("constexpr bool kChannelMajor = std::is_same<ACC, int>::value;",
-         "constexpr bool kChannelMajor = false;")],
-    "no one-bin vote (every chunk takes the mixed path)": [
-        ("mixed[j] = !__all_sync(kFull, b[j] == bin);", "mixed[j] = true;")],
-    "int instances by the f32 tree instead of atomics": [
-        ("if constexpr (std::is_same<ACC, int>::value) {",
-         "if constexpr (false) {")],
-    "peers by __match_any_sync instead of eight ballots": [
-        ("peers[j] = peers_of(b[j], valid_lanes);",
-         "peers[j] = __match_any_sync(kFull, b[j]) & valid_lanes;")],
-    "no peers: every lane stores its own row (wrong)": [
-        ("peers[j] = peers_of(b[j], valid_lanes);",
-         "peers[j] = (1u << lane) & valid_lanes;")],
+    "staging, zeroing, flush and sum pass only (wrong)": [
+        ("    if (npw > 0) {                       // warp-uniform",
+         "    if (npw < 0) {")],
 }
+#: variants of the launch plan alone, on the change's library, timed on
+#: the children: every call in one row block (no per-block partials, no
+#: sum pass), and the redesigned instances' row blocks at 1024 rows at
+#: least, as the others' (fewer blocks for a small child, fewer
+#: partials to sum)
+PLANS = {"one row block (no sum pass)": None, "1024-row blocks": 1024}
 SUM_ONLY = """
-extern "C" int lgbm_sum_only_f32(const void* scratch, void* out, int blocks,
-                                 long long n, void* stream) {
-  hist_sum_kernel<float, float><<<(unsigned)((n + 255) / 256), 256, 0,
-      (cudaStream_t)stream>>>((const float*)scratch, (float*)out, blocks, n,
+extern "C" int lgbm_sum_only_%s(const void* scratch, void* out, int blocks,
+                                long long n, void* stream) {
+  hist_sum_kernel<%s, float><<<(unsigned)((n + 255) / 256), 256, 0,
+      (cudaStream_t)stream>>>((const %s*)scratch, (float*)out, blocks, n,
                               nullptr, 0, 0);
   return (int)cudaGetLastError();
 }
 """
+#: (label, bins dtype name, B, gh kind, f64 sums, entry tag)
+INSTANCES = (("K1 f32, uint8", "uint8", 256, "f32", False, "f32"),
+             ("K2 int8, uint8", "uint8", 256, "i8", False, "i8"),
+             ("int16, uint8", "uint8", 256, "i16", False, "i16"),
+             ("f64 sums, uint8", "uint8", 256, "f32", True, "f64"),
+             ("K1w f32, uint16", "uint16", 1024, "f32", False, "f32"),
+             ("f64 sums, uint16", "uint16", 1024, "f32", True, "f64"))
+REDESIGNED = ("f64 sums, uint8", "K1w f32, uint16", "f64 sums, uint16")
 
 
-def build(csrc, out_dir):
-    """One nvcc per variant, all started together."""
-    text = open(SOURCE).read()
+def read_source(rev, path):
+    if path:
+        with open(path) as fh:
+            return fh.read()
+    return subprocess.run(["git", "show", "%s:%s" % (rev, SOURCE)],
+                          cwd=HERE, capture_output=True, text=True,
+                          check=True).stdout
+
+
+def build(csrc, out_dir, sources):
+    """sources: name -> text of histogram.cu. Each is built as the uint8
+    library and (but the pre-slab kernel) the uint16 build, one nvcc per
+    library, all started together."""
+    u16 = open(os.path.join(CSRC, "histogram_u16.cu")).read()
     procs = {}
-    for k, (name, edits) in enumerate(VARIANTS.items()):
-        src = text
-        for old, new in edits:
-            if old not in src:
-                raise SystemExit("variant %r: %r not in the source"
-                                 % (name, old))
-            src = src.replace(old, new)
-        path = os.path.join(out_dir, "v%d.cu" % k)
-        with open(path, "w") as fh:
-            fh.write(src + SUM_ONLY)
-        lib = os.path.join(out_dir, "libv%d.so" % k)
-        procs[name] = (lib, subprocess.Popen(
-            [csrc._nvcc()] + csrc.NVCC_FLAGS + ["-o", lib, path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for name, text in sources.items():
+        d = os.path.join(out_dir, "s%d" % len(procs))
+        os.makedirs(d)
+        with open(os.path.join(d, "histogram.cu"), "w") as fh:
+            fh.write(text + (SUM_ONLY % ("f32", "float", "float")
+                             + SUM_ONLY % ("f64", "double", "double")
+                             if "LGBM_BIN_T" in text else ""))
+        with open(os.path.join(d, "histogram_u16.cu"), "w") as fh:
+            fh.write(u16)
+        for bins in ("uint8", "uint16"):
+            if bins == "uint16" and "LGBM_BIN_T" not in text:
+                continue
+            src = os.path.join(d, "histogram.cu" if bins == "uint8"
+                               else "histogram_u16.cu")
+            lib = os.path.join(d, "lib%s.so" % bins)
+            procs[(name, bins)] = (lib, subprocess.Popen(
+                [csrc._nvcc()] + csrc.NVCC_FLAGS + ["-o", lib, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for name, (lib, proc) in procs.items():
+    for key, (lib, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise SystemExit("variant %r did not build:\n%s" % (name, out))
-        libs[name] = ctypes.CDLL(lib)
+            raise SystemExit("%s did not build:\n%s" % (key, out))
+        libs[key] = ctypes.CDLL(lib)
     return libs
 
 
-def caller(H, torch, lib, symbol, bins, gh, B, idx):
-    fn = getattr(lib, symbol)
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # bins, gh, idx, out, scratch, launches; S; Fp, B, C, Fg, groups, Fs,
-    # T, blocks; rows_per_block; smem; stream (ops/histogram.py::_kernel_fn)
-    fn.argtypes = [vp] * 6 + [i64] + [i32] * 8 + [i64, i32, vp]
-    fn.restype = ctypes.c_int
-    F, C = bins.shape[1], gh.shape[1]
-    S = bins.shape[0] if idx is None else idx.shape[0]
-    plan = H.launch_plan(S, F, B, C, gh.dtype, H._num_sms(bins.device))
-    acc = torch.float32 if gh.dtype == torch.float32 else torch.int32
-    out = torch.empty((F, B, C), dtype=acc, device="cuda")
-    scratch = (None if plan.scratch_shape is None else
-               torch.empty(plan.scratch_shape, dtype=acc, device="cuda"))
-    stream = torch.cuda.current_stream().cuda_stream
+def parent_plan(H, S, Fp, B, C, gh_dtype, num_sms, bins_dtype, f64):
+    """The launch plan of the kernel before the slab queues (no queue in
+    shared memory): the parent's arithmetic."""
+    bin_bytes, gh_bytes = bins_dtype.itemsize, C * gh_dtype.itemsize
+    acc = 8 if f64 and gh_dtype.is_floating_point else 4
+    sb = min(B, H.SLAB_BINS)
+    slabs = -(-B // sb)
+    pairs = Fp * slabs
 
-    def run():
-        code = fn(bins.data_ptr(), gh.data_ptr(),
-                  None if idx is None else idx.data_ptr(), out.data_ptr(),
-                  None if scratch is None else scratch.data_ptr(), None, S,
-                  F, B, C, plan.features_per_group, plan.groups,
-                  plan.stage_features, plan.tile_rows,
-                  plan.blocks, plan.rows_per_block, plan.smem_bytes, stream)
-        if code != 0:
-            raise SystemExit("launch failed: cuda error %d" % code)
-        return out
-    return run
+    def staged(fg):
+        if slabs == 1:
+            return fg
+        return max(b - a for a, b in (H._group_features(g, fg, slabs, Fp)
+                                      for g in range(-(-pairs // fg))))
+
+    def smem(fg, rows):
+        return fg * sb * C * acc + 2 * rows * (staged(fg) * bin_bytes
+                                               + gh_bytes)
+
+    fits = [fg for fg in H.GROUP_FEATURES
+            if smem(fg, H.MIN_TILE_ROWS) <= H.MAX_SMEM]
+    groups = -(-pairs // fits[-1])
+    fg = min(f for f in fits if f * groups >= pairs)
+    groups = -(-pairs // fg)
+    rows = (H.MAX_SMEM - fg * sb * C * acc) // (
+        2 * (staged(fg) * bin_bytes + gh_bytes))
+    tile = min(H.MAX_TILE_ROWS, rows // 32 * 32)
+    cap = max(1, num_sms // groups)
+    blocks = max(1, min(cap, -(-S // H.MIN_ROWS_PER_BLOCK)))
+    per = -(-S // blocks)
+    blocks = -(-S // per)
+    return H.LaunchPlan(groups=groups, features_per_group=fg, warps=H.WARPS,
+                        tile_rows=tile, blocks=blocks, rows_per_block=per,
+                        smem_bytes=smem(fg, tile),
+                        scratch_shape=(blocks, Fp, B, C) if blocks > 1
+                        else None, slab_bins=sb, slabs=slabs,
+                        stage_features=staged(fg),
+                        min_rows=H.MIN_ROWS_PER_BLOCK)
 
 
-def timed_ms(torch, run, reps, cold):
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+class Launcher:
+    """One source's entries of one instance, with that source's plan."""
+
+    def __init__(self, torch, H, lib, tag, kind, bins, gh, B, f64):
+        self.torch, self.H, self.lib = torch, H, lib
+        self.kind, self.bins, self.gh, self.B, self.f64 = (kind, bins, gh, B,
+                                                           f64)
+        self.symbol = "lgbm_histogram_" + tag
+        self.acc = H.acc_dtype(gh.dtype, f64)
+        self.out_dtype = torch.int32 if self.acc == torch.int32 \
+            else torch.float32
+        self.num_sms = H._num_sms(bins.device)
+
+    def plan(self, S):
+        """This source's plan; the one-block variant's has one SM for
+        each group, so one row block."""
+        H, sms = self.H, self.num_sms
+        if self.kind in PLANS and PLANS[self.kind] is None:
+            sms = H.launch_plan(S, self.bins.shape[1], self.B,
+                                self.gh.shape[1], self.gh.dtype, sms,
+                                self.bins.dtype, self.f64).groups
+        args = (S, self.bins.shape[1], self.B, self.gh.shape[1],
+                self.gh.dtype, sms, self.bins.dtype, self.f64)
+        if self.kind in ("parent", "before slabs"):
+            return parent_plan(H, *args)
+        rows = H.MIN_ROWS_PER_BLOCK_WIDE
+        H.MIN_ROWS_PER_BLOCK_WIDE = PLANS.get(self.kind) or rows
+        try:
+            return H.launch_plan(*args)
+        finally:
+            H.MIN_ROWS_PER_BLOCK_WIDE = rows
+
+    def host(self, idx, bins=None):
+        torch, H = self.torch, self.H
+        bins = self.bins if bins is None else bins
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn = getattr(self.lib, self.symbol)
+        pre = self.kind == "before slabs"
+        # bins, gh, idx, out, scratch, launches; S; Fp, B, C, Fg, groups,
+        # [Fs,] T, blocks; rows_per_block; smem; stream
+        fn.argtypes = [vp] * 6 + [i64] + [i32] * (7 if pre else 8) + [
+            i64, i32, vp]
+        fn.restype = ctypes.c_int
+        F, C = bins.shape[1], self.gh.shape[1]
+        S = bins.shape[0] if idx is None else idx.shape[0]
+        p = self.plan(S)
+        out = torch.empty((F, self.B, C), dtype=self.out_dtype,
+                          device="cuda")
+        scratch = (None if p.scratch_shape is None else
+                   torch.empty(p.scratch_shape, dtype=self.acc,
+                               device="cuda"))
+        stream = torch.cuda.current_stream().cuda_stream
+        mid = [p.features_per_group, p.groups] + (
+            [] if pre else [p.stage_features]) + [p.tile_rows, p.blocks]
+        args = [bins.data_ptr(), self.gh.data_ptr(),
+                None if idx is None else idx.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), None, S, F,
+                self.B, C] + mid + [p.rows_per_block, p.smem_bytes, stream]
+
+        def run():
+            code = fn(*args)
+            if code != 0:
+                raise SystemExit("%s launch failed: cuda error %d"
+                                 % (self.symbol, code))
+            return out
+        return run, p
+
+    def device(self, buf, count, n):
+        torch = self.torch
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        fn = getattr(self.lib, self.symbol + "_dev")
+        fn.argtypes = [vp] * 7 + [i32] * 10 + [vp]
+        fn.restype = ctypes.c_int
+        F, C = self.bins.shape[1], self.gh.shape[1]
+        p = self.plan(max(n, 1))
+        max_blocks = max(1, self.num_sms // p.groups)
+        out = torch.empty((F, self.B, C), dtype=self.out_dtype,
+                          device="cuda")
+        scratch = (None if max_blocks == 1 else
+                   torch.empty((max_blocks, F, self.B, C), dtype=self.acc,
+                               device="cuda"))
+        stream = torch.cuda.current_stream().cuda_stream
+        args = [self.bins.data_ptr(), self.gh.data_ptr(), buf.data_ptr(),
+                count.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), None, F,
+                self.B, C, p.features_per_group, p.groups, p.stage_features,
+                p.tile_rows, max_blocks, p.min_rows,
+                p.smem_bytes, stream]
+
+        def run():
+            code = fn(*args)
+            if code != 0:
+                raise SystemExit("%s_dev launch failed: cuda error %d"
+                                 % (self.symbol, code))
+            return out
+        return run
+
+
+def timed_ms(torch, run, reps, cold, flush):
     run()
     torch.cuda.synchronize()
     pairs = []
@@ -140,12 +292,43 @@ def timed_ms(torch, run, reps, cold):
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
+def held(smoke, H, torch, got, bins, gh, B, idx, f64):
+    """The result against the plain version: the check of chip_smoke.py
+    for its instance (compare_f32 / compare_f64 / compare_int), on the
+    same rows."""
+    real = H.build_histogram
+
+    def fixed(*args, **kwargs):
+        return got.clone()
+    H.build_histogram = fixed
+    try:
+        if not gh.dtype.is_floating_point:
+            smoke.compare_int(H, bins, gh, B, idx)
+        elif f64:
+            smoke.compare_f64(H, bins, gh, B, idx)
+        else:
+            smoke.compare_f32(H, bins, gh, B, idx)
+    finally:
+        H.build_histogram = real
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="commit to compare with (git show)")
+    ap.add_argument("--parent-source", help="its histogram.cu, as a file")
+    ap.add_argument("--before-slabs", help="a commit from before the "
+                    "(feature, slab) rewrite (git show)")
+    ap.add_argument("--before-slabs-source", help="its histogram.cu")
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args()
+    if not (args.parent or args.parent_source):
+        ap.error("name the parent: --parent REV or --parent-source FILE")
     import torch
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device is visible", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    import chip_smoke as smoke
     from lightgbm_tpu_torch import csrc
     from lightgbm_tpu_torch.ops import histogram as H
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -153,74 +336,151 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip()
     print("card: %s" % smi, flush=True)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        libs = build(csrc, tmp)
-        print("built %d variants in %.1f s" % (len(libs),
-                                              time.perf_counter() - t0))
+    text = open(os.path.join(CSRC, "histogram.cu")).read()
+    sources = {"parent": read_source(args.parent, args.parent_source),
+               "change": text}
+    if args.before_slabs or args.before_slabs_source:
+        sources["before slabs"] = read_source(args.before_slabs,
+                                              args.before_slabs_source)
+    for name, edits in VARIANTS.items():
+        src = text
+        for old, new in edits:
+            if old not in src:
+                raise SystemExit("variant %r: %r not in the source"
+                                 % (name, old))
+            src = src.replace(old, new)
+        sources[name] = src
+    tmp = tempfile.mkdtemp()
+    results = []
+    try:
+        libs = build(csrc, tmp, sources)
+        print("built %d libraries in %.1f s" % (len(libs),
+                                               time.perf_counter() - t0),
+              flush=True)
         g = torch.Generator(device="cuda")
         g.manual_seed(0)
-        S, Fp, B = 10_500_000, 32, 256
-        uniform = torch.randint(0, 255, (S, Fp), generator=g, device="cuda",
-                                dtype=torch.int32).to(torch.uint8)
-        padded = uniform.clone()
-        padded[:, 28:] = 0
-        gh = torch.randn(S, 4, generator=g, device="cuda")
-        gh8 = torch.randint(-127, 128, (S, 4), generator=g, device="cuda",
-                            dtype=torch.int32).to(torch.int8)
-        idx = torch.randperm(S, generator=g, device="cuda")[:100_000]
-        idx = idx.sort().values.to(torch.int32)
-        cases = (("uniform root", uniform, None, False, 5),
-                 ("padded root", padded, None, False, 5),
-                 ("padded 100k idx, L2 flushed", padded, idx, True, 20))
-        ref = {}
-        runs = [(name, lib, H.MAX_TILE_ROWS) for name, lib in libs.items()]
-        # the kernel as it is with half the plan's tile rows
-        runs.insert(1, ("kernel as it is, %d-row tiles" % (H.MAX_TILE_ROWS
-                                                            // 2),
-                        runs[0][1], H.MAX_TILE_ROWS // 2))
-        tiles = H.MAX_TILE_ROWS
-        for name, lib, tile in runs:
-            H.MAX_TILE_ROWS = tile
-            H._group_plan.cache_clear()
-            for symbol, rows in (("lgbm_histogram_f32", gh),
-                                 ("lgbm_histogram_i8", gh8)):
-                parts = []
-                for label, bins, ix, cold, reps in cases:
-                    run = caller(H, torch, lib, symbol, bins, rows, B, ix)
-                    ms = timed_ms(torch, run, reps, cold)
-                    got = run().clone()
-                    key = (symbol, label)
-                    if key not in ref:
-                        ref[key] = got
-                        note = ""
-                    elif "(wrong)" in name:
-                        note = ""
-                    else:
-                        same = torch.equal(got.view(torch.int32),
-                                           ref[key].view(torch.int32))
-                        if not same and symbol.endswith("i8"):
-                            raise SystemExit("variant %r: int8 sums differ"
-                                             % name)
-                        note = "" if same else " (other f32 order)"
-                    parts.append("%s %.4f ms%s" % (label, ms, note))
-                print("%-55s %-5s %s" % (name, symbol.split("_")[-1],
-                                         "; ".join(parts)), flush=True)
-        H.MAX_TILE_ROWS = tiles
-        H._group_plan.cache_clear()
-        fn = next(iter(libs.values())).lgbm_sum_only_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        stream = torch.cuda.current_stream().cuda_stream
-        for blocks in (132, 98, 10):
-            scratch = torch.randn(blocks, Fp, B, 4, device="cuda")
-            out = torch.empty(Fp, B, 4, device="cuda")
-            ms = timed_ms(torch, lambda: fn(scratch.data_ptr(),
-                                            out.data_ptr(), blocks,
-                                            Fp * B * 4, stream), 20, False)
-            print("block-order sum pass alone, %d partials: %.4f ms"
-                  % (blocks, ms), flush=True)
+        flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+        gh = torch.randn(ROOT_ROWS, 4, generator=g, device="cuda")
+        gh[:, 2:] = 1.0
+        rows = {"f32": gh,
+                "i8": torch.randint(-127, 128, (ROOT_ROWS, 4), generator=g,
+                                    device="cuda", dtype=torch.int32
+                                    ).to(torch.int8),
+                "i16": torch.randint(-204, 205, (ROOT_ROWS, 4), generator=g,
+                                     device="cuda", dtype=torch.int32
+                                     ).to(torch.int16)}
+        perm = torch.randperm(ROOT_ROWS, generator=g, device="cuda")
+        lists = {n: perm[:n].sort().values.to(torch.int32)
+                 for n in CHILD_ROWS}
+        lists[ROOT_ROWS] = torch.arange(ROOT_ROWS, dtype=torch.int32,
+                                        device="cuda")
+        bins_of, skew_of = {}, {}
+        for label, bname, B, kind, f64, tag in INSTANCES:
+            if bname not in bins_of:
+                # uniform bins, and skewed ones: floor(B u^4), a quarter
+                # of the rows in bin 0 at B = 256 (as real columns pile
+                # rows into few bins)
+                u = torch.rand(ROOT_ROWS, FP, generator=g, device="cuda")
+                for out, b in ((bins_of, (u * B).long()),
+                               (skew_of, (u.pow(4) * B).long())):
+                    out[bname] = (b.to(torch.uint8) if bname == "uint8"
+                                  else b.to(torch.int16).view(torch.uint16))
+                del u, b
+            bins, rg = bins_of[bname], rows[kind]
+            names = ["parent", "change"] + (
+                ["before slabs"] if "before slabs" in sources and
+                bname == "uint8" and not f64 else []) + (
+                list(VARIANTS) + list(PLANS) if label in REDESIGNED
+                or label.startswith("K1 ") else [])
+            lau = {n: Launcher(torch, H,
+                               libs[("change" if n in PLANS else n,
+                                     bname)],
+                               ("u16_" if bname == "uint16" else "") + tag,
+                               n if n in ("parent", "before slabs")
+                               or n in PLANS else "change",
+                               bins, rg, B, f64)
+                   for n in names}
+            cases = [("root", None, False, args.reps),
+                     ("skewed root", None, False, args.reps)] + [
+                ("%dk list" % (n // 1000), lists[n], True, 2 * args.reps)
+                for n in CHILD_ROWS]
+            for case, idx, cold, reps in cases:
+                cb = skew_of[bname] if case == "skewed root" else bins
+                runs = {n: lau[n].host(idx, cb) for n in names
+                        if n in ("parent", "change") or (
+                            case in ("10k list", "100k list") if n in PLANS
+                            else case in ("root", "skewed root", "10k list",
+                                          "100k list"))}
+                order = ["parent", "change"] + [
+                    n for n in runs if n not in ("parent", "change")]
+                ms = {n: [] for n in runs}
+                for turn in order + order[::-1]:
+                    ms[turn].append(timed_ms(torch, runs[turn][0], reps,
+                                             cold, flush))
+                for n, (run, p) in runs.items():
+                    if "(wrong)" not in n:
+                        held(smoke, H, torch, run(), cb, rg, B, idx, f64)
+                line = dict(instance=label, case=case, entry="host",
+                            rows=ROOT_ROWS if idx is None else idx.shape[0],
+                            ms={n: sum(v) / len(v) for n, v in ms.items()},
+                            plans={n: dict(groups=p.groups,
+                                           blocks=p.blocks,
+                                           tile_rows=p.tile_rows)
+                                   for n, (run, p) in runs.items()})
+                results.append(line)
+                print(json.dumps(line), flush=True)
+            for n_rows in CHILD_ROWS + (ROOT_ROWS,):
+                buf, count = smoke.count_buffer(lists[n_rows], ROOT_ROWS)
+                runs = {n: lau[n].device(buf, count, n_rows)
+                        for n in ("parent", "change")}
+                ms = {n: [] for n in runs}
+                cold = n_rows < ROOT_ROWS
+                for turn in ("parent", "change", "change", "parent"):
+                    ms[turn].append(timed_ms(torch, runs[turn], args.reps,
+                                             cold, flush))
+                want = runs["change"]().clone()
+                host, _ = lau["change"].host(lists[n_rows])
+                same = torch.equal(host().view(torch.int32),
+                                   want.view(torch.int32))
+                if not same:
+                    raise SystemExit("%s: the device-count entry differs "
+                                     "from the host-count launch at n=%d"
+                                     % (label, n_rows))
+                line = dict(instance=label, case="%d-row list" % n_rows,
+                            entry="device count", rows=n_rows,
+                            ms={n: sum(v) / len(v) for n, v in ms.items()})
+                results.append(line)
+                print(json.dumps(line), flush=True)
+            # the block-order sum pass alone, at the change's 10k plan
+            if label in REDESIGNED or label.startswith("K1 "):
+                p = lau["change"].plan(CHILD_ROWS[0])
+                acc = "f64" if f64 else "f32"
+                fn = getattr(libs[("change", bname)], "lgbm_sum_only_" + acc)
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_int, ctypes.c_longlong,
+                               ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                n = FP * B * 4
+                scratch = torch.randn(max(p.blocks, 2), n, device="cuda",
+                                      dtype=torch.float64 if f64
+                                      else torch.float32)
+                out = torch.empty(n, device="cuda")
+                stream = torch.cuda.current_stream().cuda_stream
+                ms = timed_ms(torch, lambda: fn(
+                    scratch.data_ptr(), out.data_ptr(), p.blocks, n, stream),
+                    2 * args.reps, True, flush)
+                line = dict(instance=label, case="sum pass alone",
+                            entry="host", blocks=p.blocks, ms=ms)
+                results.append(line)
+                print(json.dumps(line), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "chip_variants.json"),
+              "w") as fh:
+        json.dump(dict(card=smi, results=results), fh, indent=1)
     print("chip_variants seconds: %.1f" % (time.perf_counter() - t0))
+    print(smi)
     return 0
 
 

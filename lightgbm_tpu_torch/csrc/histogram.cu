@@ -30,31 +30,43 @@
 //   block's group (blockIdx.y) takes Fg = 16 or 32 consecutive pairs, and
 //   each of its 16 warps owns Fg / 16 of them, with their [SB, C]
 //   accumulators in shared memory ([Fg, SB, C] f32 / f64, [Fg, C, SB]
-//   int32). A warp reads the bin of every staged row of its pair's
-//   feature and adds only the rows whose bin falls in its slab (a bin
-//   outside takes the key 256, which is skipped like a bin >= B): one
-//   shared-memory read of the bin per slab, and no two warps ever touch
-//   one bin. At B = 1024, Fp = 32 and C = 4 that is 4 groups of 32 pairs
-//   (8 features each), 128 KB of f32 accumulators per block, where one
-//   warp per whole feature would need 256 KB, past the 227 KB a block
-//   may use.
+//   int32). A warp adds only the rows whose bin falls in its slab (the
+//   integer instances give a bin outside the key 256, skipped like a bin
+//   >= B; the float ones queue their slab's rows, below), and no two
+//   warps ever touch one bin. At B = 1024, Fp = 32 and C = 4 that is 4
+//   groups of 32 pairs (8 features each), 128 KB of f32 accumulators per
+//   block, where one warp per whole feature would need 256 KB, past the
+//   227 KB a block may use.
 // * Row work without contended or CAS atomics. A warp takes 32 rows (one
 //   per lane) of its pairs at a time. A pair whose 32 rows share one key
 //   (a vote; the learner's zero padding features always do) is summed per
 //   lane in registers and added to the bin when the key changes.
 //   Otherwise the float instances find the lanes that share a key with
-//   eight ballots (nine with uint16 bins, for the outside key 256), sum
-//   each group by a tree of shuffles over its ranks and let the group's
-//   lowest lane do a plain load-add-store; the int32 instances, exact in
-//   any order, add each lane's row with a native shared atomic add (no
-//   CAS loop; measured ~2x faster than the tree for them).
+//   eight ballots, sum each group by a tree of shuffles over its ranks
+//   and let the group's lowest lane do a plain load-add-store; the int32
+//   instances, exact in any order, add each lane's row with a native
+//   shared atomic add (no CAS loop; measured ~2x faster than the tree
+//   for them).
 // * One read per row per group. A block stages a tile of T rows (the
 //   group's features' bins and the row's gh) in shared memory with
 //   cp.async, double-buffered so the next tile's copy overlaps this
 //   tile's work, and every warp reads the tile from there. Groups exist
 //   only when the accumulators of all pairs do not fit; at Fp = 32 and
 //   B <= 256 there is one. Each group reads the rows' gh again: the price
-//   of the wide form (4 groups at B = 1024, 16 at B = 4096).
+//   of the wide form (4 groups at B = 1024, 16 at B = 4096). Staging a
+//   tile once for a thread-block cluster of the groups measured slower
+//   on an H100: the kernel is bound by its row work, not its bytes, and
+//   clusters of 4 or 8 leave SMs idle.
+// * Slab queues (the float instances over uint16 bins). A warp reads the
+//   bin of every staged row of its pair's feature once and appends the
+//   rows whose bin lies in its slab, in row order, to a ring of 64
+//   entries (row offset | offset in the slab << 16) in shared memory;
+//   the peer search, shuffle tree and store run on 32 queued rows at a
+//   time, so per row and feature they run once, as with uint8 bins,
+//   where a warp would otherwise run them on every staged row for each
+//   of its slabs (4 at B = 1024) and throw 3 in 4 away. A tile's last
+//   queued rows form ragged chunks (the next tile lies in the other
+//   buffer).
 // * A cross-block sum in a fixed order. The grid is persistent (at most
 //   one block per SM, fewer for few rows); each block stores its partial
 //   to scratch[blockIdx.x] with plain stores, and a second kernel sums
@@ -110,10 +122,18 @@ constexpr int kMaxSmem = 232448;         // a block's shared memory (bytes)
 constexpr int kSlab = 256;               // bins per slab at most
 constexpr int kSkip = 256;               // the key of a bin outside a slab
 constexpr unsigned kFull = 0xFFFFFFFFu;
-// key bits: a uint8 bin is its own key (a bin >= B is skipped by value);
-// a uint16 bin becomes its offset in the slab or kSkip, nine bits
-constexpr int kKeyBits = sizeof(BinT) == 1 ? 8 : 9;
+// key bits of the float peer search: a uint8 bin is its own key (a bin
+// >= B is skipped by value); a queued uint16 row's key is its offset in
+// the slab (the integer instances take the key kSkip for a bin outside
+// the slab, but need no peers)
+constexpr int kKeyBits = 8;
 constexpr int kMaxBins = sizeof(BinT) == 1 ? 256 : 65536;
+constexpr int kQueue = 64;               // entries of a pair's slab queue
+
+// The float instances over uint16 bins queue rows by slab (redesigned in
+// slice 11); the others keep the row work of slice 3.
+template <typename ACC>
+constexpr bool kQueued = !std::is_same<ACC, int>::value && sizeof(BinT) == 2;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -450,6 +470,8 @@ __device__ __forceinline__ void rows_of_warp(ACC* acc, const BinT* rb,
       }
     }
   } else {
+    // uint8 bins (the float instances over uint16 bins take the slab
+    // queues): every valid lane takes part
     const unsigned below = (1u << lane) - 1u;
     unsigned peers[KPW];
     int rank[KPW], next[KPW];
@@ -457,19 +479,11 @@ __device__ __forceinline__ void rows_of_warp(ACC* acc, const BinT* rb,
 #pragma unroll
     for (int j = 0; j < KPW; ++j) {
       if (mixed[j]) {                    // warp-uniform
-        // with uint16 bins only the lanes whose bin lies in the slab take
-        // part: the others (most of them in a wide feature) would form
-        // one large group that stores nothing but sets the tree's depth
-        // (uint8 bins lie below B in the learner: every valid lane)
-        const bool live =
-            valid && (sizeof(BinT) == 1 || b[j] < wp.nb[j]);
-        peers[j] = peers_of(b[j], sizeof(BinT) == 1
-                                      ? valid_lanes
-                                      : __ballot_sync(kFull, live));
+        peers[j] = peers_of(b[j], valid_lanes);
         rank[j] = __popc(peers[j] & below);
         const unsigned above = peers[j] & ~below & ~(1u << lane);
         next[j] = above != 0u ? __ffs(above) - 1 : 32;  // 32: none
-        if (live) {
+        if (valid) {
           largest = max(largest, static_cast<unsigned>(__popc(peers[j])));
         }
       } else {
@@ -510,6 +524,125 @@ __device__ __forceinline__ void rows_of_warp(ACC* acc, const BinT* rb,
   }
 }
 
+// One chunk of pair J's slab queue (the float instances over uint16
+// bins): n <= 32 entries from ring position head, one per lane (an idle
+// lane copies lane 0's entry, so it never breaks a one-key chunk). The
+// sums of rows_of_warp on one pair: a one-key chunk goes to the pending
+// sums; otherwise the lanes of each key (eight ballots: a queued key
+// lies in the slab) complete at rank 0 by the shuffle tree, and rank 0
+// stores.
+template <typename GH, typename ACC, int KPW, int CV, int J>
+__device__ __forceinline__ void queued_chunk(ACC* acc, const uint32_t* q,
+                                             int head, int n, int nb,
+                                             const GH* tgh, int lane, int SB,
+                                             int C,
+                                             Pending<ACC, KPW, CV>& pend) {
+  const bool valid = lane < n;
+  const uint32_t e = q[(head + (valid ? lane : 0)) & (kQueue - 1)];
+  __syncwarp();                        // read before the ring is refilled
+  const int key = static_cast<int>(e >> 16);
+  ACC v[CV];
+  load_row<GH, ACC, CV>(tgh + (e & 0xFFFFu) * C, C, v);
+  const int key0 = __shfl_sync(kFull, key, 0);
+  if (__all_sync(kFull, key == key0)) {              // warp-uniform
+    if (key0 != pend.bin[J]) {
+      flush_pending<ACC, KPW, CV>(pend, J, acc, lane, nb, SB, C);
+      pend.bin[J] = key0;
+    }
+    if (valid) {
+#pragma unroll
+      for (int c = 0; c < CV; ++c) pend.sum[J][c] += v[c];
+    }
+    return;
+  }
+  const unsigned below = (1u << lane) - 1u;
+  const unsigned peers = peers_of(key, n >= 32 ? kFull : (1u << n) - 1u);
+  const int rank = __popc(peers & below);
+  const unsigned above = peers & ~below & ~(1u << lane);
+  int next = above != 0u ? __ffs(above) - 1 : 32;    // 32: none
+  const unsigned largest =
+      __reduce_max_sync(kFull, valid ? __popc(peers) : 0u);
+  ACC s[CV];
+#pragma unroll
+  for (int c = 0; c < CV; ++c) s[c] = v[c];
+  for (unsigned step = 1; step < largest; step <<= 1) {
+    const int src = next < 32 ? next : lane;
+    const bool take = next < 32 && (rank & (2 * step - 1)) == 0;
+#pragma unroll
+    for (int c = 0; c < CV; ++c) {
+      if (c < C) {
+        const ACC o = __shfl_sync(kFull, s[c], src);
+        if (take) s[c] += o;
+      }
+    }
+    const int jump = __shfl_sync(kFull, next, src);
+    next = next < 32 ? jump : 32;
+  }
+  if (valid && rank == 0) add_to_bin<ACC, CV>(acc, J, key, SB, C, s);
+}
+
+// The row work of one warp on one tile with slab queues (the float
+// instances over uint16 bins): for each 32 staged rows and each of its
+// pairs, a ballot of the lanes whose bin lies in the pair's slab appends
+// those rows to the pair's queue in row order (wq: the warp's KPW
+// rings); a pair's 32 queued rows make a chunk, and its last queued
+// rows of the tile a ragged one.
+template <typename GH, typename ACC, int KPW, int CV>
+__device__ __forceinline__ void queued_rows(ACC* acc, const BinT* tbins,
+                                            const GH* tgh, int rows, int Fs,
+                                            const WarpPairs<KPW>& wp,
+                                            uint32_t* wq, int lane, int SB,
+                                            int C,
+                                            Pending<ACC, KPW, CV>& pend) {
+  const unsigned below = (1u << lane) - 1u;
+  int head[KPW], len[KPW];
+#pragma unroll
+  for (int j = 0; j < KPW; ++j) {
+    head[j] = 0;
+    len[j] = 0;
+  }
+  // sum pair J's next n <= 32 queued rows
+  auto sum = [&](auto pair, int n) {
+    constexpr int J = decltype(pair)::value;
+    __syncwarp();                      // the entries were written
+    queued_chunk<GH, ACC, KPW, CV, J>(acc, wq + J * kQueue, head[J], n,
+                                      wp.nb[J], tgh, lane, SB, C, pend);
+    head[J] = (head[J] + n) & (kQueue - 1);
+    len[J] -= n;
+  };
+  using P0 = std::integral_constant<int, 0>;
+  using P1 = std::integral_constant<int, KPW - 1>;
+  for (int r0 = 0; r0 < rows; r0 += 32) {
+    const int r = r0 + lane;
+    const bool valid = r < rows;
+    const BinT* rb = tbins + (valid ? r : r0) * Fs;
+#pragma unroll
+    for (int j = 0; j < KPW; ++j) {
+      const int off = static_cast<int>(rb[wp.fl[j]]) - wp.s0[j];
+      const bool in =
+          valid && static_cast<unsigned>(off) < static_cast<unsigned>(wp.nb[j]);
+      const unsigned m = __ballot_sync(kFull, in);
+      if (in) {
+        wq[j * kQueue + ((head[j] + len[j] + __popc(m & below)) &
+                         (kQueue - 1))] =
+            static_cast<uint32_t>(r) | (static_cast<uint32_t>(off) << 16);
+      }
+      len[j] += __popc(m);
+    }
+    // warp-uniform; afterwards a queue holds fewer than 32 rows, so the
+    // next 32 fit its ring
+    if (len[0] >= 32) sum(P0{}, 32);
+    if constexpr (KPW == 2) {
+      if (len[1] >= 32) sum(P1{}, 32);
+    }
+  }
+  // the tile's last rows
+  if (len[0] > 0) sum(P0{}, len[0]);
+  if constexpr (KPW == 2) {
+    if (len[1] > 0) sum(P1{}, len[1]);
+  }
+}
+
 template <typename GH, typename ACC, typename OUT, int KPW, int CV>
 __global__ void __launch_bounds__(kThreads, 1)
 hist_rows_kernel(Args a) {
@@ -524,11 +657,13 @@ hist_rows_kernel(Args a) {
   const int acc_bytes = a.Fg * SBC * static_cast<int>(sizeof(ACC));
   const int gh_bytes = a.C * static_cast<int>(sizeof(GH));
   ACC* acc = reinterpret_cast<ACC*>(smem);
-  // two tile buffers: bins [T, Fs] each, then gh [T, C] each
+  // two tile buffers: bins [T, Fs] each, then gh [T, C] each; then the
+  // warps' slab queues
   unsigned char* const tb0 = smem + acc_bytes;
   unsigned char* const tg0 = tb0 + 2 * a.T * a.Fs * kB;
   const int tb_step = a.T * a.Fs * kB;
   const int tg_step = a.T * gh_bytes;
+  uint32_t* const queues = reinterpret_cast<uint32_t*>(tg0 + 2 * tg_step);
 
   if (a.launches != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&
       threadIdx.x == 0) {
@@ -596,15 +731,21 @@ hist_rows_kernel(Args a) {
         reinterpret_cast<const BinT*>(tb0 + (it & 1) * tb_step);
     const GH* tgh = reinterpret_cast<const GH*>(tg0 + (it & 1) * tg_step);
     if (npw > 0) {                       // warp-uniform
-      for (int r0 = 0; r0 < rows; r0 += 32) {
-        const int r = r0 + lane;
-        const bool valid = r < rows;
-        const int rr = valid ? r : r0;  // an idle lane copies lane 0's row
-        ACC v[CV];
-        load_row<GH, ACC, CV>(tgh + rr * a.C, a.C, v);
-        rows_of_warp<ACC, KPW, CV>(wacc, tbins + rr * a.Fs, wp, v, valid,
-                                   __ballot_sync(kFull, valid), lane, a.SB,
-                                   a.C, pend);
+      if constexpr (kQueued<ACC>) {
+        queued_rows<GH, ACC, KPW, CV>(wacc, tbins, tgh, rows, a.Fs, wp,
+                                      queues + warp * KPW * kQueue, lane,
+                                      a.SB, a.C, pend);
+      } else {
+        for (int r0 = 0; r0 < rows; r0 += 32) {
+          const int r = r0 + lane;
+          const bool valid = r < rows;
+          const int rr = valid ? r : r0;  // an idle lane copies lane 0's row
+          ACC v[CV];
+          load_row<GH, ACC, CV>(tgh + rr * a.C, a.C, v);
+          rows_of_warp<ACC, KPW, CV>(wacc, tbins + rr * a.Fs, wp, v, valid,
+                                     __ballot_sync(kFull, valid), lane, a.SB,
+                                     a.C, pend);
+        }
       }
     }
     __syncthreads();  // the next iteration's copy overwrites this buffer
@@ -732,14 +873,17 @@ cudaError_t make_args(const void* bins, const void* gh, const void* idx,
   const int gh_bytes = C * static_cast<int>(sizeof(GH));
   const int SB = B < kSlab ? B : kSlab;
   const int nslab = SB > 0 ? (B + SB - 1) / SB : 0;
+  // accumulators, two tile buffers, slab queues
+  const long long need =
+      static_cast<long long>(Fg) * SB * C *
+          static_cast<long long>(sizeof(ACC)) +
+      2LL * T * (Fs * kB + gh_bytes) +
+      (kQueued<ACC> ? static_cast<long long>(Fg) * kQueue * 4 : 0LL);
   if (Fp <= 0 || Fp % 8 != 0 || B <= 0 || B > kMaxBins || C <= 0 ||
       C > kMaxC || (Fg != 16 && Fg != 32) ||
       groups != (Fp * nslab + Fg - 1) / Fg || Fs <= 0 || T <= 0 ||
-      T % 32 != 0 || out == nullptr || smem > kMaxSmem ||
-      static_cast<long long>(smem) <
-          static_cast<long long>(Fg) * SB * C *
-                  static_cast<long long>(sizeof(ACC)) +
-              2LL * T * (Fs * kB + gh_bytes)) {
+      T % 32 != 0 || T > 65535 || out == nullptr || smem > kMaxSmem ||
+      static_cast<long long>(smem) < need) {
     return cudaErrorInvalidValue;
   }
   a->bins = static_cast<const BinT*>(bins);

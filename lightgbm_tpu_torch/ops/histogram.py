@@ -93,19 +93,28 @@ MIN_TILE_ROWS = 128
 #: a block takes at least this many rows (a child of a few thousand rows
 #: gets a few blocks; one block writes the output directly)
 MIN_ROWS_PER_BLOCK = 1024
+#: the same for the float instances over uint16 bins and the f64 sums
+#: (redesigned in slice 11): a 10k-row child takes 40 blocks, not 10,
+#: for up to half its time on an H100 (chip_variants.py)
+MIN_ROWS_PER_BLOCK_WIDE = 256
+#: entries of a warp's slab queue per pair (csrc/histogram.cu kQueue), 4
+#: bytes each: the float instances over uint16 bins
+QUEUE_ENTRIES = 64
 
 
-def device_plan(n: int, num_sms: int, groups: int) -> Tuple[int, int]:
+def device_plan(n: int, num_sms: int, groups: int,
+                min_rows: int = MIN_ROWS_PER_BLOCK) -> Tuple[int, int]:
     """(row blocks, rows per block) that the device-count entry derives
     in each block from the row count n read from device memory
     (``csrc/histogram.cu`` ``plan_blocks``, called by ``hist_rows_kernel``
     and ``hist_sum_kernel``): the arithmetic of :func:`launch_plan` over
-    a grid of ``num_sms // groups`` row blocks; n = 0 gives one block of
-    no rows (a zero histogram)."""
+    a grid of ``num_sms // groups`` row blocks of ``min_rows`` rows at
+    least (the plan's); n = 0 gives one block of no rows (a zero
+    histogram)."""
     max_blocks = max(1, num_sms // groups)
     if n <= 0:
         return 1, 0
-    blocks = max(1, min(max_blocks, -(-n // MIN_ROWS_PER_BLOCK)))
+    blocks = max(1, min(max_blocks, -(-n // min_rows)))
     per_block = -(-n // blocks)
     return -(-n // per_block), per_block
 
@@ -128,6 +137,7 @@ class LaunchPlan(NamedTuple):
     slab_bins: int              # SB = min(B, 256) bins per slab
     slabs: int                  # slabs per feature, ceil(B / SB)
     stage_features: int         # Fs: features staged per tile row
+    min_rows: int               # rows a block takes at least
 
     def feature_ranges(self, Fp: int) -> List[Tuple[int, int]]:
         """[begin, end) of the features each group stages (with one slab,
@@ -153,13 +163,15 @@ def launch_plan(S: int, Fp: int, B: int, C: int, gh_dtype: torch.dtype,
     block holds the [Fg, SB, C] accumulators of its group's Fg (feature,
     slab) pairs (4 bytes each, 8 with ``f64``) and two tiles of
     ``tile_rows`` rows (the group's features' bins and C gh values each)
-    in shared memory. Groups are as few as fit (one at the main path's
-    Fp = 32, B = 256, C = 4: 128 KB of accumulators beside 96 KB of
-    tiles; four at B = 1024 with uint16 bins); row blocks are at most one
-    per SM across the groups and take at least ``MIN_ROWS_PER_BLOCK``
-    rows each. Raises ``LightGBMError`` for a shape the kernel does not
-    take (f64 sums at 256-bin slabs fit at most 6 stat columns; the
-    learner's rows have 4)."""
+    in shared memory, and with float rows over uint16 bins a slab queue
+    of ``QUEUE_ENTRIES`` 4-byte entries per pair. Groups are as few as
+    fit (one at the main path's Fp = 32, B = 256, C = 4: 128 KB of
+    accumulators beside 96 KB of tiles; four at B = 1024 with uint16
+    bins); row blocks are at most one per SM across the groups and take
+    at least ``MIN_ROWS_PER_BLOCK`` rows each (``MIN_ROWS_PER_BLOCK_WIDE``
+    with float rows over uint16 bins or f64 sums). Raises ``LightGBMError``
+    for a shape the kernel does not take (f64 sums at 256-bin slabs fit
+    at most 6 stat columns; the learner's rows have 4)."""
     if gh_dtype not in _GH_DTYPES:
         raise LightGBMError("histogram kernel takes float32 or int8/int16 "
                             "gh rows, got %s" % gh_dtype)
@@ -178,10 +190,13 @@ def launch_plan(S: int, Fp: int, B: int, C: int, gh_dtype: torch.dtype,
     if S < 1 or num_sms < 1:
         raise LightGBMError("histogram launch plan needs rows and SMs, got "
                             "S=%d num_sms=%d" % (S, num_sms))
-    acc_bytes = 8 if f64 and gh_dtype.is_floating_point else 4
+    floating = gh_dtype.is_floating_point
     groups, fg, tile, smem, sb, slabs, fs = _group_plan(
-        Fp, B, C, C * gh_dtype.itemsize, bins_dtype.itemsize, acc_bytes)
-    blocks = max(1, min(num_sms // groups, -(-S // MIN_ROWS_PER_BLOCK)))
+        Fp, B, C, C * gh_dtype.itemsize, bins_dtype.itemsize,
+        8 if f64 and floating else 4, floating)
+    min_rows = (MIN_ROWS_PER_BLOCK_WIDE if floating and (
+        f64 or bins_dtype == torch.uint16) else MIN_ROWS_PER_BLOCK)
+    blocks = max(1, min(num_sms // groups, -(-S // min_rows)))
     per_block = -(-S // blocks)
     blocks = -(-S // per_block)
     return LaunchPlan(groups=groups, features_per_group=fg, warps=WARPS,
@@ -189,19 +204,21 @@ def launch_plan(S: int, Fp: int, B: int, C: int, gh_dtype: torch.dtype,
                       rows_per_block=per_block, smem_bytes=smem,
                       scratch_shape=(blocks, Fp, B, C) if blocks > 1
                       else None, slab_bins=sb, slabs=slabs,
-                      stage_features=fs)
+                      stage_features=fs, min_rows=min_rows)
 
 
 @functools.lru_cache(maxsize=None)
 def _group_plan(Fp: int, B: int, C: int, gh_bytes: int, bin_bytes: int,
-                acc_bytes: int):
+                acc_bytes: int, floating: bool):
     """(groups, pairs per group, tile rows, shared bytes, slab bins,
     slabs, staged features) of a shape; the learner asks for one shape
-    per training run."""
+    per training run. Float rows over uint16 bins take slab queues
+    (``csrc/histogram.cu`` ``kQueued``)."""
     sb = min(B, SLAB_BINS)
     slabs = -(-B // sb)
     pairs = Fp * slabs
     per_pair = sb * C * acc_bytes
+    queued = floating and bin_bytes == 2
 
     def staged(fg):
         # the tile row holds the widest group's features; with one slab
@@ -213,7 +230,8 @@ def _group_plan(Fp: int, B: int, C: int, gh_bytes: int, bin_bytes: int,
                                       for g in range(groups)))
 
     def smem(fg, rows):
-        return fg * per_pair + 2 * rows * (staged(fg) * bin_bytes + gh_bytes)
+        return (fg * per_pair + (fg * QUEUE_ENTRIES * 4 if queued else 0)
+                + 2 * rows * (staged(fg) * bin_bytes + gh_bytes))
 
     fits = [fg for fg in GROUP_FEATURES
             if smem(fg, MIN_TILE_ROWS) <= MAX_SMEM]
@@ -224,7 +242,7 @@ def _group_plan(Fp: int, B: int, C: int, gh_bytes: int, bin_bytes: int,
     fg = min(f for f in fits if f * groups >= pairs)
     groups = -(-pairs // fg)
     fs = staged(fg)
-    rows = (MAX_SMEM - fg * per_pair) // (2 * (fs * bin_bytes + gh_bytes))
+    rows = (MAX_SMEM - smem(fg, 0)) // (2 * (fs * bin_bytes + gh_bytes))
     tile = min(MAX_TILE_ROWS, rows // 32 * 32)
     return groups, fg, tile, smem(fg, tile), sb, slabs, fs
 
@@ -298,7 +316,8 @@ def histogram_plain(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
     ``_segment_histogram``. Rows are summed in row order, as XLA's CPU
     segment_sum does, so on the CPU f32 results match it bit for bit.
     With ``count`` only the first ``count`` rows of ``idx`` are summed.
-    With ``f64`` float rows are summed in f64 and rounded to f32 once, as
+    A bin >= ``num_bins`` is skipped, as the kernel skips it. With
+    ``f64`` float rows are summed in f64 and rounded to f32 once, as
     the reference does under ``tpu_use_f64_hist`` (integer rows ignore
     it: their sums are exact)."""
     if count is not None:
@@ -310,11 +329,14 @@ def histogram_plain(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
     C = gh.shape[1]
     acc = acc_dtype(gh.dtype, f64)
     flat = (torch.arange(F, dtype=torch.int64, device=bins.device)[None, :]
-            * num_bins + b).reshape(-1)
+            * num_bins + b)
+    # a bin >= num_bins is skipped, as the kernel skips it: its rows go to
+    # one trash row past the histogram
+    flat = torch.where(b < num_bins, flat, F * num_bins).reshape(-1)
     vals = gh.to(acc)[:, None, :].expand(S, F, C).reshape(-1, C)
-    out = torch.zeros(F * num_bins, C, dtype=acc, device=bins.device)
+    out = torch.zeros(F * num_bins + 1, C, dtype=acc, device=bins.device)
     out.index_add_(0, flat, vals)
-    out = out.view(F, num_bins, C)
+    out = out[:-1].view(F, num_bins, C)
     if f64 and gh.dtype == torch.float32:
         out = out.to(torch.float32)
     return out
@@ -414,7 +436,7 @@ def histogram_cuda(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
                 None if scratch is None else scratch.data_ptr(),
                 counter.data_ptr(), F, num_bins, C,
                 plan.features_per_group, plan.groups, plan.stage_features,
-                plan.tile_rows, max_blocks, MIN_ROWS_PER_BLOCK,
+                plan.tile_rows, max_blocks, plan.min_rows,
                 plan.smem_bytes, stream)
     launch_counts[name] += 1
     if code != 0:

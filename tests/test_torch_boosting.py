@@ -178,6 +178,54 @@ def test_refit_matches_reference(case):
                                   port.predict(X2, predict_on_device=False))
 
 
+@pytest.mark.parametrize("case", ["other_size", "same_size"])
+def test_refit_keeps_the_training_objective(case):
+    """The reference's ``refit_model_device`` re-initializes the model's
+    own objective on the refit labels; the port refits with a copy of it
+    and keeps its training labels (ROADMAP queue 3, a fact of the
+    reference). On a refit set of another size the reference's next
+    ``update()`` raises (its objective's labels no longer match the
+    training scores), while the port's trains on. On a refit set of the
+    training size, the reference's objective holds the refit labels and
+    the port's the training ones. In both cases the refit leaf values
+    agree (within 1e-6, as in :func:`test_refit_matches_reference`); the
+    next update grows each package's tree from its own objective's
+    labels, so on the training size the two fourth trees differ."""
+    params = {"objective": "binary", "num_leaves": 15, "verbose": -1}
+    X, y = _data(n=2000)
+    n2 = 700 if case == "other_size" else 2000
+    X2, y2 = _data(seed=5, n=n2)
+    y2 = 1.0 - y2                       # new labels, not the training ones
+    ref = ref_lgb.Booster(params, ref_lgb.Dataset(X, label=y))
+    port = lgb.Booster(dict(params, device_type="cpu"),
+                       lgb.Dataset(X, label=y))
+    for _ in range(3):
+        ref.update()
+        port.update()
+    ref.refit(X2, y2)
+    port.refit(X2, y2)
+    np.testing.assert_array_equal(np.asarray(ref.inner.objective.label), y2)
+    np.testing.assert_array_equal(port.inner.objective.label.numpy(), y)
+    for a, b in zip(ref.inner.models, port.inner.models):
+        np.testing.assert_allclose(b.leaf_value[:b.num_leaves],
+                                   a.leaf_value[:a.num_leaves], rtol=0,
+                                   atol=1e-6)
+    if case == "other_size":
+        with pytest.raises(TypeError, match="incompatible shapes"):
+            ref.update()
+        port.update()
+        assert len(port.inner.models) == 4
+        assert port.inner.models[3].num_leaves > 1
+        np.testing.assert_array_equal(port.inner.objective.label.numpy(), y)
+    else:
+        ref.update()
+        port.update()
+        assert len(port.inner.models) == len(ref.inner.models) == 4
+        # the reference's fourth tree follows its refit labels, the
+        # port's its training labels: they differ
+        assert _splits(ref.inner.models[3]) != _splits(port.inner.models[3])
+
+
 def test_create_boosting_and_rf_needs_sampling():
     X, y = _data()
     ds = lgb.Dataset(X, label=y).construct().handle

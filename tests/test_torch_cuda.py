@@ -804,16 +804,32 @@ def test_wide_kernel_instances_match_plain(cuda, B, kind):
 @pytest.mark.parametrize("kind", ["f32", "f64", "int8", "int16"])
 def test_wide_kernel_adversarial_rows(cuda, kind):
     """Every row in the last slab's last bin, every row in one bin of
-    the first slab, and bin values that skip whole slabs; Fp 8 and 136;
-    uint16 bins at B <= 256 too."""
-    S, B = 1 << 15, 1024
+    the first slab, bin values that skip whole slabs, every row of every
+    tile in one slab (the second), every row outside every slab (bins in
+    [B, 2B), skipped: a zero histogram), and bins >= B beside bins below
+    it in a B that is no multiple of 256; all rows (a ragged last tile:
+    S is no multiple of 32) and row lists of 1, 31, 33 and 1025 rows;
+    Fp 8 and 136; uint16 bins at B <= 256 too."""
+    S, B = (1 << 15) + 37, 1024
     bins, rows, idx = _wide_inputs(S, 136, B, seed=21)
     raw = bins.view(torch.int16)
+    wide = raw.long() & 0xFFFF
+    lists = (None, idx, idx[:1], idx[:31], idx[:33], idx[:1025])
     for b in (torch.full_like(raw, B - 1).view(torch.uint16),
               torch.full_like(raw, 3).view(torch.uint16),
-              (raw % 4 * 256 + raw % 3).view(torch.uint16)):
-        for i in (None, idx, idx[:1], idx[:31]):
+              (raw % 4 * 256 + raw % 3).view(torch.uint16),
+              ((wide & 0xFF) + 256).to(torch.int16).view(torch.uint16),
+              (wide + B).to(torch.int16).view(torch.uint16)):
+        for i in lists:
             _check_against_plain(b, rows[kind], B, i, kind)
+    outside = H.build_histogram((wide + B).to(torch.int16).view(
+        torch.uint16), rows[kind], B, idx, f64=kind == "f64")
+    assert not outside.any()
+    # B = 700: slabs of 256, 256 and 188 bins; bins up to 767 (>= B
+    # inside the last slab's 256-bin range are skipped)
+    part = (wide % 768).to(torch.int16).view(torch.uint16)
+    for i in lists:
+        _check_against_plain(part, rows[kind], 700, i, kind)
     narrow, nrows, nidx = _wide_inputs(S, 8, 64, seed=22)
     for i in (None, nidx):
         _check_against_plain(narrow, nrows[kind], 64, i, kind)
@@ -821,20 +837,42 @@ def test_wide_kernel_adversarial_rows(cuda, kind):
 
 @pytest.mark.parametrize("with_idx", [False, True])
 def test_f64_instance_on_uint8_bins(cuda, with_idx):
-    bins, rows, idx = _wide_inputs(1 << 17, 32, 256, seed=23,
-                                   dtype=torch.uint8)
+    """f64 sums over uint8 bins (two groups at Fp 32, nine at Fp 136;
+    row blocks of 256 rows at least): random bins, every row in one bin,
+    bins >= B (B = 200) skipped, all rows (a ragged last tile) or row
+    lists of 1, 31, 33, 1025 and a third of the rows."""
+    S = (1 << 17) + 37
+    bins, rows, idx = _wide_inputs(S, 32, 256, seed=23, dtype=torch.uint8)
+    wide, wrows, widx = _wide_inputs(S, 136, 256, seed=27,
+                                     dtype=torch.uint8)
     H.reset_launch_counts()
-    _check_against_plain(bins, rows["f64"], 256, idx if with_idx else None,
-                         "f64")
-    assert H.launch_counts["histogram_f64"] == 1
+    lists = [idx, idx[:1], idx[:31], idx[:33], idx[:1025]] if with_idx \
+        else [None]
+    for i in lists:
+        _check_against_plain(bins, rows["f64"], 256, i, "f64")
+        _check_against_plain(torch.full_like(bins, 9), rows["f64"], 256, i,
+                             "f64")
+        _check_against_plain(bins, rows["f64"], 200, i, "f64")
+    for i in ([widx, widx[:33]] if with_idx else [None]):
+        _check_against_plain(wide, wrows["f64"], 256, i, "f64")
+    assert H.launch_counts["histogram_f64"] == 3 * len(lists) + (
+        2 if with_idx else 1)
 
 
-@pytest.mark.parametrize("kind", ["f32", "f64"])
+@pytest.mark.parametrize("kind", ["f32", "f64", "f64 uint8"])
 def test_wide_float_instances_are_deterministic(cuda, kind):
-    bins, rows, idx = _wide_inputs(1 << 20, 32, 1024, seed=24)
+    """Two calls on the same inputs give the same bytes: f32 and f64
+    sums over uint16 bins (B 1024), f64 sums over uint8 bins (B 256)."""
+    narrow = kind == "f64 uint8"
+    B = 256 if narrow else 1024
+    bins, rows, idx = _wide_inputs(1 << 20, 32, B, seed=24,
+                                   dtype=torch.uint8 if narrow
+                                   else torch.uint16)
     for i in (None, idx):
-        a = H.build_histogram(bins, rows[kind], 1024, i, f64=kind == "f64")
-        b = H.build_histogram(bins, rows[kind], 1024, i, f64=kind == "f64")
+        a = H.build_histogram(bins, rows[kind[:3]], B, i,
+                              f64=kind != "f32")
+        b = H.build_histogram(bins, rows[kind[:3]], B, i,
+                              f64=kind != "f32")
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 

@@ -15,9 +15,11 @@ B = 512 to 4096 bins) in the port against the JAX package, on the CPU.
   reference's splits with its leaf counts, and the held-out AUC agrees
   within 1e-4 every round. The rows are 10,000, about 10 to a bin: at
   3,000 (3 to a bin) two adjacent thresholds of one feature tie within
-  the f32 rounding of the gain, where the two packages' scans round
-  differently (ROADMAP queue 3's near-ties: 8-bit bins 687 and 688 at
-  4e-7 relative, bundled f32 bins 302 and 304).
+  the f32 rounding of the gain. With the reference's gradients as
+  ``fobj`` the bundled trees are the same (the ``exp`` fact of ROADMAP
+  queue 3), and where the 8-bit trees part, the reference's own scan
+  run eagerly on the port's histogram gives the port's split bit for
+  bit, and jitted the reference's (the FMA fact).
 - Round trips: model text and the stacked forest of a wide-bin model
   equal the host walk byte for byte.
 - The kernel's launch plan (plain Python) for uint16 bins: every
@@ -37,16 +39,20 @@ from jax.experimental import pallas as pl
 import lightgbm_tpu as ref_lgb
 import lightgbm_tpu.config as ref_config
 import lightgbm_tpu.io.dataset as ref_dataset
+import lightgbm_tpu.objective as ref_objective
 from lightgbm_tpu.ops import quantize as RQ
+from lightgbm_tpu.ops import split as ref_split
 from lightgbm_tpu.ops.histogram import _hist_kernel_body
 from lightgbm_tpu.ops.histogram import build_histogram as ref_histogram
 
 import lightgbm_tpu_torch as lgb
 import lightgbm_tpu_torch.config as port_config
 import lightgbm_tpu_torch.io.dataset as port_dataset
+import lightgbm_tpu_torch.treelearner.serial as serial
 from lightgbm_tpu_torch.convert import (bin_mappers_from_numpy,
                                         bundle_layout_from_numpy)
 from lightgbm_tpu_torch.ops import histogram as H
+from lightgbm_tpu_torch.ops import split as S
 from lightgbm_tpu_torch.serve import StackedForest, cache
 from lightgbm_tpu_torch.utils.log import LightGBMError
 
@@ -280,6 +286,103 @@ def test_wide_bin_trees_match_reference(case):
                                atol=1e-4)
 
 
+def _reference_gradients(y):
+    """fobj giving the reference's own binary gradients (its objective,
+    its ``exp``) at the scores it is handed: the same numbers for both
+    packages."""
+    cfg = ref_config.Config.from_params({"objective": "binary"})
+    obj = ref_objective.create_objective("binary", cfg)
+    md = ref_dataset.Metadata(len(y))
+    md.set_label(y)
+    obj.init(md, len(y))
+
+    def fobj(preds, _):
+        g, h = obj.get_gradients(jnp.asarray(np.asarray(preds, np.float32)))
+        return np.asarray(g, np.float32), np.asarray(h, np.float32)
+    return fobj
+
+
+@pytest.mark.parametrize("case", ["bundled", "quant8"])
+def test_wide_bin_ties_at_3000_rows_are_the_references(case, monkeypatch):
+    """At 3,000 rows (3 to a bin) the two packages' trees differ at
+    near-ties (ROADMAP queue 3). With the reference's gradients passed
+    as ``fobj`` to both packages:
+
+    - bundled f32: the trees are the same: the difference came from
+      the gradients (XLA's ``exp``, the fact of queue 3);
+    - 8-bit: the trees may still part at a split whose two best
+      thresholds tie within f32 rounding. There, the port's scan record
+      equals the reference's own ``find_best_split`` run eagerly on the
+      port's leaf histogram, bit for bit; the reference's training step
+      runs the scan jitted (XLA fuses the gain into FMAs, the fact of
+      queue 3), and jitted it takes the other threshold, at a gain
+      within 1e-6 relative."""
+    params = dict(WIDE[case])
+    data = _bundled_train_data if params.pop("data", None) else _train_data
+    X, y = data(n=3000)
+    params = dict(params, objective="none", num_leaves=15, max_bin=1023,
+                  min_data_in_bin=1, verbose=-1)
+    scans = []
+    real = serial.find_best_split
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        scans[-1].append((args, out.clone()))
+        return out
+    monkeypatch.setattr(serial, "find_best_split", spy)
+    ref = ref_lgb.Booster(params, ref_lgb.Dataset(X, label=y))
+    port = lgb.Booster(dict(params, device_type="cpu",
+                            tpu_fused_tree=False), lgb.Dataset(X, label=y))
+    fr, fp = _reference_gradients(y), _reference_gradients(y)
+    for it in range(10):
+        scans.append([])
+        ref.update(fobj=fr)
+        port.update(fobj=fp)
+        a, b = ref.inner.models[it], port.inner.models[it]
+        if _splits(a) == _splits(b):
+            continue
+        assert case == "quant8", "tree %d differs" % it
+        k = next(k for k in range(min(a.num_internal, b.num_internal))
+                 if (a.split_feature[k], a.threshold[k])
+                 != (b.split_feature[k], b.threshold[k]))
+        # the port's scan of that split, and the reference's scan of
+        # the same histogram, eager and jitted
+        args, rec = next(
+            (args, rec) for args, rec in scans[it]
+            if int(rec[S.FEATURE]) == int(b.split_feature[k])
+            and np.float32(float(rec[S.GAIN])) == np.float32(
+                b.split_gain[k]))
+        hist, sg, sh, sc, stc, meta, _, mask, parent, qscale = args[:10]
+        F = len(meta.num_bin)
+        rmeta = ref_split.FeatureMeta(
+            num_bin=jnp.asarray(meta.num_bin.numpy()),
+            missing_type=jnp.asarray(meta.missing_type.numpy()),
+            zero_bin=jnp.asarray(meta.zero_bin.numpy()),
+            is_categorical=jnp.zeros(F, bool),
+            use_onehot=jnp.zeros(F, bool), monotone=jnp.zeros(F, jnp.int8))
+        rp = ref_split.SplitParams.from_config(
+            ref_config.Config.from_params(dict(params, objective="binary")))
+
+        def scan(h, g, hs, c, t, m, po, q):
+            return ref_split.find_best_split(
+                h, g, hs, c, t, rmeta, rp, m, parent_output=po,
+                has_categorical=False, hist_scale=q)
+        inputs = (jnp.asarray(hist.numpy()),
+                  *[jnp.float32(float(v)) for v in (sg, sh, sc, stc)],
+                  jnp.asarray(mask.numpy()), jnp.float32(float(parent)),
+                  jnp.asarray(qscale.numpy()))
+        eager, jitted = scan(*inputs), jax.jit(scan)(*inputs)
+        assert int(eager.feature) == int(rec[S.FEATURE])
+        assert int(eager.threshold_bin) == int(rec[S.THRESHOLD_BIN])
+        assert np.float32(eager.gain) == np.float32(float(rec[S.GAIN]))
+        assert int(jitted.feature) == int(a.split_feature[k])
+        assert np.float32(jitted.gain) == np.float32(a.split_gain[k])
+        assert abs(int(jitted.threshold_bin) - int(eager.threshold_bin)) == 1
+        assert abs(float(jitted.gain) - float(eager.gain)) <= \
+            1e-6 * abs(float(eager.gain))
+        return
+
+
 def test_wide_bin_model_round_trips(monkeypatch):
     """The text of a max_bin 1023 model loads to the same predictions,
     and its stacked forest (raw rows quantized against the model's
@@ -344,12 +447,79 @@ def test_launch_plan_covers_every_slab_once(gh_dtype, f64):
                 assert pairs == list(range(Fp * slabs))
                 for a, b in p.feature_ranges(Fp):
                     assert 0 < b - a <= p.stage_features
-                acc = 8 if f64 and gh_dtype.is_floating_point else 4
-                assert p.smem_bytes == fg * sb * C * acc + 2 * p.tile_rows \
-                    * (p.stage_features * 2 + C * elt) <= H.MAX_SMEM
+                floating = gh_dtype.is_floating_point
+                acc = 8 if f64 and floating else 4
+                # float rows take slab queues (64 4-byte entries a pair)
+                assert p.smem_bytes == fg * sb * C * acc + 2 \
+                    * p.tile_rows * (p.stage_features * 2 + C * elt) + (
+                        fg * H.QUEUE_ENTRIES * 4 if floating else 0) \
+                    <= H.MAX_SMEM
                 assert p.tile_rows % 32 == 0
                 assert H.MIN_TILE_ROWS <= p.tile_rows <= H.MAX_TILE_ROWS
                 assert p.blocks * p.groups <= 132 or p.blocks == 1
+
+
+@pytest.mark.parametrize("bins_dtype,f64", [(torch.uint16, False),
+                                            (torch.uint16, True),
+                                            (torch.uint8, True)])
+def test_redesigned_plan_at_every_learner_shape(bins_dtype, f64):
+    """The instances redesigned in slice 11 (f32 and f64 sums over uint16
+    bins: slab queues; f64 sums over uint8 bins: 256-row blocks) at the
+    learner's bin counts (powers of two) and the port's widths: every
+    (feature, slab) pair in exactly one group, at most 232,448 bytes a
+    block (with a slab queue of 64 4-byte entries per pair over uint16
+    bins), at least ``MIN_TILE_ROWS`` tile rows of a multiple of 32 (a
+    queued row offset fits its 16 bits), and row blocks at most one per
+    SM across the groups, of at least 256 rows; the device-count entry
+    plans the same blocks as the host."""
+    Bs = (2, 16, 64, 256) if bins_dtype == torch.uint8 else \
+        (512, 1024, 2048, 4096, 16384, 65536)
+    for B in Bs:
+        for Fp in (8, 16, 32, 40, 56, 136, 256):
+            for C in (1, 4, 6):
+                p = H.launch_plan(10_500_000, Fp, B, C, torch.float32, 132,
+                                  bins_dtype, f64)
+                fg, slabs = p.features_per_group, p.slabs
+                pairs = [q for g in range(p.groups)
+                         for q in range(g * fg, min((g + 1) * fg,
+                                                    Fp * slabs))]
+                assert pairs == list(range(Fp * slabs))
+                queue = fg * H.QUEUE_ENTRIES * 4 \
+                    if bins_dtype == torch.uint16 else 0
+                assert p.smem_bytes == fg * p.slab_bins * C * (
+                    8 if f64 else 4) + queue + 2 * p.tile_rows * (
+                    p.stage_features * bins_dtype.itemsize + 4 * C)
+                assert p.smem_bytes <= H.MAX_SMEM == 232448
+                assert p.tile_rows % 32 == 0
+                assert H.MIN_TILE_ROWS <= p.tile_rows <= H.MAX_TILE_ROWS \
+                    < 1 << 16
+                assert p.blocks * p.groups <= 132 or p.blocks == 1
+                assert p.min_rows == H.MIN_ROWS_PER_BLOCK_WIDE == 256
+                for n in (1, 257, 1025, 10_000, 100_000, 1_000_000):
+                    q = H.launch_plan(n, Fp, B, C, torch.float32, 132,
+                                      bins_dtype, f64)
+                    assert q.blocks <= max(1, min(132 // q.groups,
+                                                  -(-n // 256)))
+                    assert q.blocks * q.rows_per_block >= n > \
+                        (q.blocks - 1) * q.rows_per_block
+                    assert H.device_plan(n, 132, q.groups, q.min_rows) == \
+                        (q.blocks, q.rows_per_block)
+
+
+@pytest.mark.parametrize("args,match", [
+    ((100, 32, 1024, 7, torch.float32, 132, torch.uint16, True),
+     "does not fit"),
+    ((100, 32, 256, 7, torch.float32, 132, torch.uint8, True),
+     "does not fit"),
+    ((100, 32, 65537, 4, torch.float32, 132, torch.uint16, False),
+     "at most 65536 bins"),
+    ((100, 12, 1024, 4, torch.float32, 132, torch.uint16, True),
+     "multiple of 8"),
+    ((100, 32, 1024, 4, torch.float64, 132, torch.uint16, True),
+     "float32 or int8")])
+def test_redesigned_plan_rejects_bad_shapes(args, match):
+    with pytest.raises(LightGBMError, match=match):
+        H.launch_plan(*args)
 
 
 def test_wide_kernel_argument_checks():
