@@ -23,15 +23,15 @@ Phases (each one fails the run if it fails):
    f32 calls on the same inputs must give the same bytes (two f64 calls
    too); the f64 sums must be the plain f64 sums rounded once (a value
    may round the other way only at a rounding midpoint); the uint16
-   instances likewise at B = 512 (Fp 40), 1024 (Fp 32 and 136) and 4096
-   (Fp 8), with every row in one bin, every row in the last 256-bin
-   slab, every row in the second slab and every row outside every slab
-   (bins in [B, 2B), skipped); the device-count entry (row count read
-   from device memory) must give the host-count launch's bytes for
-   every instance at n = 0,
+   instances likewise at B = 512 (Fp 40), 1024 (Fp 32 and 136), 4096
+   and 16384 (Fp 8), with every row in one bin, 70% of the rows in one
+   bin, every row in the last 256 bins, every row in bins 256-511 and
+   every row outside every slab (bins in [B, 2B), skipped); the
+   device-count entry (row count read from device memory) must give the
+   host-count launch's bytes for every instance at n = 0,
    1, 1023, 1024, 1025, 10k, 100k, 1M and all rows, at Fp = 32 and 136
    and at the bundle shape Gp = 16, Bg = 72, and over uint16 bins at
-   B = 1024 and 4096;
+   B = 1024, 4096 and 16384;
 3. train the binary slice at a small size on ``cuda`` and on ``cpu`` and
    compare the first tree and the held-out AUC;
 4. train the full-size slice (10.5M Higgs-shaped rows x 28 features,
@@ -67,8 +67,8 @@ Phases (each one fails the run if it fails):
    over the bundle columns; held-out multi_logloss falls every round,
    multi_error ends below the majority class's 0.512, the device
    validation scores equal the host walk within 1e-4, f32 launches ==
-   roots + steps over the 35 trees; a 1-round per-split rerun is
-   text-equal; a 2-round unbundled f32 run reaches the held-out loss
+   roots + steps over the 35 trees; 1 round at 63 leaves text-equal
+   through both loops; a 2-round unbundled f32 run reaches the held-out loss
    within 1e-4 (its prediction gap and structure-equal trees printed);
    on the same gradients the bundled learner's histograms of the root
    and of the root split's smaller child (unpacked, each shared zero bin
@@ -117,8 +117,9 @@ Phases (each one fails the run if it fails):
    columns: 12 columns, ``categorical_feature=[10, 11]``, 5 rounds):
    phase 9's checks, categorical nodes in the model text, the stacked
    path equal to the host walk on rows with NaN, negative and unseen
-   categories, a 1-round per-split rerun text-equal, 1 round with
-   ``max_cat_to_onehot: 8`` (wilderness one-hot on the card), an 8-bit
+   categories, 1 round at 63 leaves text-equal through both loops, 1
+   round with ``max_cat_to_onehot: 8`` (wilderness one-hot on the
+   card), an 8-bit
    tree 1 at 50k rows the same on cuda and cpu;
 
 14. row and column sampling and the per-node filters on phase 4's data
@@ -154,9 +155,9 @@ Phases (each one fails the run if it fails):
       along a 64-point grid of each constrained column (stacked path), a
       1-round per-split rerun text-equal;
    b. the intermediate method, 2 rounds, and the advanced method, 1
-      round (the host-tracked per-split loop): AUC >= basic's after as
-      many rounds - 0.002, the grid check, ms and syncs per split,
-      rescans per tree;
+      round at 63 leaves (the host-tracked per-split loop): AUC >=
+      basic's after as many rounds at as many leaves - 0.002, the grid
+      check, ms and syncs per split, rescans per tree;
    c. monotone_penalty 2.0: no constrained column at depth 0 or 1;
    d. three forced nodes (the root on column 0, its children on 1 and
       2), 3 rounds in f32 and in 8-bit: every tree starts with them, and
@@ -176,8 +177,9 @@ Phases (each one fails the run if it fails):
    rounds through the uint16 f32 instance only (held-out AUC > 0.7 and
    equal to the device scores', stacked predict == host walk, a 2-round
    per-split rerun text-equal; ms per split beside phase 4's), 8-bit for
-   3 rounds and 16-bit for 2 through their uint16 instances, tree 1 at
-   200k rows the same on cuda and cpu;
+   3 rounds and 16-bit for 2 through their uint16 instances (1-round
+   per-split reruns text-equal), tree 1 at 200k rows the same on cuda
+   and cpu in f32, 8-bit and 16-bit;
 17. f64 histogram sums (``tpu_use_f64_hist``): phase 4's Dataset for 3
    rounds and phase 16's for 2, through the f64 instances; then phase
    9's Covertype rows bundled and unbundled for 2 rounds each, and
@@ -255,6 +257,11 @@ REL_TOL = 1e-5
 #: same splits, and the script stays inside its time (14c keeps 3, its
 #: first GOSS tree; phase 16, the wide bins' own path, 2)
 RERUN_ROUNDS = 1
+#: leaves of the Covertype phases' whole-tree / per-split pairs and of the
+#: advanced monotone tree (with a basic one beside it): the per-split
+#: loop is host-bound (20-40 ms a split), and those 255-leaf rounds took
+#: 30-80 s each of the script's 1200 s; the same checks at a cut depth
+CUT_LEAVES = 63
 
 FULL_ROWS = 10_500_000
 HELD_OUT_ROWS = 500_000
@@ -629,24 +636,33 @@ def check_cases(hist_mod, cases, errs, prefix):
 
 
 #: wide bins: (B, Fp, seed) of the uint16 checks; B = 1024 at Fp = 32 is
-#: phase 16's learner shape (max_bin 1023)
+#: phase 16's learner shape (max_bin 1023); at B = 16384 the integer
+#: instances cut a feature into two slabs of 8192 bins
 WIDE_SHAPES = ((512, 40, 31), (1024, 32, 32), (1024, 136, 33),
-               (4096, 8, 34))
+               (4096, 8, 34), (16384, 8, 35))
 
 
 def phase_wide_kernels(hist_mod, errs):
     """The uint16 build of every instance (f32, f64, int8, int16) at
-    B = 512, 1024 and 4096 against its plain version: random rows, all
-    rows and row-index lists of half the rows, 1, 31, 33, 1000, 1025 and
-    100k rows, every row in one bin, every row in the last 256-bin slab,
-    every row in the second slab, every row outside every slab (bins in
-    [B, 2B), skipped), at Fp = 8, 32, 40 and 136 (S = 2^20 rows: the
-    last tile of a row block is ragged); two f32 and two f64 calls
-    byte-equal. Adds to ``errs``."""
+    B = 512, 1024, 4096 and 16384 against its plain version: random
+    rows, all rows and row-index lists of half the rows, 1, 31, 33,
+    1000, 1025 and 100k rows, every row in one bin, 70% of the rows in
+    one bin (all and half the rows: lanes of one instruction on one
+    address), every row in the last 256-bin slab, every row in the
+    second slab, every row outside every slab (bins in [B, 2B),
+    skipped), at Fp = 8, 32, 40 and 136 (S = 2^20 rows: the last tile of
+    a row block is ragged); two f32 and two f64 calls byte-equal. Adds
+    to ``errs``."""
     import torch
     S = 1 << 20
     for B, fp, seed in WIDE_SHAPES:
         bins, gh, gh8, gh16, idx = make_hist_inputs(S, fp, B, seed)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        hot70 = torch.where(torch.rand(bins.shape, generator=g,
+                                       device="cuda") < 0.7, B // 3,
+                            bins.view(torch.int16).long() & 0xFFFF).to(
+            torch.int16).view(torch.uint16)
         last = make_hist_inputs(S, fp, B, seed + 100, low=B - 256)[0]
         second = ((bins.view(torch.int16).long() & 0xFF) + 256).to(
             torch.int16).view(torch.uint16)
@@ -660,6 +676,8 @@ def phase_wide_kernels(hist_mod, errs):
                    sub_index(S, n, seed=n + B)) for n in (1, 31, 33, 1000,
                                                           1025, 100_000)]
         cases += [("one bin", hot, gh, gh8, gh16, B, None),
+                  ("70% in one bin", hot70, gh, gh8, gh16, B, None),
+                  ("70% in one bin, idx S/2", hot70, gh, gh8, gh16, B, idx),
                   ("last slab", last, gh, gh8, gh16, B, None),
                   ("last slab, idx S/2", last, gh, gh8, gh16, B, idx),
                   ("second slab", second, gh, gh8, gh16, B, None),
@@ -667,7 +685,8 @@ def phase_wide_kernels(hist_mod, errs):
                   ("outside every slab, idx 1025", outside, gh, gh8, gh16,
                    B, sub_index(S, 1025, seed=B))]
         check_cases(hist_mod, cases, errs, "u16_")
-        del bins, gh, gh8, gh16, idx, last, second, outside, hot, cases
+        del bins, gh, gh8, gh16, idx, last, second, outside, hot, hot70
+        del cases
 
 
 def count_buffer(idx, S: int):
@@ -690,13 +709,14 @@ def phase_device_count_entry(hist_mod):
     ``DEVICE_COUNT_ROWS`` and all rows, at Fp = 32 (one feature group,
     132 row blocks at most), Fp = 136 (five groups, 26 row blocks) and
     the bundle shape Gp = 16 at Bg = 72 bins over uint8 bins, and over
-    uint16 bins at B = 1024 (Fp = 32: 4 groups) and B = 4096 (Fp = 8);
+    uint16 bins at B = 1024 (Fp = 32: 4 groups), B = 4096 (Fp = 8) and B
+    = 16384 (Fp = 8; two 8192-bin slabs a feature for integer rows);
     n = 0 must give zeros."""
     import torch
     S = 1 << 20
     checked = 0
     for Fp, B, seed in ((32, 256, 13), (136, 256, 14), (16, 72, 15),
-                        (32, 1024, 16), (8, 4096, 17)):
+                        (32, 1024, 16), (8, 4096, 17), (8, 16384, 18)):
         bins, gh, gh8, gh16, _ = make_hist_inputs(S, Fp, B, seed=seed)
         for n in DEVICE_COUNT_ROWS + (S,):
             idx = sub_index(S, n, seed=n + Fp) if n < S else torch.arange(
@@ -721,7 +741,7 @@ def phase_device_count_entry(hist_mod):
     log("device-count entry: byte-equal to the host-count launch in %d "
         "cases (f32, f64 sums, int8, int16; uint8 bins at Fp 32 and 136 "
         "at B 256 and the bundle shape Gp 16 at Bg 72, uint16 bins at Fp "
-        "32, B 1024 and Fp 8, B 4096; n = %s and all %d rows)"
+        "32, B 1024 and Fp 8, B 4096 and 16384; n = %s and all %d rows)"
         % (checked, ", ".join(str(n) for n in DEVICE_COUNT_ROWS), S))
 
 
@@ -1326,6 +1346,26 @@ def check_predict(bst, data, device_auc):
     return a
 
 
+def loops_agree(lgb, hist_mod, ds, valid, params, what):
+    """``RERUN_ROUNDS`` rounds at ``CUT_LEAVES`` leaves through the
+    whole-tree loop and through the per-split loop must give the same
+    trees, text for text."""
+    cut = dict(params, num_leaves=CUT_LEAVES)
+    trees = []
+    for fused, loop in ((True, "whole-tree"), (False, "per-split")):
+        bst = train_path(lgb, hist_mod, ds, valid,
+                         dict(cut, tpu_fused_tree=fused), "histogram_f32",
+                         RERUN_ROUNDS, tag="%s %s, %d leaves"
+                         % (what, loop, CUT_LEAVES))["booster"]
+        trees.append([t.to_string() for t in bst.inner.models])
+        del bst
+    check(trees[0] == trees[1], "a per-split %s run gave other trees than "
+          "the whole-tree run" % what)
+    log("%s at %d leaves (%d round(s)): all %d trees text-equal through "
+        "the whole-tree and the per-split loop"
+        % (what, CUT_LEAVES, RERUN_ROUNDS, len(trees[0])))
+
+
 def check_rerun(lgb, hist_mod, data, extra, kernel, bst, what,
                 rounds=RERUN_ROUNDS):
     """A second run of ``rounds`` rounds through the per-split loop must
@@ -1584,18 +1624,8 @@ def phase_covertype(lgb, hist_mod):
     log("phase 9 covertype bundled: G = %d (Gp = %d) bundle columns at "
         "Bg = %d bins, against Fp = %d features at B = %d"
         % (lay.num_groups, learner.Gp, learner.Bg, learner.Fp, learner.B))
+    loops_agree(lgb, hist_mod, ds, valid, params, "covertype bundled")
     R = RERUN_ROUNDS
-    again = train_path(lgb, hist_mod, ds, valid,
-                       dict(params, tpu_fused_tree=False), "histogram_f32",
-                       R, tag="covertype bundled per-split rerun")[
-        "booster"]
-    check([t.to_string() for t in bst.inner.models[:7 * R]]
-          == [t.to_string() for t in again.inner.models],
-          "a per-split covertype run gave other trees than the whole-tree "
-          "run")
-    log("covertype per-split rerun (%d round(s)): all %d trees text-equal "
-        "to the whole-tree run's" % (R, 7 * R))
-    del again
     launches = {"phase9_covertype_bundled": run["launches"]["histogram_f32"]}
     # unbundled, 2 rounds, against the reference's contract for bundles
     # (tests/test_efb.py::test_bundled_matches_unbundled_predictions,
@@ -1850,8 +1880,9 @@ def phase_covertype_categorical(lgb, hist_mod):
     sorted subset), 7 classes, 255 leaves, 5 rounds through the
     whole-tree loop; phase 9's checks, categorical nodes in the model
     text, the stacked path (auto mode) on rows with NaN, negative and
-    unseen categories, a 1-round per-split rerun, 1 round with
-    ``max_cat_to_onehot: 8`` (wilderness in one-hot mode) and an 8-bit
+    unseen categories, 1 round at ``CUT_LEAVES`` leaves through both
+    loops, 1 round with ``max_cat_to_onehot: 8`` (wilderness in one-hot
+    mode) and an 8-bit
     tree 1 at 50k rows on cuda and cpu. Returns the launches by path and
     the learner's bins for timing."""
     from lightgbm_tpu_torch.objective.multiclass import MulticlassSoftmax
@@ -1898,21 +1929,12 @@ def phase_covertype_categorical(lgb, hist_mod):
     check_stacked(bst, unusual_categories(Xv),
                   "phase 13 covertype categorical, NaN / negative / "
                   "unseen categories")
+    loops_agree(lgb, hist_mod, ds, valid, params, "covertype categorical")
     R = RERUN_ROUNDS
-    again = train_path(lgb, hist_mod, ds, valid,
-                       dict(params, tpu_fused_tree=False), "histogram_f32",
-                       R, tag="covertype categorical per-split rerun")[
-        "booster"]
-    check([t.to_string() for t in bst.inner.models[:7 * R]]
-          == [t.to_string() for t in again.inner.models],
-          "a per-split categorical covertype run gave other trees than the "
-          "whole-tree run")
-    log("covertype categorical per-split rerun (%d round(s)): all %d trees "
-        "text-equal to the whole-tree run's" % (R, 7 * R))
     launches = {"phase13_covertype_categorical":
                 run["launches"]["histogram_f32"]}
     bins = (learner.bins, learner.B)
-    del bst, again, learner
+    del bst, learner
     oh = dict(params, max_cat_to_onehot=8)
     ohrun = train_path(lgb, hist_mod, ds, valid, oh, "histogram_f32", R,
                        tag="covertype categorical, wilderness one-hot")
@@ -2982,15 +3004,27 @@ def phase15_basic(lgb, hist_mod, data, mc):
 
 def phase15_methods(lgb, hist_mod, data, sets, mc, basic_aucs):
     """15b: the intermediate method, 2 rounds, and the advanced method,
-    1 round (~60 s a tree at full size), on the constrained ``sets``."""
+    1 round at ``CUT_LEAVES`` leaves beside a basic round at as many (~80
+    s a tree at 255 leaves), on the constrained ``sets``."""
     Xv = data[2]
     dsm, valid = sets
     out = {}
-    for method, rounds in (("intermediate", 2), ("advanced", 1)):
+    for method, rounds, leaves in (("intermediate", 2, 255),
+                                   ("advanced", 1, CUT_LEAVES)):
         tag = "15b %s" % method
         basic_auc = basic_aucs[rounds - 1]
+        if leaves != 255:
+            base = train_path(lgb, hist_mod, dsm, valid,
+                              dict(SLICE_PARAMS, num_leaves=leaves,
+                                   monotone_constraints=mc),
+                              "histogram_f32", rounds,
+                              tag="15b basic, %d leaves" % leaves)
+            basic_auc = base["evals"]["auc"][rounds - 1]
+            out["phase15b_higgs_basic_%d_leaves" % leaves] = \
+                base["launches"]["histogram_f32"]
+            del base
         run = train_path(lgb, hist_mod, dsm, valid,
-                         dict(SLICE_PARAMS, num_leaves=255,
+                         dict(SLICE_PARAMS, num_leaves=leaves,
                               monotone_constraints=mc,
                               monotone_constraints_method=method),
                          "histogram_f32", rounds, tag=tag)
@@ -3004,11 +3038,11 @@ def phase15_methods(lgb, hist_mod, data, sets, mc, basic_aucs):
               "%.6f - 0.002 after %d rounds" % (tag, a, basic_auc, rounds))
         check_monotone_grid(bst, Xv, mc, tag)
         splits = run["splits"]
-        log("%s: ms per split %.3f (tree seconds / splits); host syncs per "
-            "split %.2f (%s per tree); record reads per split %.2f; "
-            "rescans per tree %.1f; held-out AUC %.6f (basic after %d "
-            "rounds %.6f)"
-            % (tag, SPLIT_MS[tag], sum(run["tree_syncs"]) / splits,
+        log("%s, %d leaves: ms per split %.3f (tree seconds / splits); "
+            "host syncs per split %.2f (%s per tree); record reads per "
+            "split %.2f; rescans per tree %.1f; held-out AUC %.6f (basic "
+            "after %d rounds at as many leaves %.6f)"
+            % (tag, leaves, SPLIT_MS[tag], sum(run["tree_syncs"]) / splits,
                run["tree_syncs"], stats["split_reads"] / splits,
                stats["rescans"] / len(bst.inner.models), a, rounds,
                basic_auc))
@@ -3374,9 +3408,10 @@ def phase_wide(lgb, hist_mod, data, errs, rows):
     """Training at max_bin 1023 on phase 4's rows: f32 for 5 rounds (held-
     out AUC > 0.7 and equal to the device scores', stacked predict ==
     host walk, a 2-round per-split rerun text-equal), 8-bit for 3 rounds
-    and 16-bit for 2, each through its uint16 instance only (device
-    launches == roots + steps); ms per split and syncs per tree beside
-    phase 4's; tree 1 at 200k rows the same on cuda and cpu; then the
+    and 16-bit for 2 (each a 1-round per-split rerun text-equal), each
+    through its uint16 instance only (device launches == roots + steps);
+    ms per split and syncs per tree beside phase 4's; tree 1 at 200k
+    rows the same on cuda and cpu in f32, 8-bit and 16-bit; then the
     uint16 instances timed over the learner's own bins (appended to
     ``rows`` when phase 5 made them). Returns (launches by kernel and
     path, the binned data)."""
@@ -3404,17 +3439,21 @@ def phase_wide(lgb, hist_mod, data, errs, rows):
     bins = learner.bins
     del bst, learner
     qtag = "phase 16 max_bin 1023 8-bit"
+    q8 = dict(extra, use_quantized_grad=True)
     q, qlaunch, qaucs, _, _ = train_full(
-        lgb, hist_mod, wdata, dict(extra, use_quantized_grad=True),
-        "histogram_u16_i8", rounds=3, tag=qtag)
+        lgb, hist_mod, wdata, q8, "histogram_u16_i8", rounds=3, tag=qtag)
     check_predict(q, wdata, qaucs)
+    check_rerun(lgb, hist_mod, wdata, q8, "histogram_u16_i8", q,
+                "max_bin 1023 8-bit")
     by_path["histogram_u16_i8"] = {
         "phase16_higgs_max_bin_1023_8bit": qlaunch["histogram_u16_i8"]}
     del q
+    q16p = dict(q8, quant_grad_bits=16)
     q16, q16launch, _, _, _ = train_full(
-        lgb, hist_mod, wdata, dict(extra, use_quantized_grad=True,
-                                   quant_grad_bits=16),
-        "histogram_u16_i16", rounds=2, tag="phase 16 max_bin 1023 16-bit")
+        lgb, hist_mod, wdata, q16p, "histogram_u16_i16", rounds=2,
+        tag="phase 16 max_bin 1023 16-bit")
+    check_rerun(lgb, hist_mod, wdata, q16p, "histogram_u16_i16", q16,
+                "max_bin 1023 16-bit")
     by_path["histogram_u16_i16"] = {
         "phase16_higgs_max_bin_1023_16bit": q16launch["histogram_u16_i16"]}
     del q16
@@ -3422,6 +3461,11 @@ def phase_wide(lgb, hist_mod, data, errs, rows):
                         rounds=1)
     by_path["histogram_u16_f32"]["phase16_small_max_bin_1023"] = \
         small["histogram_u16_f32"]
+    for p, kernel, tag in ((q8, "histogram_u16_i8", "8bit"),
+                           (q16p, "histogram_u16_i16", "16bit")):
+        small = phase_small(lgb, hist_mod, p, kernel, None, rounds=1)
+        by_path[kernel]["phase16_small_max_bin_1023_" + tag] = \
+            small[kernel]
     if rows is not None:
         S = bins.shape[0]
         g = torch.Generator(device="cuda")

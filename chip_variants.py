@@ -20,30 +20,38 @@ without its history takes the file itself: write it first with
   rewrite (entries without the staged-features argument; uint8 bins,
   f32, int8 and int16 only), to settle whether that rewrite slowed the
   uint8 instances;
-- a variant of the source as it is, made by a text edit at run time:
-  tile staging, zeroing, flush and sum pass only (no row work: wrong
-  sums, timed only), which splits a small child's time; and the source
-  as it is under two other launch plans on the children: one row block
-  (no partials, no sum pass), and the redesigned instances' row blocks
-  at 1024 rows at least (as before).
+- variants of the source as it is, made by text edits at run time: tile
+  staging, zeroing, flush and sum pass only (no row work: wrong sums,
+  timed only), which splits a small child's time (``VARIANTS`` takes
+  more); and the source as it is under other launch plans on the
+  children: one
+  row block (no partials, no sum pass), and row blocks of at least 1024
+  and of at least 256 rows.
 
 Times, with CUDA events, each instance (uint8 bins: f32, int8, int16, f64
-sums; uint16 bins: f32, f64 sums) at the main path's root shape (10.5M
-rows x 32 features, B = 256 or 1024, C = 4; warm repeats), on uniform
-random bins and on skewed ones (floor(B u^4): a quarter of the rows in
-bin 0 at B = 256, as real columns pile rows into few bins), and over
-sorted row-index lists of 10k, 100k and 1M rows (the L2 flushed before
-each call), through the host-count entry and the device-count entry, in
-turns: parent, change, change, parent (so a drift of the card's clock
-during the run falls on both). Each launch plan is its own source's
-(the parent's is rebuilt here from its arithmetic). The variants are
-timed at both roots and at 10k and 100k rows, beside the change in the
-same turns; the block-order sum pass alone at the 10k-row plans. Each
-result is held to the plain version (f32 within 1e-5 x sum |x|, f64
-sums the f64 sum rounded once, integers byte-equal); a variant that is
-wrong by design is not. Prints one line per instance and case and
-writes them all to ``chiprun_out/chip_variants.json``. Without a CUDA
-device it exits non-zero.
+sums; uint16 bins: f32, f64 sums at B = 1024; int8 and int16 at B = 1024
+and 4096) at the main path's root shape (10.5M rows x 32 features, C =
+4; warm repeats), on uniform random bins, on skewed ones (floor(B u^4):
+a quarter of the rows in bin 0 at B = 256, 18% at B = 1024, as real
+columns pile rows into few bins) and on query runs (a third of the
+features constant within MSLR-shaped queries of ~120 rows, as its
+query-level features), and over sorted row-index lists of
+10k, 100k and 1M rows (the L2 flushed before each call), through the
+host-count entry and the device-count entry, in turns: parent, change,
+change, parent (so a drift of the card's clock during the run falls on
+both). Each launch plan is its own source's (the parent's is rebuilt
+here from its arithmetic). The variants are timed at the three roots and at
+10k and 100k rows, beside the change in the same turns; the block-order
+sum pass alone at the 10k-row plans. Then the width study: f32 and int8
+over uint8 bins at the same rows x features as MSLR's 2.27M x 136, at Fp
+= 32, 128, 136 and 144 (Fp = 136 stages 8-byte copy units and a fifth
+group of 8 features; 128 neither; 144 16-byte units and a fifth group
+of 16), on uniform, skewed and query-run bins, parent and change in
+turns. Each result is held to the plain version (f32 within 1e-5 x sum
+|x|, f64 sums the f64 sum rounded once, integers byte-equal); a variant
+that is wrong by design is not. Prints one line per instance and case
+and writes them all to ``chiprun_out/chip_variants.json``. Without a
+CUDA device it exits non-zero.
 """
 from __future__ import annotations
 
@@ -64,7 +72,14 @@ ROOT_ROWS, FP = 10_500_000, 32
 CHILD_ROWS = (10_000, 100_000, 1_000_000)
 
 # name -> [(text in the source, replacement)]; "(wrong)" variants give
-# wrong sums on purpose and are timed only
+# wrong sums on purpose and are timed only. Tried on the integer
+# instances over uint16 bins in earlier runs of this script (PERF.md
+# §6): lost and taken out, folds of the lanes that share a key before
+# the shared atomic add (lane 0's key in every mixed chunk; every key by
+# __match_any_sync; the two keys of a chunk of exactly two); won and
+# taken into the kernel, two pairs a warp, contiguous runs of chunks for
+# the sharing warps, and the one-key sums flushed by one reduction per
+# channel.
 VARIANTS = {
     "staging, zeroing, flush and sum pass only (wrong)": [
         ("    if (npw > 0) {                       // warp-uniform",
@@ -72,10 +87,10 @@ VARIANTS = {
 }
 #: variants of the launch plan alone, on the change's library, timed on
 #: the children: every call in one row block (no per-block partials, no
-#: sum pass), and the redesigned instances' row blocks at 1024 rows at
-#: least, as the others' (fewer blocks for a small child, fewer
-#: partials to sum)
-PLANS = {"one row block (no sum pass)": None, "1024-row blocks": 1024}
+#: sum pass), and row blocks of at least 1024 or 256 rows (fewer blocks
+#: for a small child, fewer partials to sum; or more blocks)
+PLANS = {"one row block (no sum pass)": None, "1024-row blocks": 1024,
+         "256-row blocks": 256}
 SUM_ONLY = """
 extern "C" int lgbm_sum_only_%s(const void* scratch, void* out, int blocks,
                                 long long n, void* stream) {
@@ -91,8 +106,23 @@ INSTANCES = (("K1 f32, uint8", "uint8", 256, "f32", False, "f32"),
              ("int16, uint8", "uint8", 256, "i16", False, "i16"),
              ("f64 sums, uint8", "uint8", 256, "f32", True, "f64"),
              ("K1w f32, uint16", "uint16", 1024, "f32", False, "f32"),
-             ("f64 sums, uint16", "uint16", 1024, "f32", True, "f64"))
-REDESIGNED = ("f64 sums, uint8", "K1w f32, uint16", "f64 sums, uint16")
+             ("f64 sums, uint16", "uint16", 1024, "f32", True, "f64"),
+             ("K2w int8, uint16", "uint16", 1024, "i8", False, "i8"),
+             ("int16, uint16", "uint16", 1024, "i16", False, "i16"),
+             ("K2w int8, uint16, B 4096", "uint16", 4096, "i8", False,
+              "i8"),
+             ("int16, uint16, B 4096", "uint16", 4096, "i16", False,
+              "i16"))
+#: the instances redesigned since the first port (slab queues, whole
+#: features, 256-row blocks): timed under the variants and launch plans
+#: too
+REDESIGNED = ("f64 sums, uint8", "K1w f32, uint16", "f64 sums, uint16",
+              "K2w int8, uint16", "int16, uint16",
+              "K2w int8, uint16, B 4096", "int16, uint16, B 4096")
+#: the width study: MSLR's 2.27M rows x 136 features, and the same rows x
+#: features at other widths
+WIDTH_CELLS = 2_270_296 * 136
+WIDTHS = (32, 128, 136, 144)
 
 
 def read_source(rev, path):
@@ -138,13 +168,20 @@ def build(csrc, out_dir, sources):
 
 
 def parent_plan(H, S, Fp, B, C, gh_dtype, num_sms, bins_dtype, f64):
-    """The launch plan of the kernel before the slab queues (no queue in
-    shared memory): the parent's arithmetic."""
+    """The launch plan of the parent kernel: 256-bin slabs for
+    every instance over uint16 bins in groups of 16 or 32 pairs, a slab
+    queue of 64 4-byte entries per pair for float rows over uint16 bins,
+    row blocks of at least 256 rows for those and for f64 sums, else
+    1024. Also the plan of the kernel from before the slab rewrite (uint8
+    bins, f32 / int8 / int16 rows: one slab, no queue, 1024-row blocks,
+    the same arithmetic)."""
     bin_bytes, gh_bytes = bins_dtype.itemsize, C * gh_dtype.itemsize
-    acc = 8 if f64 and gh_dtype.is_floating_point else 4
-    sb = min(B, H.SLAB_BINS)
+    floating = gh_dtype.is_floating_point
+    acc = 8 if f64 and floating else 4
+    sb = min(B, 256)
     slabs = -(-B // sb)
     pairs = Fp * slabs
+    queued = floating and bin_bytes == 2
 
     def staged(fg):
         if slabs == 1:
@@ -153,19 +190,19 @@ def parent_plan(H, S, Fp, B, C, gh_dtype, num_sms, bins_dtype, f64):
                                       for g in range(-(-pairs // fg))))
 
     def smem(fg, rows):
-        return fg * sb * C * acc + 2 * rows * (staged(fg) * bin_bytes
-                                               + gh_bytes)
+        return fg * sb * C * acc + (fg * 64 * 4 if queued else 0) + 2 * \
+            rows * (staged(fg) * bin_bytes + gh_bytes)
 
-    fits = [fg for fg in H.GROUP_FEATURES
-            if smem(fg, H.MIN_TILE_ROWS) <= H.MAX_SMEM]
+    fits = [fg for fg in (16, 32) if smem(fg, 128) <= H.MAX_SMEM]
     groups = -(-pairs // fits[-1])
     fg = min(f for f in fits if f * groups >= pairs)
     groups = -(-pairs // fg)
-    rows = (H.MAX_SMEM - fg * sb * C * acc) // (
+    rows = (H.MAX_SMEM - smem(fg, 0)) // (
         2 * (staged(fg) * bin_bytes + gh_bytes))
     tile = min(H.MAX_TILE_ROWS, rows // 32 * 32)
+    min_rows = 256 if floating and (f64 or bin_bytes == 2) else 1024
     cap = max(1, num_sms // groups)
-    blocks = max(1, min(cap, -(-S // H.MIN_ROWS_PER_BLOCK)))
+    blocks = max(1, min(cap, -(-S // min_rows)))
     per = -(-S // blocks)
     blocks = -(-S // per)
     return H.LaunchPlan(groups=groups, features_per_group=fg, warps=H.WARPS,
@@ -173,8 +210,7 @@ def parent_plan(H, S, Fp, B, C, gh_dtype, num_sms, bins_dtype, f64):
                         smem_bytes=smem(fg, tile),
                         scratch_shape=(blocks, Fp, B, C) if blocks > 1
                         else None, slab_bins=sb, slabs=slabs,
-                        stage_features=staged(fg),
-                        min_rows=H.MIN_ROWS_PER_BLOCK)
+                        stage_features=staged(fg), min_rows=min_rows)
 
 
 class Launcher:
@@ -191,23 +227,26 @@ class Launcher:
         self.num_sms = H._num_sms(bins.device)
 
     def plan(self, S):
-        """This source's plan; the one-block variant's has one SM for
-        each group, so one row block."""
-        H, sms = self.H, self.num_sms
-        if self.kind in PLANS and PLANS[self.kind] is None:
-            sms = H.launch_plan(S, self.bins.shape[1], self.B,
-                                self.gh.shape[1], self.gh.dtype, sms,
-                                self.bins.dtype, self.f64).groups
-        args = (S, self.bins.shape[1], self.B, self.gh.shape[1],
-                self.gh.dtype, sms, self.bins.dtype, self.f64)
+        """This source's plan; a plan variant's row blocks are one, or
+        as many as its least rows per block give."""
+        H = self.H
+        Fp, C = self.bins.shape[1], self.gh.shape[1]
+        args = (S, Fp, self.B, C, self.gh.dtype, self.num_sms,
+                self.bins.dtype, self.f64)
         if self.kind in ("parent", "before slabs"):
             return parent_plan(H, *args)
-        rows = H.MIN_ROWS_PER_BLOCK_WIDE
-        H.MIN_ROWS_PER_BLOCK_WIDE = PLANS.get(self.kind) or rows
-        try:
-            return H.launch_plan(*args)
-        finally:
-            H.MIN_ROWS_PER_BLOCK_WIDE = rows
+        p = H.launch_plan(*args)
+        if self.kind not in PLANS:
+            return p
+        rows = PLANS[self.kind]
+        blocks = 1 if rows is None else max(
+            1, min(self.num_sms // p.groups, -(-S // rows)))
+        per = -(-S // blocks)
+        blocks = -(-S // per)
+        return p._replace(blocks=blocks, rows_per_block=per,
+                          scratch_shape=(blocks, Fp, self.B, C)
+                          if blocks > 1 else None,
+                          min_rows=rows or p.min_rows)
 
     def host(self, idx, bins=None):
         torch, H = self.torch, self.H
@@ -312,6 +351,48 @@ def held(smoke, H, torch, got, bins, gh, B, idx, f64):
         H.build_histogram = real
 
 
+def held_all(smoke, H, torch, runs, bins, gh, B, idx, f64):
+    """Every run's result held to the plain version, but a "(wrong)"
+    variant's."""
+    for n, (run, _) in runs.items():
+        if "(wrong)" not in n:
+            held(smoke, H, torch, run(), bins, gh, B, idx, f64)
+
+
+def width_bins(torch, g, rows, Fp, dist, B=256):
+    """Bins [rows, Fp] (uint8 at B <= 256, else uint16): uniform, skewed
+    (floor(B u^4)), or query runs (uniform, but the last third of the
+    features constant within queries of MSLR's log-normal lengths, mean
+    near 120 rows, as its query-level features)."""
+    import numpy as np
+    u = torch.rand(rows, Fp, generator=g, device="cuda")
+    b = ((u.pow(4) if dist == "skewed" else u) * B).to(torch.int32)
+    del u
+    if dist == "query runs":
+        rng = np.random.RandomState(Fp)
+        lengths = np.clip(np.round(rng.lognormal(np.log(90.0), 0.75,
+                                                 rows // 60 + 1)), 1, 1251)
+        qid = np.repeat(np.arange(len(lengths)), lengths.astype(np.int64))
+        qid = torch.from_numpy(qid[:rows]).to("cuda")
+        k = Fp // 3
+        qb = torch.randint(0, B, (len(lengths), k), generator=g,
+                           device="cuda", dtype=torch.int32)
+        b[:, Fp - k:] = qb[qid]
+    b = b.to(torch.uint8) if B <= 256 else b.to(torch.int16).view(
+        torch.uint16)
+    return b.contiguous()
+
+
+def timed_turns(torch, runs, reps, cold, flush):
+    """ms of each run, in turns: parent, change, the rest, then back."""
+    order = ["parent", "change"] + [
+        n for n in runs if n not in ("parent", "change")]
+    ms = {n: [] for n in runs}
+    for turn in order + order[::-1]:
+        ms[turn].append(timed_ms(torch, runs[turn][0], reps, cold, flush))
+    return {n: sum(v) / len(v) for n, v in ms.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="commit to compare with (git show)")
@@ -352,6 +433,10 @@ def main() -> int:
         sources[name] = src
     tmp = tempfile.mkdtemp()
     results = []
+
+    def report(line):
+        results.append(line)
+        print(json.dumps(line), flush=True)
     try:
         libs = build(csrc, tmp, sources)
         print("built %d libraries in %.1f s" % (len(libs),
@@ -374,19 +459,17 @@ def main() -> int:
                  for n in CHILD_ROWS}
         lists[ROOT_ROWS] = torch.arange(ROOT_ROWS, dtype=torch.int32,
                                         device="cuda")
-        bins_of, skew_of = {}, {}
+        bins_of = {}
         for label, bname, B, kind, f64, tag in INSTANCES:
-            if bname not in bins_of:
-                # uniform bins, and skewed ones: floor(B u^4), a quarter
-                # of the rows in bin 0 at B = 256 (as real columns pile
-                # rows into few bins)
-                u = torch.rand(ROOT_ROWS, FP, generator=g, device="cuda")
-                for out, b in ((bins_of, (u * B).long()),
-                               (skew_of, (u.pow(4) * B).long())):
-                    out[bname] = (b.to(torch.uint8) if bname == "uint8"
-                                  else b.to(torch.int16).view(torch.uint16))
-                del u, b
-            bins, rg = bins_of[bname], rows[kind]
+            if (bname, B) not in bins_of:
+                # uniform bins; skewed ones, floor(B u^4): a quarter of the
+                # rows in bin 0 at B = 256 (as real columns pile rows into
+                # few bins); and query runs (a third of the features
+                # constant within MSLR-shaped queries)
+                bins_of[(bname, B)] = {
+                    dist: width_bins(torch, g, ROOT_ROWS, FP, dist, B)
+                    for dist in ("uniform", "skewed", "query runs")}
+            bins, rg = bins_of[(bname, B)]["uniform"], rows[kind]
             names = ["parent", "change"] + (
                 ["before slabs"] if "before slabs" in sources and
                 bname == "uint8" and not f64 else []) + (
@@ -400,35 +483,27 @@ def main() -> int:
                                or n in PLANS else "change",
                                bins, rg, B, f64)
                    for n in names}
-            cases = [("root", None, False, args.reps),
-                     ("skewed root", None, False, args.reps)] + [
+            roots = {"root": "uniform", "skewed root": "skewed",
+                     "query-run root": "query runs"}
+            cases = [(case, None, False, args.reps) for case in roots] + [
                 ("%dk list" % (n // 1000), lists[n], True, 2 * args.reps)
                 for n in CHILD_ROWS]
             for case, idx, cold, reps in cases:
-                cb = skew_of[bname] if case == "skewed root" else bins
+                cb = bins_of[(bname, B)][roots.get(case, "uniform")]
                 runs = {n: lau[n].host(idx, cb) for n in names
                         if n in ("parent", "change") or (
                             case in ("10k list", "100k list") if n in PLANS
-                            else case in ("root", "skewed root", "10k list",
-                                          "100k list"))}
-                order = ["parent", "change"] + [
-                    n for n in runs if n not in ("parent", "change")]
-                ms = {n: [] for n in runs}
-                for turn in order + order[::-1]:
-                    ms[turn].append(timed_ms(torch, runs[turn][0], reps,
-                                             cold, flush))
-                for n, (run, p) in runs.items():
-                    if "(wrong)" not in n:
-                        held(smoke, H, torch, run(), cb, rg, B, idx, f64)
-                line = dict(instance=label, case=case, entry="host",
+                            else case in tuple(roots) + ("10k list",
+                                                         "100k list"))}
+                ms = timed_turns(torch, runs, reps, cold, flush)
+                held_all(smoke, H, torch, runs, cb, rg, B, idx, f64)
+                report(dict(instance=label, case=case, entry="host", B=B,
                             rows=ROOT_ROWS if idx is None else idx.shape[0],
-                            ms={n: sum(v) / len(v) for n, v in ms.items()},
+                            ms=ms,
                             plans={n: dict(groups=p.groups,
                                            blocks=p.blocks,
                                            tile_rows=p.tile_rows)
-                                   for n, (run, p) in runs.items()})
-                results.append(line)
-                print(json.dumps(line), flush=True)
+                                   for n, (run, p) in runs.items()}))
             for n_rows in CHILD_ROWS + (ROOT_ROWS,):
                 buf, count = smoke.count_buffer(lists[n_rows], ROOT_ROWS)
                 runs = {n: lau[n].device(buf, count, n_rows)
@@ -446,11 +521,9 @@ def main() -> int:
                     raise SystemExit("%s: the device-count entry differs "
                                      "from the host-count launch at n=%d"
                                      % (label, n_rows))
-                line = dict(instance=label, case="%d-row list" % n_rows,
-                            entry="device count", rows=n_rows,
-                            ms={n: sum(v) / len(v) for n, v in ms.items()})
-                results.append(line)
-                print(json.dumps(line), flush=True)
+                report(dict(instance=label, case="%d-row list" % n_rows,
+                            entry="device count", B=B, rows=n_rows,
+                            ms={n: sum(v) / len(v) for n, v in ms.items()}))
             # the block-order sum pass alone, at the change's 10k plan
             if label in REDESIGNED or label.startswith("K1 "):
                 p = lau["change"].plan(CHILD_ROWS[0])
@@ -469,10 +542,35 @@ def main() -> int:
                 ms = timed_ms(torch, lambda: fn(
                     scratch.data_ptr(), out.data_ptr(), p.blocks, n, stream),
                     2 * args.reps, True, flush)
-                line = dict(instance=label, case="sum pass alone",
-                            entry="host", blocks=p.blocks, ms=ms)
-                results.append(line)
-                print(json.dumps(line), flush=True)
+                report(dict(instance=label, case="sum pass alone",
+                            entry="host", B=B, blocks=p.blocks, ms=ms))
+        del bins_of, lists, perm
+        # the width study: f32 and int8 over uint8 bins at MSLR's rows x
+        # features, cut into other widths
+        for Fp in WIDTHS:
+            n_rows = -(-WIDTH_CELLS // Fp)
+            for dist in ("uniform", "skewed", "query runs"):
+                wb = width_bins(torch, g, n_rows, Fp, dist)
+                for label, kind in (("K1 f32, uint8", "f32"),
+                                    ("K2 int8, uint8", "i8")):
+                    rg = rows[kind][:n_rows]
+                    names = ["parent", "change"]
+                    runs = {n: Launcher(torch, H, libs[(n, "uint8")], kind,
+                                        "parent" if n == "parent"
+                                        else "change", wb, rg, 256,
+                                        False).host(None)
+                            for n in names}
+                    ms = timed_turns(torch, runs, args.reps, False, flush)
+                    held_all(smoke, H, torch, runs, wb, rg, 256, None,
+                             False)
+                    report(dict(instance=label, case="width %s" % dist,
+                                entry="host", B=256, Fp=Fp, rows=n_rows,
+                                ms=ms,
+                                plans={n: dict(groups=p.groups,
+                                               blocks=p.blocks,
+                                               tile_rows=p.tile_rows)
+                                       for n, (run, p) in runs.items()}))
+                del wb
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

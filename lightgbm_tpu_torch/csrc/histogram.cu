@@ -24,19 +24,32 @@
 // accumulator do not carry over: Hopper has no sequential grid, and a
 // scatter into shared memory is cheap):
 //
-// * Slabs. A feature's B bins are cut into slabs of SB = min(B, 256) bins
-//   (nslab = ceil(B / SB); one slab when B <= 256). A (feature, slab)
-//   pair is the unit of ownership: pairs are numbered f * nslab + s, a
-//   block's group (blockIdx.y) takes Fg = 16 or 32 consecutive pairs, and
-//   each of its 16 warps owns Fg / 16 of them, with their [SB, C]
-//   accumulators in shared memory ([Fg, SB, C] f32 / f64, [Fg, C, SB]
-//   int32). A warp adds only the rows whose bin falls in its slab (the
-//   integer instances give a bin outside the key 256, skipped like a bin
-//   >= B; the float ones queue their slab's rows, below), and no two
-//   warps ever touch one bin. At B = 1024, Fp = 32 and C = 4 that is 4
-//   groups of 32 pairs (8 features each), 128 KB of f32 accumulators per
-//   block, where one warp per whole feature would need 256 KB, past the
-//   227 KB a block may use.
+// * Slabs. A feature's B bins are cut into slabs of SB bins (nslab =
+//   ceil(B / SB)). A (feature, slab) pair is the unit of ownership: pairs
+//   are numbered f * nslab + s, a block's group (blockIdx.y) takes Fg
+//   consecutive pairs, with their accumulators in shared memory ([Fg, SB,
+//   C] f32 / f64, [Fg, C, SB] int32).
+//   - uint8 bins: one slab of B bins per feature, Fg = 16 or 32, one warp
+//     per pair or two pairs per warp (all known at compile time but Fg).
+//   - Float rows over uint16 bins: SB = min(B, 256), Fg = 16 or 32, each
+//     of the 16 warps owns Fg / 16 pairs and adds only the rows whose bin
+//     falls in its slab (slab queues, below); no two warps touch one bin,
+//     which keeps the float order fixed. At B = 1024, Fp = 32 and C = 4
+//     that is 4 groups of 32 pairs (8 features each), 128 KB of f32
+//     accumulators per block.
+//   - Integer rows over uint16 bins (exact in any order, so no bin needs
+//     one owning warp): SB = B, a whole feature per pair, wherever one
+//     feature's [C, B] int32 fits beside two tiles of MIN_TILE_ROWS rows
+//     (B <= 8192 at C = 4, B <= 4096 at C = 8), else the largest power
+//     of two that fits. Fg may also be 1, 2, 4 or 8. A warp takes two
+//     pairs (one at Fg = 1), and 32 / Fg warps share them, each taking a
+//     contiguous run of the tile's 32-row chunks (a run of equal bins
+//     stays in one warp's one-key sums); all add with shared atomics. At
+//     B = 1024, Fp = 32 and C = 4 that is 4 groups of 8 whole features
+//     (128 KB), four warps on each two: every (row, feature) is read
+//     once per group, where 256-bin slabs read it once per slab and
+//     threw 3 in 4 away (chip_variants.py: 4.37 -> 1.48 ms at the root,
+//     int8 rows, on an H100 80GB HBM3 at 700 W).
 // * Row work without contended or CAS atomics. A warp takes 32 rows (one
 //   per lane) of its pairs at a time. A pair whose 32 rows share one key
 //   (a vote; the learner's zero padding features always do) is summed per
@@ -119,21 +132,35 @@ constexpr int kWarps = 16;               // warps per block
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxC = 8;                 // stat columns per row
 constexpr int kMaxSmem = 232448;         // a block's shared memory (bytes)
-constexpr int kSlab = 256;               // bins per slab at most
-constexpr int kSkip = 256;               // the key of a bin outside a slab
+constexpr int kSlab = 256;               // bins per float slab at most
+constexpr int kMinTileRows = 128;        // ops/histogram.py MIN_TILE_ROWS
+// the key of a bin outside its pair's slab (integer rows over uint16
+// bins): above any slab's bin count
+constexpr int kSkip = 1 << 16;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 // key bits of the float peer search: a uint8 bin is its own key (a bin
 // >= B is skipped by value); a queued uint16 row's key is its offset in
 // the slab (the integer instances take the key kSkip for a bin outside
 // the slab, but need no peers)
 constexpr int kKeyBits = 8;
+constexpr bool kWide = sizeof(BinT) == 2;
 constexpr int kMaxBins = sizeof(BinT) == 1 ? 256 : 65536;
 constexpr int kQueue = 64;               // entries of a pair's slab queue
 
 // The float instances over uint16 bins queue rows by slab (redesigned in
 // slice 11); the others keep the row work of slice 3.
 template <typename ACC>
-constexpr bool kQueued = !std::is_same<ACC, int>::value && sizeof(BinT) == 2;
+constexpr bool kQueued = !std::is_same<ACC, int>::value && kWide;
+// The integer instances over uint16 bins take a whole feature per pair,
+// and warps may share a pair.
+template <typename ACC>
+constexpr bool kWholeFeature = std::is_same<ACC, int>::value && kWide;
+
+// a block's accumulator bytes, rounded up so that the tiles after them
+// start 16-byte aligned (an odd SB at Fg < 16)
+__host__ __device__ __forceinline__ int acc_bytes_of(long long bytes) {
+  return static_cast<int>((bytes + 15) / 16 * 16);
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -186,8 +213,9 @@ struct Args {
   int min_rows;           // rows a block takes at least
   unsigned long long* launches;  // device launch counter
   int Fp, B, C;
-  int Fg;                 // (feature, slab) pairs per group, 16 or 32
-  int SB;                 // bins per slab (min(B, 256))
+  int Fg;                 // (feature, slab) pairs per group: 16 or 32;
+                          // also 1, 2, 4 or 8 for kWholeFeature
+  int SB;                 // bins per slab
   int nslab;              // slabs per feature
   int Fs;                 // features staged per tile row (tile stride)
   int T;                  // tile rows (a multiple of 32)
@@ -328,12 +356,20 @@ struct Vec4<int> {
   using type = int4;
 };
 
-// a plain load-add-store: only this lane of this warp writes the bin
+// a plain load-add-store where only this lane of this warp writes the
+// bin; a shared atomic add where warps share a pair (kWholeFeature)
 template <typename ACC, int CV>
 __device__ __forceinline__ void add_to_bin(ACC* acc, int j, int b, int SB,
                                            int C, const ACC s[CV]) {
   int stride;
   ACC* dst = bin_at(acc, j, b, SB, C, stride);
+  if constexpr (kWholeFeature<ACC>) {
+#pragma unroll
+    for (int c = 0; c < CV; ++c) {
+      if (c < C) atomicAdd(dst + c * stride, s[c]);
+    }
+    return;
+  }
   if constexpr (!kChannelMajor<ACC> && sizeof(ACC) == 4) {
     if (C == 4) {  // 16-byte aligned
       using V = typename Vec4<ACC>::type;
@@ -363,8 +399,9 @@ struct Pending {
   ACC sum[KPW][CV];
 };
 
-// the 32 lanes' pending sums of pair j, by a butterfly in a fixed order,
-// into its bin (lane 0; a key >= the slab's nb bins is skipped)
+// the 32 lanes' pending sums of pair j, by a butterfly in a fixed order
+// (kWholeFeature: one warp reduction, REDUX, per channel), into its bin
+// (lane 0; a key >= the slab's nb bins is skipped)
 template <typename ACC, int KPW, int CV>
 __device__ __forceinline__ void flush_pending(Pending<ACC, KPW, CV>& p, int j,
                                               ACC* acc, int lane, int nb,
@@ -374,9 +411,13 @@ __device__ __forceinline__ void flush_pending(Pending<ACC, KPW, CV>& p, int j,
 #pragma unroll
     for (int c = 0; c < CV; ++c) {
       if (c < C) {
+        if constexpr (kWholeFeature<ACC>) {
+          p.sum[j][c] = __reduce_add_sync(kFull, p.sum[j][c]);
+        } else {
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          p.sum[j][c] += __shfl_xor_sync(kFull, p.sum[j][c], o);
+          for (int o = 16; o > 0; o >>= 1) {
+            p.sum[j][c] += __shfl_xor_sync(kFull, p.sum[j][c], o);
+          }
         }
       }
     }
@@ -648,13 +689,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 hist_rows_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kB = static_cast<int>(sizeof(BinT));
+  // uint8 bins: one slab of B bins per feature, known at compile time
+  const int nslab = kWide ? a.nslab : 1;
+  const int SB = kWide ? a.SB : a.B;
   const int group = blockIdx.y;
   int f0, nf;
-  group_features(group, a.Fg, a.nslab, a.Fp, &f0, &nf);
+  group_features(group, a.Fg, nslab, a.Fp, &f0, &nf);
   const int p0 = group * a.Fg;                       // the group's first pair
-  const int np = min(a.Fg, a.Fp * a.nslab - p0);     // its pairs
-  const int SBC = a.SB * a.C;
-  const int acc_bytes = a.Fg * SBC * static_cast<int>(sizeof(ACC));
+  const int np = min(a.Fg, a.Fp * nslab - p0);       // its pairs
+  const int SBC = SB * a.C;
+  const int acc_bytes =
+      acc_bytes_of(static_cast<long long>(a.Fg) * SBC * sizeof(ACC));
   const int gh_bytes = a.C * static_cast<int>(sizeof(GH));
   ACC* acc = reinterpret_cast<ACC*>(smem);
   // two tile buffers: bins [T, Fs] each, then gh [T, C] each; then the
@@ -695,18 +740,29 @@ hist_rows_kernel(Args a) {
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int wp0 = warp * KPW;            // the warp's first pair
+  // warps per KPW pairs: kWarps * KPW / Fg where whole features are
+  // shared (Fg < 32), else 1; the sharing warps take contiguous runs of
+  // whole chunks of a tile, the share-th of them
+  const int wpp =
+      kWholeFeature<ACC> && a.Fg < kWarps * KPW ? kWarps * KPW / a.Fg : 1;
+  const int share = warp % wpp;
+  const int wp0 = warp / wpp * KPW;      // the warp's first pair
   const int npw = min(KPW, np - wp0);    // its pairs in this group
   ACC* const wacc = acc + wp0 * SBC;
   WarpPairs<KPW> wp;
 #pragma unroll
   for (int j = 0; j < KPW; ++j) {
-    const int p = p0 + wp0 + j;
-    const int f = p / a.nslab;
-    const int s = p - f * a.nslab;
-    wp.fl[j] = j < npw ? f - f0 : 0;
-    wp.s0[j] = s * a.SB;
-    wp.nb[j] = j < npw ? min(a.SB, a.B - wp.s0[j]) : 0;
+    if constexpr (kWide) {
+      const int p = p0 + wp0 + j;
+      const int f = p / nslab;
+      wp.fl[j] = j < npw ? f - f0 : 0;
+      wp.s0[j] = (p - f * nslab) * SB;
+      wp.nb[j] = j < npw ? min(SB, a.B - wp.s0[j]) : 0;
+    } else {
+      wp.fl[j] = j < npw ? wp0 + j : 0;
+      wp.s0[j] = 0;
+      wp.nb[j] = j < npw ? a.B : 0;
+    }
   }
   Pending<ACC, KPW, CV> pend;
 #pragma unroll
@@ -734,16 +790,18 @@ hist_rows_kernel(Args a) {
       if constexpr (kQueued<ACC>) {
         queued_rows<GH, ACC, KPW, CV>(wacc, tbins, tgh, rows, a.Fs, wp,
                                       queues + warp * KPW * kQueue, lane,
-                                      a.SB, a.C, pend);
+                                      SB, a.C, pend);
       } else {
-        for (int r0 = 0; r0 < rows; r0 += 32) {
+        const int seg = (rows + 32 * wpp - 1) / (32 * wpp) * 32;
+        const int r_end = min(rows, (share + 1) * seg);
+        for (int r0 = share * seg; r0 < r_end; r0 += 32) {
           const int r = r0 + lane;
-          const bool valid = r < rows;
+          const bool valid = r < r_end;
           const int rr = valid ? r : r0;  // an idle lane copies lane 0's row
           ACC v[CV];
           load_row<GH, ACC, CV>(tgh + rr * a.C, a.C, v);
           rows_of_warp<ACC, KPW, CV>(wacc, tbins + rr * a.Fs, wp, v, valid,
-                                     __ballot_sync(kFull, valid), lane, a.SB,
+                                     __ballot_sync(kFull, valid), lane, SB,
                                      a.C, pend);
         }
       }
@@ -753,7 +811,7 @@ hist_rows_kernel(Args a) {
   if (npw > 0) {
 #pragma unroll
     for (int j = 0; j < KPW; ++j) {
-      flush_pending<ACC, KPW, CV>(pend, j, wacc, lane, wp.nb[j], a.SB, a.C);
+      flush_pending<ACC, KPW, CV>(pend, j, wacc, lane, wp.nb[j], SB, a.C);
     }
   }
 
@@ -764,7 +822,7 @@ hist_rows_kernel(Args a) {
   const long long slot = static_cast<long long>(blockIdx.x) * a.Fp;
   if (blocks > 1 || std::is_same<ACC, OUT>::value) {
     ACC* dst = static_cast<ACC*>(blocks > 1 ? a.scratch : a.out);
-    if (!kChannelMajor<ACC> && a.nslab == 1) {
+    if (!kChannelMajor<ACC> && nslab == 1) {
       // one slab per feature: the group's [nf, B, C] is contiguous
       int4* d16 = reinterpret_cast<int4*>(dst + (slot + f0) * a.B * a.C);
       const int4* s16 = reinterpret_cast<const int4*>(smem);
@@ -773,16 +831,16 @@ hist_rows_kernel(Args a) {
       return;
     }
   }
-  for (int i = threadIdx.x; i < np * a.SB; i += kThreads) {
-    const int j = i / a.SB;
-    const int lb = i - j * a.SB;
+  for (int i = threadIdx.x; i < np * SB; i += kThreads) {
+    const int j = i / SB;
+    const int lb = i - j * SB;
     const int p = p0 + j;
-    const int f = p / a.nslab;
-    const int b = (p - f * a.nslab) * a.SB + lb;
-    if (b >= a.B) continue;
+    const int f = p / nslab;
+    const int b = (p - f * nslab) * SB + lb;
+    if (kWide && b >= a.B) continue;  // past the last slab's bins
     const long long o = ((slot + f) * a.B + b) * a.C;
     int stride;
-    const ACC* src = bin_at(acc, j, lb, a.SB, a.C, stride);
+    const ACC* src = bin_at(acc, j, lb, SB, a.C, stride);
     for (int c = 0; c < a.C; ++c) {
       if (blocks > 1) {
         static_cast<ACC*>(a.scratch)[o + c] = src[c * stride];
@@ -837,11 +895,13 @@ cudaError_t launch_rows(dim3 grid, int smem, cudaStream_t st, const Args& a) {
   return cudaGetLastError();
 }
 
-// the instance for Fg / 16 pairs per warp (1 or 2) and C <= 4 or 8
+// the instance for 2 pairs per warp (Fg = 32; kWholeFeature: Fg >= 2,
+// shared by kWarps * 2 / Fg warps) or 1 (Fg = 16; kWholeFeature: Fg = 1,
+// shared by all kWarps) and C <= 4 or 8
 template <typename GH, typename ACC, typename OUT>
 cudaError_t dispatch_rows(dim3 grid, int smem, cudaStream_t st,
                           const Args& a) {
-  const int kpw = a.Fg / kWarps;
+  const int kpw = a.Fg > kWarps || (kWholeFeature<ACC> && a.Fg > 1) ? 2 : 1;
   if (a.C <= 4) {
     if (kpw == 2) return launch_rows<GH, ACC, OUT, 2, 4>(grid, smem, st, a);
     if (kpw == 1) return launch_rows<GH, ACC, OUT, 1, 4>(grid, smem, st, a);
@@ -862,6 +922,25 @@ int copy_unit_for(long long row_bytes, long long stride, const void* base) {
   return 1;
 }
 
+// bins per slab (ops/histogram.py _slab_bins): B with uint8 bins;
+// min(B, 256) for float rows over uint16 bins; for integer rows over
+// uint16 bins B where one feature's [C, B] int32 fits beside two tiles of
+// kMinTileRows rows of it, else the largest power of two that fits
+template <typename GH, typename ACC>
+int slab_bins(int B, int C) {
+  if (!kWide) return B;
+  if (!kWholeFeature<ACC>) return B < kSlab ? B : kSlab;
+  const long long tiles =
+      2LL * kMinTileRows * (sizeof(BinT) + C * sizeof(GH));
+  auto fits = [&](long long sb) {
+    return acc_bytes_of(sb * C * sizeof(ACC)) + tiles <= kMaxSmem;
+  };
+  if (fits(B)) return B;
+  int sb = 1;
+  while (2 * sb < B && fits(2 * sb)) sb *= 2;
+  return sb;
+}
+
 // checks and Args shared by both entries; returns cudaSuccess or
 // cudaErrorInvalidValue
 template <typename GH, typename ACC>
@@ -871,16 +950,22 @@ cudaError_t make_args(const void* bins, const void* gh, const void* idx,
                       int smem, Args* a) {
   constexpr int kB = static_cast<int>(sizeof(BinT));
   const int gh_bytes = C * static_cast<int>(sizeof(GH));
-  const int SB = B < kSlab ? B : kSlab;
-  const int nslab = SB > 0 ? (B + SB - 1) / SB : 0;
+  if (B <= 0 || B > kMaxBins || C <= 0 || C > kMaxC) {
+    return cudaErrorInvalidValue;
+  }
+  const int SB = slab_bins<GH, ACC>(B, C);
+  const int nslab = (B + SB - 1) / SB;
+  // pairs per group: 16 or 32, and 1, 2, 4 or 8 where warps share a pair
+  const bool fg_ok = Fg == 16 || Fg == 32 ||
+                     (kWholeFeature<ACC> && Fg >= 1 && Fg < 16 &&
+                      (Fg & (Fg - 1)) == 0);
   // accumulators, two tile buffers, slab queues
   const long long need =
-      static_cast<long long>(Fg) * SB * C *
-          static_cast<long long>(sizeof(ACC)) +
+      acc_bytes_of(static_cast<long long>(Fg) * SB * C *
+                   static_cast<long long>(sizeof(ACC))) +
       2LL * T * (Fs * kB + gh_bytes) +
       (kQueued<ACC> ? static_cast<long long>(Fg) * kQueue * 4 : 0LL);
-  if (Fp <= 0 || Fp % 8 != 0 || B <= 0 || B > kMaxBins || C <= 0 ||
-      C > kMaxC || (Fg != 16 && Fg != 32) ||
+  if (Fp <= 0 || Fp % 8 != 0 || !fg_ok ||
       groups != (Fp * nslab + Fg - 1) / Fg || Fs <= 0 || T <= 0 ||
       T % 32 != 0 || T > 65535 || out == nullptr || smem > kMaxSmem ||
       static_cast<long long>(smem) < need) {

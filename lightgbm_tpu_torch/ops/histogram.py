@@ -79,13 +79,19 @@ _MAX_B = {torch.uint8: 256, torch.uint16: 65536}
 #: shared memory one block may use on an H100 (bytes)
 MAX_SMEM = 232448
 #: warps per block (csrc/histogram.cu kWarps); each owns Fg / 16
-#: (feature, slab) pairs
+#: (feature, slab) pairs, or shares them (WHOLE_FEATURE_GROUPS)
 WARPS = 16
 #: (feature, slab) pairs of one group: the kernel has instances for 1 and
 #: 2 pairs per warp
 GROUP_FEATURES = (16, 32)
-#: bins per slab at most (csrc/histogram.cu kSlab): a feature of B > 256
-#: bins is cut into ceil(B / 256) slabs, each owned by one warp
+#: the same for the integer instances over uint16 bins (a whole feature
+#: per pair): a warp takes two pairs (one at Fg = 1) and
+#: 32 / Fg warps share them by runs of 32-row chunks, adding with shared
+#: atomics
+WHOLE_FEATURE_GROUPS = (1, 2, 4, 8) + GROUP_FEATURES
+#: bins per slab at most for float rows over uint16 bins (csrc/histogram.cu
+#: kSlab): a feature of B > 256 bins is cut into ceil(B / 256) slabs, each
+#: owned by one warp
 SLAB_BINS = 256
 #: rows staged per tile: at most this, at least MIN_TILE_ROWS
 MAX_TILE_ROWS = 1024
@@ -93,9 +99,9 @@ MIN_TILE_ROWS = 128
 #: a block takes at least this many rows (a child of a few thousand rows
 #: gets a few blocks; one block writes the output directly)
 MIN_ROWS_PER_BLOCK = 1024
-#: the same for the float instances over uint16 bins and the f64 sums
-#: (redesigned in slice 11): a 10k-row child takes 40 blocks, not 10,
-#: for up to half its time on an H100 (chip_variants.py)
+#: the same for every instance over uint16 bins and the f64 sums: a
+#: 10k-row child takes 40 blocks, not 10, for up to half its time on an
+#: H100 (chip_variants.py)
 MIN_ROWS_PER_BLOCK_WIDE = 256
 #: entries of a warp's slab queue per pair (csrc/histogram.cu kQueue), 4
 #: bytes each: the float instances over uint16 bins
@@ -123,9 +129,10 @@ class LaunchPlan(NamedTuple):
     """How one call of ``csrc/histogram.cu`` is laid out."""
     groups: int                 # groups of (feature, slab) pairs
     #                             (blockIdx.y)
-    features_per_group: int     # Fg, 16 or 32 pairs; the last group may
-    #                             hold fewer (with one slab a pair is a
-    #                             feature)
+    features_per_group: int     # Fg, 16 or 32 pairs (also 1, 2, 4 or 8
+    #                             for integer rows over uint16 bins); the
+    #                             last group may hold fewer (with one
+    #                             slab a pair is a feature)
     warps: int                  # warps per block
     tile_rows: int              # rows staged per tile (double-buffered)
     blocks: int                 # row blocks (blockIdx.x)
@@ -134,7 +141,7 @@ class LaunchPlan(NamedTuple):
     scratch_shape: Optional[Tuple[int, int, int, int]]  # per-block
     #                             partials [blocks, Fp, B, C]; None for one
     #                             block (it writes the output itself)
-    slab_bins: int              # SB = min(B, 256) bins per slab
+    slab_bins: int              # SB bins per slab (_slab_bins)
     slabs: int                  # slabs per feature, ceil(B / SB)
     stage_features: int         # Fs: features staged per tile row
     min_rows: int               # rows a block takes at least
@@ -159,17 +166,21 @@ def launch_plan(S: int, Fp: int, B: int, C: int, gh_dtype: torch.dtype,
                 f64: bool = False) -> LaunchPlan:
     """The kernel's launch for S rows of Fp features, B bins and C stats.
 
-    A feature's B bins are cut into slabs of ``min(B, 256)`` bins; a
-    block holds the [Fg, SB, C] accumulators of its group's Fg (feature,
-    slab) pairs (4 bytes each, 8 with ``f64``) and two tiles of
+    A feature's B bins are cut into slabs of SB bins (:func:`_slab_bins`:
+    ``min(B, 256)`` for float rows over uint16 bins, a whole feature for
+    integer rows where it fits); a block holds the [Fg, SB, C]
+    accumulators of its group's Fg (feature, slab) pairs (4 bytes each,
+    8 with ``f64``; rounded up to 16 bytes) and two tiles of
     ``tile_rows`` rows (the group's features' bins and C gh values each)
     in shared memory, and with float rows over uint16 bins a slab queue
     of ``QUEUE_ENTRIES`` 4-byte entries per pair. Groups are as few as
     fit (one at the main path's Fp = 32, B = 256, C = 4: 128 KB of
     accumulators beside 96 KB of tiles; four at B = 1024 with uint16
-    bins); row blocks are at most one per SM across the groups and take
-    at least ``MIN_ROWS_PER_BLOCK`` rows each (``MIN_ROWS_PER_BLOCK_WIDE``
-    with float rows over uint16 bins or f64 sums). Raises ``LightGBMError``
+    bins: 32 pairs of 256-bin slabs for float rows, 8 whole features for
+    integer rows); row blocks are at most one per SM across the groups
+    and take at least ``MIN_ROWS_PER_BLOCK`` rows each
+    (``MIN_ROWS_PER_BLOCK_WIDE`` over uint16 bins or with f64 sums).
+    Raises ``LightGBMError``
     for a shape the kernel does not take (f64 sums at 256-bin slabs fit
     at most 6 stat columns; the learner's rows have 4)."""
     if gh_dtype not in _GH_DTYPES:
@@ -194,8 +205,8 @@ def launch_plan(S: int, Fp: int, B: int, C: int, gh_dtype: torch.dtype,
     groups, fg, tile, smem, sb, slabs, fs = _group_plan(
         Fp, B, C, C * gh_dtype.itemsize, bins_dtype.itemsize,
         8 if f64 and floating else 4, floating)
-    min_rows = (MIN_ROWS_PER_BLOCK_WIDE if floating and (
-        f64 or bins_dtype == torch.uint16) else MIN_ROWS_PER_BLOCK)
+    min_rows = (MIN_ROWS_PER_BLOCK_WIDE if bins_dtype == torch.uint16
+                or (floating and f64) else MIN_ROWS_PER_BLOCK)
     blocks = max(1, min(num_sms // groups, -(-S // min_rows)))
     per_block = -(-S // blocks)
     blocks = -(-S // per_block)
@@ -207,18 +218,51 @@ def launch_plan(S: int, Fp: int, B: int, C: int, gh_dtype: torch.dtype,
                       stage_features=fs, min_rows=min_rows)
 
 
+def _round16(n: int) -> int:
+    """Accumulator bytes rounded up so that the tiles after them start
+    16-byte aligned (``csrc/histogram.cu`` ``acc_bytes_of``)."""
+    return -(-n // 16) * 16
+
+
+def _slab_bins(B: int, C: int, gh_bytes: int, bin_bytes: int,
+               floating: bool) -> int:
+    """Bins per slab (``csrc/histogram.cu`` ``slab_bins``): B with uint8
+    bins; min(B, 256) for float rows over uint16 bins; for integer rows
+    over uint16 bins B where one feature's [C, B] int32 fits beside two
+    tiles of ``MIN_TILE_ROWS`` rows of it (B <= 8192 at C = 4), else the
+    largest power of two that fits."""
+    if bin_bytes == 1:
+        return B
+    if floating:
+        return min(B, SLAB_BINS)
+
+    def fits(sb):
+        return _round16(sb * C * 4) + 2 * MIN_TILE_ROWS * (
+            bin_bytes + gh_bytes) <= MAX_SMEM
+    if fits(B):
+        return B
+    sb = 1
+    while 2 * sb < B and fits(2 * sb):
+        sb *= 2
+    return sb
+
+
 @functools.lru_cache(maxsize=None)
 def _group_plan(Fp: int, B: int, C: int, gh_bytes: int, bin_bytes: int,
                 acc_bytes: int, floating: bool):
     """(groups, pairs per group, tile rows, shared bytes, slab bins,
     slabs, staged features) of a shape; the learner asks for one shape
     per training run. Float rows over uint16 bins take slab queues
-    (``csrc/histogram.cu`` ``kQueued``)."""
-    sb = min(B, SLAB_BINS)
+    (``csrc/histogram.cu`` ``kQueued``); integer rows over uint16 bins a
+    whole feature per pair where it fits, and groups of fewer than 16
+    pairs (``kWholeFeature``)."""
+    sb = _slab_bins(B, C, gh_bytes, bin_bytes, floating)
     slabs = -(-B // sb)
     pairs = Fp * slabs
     per_pair = sb * C * acc_bytes
     queued = floating and bin_bytes == 2
+    sizes = (GROUP_FEATURES if floating or bin_bytes == 1
+             else WHOLE_FEATURE_GROUPS)
 
     def staged(fg):
         # the tile row holds the widest group's features; with one slab
@@ -230,11 +274,11 @@ def _group_plan(Fp: int, B: int, C: int, gh_bytes: int, bin_bytes: int,
                                       for g in range(groups)))
 
     def smem(fg, rows):
-        return (fg * per_pair + (fg * QUEUE_ENTRIES * 4 if queued else 0)
+        return (_round16(fg * per_pair)
+                + (fg * QUEUE_ENTRIES * 4 if queued else 0)
                 + 2 * rows * (staged(fg) * bin_bytes + gh_bytes))
 
-    fits = [fg for fg in GROUP_FEATURES
-            if smem(fg, MIN_TILE_ROWS) <= MAX_SMEM]
+    fits = [fg for fg in sizes if smem(fg, MIN_TILE_ROWS) <= MAX_SMEM]
     if not fits:
         raise LightGBMError("histogram kernel: B=%d C=%d does not fit in "
                             "shared memory" % (B, C))

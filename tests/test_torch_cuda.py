@@ -835,6 +835,48 @@ def test_wide_kernel_adversarial_rows(cuda, kind):
         _check_against_plain(narrow, nrows[kind], 64, i, kind)
 
 
+@pytest.mark.parametrize("kind", ["int8", "int16"])
+@pytest.mark.parametrize("B,F", [(257, 136), (700, 8), (1024, 32),
+                                 (1024, 136), (4096, 32), (8192, 8),
+                                 (16384, 8)])
+def test_wide_integer_kernels_whole_features(cuda, kind, B, F):
+    """The integer instances over uint16 bins take a whole feature per
+    pair where it fits (B <= 8192 at C = 4), and 16 / Fg warps share a
+    pair at Fg < 16: byte-equal to the plain version on random bins,
+    every row in one bin (the sharing warps flush into one bin), 70% of
+    the rows in one bin, bins >= B beside bins below it, and every row
+    outside every slab (bins in [B, 2B): a zero histogram); all rows (a
+    ragged last tile) and row lists of 1, 31, 33 and 1025 rows; the
+    device-count entry byte-equal to the host-count launch."""
+    S = (1 << 15) + 37
+    bins, rows, idx = _wide_inputs(S, F, B, seed=B + F)
+    p = H.launch_plan(S, F, B, 4, rows[kind].dtype, 132, torch.uint16)
+    assert (p.slabs == 1) == (B <= 8192)
+    raw = bins.view(torch.int16)
+    wide = raw.long() & 0xFFFF
+    g = torch.Generator(device="cuda")
+    g.manual_seed(B)
+    hot = torch.where(torch.rand(raw.shape, generator=g, device="cuda")
+                      < 0.7, B // 3, wide)
+    cases = [bins, torch.full_like(raw, B - 1).view(torch.uint16),
+             hot.to(torch.int16).view(torch.uint16),
+             (wide * 3 // 2).to(torch.int16).view(torch.uint16),
+             (wide + B).to(torch.int16).view(torch.uint16)]
+    for b in cases:
+        for i in (None, idx, idx[:1], idx[:31], idx[:33], idx[:1025]):
+            _check_against_plain(b, rows[kind], B, i, kind)
+    outside = H.build_histogram(cases[-1], rows[kind], B, idx)
+    assert not outside.any()
+    for b in cases[:3]:
+        for n in (0, 1, 1025, S // 3):
+            buf = torch.full((S + 1,), S, dtype=torch.int32, device="cuda")
+            buf[:n] = idx[:n]
+            count = torch.tensor([n], dtype=torch.int32, device="cuda")
+            got = H.build_histogram(b, rows[kind], B, buf, count)
+            want = H.build_histogram(b, rows[kind], B, idx[:n])
+            assert torch.equal(got, want), n
+
+
 @pytest.mark.parametrize("with_idx", [False, True])
 def test_f64_instance_on_uint8_bins(cuda, with_idx):
     """f64 sums over uint8 bins (two groups at Fp 32, nine at Fp 136;

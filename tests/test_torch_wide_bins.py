@@ -23,7 +23,8 @@ B = 512 to 4096 bins) in the port against the JAX package, on the CPU.
 - Round trips: model text and the stacked forest of a wide-bin model
   equal the host walk byte for byte.
 - The kernel's launch plan (plain Python) for uint16 bins: every
-  (feature, 256-bin slab) pair in exactly one group, every shape in
+  (feature, slab) pair in exactly one group (256-bin slabs for float
+  rows, whole features where they fit for integer rows), every shape in
   shared memory.
 """
 import functools
@@ -424,7 +425,10 @@ def test_launch_plan_covers_every_slab_once(gh_dtype, f64):
     each group's features fit the staged tile row, every shape fits a
     block's shared memory, but f64 sums of more than 6 stat columns (16
     pairs of 256 f64 bins of 7 columns need 224 KB beside the tiles; the
-    learner's rows have 4), which the plan refuses."""
+    learner's rows have 4), which the plan refuses. Float rows take
+    256-bin slabs in groups of 16 or 32 pairs; integer rows a whole
+    feature per pair at every B here (one feature's [C, B] int32 fits at
+    C <= 8 up to B = 4096), in groups of 1 to 32 pairs."""
     elt = torch.empty((), dtype=gh_dtype).element_size()
     for B in (257, 300, 512, 700, 1024, 2048, 4096):
         for Fp in (8, 32, 40, 136):
@@ -437,9 +441,12 @@ def test_launch_plan_covers_every_slab_once(gh_dtype, f64):
                 p = H.launch_plan(10_500_000, Fp, B, C, gh_dtype, 132,
                                   torch.uint16, f64)
                 sb, slabs = p.slab_bins, p.slabs
-                assert sb == min(B, 256) and slabs == -(-B // sb)
+                floating = gh_dtype.is_floating_point
+                assert sb == (min(B, 256) if floating else B)
+                assert slabs == -(-B // sb)
                 fg = p.features_per_group
-                assert fg in H.GROUP_FEATURES
+                assert fg in (H.GROUP_FEATURES if floating
+                              else H.WHOLE_FEATURE_GROUPS)
                 assert p.groups == -(-Fp * slabs // fg)
                 pairs = [q for g in range(p.groups)
                          for q in range(g * fg, min((g + 1) * fg,
@@ -447,16 +454,75 @@ def test_launch_plan_covers_every_slab_once(gh_dtype, f64):
                 assert pairs == list(range(Fp * slabs))
                 for a, b in p.feature_ranges(Fp):
                     assert 0 < b - a <= p.stage_features
-                floating = gh_dtype.is_floating_point
                 acc = 8 if f64 and floating else 4
-                # float rows take slab queues (64 4-byte entries a pair)
-                assert p.smem_bytes == fg * sb * C * acc + 2 \
-                    * p.tile_rows * (p.stage_features * 2 + C * elt) + (
+                # float rows take slab queues (64 4-byte entries a pair);
+                # the accumulators are rounded up to 16 bytes (an odd
+                # whole-feature SB in a group of fewer than 16 pairs)
+                assert p.smem_bytes == -(-fg * sb * C * acc // 16) * 16 \
+                    + 2 * p.tile_rows * (p.stage_features * 2 + C * elt) + (
                         fg * H.QUEUE_ENTRIES * 4 if floating else 0) \
                     <= H.MAX_SMEM
                 assert p.tile_rows % 32 == 0
                 assert H.MIN_TILE_ROWS <= p.tile_rows <= H.MAX_TILE_ROWS
                 assert p.blocks * p.groups <= 132 or p.blocks == 1
+
+
+@pytest.mark.parametrize("gh_dtype", [torch.int8, torch.int16])
+def test_integer_plan_takes_whole_features(gh_dtype):
+    """Integer rows over uint16 bins: one slab per feature wherever one
+    feature's [C, B] int32 fits beside two tiles of ``MIN_TILE_ROWS``
+    rows (B <= 8192 at C = 4, B <= 4096 at C = 8), else the largest
+    power of two that fits; groups of 1, 2, 4, 8, 16 or
+    32 pairs, each pair in exactly one group; at most 232,448 bytes a
+    block by the kernel's formula; tile rows a multiple of 32 and at
+    least ``MIN_TILE_ROWS``; row blocks of at least 256 rows, and the
+    device-count entry plans the host's row blocks."""
+    elt = torch.empty((), dtype=gh_dtype).element_size()
+    for B in (257, 300, 512, 700, 1024, 2048, 4096, 8192, 16384, 65536):
+        for Fp in (8, 32, 40, 136):
+            for C in (1, 4, 8):
+                p = H.launch_plan(10_500_000, Fp, B, C, gh_dtype, 132,
+                                  torch.uint16)
+                sb, fg = p.slab_bins, p.features_per_group
+                tiles = 2 * H.MIN_TILE_ROWS * (2 + C * elt)
+
+                def fits(n):
+                    return -(-n * C * 4 // 16) * 16 + tiles <= H.MAX_SMEM
+                if fits(B):
+                    assert sb == B and p.slabs == 1
+                else:
+                    assert sb & (sb - 1) == 0 and sb < B
+                    assert fits(sb) and not fits(2 * sb)
+                    assert p.slabs == -(-B // sb)
+                if C == 4:
+                    assert (sb == B) == (B <= 8192)
+                if C == 8:
+                    assert (sb == B) == (B <= 4096)
+                assert fg in (1, 2, 4, 8, 16, 32)
+                assert p.groups == -(-Fp * p.slabs // fg)
+                pairs = [q for g in range(p.groups)
+                         for q in range(g * fg, min((g + 1) * fg,
+                                                    Fp * p.slabs))]
+                assert pairs == list(range(Fp * p.slabs))
+                for a, b in p.feature_ranges(Fp):
+                    assert 0 < b - a <= p.stage_features
+                assert p.smem_bytes == -(-fg * sb * C * 4 // 16) * 16 \
+                    + 2 * p.tile_rows * (p.stage_features * 2 + C * elt) \
+                    <= H.MAX_SMEM == 232448
+                assert p.tile_rows % 32 == 0
+                assert H.MIN_TILE_ROWS <= p.tile_rows <= H.MAX_TILE_ROWS
+                assert p.min_rows == H.MIN_ROWS_PER_BLOCK_WIDE == 256
+                for n in (1, 257, 10_000, 100_000, 1_000_000):
+                    q = H.launch_plan(n, Fp, B, C, gh_dtype, 132,
+                                      torch.uint16)
+                    assert q.blocks * q.rows_per_block >= n > \
+                        (q.blocks - 1) * q.rows_per_block
+                    assert H.device_plan(n, 132, q.groups, q.min_rows) == \
+                        (q.blocks, q.rows_per_block)
+    # the main path's shape: 8 whole features of 1024 bins a group, 4
+    # groups at Fp = 32, as many as 256-bin slabs took
+    p = H.launch_plan(10_500_000, 32, 1024, 4, gh_dtype, 132, torch.uint16)
+    assert (p.groups, p.features_per_group, p.slabs) == (4, 8, 1)
 
 
 @pytest.mark.parametrize("bins_dtype,f64", [(torch.uint16, False),
