@@ -62,12 +62,12 @@ Phases (each one fails the run if it fails):
    and on ``cpu``: tree 1 must make the same splits, through the int16
    instance on the card;
 9. multiclass at UCI Covertype's shape (581,012 rows x 54 columns, 7
-   classes, synthetic from a seed; 255 leaves, 5 rounds = 35 trees) with
+   classes, synthetic from a seed; 255 leaves, 3 rounds = 21 trees) with
    EFB at its default: the 44 one-hot columns bundle, and the kernel runs
    over the bundle columns; held-out multi_logloss falls every round,
    multi_error ends below the majority class's 0.512, the device
    validation scores equal the host walk within 1e-4, f32 launches ==
-   roots + steps over the 35 trees; 1 round at 63 leaves text-equal
+   roots + steps over the 21 trees; 1 round at 63 leaves text-equal
    through both loops; a 2-round unbundled f32 run reaches the held-out loss
    within 1e-4 (its prediction gap and structure-equal trees printed);
    on the same gradients the bundled learner's histograms of the root
@@ -95,7 +95,7 @@ Phases (each one fails the run if it fails):
    tree, renewed leaf values (l1, quantile, mape) equal; renewal ms;
 
 12. prediction through the stacked forest: train binary (255 leaves,
-   min_data_in_leaf 100, lr 0.1, 100 rounds) on phase 3's 200k rows;
+   min_data_in_leaf 100, lr 0.1, 50 rounds) on phase 3's 200k rows;
    predict the reference bench's batch (262,144 rows of
    ``make_higgs_like(seed=1)``) through ``Booster.predict`` in auto
    mode (it must dispatch the stacked path), ``predict_raw_device`` and
@@ -107,14 +107,14 @@ Phases (each one fails the run if it fails):
    byte-equal; rows/s of the host walk, the stacked ``value`` path and
    ``raw_device``, ms per 65,536-row bucket split into quantize, walk
    and sum, bytes each way, peak memory; then continue the model saved
-   after 50 rounds for 50 more through ``init_model`` (held-out AUC must
+   after 25 rounds for 25 more through ``init_model`` (held-out AUC must
    not fall) and round-trip it through pickle (same predictions).
    Phases 4, 9 and 10 hold the stacked path against the host walk on
    their own boosters and held-out rows too;
 
 13. Covertype in its categorical form (phase 9's rows with the
    wilderness and soil one-hot columns collapsed into two categorical
-   columns: 12 columns, ``categorical_feature=[10, 11]``, 5 rounds):
+   columns: 12 columns, ``categorical_feature=[10, 11]``, 3 rounds):
    phase 9's checks, categorical nodes in the model text, the stacked
    path equal to the host walk on rows with NaN, negative and unseen
    categories, 1 round at 63 leaves text-equal through both loops, 1
@@ -138,10 +138,10 @@ Phases (each one fails the run if it fails):
    c. GOSS with 8-bit gradients, lr 0.5, 4 rounds: the int8 instance
       only, a 3-round per-split rerun text-equal;
    d. ``feature_fraction_bynode 0.5`` + interaction constraints (columns
-      0-13 and 14-27), 2 rounds: every root-to-leaf path inside one
+      0-13 and 14-27), 1 round: every root-to-leaf path inside one
       group, one record read per split;
    e. CEGB (split, coupled and lazy penalties; coupled 1e9 on columns
-      20-27), 2 rounds: those columns never split, the trees differ from
+      20-27), 1 round: those columns never split, the tree differs from
       a run without penalties, the lazy fetched state after tree 1 marks
       exactly the rows under each feature's nodes;
    then tree 1 on cuda and cpu at phase 3's 200k rows (63 leaves) for
@@ -154,7 +154,7 @@ Phases (each one fails the run if it fails):
       launches == roots + steps, held-out predictions exactly monotone
       along a 64-point grid of each constrained column (stacked path), a
       1-round per-split rerun text-equal;
-   b. the intermediate method, 2 rounds, and the advanced method, 1
+   b. the intermediate method, 1 round, and the advanced method, 1
       round at 63 leaves (the host-tracked per-split loop): AUC >=
       basic's after as many rounds at as many leaves - 0.002, the grid
       check, ms and syncs per split, rescans per tree;
@@ -193,19 +193,48 @@ Phases (each one fails the run if it fails):
    12's model's first 20 iterations on 200k fresh rows on cuda and cpu,
    leaf values within 1e-5;
 
+19. the rest of the Python surface on phase 4's Dataset and rows (no
+   binning at 10.5M rows again):
+   a. ``tpu_batch_iterations=4`` with ``tpu_eval_iterations=4``, 5
+      rounds (iteration 0 looped, then one batch of 4 with one record
+      read and no step-counter read): the trees of phase 4 under the
+      batched contract (structure and leaf counts exact, leaf values
+      rtol 1e-5, gains rtol 1e-6), launches == roots + steps through
+      the f32 instance, one evaluation (at the end), its AUC phase 4's;
+      s per batch against phase 4's 4 iterations, host syncs per batch;
+   b. the same at 8 bits against phase 7's trees (structure exact),
+      through the int8 instance only; the replay of the trees against
+      the batch-maintained score (``recheck_scores``);
+   c. ``LGBMClassifier(n_estimators=5, num_leaves=255,
+      min_child_samples=100)`` on the first 2,097,152 training rows:
+      launches == roots + steps, the model text of ``lgb.train`` with
+      the mapped parameters, ``predict_proba`` of the 500k held-out rows
+      through the stacked path, AUC > 0.7;
+   d. ``lgb.cv`` with 3 folds and 3 rounds on 19c's Dataset: each fold's
+      roots == its trees, launches == the folds' roots + steps, fold 0
+      text-equal to ``lgb.train`` on its subset;
+   e. ``pred_contrib`` of 16 held-out rows of 19c's model: each row sums
+      to its raw score within 1e-6 x scale; its ms;
+
 then time every instance over the learners' real bins of phases 9 (the
 bundle columns at Bg), 13 and 10, and print one ``{"kernels": [...]}``
 line with the launches of each kernel on each path that runs it, as its
 device counter counted them (graph replays included;
 ``launches_by_path``; f32: phases 3, 4, 9, 10, 11, 12, 13, 14a, 14b,
-14d, 14e, 15a-e, 18; int8: phases 7, 9, 14c, 15d; int16: phase 8;
-f64: phase 17; the uint16 instances: phase 16, and f64 phase 17); each
-instance must have been timed and launched by some path.
+14d, 14e, 15a-e, 18, 19a, 19c, 19d; int8: phases 7, 9, 14c, 15d, 19b;
+int16: phase 8; f64: phase 17; the uint16 instances: phase 16, and f64
+phase 17); each instance must have been timed and launched by some
+path.
 Prediction launches
 no hand kernel: the stacked walk is PyTorch ops (the reference's is
 ``jnp``), so it has no row in that line.
 
-Phases 3, 4, 7-11, 13, 14a-c, 15a, 15c-e and 16-18 train through the
+Rounds cut to keep the script inside its time, with every check kept:
+phases 9 and 13 3 rounds (5 before), phase 12 50 rounds and a 25 + 25
+continuation (100 and 50 + 50 before), 14d, 14e and 15b's intermediate
+method 1 round (2 before).
+
+Phases 3, 4, 7-11, 13, 14a-c, 15a, 15c-e, 16-18 and 19 train through the
 default whole-tree loop (14d, 14e and 15b through the per-split loop, which
 per-node masks, CEGB and the intermediate and advanced monotone methods
 take); every per-split (``tpu_fused_tree=false``) rerun must give its
@@ -216,7 +245,8 @@ The last line of standard output is
 CUDA device, or without the ``lightgbm_tpu_torch`` package beside this
 file, the script exits non-zero and prints no result.
 ``--phases 1,2`` runs a subset (for development; the full run is the
-check).
+check); phase 19 brings phases 4 and 7, whose trees its batches are
+held against.
 """
 from __future__ import annotations
 
@@ -262,6 +292,13 @@ RERUN_ROUNDS = 1
 #: loop is host-bound (20-40 ms a split), and those 255-leaf rounds took
 #: 30-80 s each of the script's 1200 s; the same checks at a cut depth
 CUT_LEAVES = 63
+
+#: rounds of phase 12's predict model and, from its half, of the
+#: continued run (cut from 100: the training and the host walk of 100
+#: trees took ~60 s of the script's time)
+PREDICT_ROUNDS = 50
+#: rounds of the Covertype phases 9 and 13 (cut from 5 for time)
+MULTICLASS_ROUNDS = 3
 
 FULL_ROWS = 10_500_000
 HELD_OUT_ROWS = 500_000
@@ -1384,13 +1421,14 @@ def check_rerun(lgb, hist_mod, data, extra, kernel, bst, what,
 def phase_full(lgb, hist_mod, data):
     """The main path at full size (f32 gradients), and a 1-round rerun
     that must give the same trees (the f32 histograms and scans are
-    deterministic); returns (booster, launches, held-out AUC)."""
-    bst, launches, aucs, _, _ = train_full(lgb, hist_mod, data, {},
-                                           "histogram_f32")
-    a = check_predict(bst, data, aucs)
+    deterministic); returns (booster, launches, held-out AUC per round,
+    seconds per iteration)."""
+    bst, launches, aucs, per_iter, _ = train_full(lgb, hist_mod, data, {},
+                                                  "histogram_f32")
+    check_predict(bst, data, aucs)
     check_stacked(bst, data[2], "phase 4 higgs")
     check_rerun(lgb, hist_mod, data, {}, "histogram_f32", bst, "f32")
-    return bst, launches, a
+    return bst, launches, aucs, per_iter
 
 
 # ---------------------------------------------------------------------------
@@ -1446,7 +1484,9 @@ def phase_quantize():
 # ---------------------------------------------------------------------------
 def phase_full_quantized(lgb, hist_mod, data, f32_auc):
     """Quantized-gradient training (8 bits) on the data of phase 4; a
-    per-split rerun of 1 round must give the same first tree."""
+    per-split rerun of 1 round must give the same first tree. Returns the
+    launches, the trees, the held-out AUC per round and the seconds per
+    iteration."""
     extra = {"use_quantized_grad": True, "quant_grad_bits": 8}
     bst, launches, aucs, per_iter, quant_ms = train_full(
         lgb, hist_mod, data, extra, "histogram_i8")
@@ -1458,7 +1498,7 @@ def phase_full_quantized(lgb, hist_mod, data, f32_auc):
            float(np.mean(per_iter)), float(np.mean(quant_ms))))
     check_rerun(lgb, hist_mod, data, extra, "histogram_i8", bst,
                 "quantized")
-    return launches
+    return launches, bst.inner.models, aucs, per_iter
 
 
 # ---------------------------------------------------------------------------
@@ -1580,7 +1620,7 @@ def first_tree_cuda_vs_cpu(lgb, Xt, yt, params, what, sub=50_000,
 def phase_covertype(lgb, hist_mod):
     """Multiclass (softmax, 7 classes, K = 7 trees per iteration) at
     Covertype's shape: 581,012 training rows x 54 columns, 255 leaves,
-    5 rounds, with EFB at its default (``enable_bundle=true``): the 44
+    ``MULTICLASS_ROUNDS`` rounds, with EFB at its default (``enable_bundle=true``): the 44
     one-hot columns bundle and the kernel runs over the bundle columns.
     Then a 2-round unbundled run (held-out loss within 1e-4; the f32
     prediction gap printed), the bundled histograms held against f64
@@ -1614,8 +1654,8 @@ def phase_covertype(lgb, hist_mod):
            lay.num_groups, sum(len(g) > 1 for g in lay.groups),
            [len(g) for g in lay.groups if len(g) > 1],
            lay.num_bundled_bins))
-    run = train_path(lgb, hist_mod, ds, valid, params, "histogram_f32", 5,
-                     grad_cls=MulticlassSoftmax,
+    run = train_path(lgb, hist_mod, ds, valid, params, "histogram_f32",
+                     MULTICLASS_ROUNDS, grad_cls=MulticlassSoftmax,
                      tag="covertype multiclass bundled")
     bst = run["booster"]
     learner = check_multiclass(bst, run, Xv, yv, "phase 9 covertype")
@@ -1877,7 +1917,8 @@ def phase_covertype_categorical(lgb, hist_mod):
     """Phase 9's rows in their categorical form: 581,012 + 50,000 held
     out x 12 columns, ``categorical_feature=[10, 11]`` (wilderness: 4
     values, num_bin 5 > max_cat_to_onehot 4, so both columns take the
-    sorted subset), 7 classes, 255 leaves, 5 rounds through the
+    sorted subset), 7 classes, 255 leaves, ``MULTICLASS_ROUNDS`` rounds
+    through the
     whole-tree loop; phase 9's checks, categorical nodes in the model
     text, the stacked path (auto mode) on rows with NaN, negative and
     unseen categories, 1 round at ``CUT_LEAVES`` leaves through both
@@ -1908,8 +1949,8 @@ def phase_covertype_categorical(lgb, hist_mod):
         "soil %d bins); generated and binned in %.1f s"
         % (len(yt), len(yv), X.shape[1], nb[0], nb[1],
            time.perf_counter() - t0))
-    run = train_path(lgb, hist_mod, ds, valid, params, "histogram_f32", 5,
-                     grad_cls=MulticlassSoftmax,
+    run = train_path(lgb, hist_mod, ds, valid, params, "histogram_f32",
+                     MULTICLASS_ROUNDS, grad_cls=MulticlassSoftmax,
                      tag="covertype multiclass categorical")
     bst = run["booster"]
     learner = check_multiclass(bst, run, Xv, yv, "phase 13 covertype "
@@ -2262,12 +2303,13 @@ def time_dispatch(forest, Xb):
 
 
 def phase_predict(lgb, hist_mod):
-    """Train binary (255 leaves, min_data_in_leaf 100, lr 0.1) for 100
-    rounds on phase 3's 200k Higgs-shaped rows, predict the reference
-    bench's 262,144-row batch three ways against the host walk, time
-    the stacked path, then continue the 50-round model for 50 rounds
-    through ``init_model`` and round-trip it through pickle. Returns the
-    f32 histogram launches of the two training runs."""
+    """Train binary (255 leaves, min_data_in_leaf 100, lr 0.1) for
+    ``PREDICT_ROUNDS`` rounds on phase 3's 200k Higgs-shaped rows,
+    predict the reference bench's 262,144-row batch three ways against
+    the host walk, time the stacked path, then continue the model after
+    half the rounds for the other half through ``init_model`` and
+    round-trip it through pickle. Returns the f32 histogram launches of
+    the two training runs."""
     import pickle
     import torch
     X, y = make_higgs_like(SMALL_ROWS + 50_000, seed=7)
@@ -2277,10 +2319,12 @@ def phase_predict(lgb, hist_mod):
     valid = lgb.Dataset(X[SMALL_ROWS:], label=y[SMALL_ROWS:],
                         reference=ds).construct()
     run = train_path(lgb, hist_mod, ds, valid, params, "histogram_f32",
-                     100, tag="phase 12 binary, 255 leaves, 100 rounds")
+                     PREDICT_ROUNDS, tag="phase 12 binary, 255 leaves, %d "
+                     "rounds" % PREDICT_ROUNDS)
     bst = run["booster"]
     PHASE12["model"] = bst.model_to_string(num_iteration=REFIT_ITERATIONS)
-    launches = {"phase12_binary_100_rounds": run["launches"]["histogram_f32"]}
+    launches = {"phase12_binary_%d_rounds" % PREDICT_ROUNDS:
+                run["launches"]["histogram_f32"]}
     Xp, _ = make_higgs_like(PREDICT_ROWS, seed=1)
     n = PREDICT_ROWS
 
@@ -2375,32 +2419,37 @@ def phase_predict(lgb, hist_mod):
            sum(v for k, v in stages.items() if k != "sum_kahan_f32"),
            moved["to_device"], moved["from_device"], n, peak / 2 ** 30))
 
-    # continued training on the card from the model after 50 rounds
+    # continued training on the card from the model after half the rounds
+    half = PREDICT_ROUNDS // 2
     yv = y[SMALL_ROWS:]
-    auc50 = auc(yv, bst.predict(X[SMALL_ROWS:], num_iteration=50))
+    auc50 = auc(yv, bst.predict(X[SMALL_ROWS:], num_iteration=half))
     auc100 = auc(yv, bst.predict(X[SMALL_ROWS:]))
-    first50 = lgb.Booster(model_str=bst.model_to_string(num_iteration=50))
+    first50 = lgb.Booster(model_str=bst.model_to_string(num_iteration=half))
     hist_mod.reset_launch_counts()
-    cont = lgb.train(params, ds, num_boost_round=50, valid_sets=[valid],
-                     valid_names=["held_out"], init_model=first50)
+    cont = lgb.train(params, ds, num_boost_round=PREDICT_ROUNDS - half,
+                     valid_sets=[valid], valid_names=["held_out"],
+                     init_model=first50)
     stats = cont.inner.learner.grow_stats
     dev = hist_mod.device_launch_counts()["histogram_f32"]
-    check(cont.num_trees() == 100 and stats["roots"] == 50
+    check(cont.num_trees() == PREDICT_ROUNDS
+          and stats["roots"] == PREDICT_ROUNDS - half
           and dev == stats["roots"] + stats["steps"],
           "continued run: %d trees, roots %d, steps %d, launches %d"
           % (cont.num_trees(), stats["roots"], stats["steps"], dev))
-    launches["phase12_continued_50_rounds"] = dev
+    launches["phase12_continued_%d_rounds" % (PREDICT_ROUNDS - half)] = dev
     auc_cont = auc(yv, cont.predict(X[SMALL_ROWS:]))
     check(auc_cont >= auc50, "held-out AUC fell in continued training: "
-          "%.6f after 50 rounds, %.6f after 50 more" % (auc50, auc_cont))
+          "%.6f after %d rounds, %.6f after %d more"
+          % (auc50, half, auc_cont, PREDICT_ROUNDS - half))
     back = pickle.loads(pickle.dumps(cont))
     check(np.array_equal(back.predict(Xp), cont.predict(Xp)),
           "a pickle round trip predicts other values")
-    log("phase 12 continued training: held-out AUC %.6f after 50 rounds, "
-        "%.6f after 50 more through init_model (%.6f for 100 rounds in "
+    log("phase 12 continued training: held-out AUC %.6f after %d rounds, "
+        "%.6f after %d more through init_model (%.6f for %d rounds in "
         "one run); %d launches of histogram_f32 == %d roots + %d steps; "
         "pickle round trip predicts the same %d values"
-        % (auc50, auc_cont, auc100, dev, stats["roots"], stats["steps"], n))
+        % (auc50, half, auc_cont, PREDICT_ROUNDS - half, auc100,
+           PREDICT_ROUNDS, dev, stats["roots"], stats["steps"], n))
     return launches
 
 
@@ -2629,13 +2678,14 @@ def _paths_in_one_group(tree, groups):
 
 def phase14_node_filters(lgb, hist_mod, data):
     """14d: feature_fraction_bynode 0.5 + interaction constraints (two
-    groups of 14 columns), 2 rounds, through the per-split loop."""
+    groups of 14 columns), 1 round (cut from 2 for time), through the per-split
+    loop."""
     extra = {"feature_fraction_bynode": 0.5,
              "interaction_constraints": HIGGS_GROUPS}
     ds, valid, _, _ = data
     run = train_path(lgb, hist_mod, ds, valid,
                      dict(SLICE_PARAMS, num_leaves=255, **extra),
-                     "histogram_f32", 2, tag="14d bynode + constraints")
+                     "histogram_f32", 1, tag="14d bynode + constraints")
     bst = run["booster"]
     check(all(_paths_in_one_group(t, HIGGS_GROUPS)
               for t in bst.inner.models),
@@ -2658,9 +2708,9 @@ def _subtree_leaves(tree, node):
 
 
 def phase14_cegb(lgb, hist_mod, data):
-    """14e: CEGB (split, coupled and lazy penalties), 2 rounds, through
-    the per-split loop; the lazy fetched state after tree 1 against the
-    tree's own partition."""
+    """14e: CEGB (split, coupled and lazy penalties), 1 round (cut from 2
+    for time), through the per-split loop; the lazy fetched state after tree 1
+    against the tree's own partition."""
     import torch
     from lightgbm_tpu_torch.treelearner import serial
     ds, valid, _, _ = data
@@ -2678,7 +2728,7 @@ def phase14_cegb(lgb, hist_mod, data):
     try:
         run = train_path(lgb, hist_mod, ds, valid,
                          dict(SLICE_PARAMS, num_leaves=255, **CEGB_PARAMS),
-                         "histogram_f32", 2, tag="14e cegb")
+                         "histogram_f32", 1, tag="14e cegb")
     finally:
         serial.SerialTreeLearner.train = grow
     bst = run["booster"]
@@ -2691,7 +2741,7 @@ def phase14_cegb(lgb, hist_mod, data):
           % sorted(used & set(range(20, 28))))
     plain = train_path(lgb, hist_mod, ds, valid,
                        dict(SLICE_PARAMS, num_leaves=255), "histogram_f32",
-                       2, tag="14e without penalties")["booster"]
+                       1, tag="14e without penalties")["booster"]
     check([t.to_string() for t in plain.inner.models]
           != [t.to_string() for t in bst.inner.models],
           "14e: the CEGB trees equal the trees without penalties")
@@ -3003,13 +3053,13 @@ def phase15_basic(lgb, hist_mod, data, mc):
 
 
 def phase15_methods(lgb, hist_mod, data, sets, mc, basic_aucs):
-    """15b: the intermediate method, 2 rounds, and the advanced method,
-    1 round at ``CUT_LEAVES`` leaves beside a basic round at as many (~80
+    """15b: the intermediate method, 1 round (cut from 2 for time), and the
+    advanced method, 1 round at ``CUT_LEAVES`` leaves beside a basic round at as many (~80
     s a tree at 255 leaves), on the constrained ``sets``."""
     Xv = data[2]
     dsm, valid = sets
     out = {}
-    for method, rounds, leaves in (("intermediate", 2, 255),
+    for method, rounds, leaves in (("intermediate", 1, 255),
                                    ("advanced", 1, CUT_LEAVES)):
         tag = "15b %s" % method
         basic_auc = basic_aucs[rounds - 1]
@@ -3707,6 +3757,303 @@ def phase_refit(lgb):
                         moved, gap))
 
 
+# ---------------------------------------------------------------------------
+# phase 19: batched iterations, the sklearn estimator, cv and SHAP
+# ---------------------------------------------------------------------------
+#: phase 19's batch: iteration 0 looped, then one batch of 4 (5 rounds)
+BATCH = 4
+#: the LGBMClassifier defaults of phase 19c under LightGBM's own names
+SKLEARN_MAPPED = {"objective": "binary", "boosting": "gbdt",
+                  "num_leaves": 255, "max_depth": -1, "learning_rate": 0.1,
+                  "subsample_for_bin": 200000, "min_split_gain": 0.0,
+                  "min_child_weight": 1e-3, "min_child_samples": 100,
+                  "subsample": 1.0, "subsample_freq": 0,
+                  "colsample_bytree": 1.0, "reg_alpha": 0.0,
+                  "reg_lambda": 0.0, "verbosity": -1}
+
+
+def batched_contract(t1, t2, what: str, i: int, values: bool) -> bool:
+    """The reference's batched contract (tests/test_batched_training.py:
+    structure and leaf counts exact; with ``values``, leaf values within
+    rtol 1e-5 and gains within rtol 1e-6 / atol 1e-4). Returns whether
+    the two trees' text is equal too."""
+    ni = t1.num_internal
+    check(t1.num_leaves == t2.num_leaves
+          and all(np.array_equal(getattr(t1, f)[:ni], getattr(t2, f)[:ni])
+                  for f in ("split_feature", "threshold_in_bin",
+                            "decision_type", "left_child", "right_child"))
+          and np.array_equal(t1.leaf_count[:t1.num_leaves],
+                             t2.leaf_count[:t2.num_leaves]),
+          "%s: tree %d is not the looped run's tree" % (what, i))
+    if values:
+        check(np.allclose(t1.leaf_value[:t1.num_leaves],
+                          t2.leaf_value[:t2.num_leaves], rtol=1e-5,
+                          atol=1e-7)
+              and np.allclose(t1.split_gain[:ni], t2.split_gain[:ni],
+                              rtol=1e-6, atol=1e-4),
+              "%s: tree %d's values are outside the batched tolerance"
+              % (what, i))
+    return t1.to_string() == t2.to_string()
+
+
+def batch_turns(lgb, ds, params):
+    """Seconds of 4 iterations looped (``Booster.update``, no
+    evaluation) and of one batch of 4 (``train_batch``), on two boosters
+    of phase 4's Dataset after their iteration 0, in turns looped,
+    batched, batched, looped (one call, one card)."""
+    import torch
+    boosters = [lgb.Booster(params=params, train_set=ds) for _ in range(2)]
+    for b in boosters:
+        b.update()
+
+    def looped():
+        for _ in range(BATCH):
+            boosters[0].update()
+    out = {"looped": [], "batched": []}
+    for name, fn in (("looped", looped),
+                     ("batched", lambda: boosters[1].inner.train_batch(BATCH)),
+                     ("batched", lambda: boosters[1].inner.train_batch(BATCH)),
+                     ("looped", looped)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[name].append(time.perf_counter() - t)
+    check([b.current_iteration for b in boosters] == [1 + 2 * BATCH] * 2,
+          "batch turns: %s iterations" % [b.current_iteration
+                                          for b in boosters])
+    return out
+
+
+def phase19_batched(lgb, hist_mod, data, looped, extra, kernel, what):
+    """19a / 19b: phase 4's Dataset, 5 rounds at ``tpu_batch_iterations``
+    4 with ``tpu_eval_iterations`` 4 (one evaluation, at the end): every
+    histogram through ``kernel`` (launches == roots + steps), one record
+    read for the batch and no step-counter read in it, the trees of the
+    looped run (phase 4 or 7) under the batched contract, the held-out
+    AUC the looped run's last; s per batch against the looped run's 4
+    iterations, host syncs per batch (sync debug mode); in f32 also
+    :func:`batch_turns`. Returns the launches and the booster."""
+    import torch
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    ds, valid, _, _ = data
+    ref_trees, ref_aucs, ref_per_iter = looped
+    params = dict(SLICE_PARAMS, num_leaves=255, tpu_batch_iterations=BATCH,
+                  tpu_eval_iterations=BATCH, **extra)
+    real = GBDT.train_batch
+    batches = []
+
+    def timed_batch(self, n):
+        before = dict(self.learner.grow_stats)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = real(self, n)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        after = self.learner.grow_stats
+        batches.append(dict(
+            seconds=time.perf_counter() - t, iters=n,
+            syncs=sum("synchroniz" in str(w.message) for w in caught),
+            **{k: after[k] - before[k] for k in ("record_reads",
+                                                 "flag_reads", "roots")}))
+        return out
+    seen = []
+
+    def cb(env):
+        seen.append(env.iteration)
+    evals = {}
+    GBDT.train_batch = timed_batch
+    hist_mod.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        bst = lgb.train(params, ds, num_boost_round=1 + BATCH,
+                        valid_sets=[valid], valid_names=["held_out"],
+                        callbacks=[cb, lgb.record_evaluation(evals)])
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+    finally:
+        GBDT.train_batch = real
+    trees = bst.inner.models
+    check(len(trees) == 1 + BATCH, "%s: %d trees" % (what, len(trees)))
+    launches = check_device_launches(hist_mod, bst, kernel, what)
+    check(len(batches) == 1 and batches[0]["record_reads"] == 1
+          and batches[0]["flag_reads"] == 0
+          and batches[0]["roots"] == BATCH,
+          "%s: the batch did not run as one record read with no counter "
+          "read: %s" % (what, batches))
+    check(seen == [BATCH], "%s: callbacks at %s, not once at the end "
+          "(eval grid %d)" % (what, seen, BATCH))
+    a = evals["held_out"]["auc"]
+    check(len(a) == 1 and a[0] > 0.7 and abs(a[0] - ref_aucs[-1]) < 1e-4,
+          "%s: held-out AUC %s against the looped run's %.6f"
+          % (what, a, ref_aucs[-1]))
+    exact = [batched_contract(t, r, what, i, values=kernel == "histogram_f32")
+             for i, (t, r) in enumerate(zip(trees, ref_trees))]
+    b = batches[0]
+    looped_s = sum(ref_per_iter[1:1 + BATCH])
+    log("%s: %d rounds (iteration 0 looped, 1 batch of %d) in %.3f s; "
+        "batch %.3f s (%.3f s an iteration) against the looped run's "
+        "iterations 1-%d %.3f s (trees + gradients + held-out eval each); "
+        "host syncs in the batch %d (sync debug mode), record reads %d, "
+        "counter reads %d; callbacks at %s; held-out AUC %.6f (looped "
+        "%.6f); trees under the batched contract, text-equal to the looped "
+        "run's: %s"
+        % (what, 1 + BATCH, BATCH, t_train, b["seconds"],
+           b["seconds"] / BATCH, BATCH, looped_s, b["syncs"],
+           b["record_reads"], b["flag_reads"], seen, a[0], ref_aucs[-1],
+           exact))
+    if kernel == "histogram_f32":
+        turns = batch_turns(lgb, ds, dict(SLICE_PARAMS, num_leaves=255))
+        log("%s in turns (looped, batched, batched, looped), %d "
+            "iterations each with no evaluation: looped %s s, batched %s s"
+            % (what, BATCH, " / ".join("%.3f" % v for v in turns["looped"]),
+               " / ".join("%.3f" % v for v in turns["batched"])))
+    return launches[kernel], bst
+
+
+def phase19_sklearn(lgb, hist_mod, data):
+    """19c: ``LGBMClassifier`` (5 estimators, 255 leaves,
+    min_child_samples 100) on the first LINEAR_ROWS training rows:
+    launches == roots + steps, the model text of ``lgb.train`` with the
+    mapped parameters, ``predict_proba`` of the 500k held-out rows
+    through the stacked path with AUC > 0.7. Returns the launches, the
+    estimator and the train Dataset (19d reuses it)."""
+    import torch
+    _, _, Xv, yv = data
+    X, y = HEAD["X"], HEAD["y"]
+    out = {}
+    hist_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    est = lgb.LGBMClassifier(n_estimators=5, num_leaves=255,
+                             min_child_samples=100).fit(X, y)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    out["phase19c_sklearn_classifier"] = check_device_launches(
+        hist_mod, est.booster_, "histogram_f32", "19c LGBMClassifier.fit")[
+            "histogram_f32"]
+    ds = lgb.Dataset(X, label=y)
+    hist_mod.reset_launch_counts()
+    bst = lgb.train(SKLEARN_MAPPED, ds, num_boost_round=5)
+    out["phase19c_train_mapped_params"] = check_device_launches(
+        hist_mod, bst, "histogram_f32", "19c lgb.train")["histogram_f32"]
+    check(est.booster_.model_to_string() == bst.model_to_string(),
+          "19c: the classifier's model text is not lgb.train's with the "
+          "mapped parameters")
+    t0 = time.perf_counter()
+    proba = est.predict_proba(Xv)
+    t_pred = time.perf_counter() - t0
+    cache = getattr(est.booster_, "_stacked_cache", None)
+    check(cache is not None and cache[1] is not None,
+          "19c: predict_proba did not take the stacked path")
+    check(proba.shape == (len(yv), 2) and bool(np.isfinite(proba).all())
+          and bool(np.allclose(proba.sum(axis=1), 1.0)),
+          "19c: predict_proba is not [n, 2] finite probabilities")
+    a = auc(yv, proba[:, 1])
+    check(a > 0.7, "19c: held-out AUC %.4f <= 0.7" % a)
+    log("19c LGBMClassifier(n_estimators=5, num_leaves=255, "
+        "min_child_samples=100) on %d rows: fit %.3f s (binning included); "
+        "model text == lgb.train's with the mapped parameters; "
+        "predict_proba of %d held-out rows through the stacked path in "
+        "%.3f s, AUC %.6f" % (len(y), t_fit, len(yv), t_pred, a))
+    del bst
+    return out, est, ds
+
+
+def phase19_cv(lgb, hist_mod, ds):
+    """19d: ``lgb.cv`` with 3 stratified folds and 3 rounds on 19c's
+    Dataset: every fold's roots == its trees and steps >= its splits,
+    the device launches == the folds' roots + steps, only the f32
+    instance, and fold 0's booster text-equal to ``lgb.train`` on its
+    subset. Returns the launches."""
+    from lightgbm_tpu_torch.engine import _make_n_folds
+    params = dict(SKLEARN_MAPPED, metric="auc")
+    hist_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = lgb.cv(params, ds, num_boost_round=3, nfold=3,
+                 return_cvbooster=True)
+    t_cv = time.perf_counter() - t0
+    dev = hist_mod.device_launch_counts()
+    boosters = res["cvbooster"].boosters
+    total = 0
+    for i, b in enumerate(boosters):
+        stats = b.inner.learner.grow_stats
+        trees = b.inner.models
+        check(stats["roots"] == len(trees) == 3
+              and stats["steps"] >= sum(t.num_leaves - 1 for t in trees),
+              "19d fold %d: roots %d, steps %d for %d trees"
+              % (i, stats["roots"], stats["steps"], len(trees)))
+        total += stats["roots"] + stats["steps"]
+    check(len(boosters) == 3 and dev["histogram_f32"] == total
+          and sum(dev.values()) == total,
+          "19d: device launches %s, the folds' roots + steps %d"
+          % (dev, total))
+    train_idx, _ = _make_n_folds(ds, None, 3, params, 0, True, True)[0]
+    alone = lgb.train(params, ds.subset(train_idx), num_boost_round=3)
+    check(alone.model_to_string() == boosters[0].model_to_string(),
+          "19d: fold 0 is not lgb.train on its subset")
+    means = res["valid auc-mean"]
+    check(len(means) == 3 and means[-1] > 0.7,
+          "19d: cv AUC means %s" % means)
+    log("19d lgb.cv (3 folds x 3 rounds on %d rows): %.3f s; valid "
+        "auc-mean %s, stdv %s; %d launches of histogram_f32 == the folds' "
+        "roots + steps; fold 0 text-equal to lgb.train on its %d rows"
+        % (ds.num_data(), t_cv, " ".join("%.6f" % v for v in means),
+           " ".join("%.6f" % v for v in res["valid auc-stdv"]), total,
+           len(train_idx)))
+    return {"phase19d_cv_3_folds": total}
+
+
+def phase19_contrib(est, data, rows: int = 16):
+    """19e: SHAP values of 19c's model for ``rows`` held-out rows: each
+    row sums to its raw score within 1e-6 x the scores' scale."""
+    Xv = data[2][:rows]
+    t0 = time.perf_counter()
+    contrib = est.predict(Xv, pred_contrib=True)
+    ms = 1e3 * (time.perf_counter() - t0)
+    raw = est.booster_.predict(Xv, raw_score=True, predict_on_device=False)
+    scale = max(float(np.abs(raw).max()), 1.0)
+    gap = float(np.abs(contrib.sum(axis=1) - raw).max())
+    check(contrib.shape == (rows, Xv.shape[1] + 1)
+          and gap <= 1e-6 * scale,
+          "19e: SHAP row sums differ from the raw scores by %.3g" % gap)
+    log("19e pred_contrib of %d rows x %d trees (255 leaves): %.1f ms on "
+        "the host; row sums vs raw scores max |diff| %.3g (scale %.3f)"
+        % (rows, est.booster_.num_trees(), ms, gap, scale))
+
+
+def phase_surface(lgb, hist_mod, data, looped):
+    """Phase 19: batched iterations in f32 (19a) and 8-bit (19b) against
+    phases 4 and 7, then the classifier (19c), cv (19d) and SHAP (19e).
+    Returns the launches by kernel and path."""
+    out = {"histogram_f32": {}, "histogram_i8": {}}
+    n, _ = phase19_batched(lgb, hist_mod, data, looped["f32"], {},
+                           "histogram_f32", "19a batched f32")
+    out["histogram_f32"]["phase19a_higgs_batched"] = n
+    n, bst = phase19_batched(
+        lgb, hist_mod, data, looped["8bit"],
+        {"use_quantized_grad": True, "quant_grad_bits": 8},
+        "histogram_i8", "19b batched 8-bit")
+    out["histogram_i8"]["phase19b_higgs_batched_8bit"] = n
+    scale = max(float(bst.inner.train_score.abs().max()), 1.0)
+    dev = bst.inner.recheck_scores(reason="phase 19b")
+    check(dev <= 1e-3 * scale, "19b: the replay of the trees differs "
+          "from the maintained score by %.3g" % dev)
+    log("19b recheck: a replay of the %d trees over the training rows "
+        "against the batch-maintained score: max |diff| %.3g (scale "
+        "%.3f)" % (len(bst.inner.models), dev, scale))
+    del bst
+    paths, est, ds = phase19_sklearn(lgb, hist_mod, data)
+    out["histogram_f32"].update(paths)
+    out["histogram_f32"].update(phase19_cv(lgb, hist_mod, ds))
+    phase19_contrib(est, data)
+    return out
+
+
 def time_widths(hist_mod, widths, rows_out):
     """Every instance at the new widths' root shapes (the real bins of
     phases 9 and 10) and at children of 10k, 100k and 1M rows (fewer
@@ -3751,10 +4098,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
-                            "18",
+                            "18,19",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
+    if 19 in phases:
+        phases |= {4, 7}
 
     import torch
     if not torch.cuda.is_available():
@@ -3792,11 +4141,15 @@ def main(argv=None) -> int:
         by_path["histogram_f32"]["phase3_small_binary"] = \
             run["histogram_f32"]
         lap("phase 3")
-    data = (full_data(lgb, keep_head=bool(phases & {15, 16}))
-            if phases & {4, 7, 14, 15, 16, 17, 18} else None)
+    data = (full_data(lgb, keep_head=bool(phases & {15, 16, 19}))
+            if phases & {4, 7, 14, 15, 16, 17, 18, 19} else None)
     bins_root, f32_auc = None, None
+    # phase 4's and 7's trees, AUCs and seconds per iteration (phase 19)
+    looped = {}
     if 4 in phases:
-        bst, run, f32_auc = phase_full(lgb, hist_mod, data)
+        bst, run, aucs, per_iter = phase_full(lgb, hist_mod, data)
+        f32_auc = aucs[-1]
+        looped["f32"] = (bst.inner.models, aucs, per_iter)
         by_path["histogram_f32"]["phase4_higgs_binary"] = \
             run["histogram_f32"]
         bins_root = bst.inner.learner.bins
@@ -3818,7 +4171,9 @@ def main(argv=None) -> int:
         phase_quantize()
         lap("phase 6")
     if 7 in phases:
-        run = phase_full_quantized(lgb, hist_mod, data, f32_auc)
+        run, trees, aucs, per_iter = phase_full_quantized(
+            lgb, hist_mod, data, f32_auc)
+        looped["8bit"] = (trees, aucs, per_iter)
         by_path["histogram_i8"]["phase7_higgs_binary_8bit"] = \
             run["histogram_i8"]
         lap("phase 7")
@@ -3845,8 +4200,13 @@ def main(argv=None) -> int:
         for kernel, paths in phase_constraints(lgb, hist_mod, data).items():
             by_path[kernel].update(paths)
         lap("phase 15")
+    if 19 in phases:
+        for kernel, paths in phase_surface(lgb, hist_mod, data,
+                                           looped).items():
+            by_path[kernel].update(paths)
+        lap("phase 19")
     HEAD.clear()
-    del data
+    del data, looped
     if 8 in phases:
         run = phase_small(lgb, hist_mod,
                           {"use_quantized_grad": True, "quant_grad_bits": 16,

@@ -316,6 +316,7 @@ class Booster:
                           inner.train_data, feval)
 
     def eval_valid(self, feval=None) -> List[Tuple]:
+        self.inner._flush_valid_pending()   # walks deferred by a batch
         out = []
         for i, vd in enumerate(self.inner.valid_data):
             name = (self._valid_names[i] if i < len(self._valid_names)
@@ -352,7 +353,10 @@ class Booster:
         card, batches of 256 rows or more go through the stacked forest
         (:meth:`_predict_stacked`), the others through the host walk;
         ``predict_on_device=True`` / ``False`` forces one of them.
-        ``pred_early_stop*`` apply to the host walk."""
+        ``pred_early_stop*`` apply to the host walk. ``pred_contrib``
+        gives the SHAP values ([n, F + 1], or [n, K * (F + 1)] for K
+        classes; the last column of each block is the expected value)
+        from the host TreeSHAP of ``models/shap.py``."""
         X = _to_2d_float(data)
         n_feat = self.inner.max_feature_idx + 1
         no_check = bool(kwargs.get("predict_disable_shape_check",
@@ -364,12 +368,12 @@ class Booster:
                 "predict_disable_shape_check=true to discard this "
                 "error, but please be aware what you are doing."
                 % (X.shape[1], n_feat))
-        if pred_contrib:
-            log.unsupported("predict(pred_contrib=True) (SHAP values)",
-                            "item 18b")
         ni = -1 if num_iteration is None else int(num_iteration)
         if ni <= 0 and self.best_iteration > 0:
             ni = self.best_iteration
+        if pred_contrib and not pred_leaf:
+            # TreeSHAP is a host recursion per row and node
+            return self.inner.predict_contrib(X, start_iteration, ni)
         kind = ("leaf" if pred_leaf else
                 "raw" if raw_score or self.inner.objective is None
                 else "value")
@@ -494,13 +498,18 @@ class Booster:
 
     def save_model(self, filename: str, num_iteration: Optional[int] = None,
                    start_iteration: int = 0) -> "Booster":
-        """Write the model text: a temporary file renamed into place, so
-        a crash never leaves a truncated model."""
-        import os
-        tmp = filename + ".tmp"
-        with open(tmp, "w") as fh:
-            fh.write(self.model_to_string(num_iteration, start_iteration))
-        os.replace(tmp, filename)
+        """Write the model text atomically (``utils/atomic.py``), so a
+        crash never leaves a truncated model."""
+        from .utils.atomic import atomic_write
+        atomic_write(filename,
+                     self.model_to_string(num_iteration, start_iteration))
+        return self
+
+    def save_model_to_cpp(self, filename: str) -> "Booster":
+        """The model as one standalone C++ source with a C ABI
+        (``PredictRaw``, ``Predict``, ``PredictLeafIndex``;
+        ``models/codegen.py``), written atomically."""
+        self.inner.save_model_to_cpp(filename)
         return self
 
     def dump_model(self, num_iteration: Optional[int] = None,

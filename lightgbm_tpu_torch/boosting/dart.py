@@ -23,6 +23,10 @@ from .gbdt import GBDT, device_tree_outputs
 class DART(GBDT):
     """reference: src/boosting/dart.hpp."""
 
+    # its drops and normalization are host work per iteration (reference:
+    # the same flag in dart.py / rf.py)
+    _supports_batched = False
+
     def __init__(self, config, train_data=None, device=None):
         super().__init__(config, train_data, device)
         self.drop_rng = np.random.RandomState(config.drop_seed)

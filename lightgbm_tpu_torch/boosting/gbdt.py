@@ -22,6 +22,12 @@ of the [N, K] score (the model list is iteration-major: tree ``i * K +
 k`` is class k of iteration i). Objectives with leaf renewal (l1,
 quantile, mape) copy the class's score column and the row->leaf
 partition to the host for it, as the reference does.
+
+Batched iterations (``tpu_batch_iterations``; reference gbdt.py:504-700):
+:meth:`GBDT.train_batch` runs T iterations through the learner's
+``train_many`` with one read of their records, replays them into host
+trees and defers the validation sets' tree walks to the next reader of
+their scores (eval hoisting, :meth:`GBDT._flush_valid_pending`).
 """
 from __future__ import annotations
 
@@ -44,6 +50,17 @@ from ..utils import log, next_pow2
 from .sample_strategy import create_sample_strategy
 
 kEpsilon = 1e-15
+
+
+def eval_hoist_due(count: int, last_count: int, eval_k: int,
+                   final: bool) -> bool:
+    """The eval-hoisting grid (``tpu_eval_iterations=k``; reference
+    gbdt.py:76), shared by the engine's batched and per-iteration loops:
+    evaluation is due when the iteration count crossed a multiple of k
+    since the last evaluation (an absolute grid), always at the final or
+    stopping point, and always with hoisting off (k <= 1)."""
+    return (eval_k <= 1 or final
+            or (count // eval_k) > (last_count // eval_k))
 
 
 def device_tree_outputs(tree: Tree, bins: torch.Tensor, bin_meta,
@@ -152,6 +169,9 @@ class GBDT:
     """reference: src/boosting/gbdt.cpp."""
 
     submodel_name = "tree"
+    # per-iteration host work in a subclass (DART's drops, RF's
+    # averaging) cannot run inside a batch: each mode opts in
+    _supports_batched = True
 
     def __init__(self, config: Config,
                  train_data: Optional[BinnedDataset] = None,
@@ -161,6 +181,10 @@ class GBDT:
         self.device = device
         self.objective: Optional[ObjectiveFunction] = None
         self.models: List[Tree] = []
+        # validation-set tree walks deferred by train_batch until a
+        # reader of the valid scores needs them: (tree, class) pairs,
+        # flushed in append order, so the f32 adds are the looped ones
+        self._valid_pending: List = []
         self.iter = 0
         self.num_init_iteration = 0
         self.best_iteration = -1
@@ -234,6 +258,9 @@ class GBDT:
 
     def add_valid_data(self, valid_data: BinnedDataset) -> None:
         """reference: GBDT::AddValidDataset (gbdt.cpp:182)."""
+        # deferred walks belong to the sets registered before this one,
+        # which replays the whole model below
+        self._flush_valid_pending()
         metrics = []
         for name in resolve_metric_names(self.config, self.config.objective):
             m = create_metric(name, self.config)
@@ -336,6 +363,107 @@ class GBDT:
         self.iter += 1
         return not should_continue
 
+    # ------------------------------------------------------------------
+    # batched iterations (reference gbdt.py:504-700)
+    # ------------------------------------------------------------------
+    def can_train_batched(self) -> bool:
+        """True when T iterations can run with no host work between them
+        (reference gbdt.py:509): a mode that opts in, an objective with
+        gradients that are a function of the score alone (no leaf
+        renewal, no fresh draw per call), no linear fits, a sample
+        strategy with a device draw, iteration 0 done (it boosts from
+        the average), every class trained, and a learner whose
+        whole-tree loop needs no host state."""
+        return (self._supports_batched
+                and self.objective is not None
+                and not self.objective.is_renew_tree_output
+                and not self.objective.has_stochastic_gradients
+                and not self.config.linear_tree
+                and self.sample_strategy.supports_device_draw()
+                and len(self.models) >= 1
+                and all(self.class_need_train)
+                and self.learner.supports_train_many())
+
+    def train_batch(self, n_iters: int) -> bool:
+        """Run ``n_iters`` iterations through the learner's
+        ``train_many`` (one record read for all of them) and replay the
+        records into host trees (reference gbdt.py:529). Returns True
+        when training should stop: an iteration grew no tree in any
+        class, and it and every later one of the batch are dropped, as
+        the looped path stops there. Callers check
+        :meth:`can_train_batched` first."""
+        from ..treelearner.serial import (SplitRecord, apply_split_record,
+                                          record_is_valid)
+        from .sample_strategy import SampleStrategy
+        learner = self.learner
+        K = self.num_tree_per_iteration
+        sample = (None if type(self.sample_strategy) is SampleStrategy
+                  else self.sample_strategy)
+        recs = learner.train_many(
+            self.objective.get_gradients, sample, self.train_score,
+            list(range(self.iter, self.iter + n_iters)),
+            self.shrinkage_rate).tolist()
+        for t in range(n_iters):
+            iter_trees = []
+            for k in range(K):
+                tree = Tree(learner.L)
+                for row in recs[t][k]:
+                    rec = SplitRecord.from_row(int(row[0]), row[1:],
+                                               learner.layout)
+                    if not record_is_valid(rec):
+                        break
+                    apply_split_record(tree, self.train_data, rec)
+                if tree.num_leaves > 1:
+                    tree.apply_shrinkage(self.shrinkage_rate)
+                else:
+                    # a class that grew nothing: the looped path's
+                    # zero-valued stump (the device added nothing)
+                    tree = Tree(1)
+                iter_trees.append(tree)
+            if all(tree.num_leaves <= 1 for tree in iter_trees):
+                log.warning("Stopped training because there are no more "
+                            "leaves that meet the split requirements")
+                return True
+            for k, tree in enumerate(iter_trees):
+                self.models.append(tree)
+                if tree.num_leaves > 1 and self.valid_data:
+                    self._valid_pending.append((tree, k))
+            self.iter += 1
+        return False
+
+    def _flush_valid_pending(self) -> None:
+        """Walk the validation sets through the trees that
+        :meth:`train_batch` deferred (reference gbdt.py:637); every
+        reader of the valid scores (evaluation, rollback, a later
+        ``add_valid_data``) calls it first."""
+        pending, self._valid_pending = self._valid_pending, []
+        for tree, k in pending:
+            for vd in self.valid_data:
+                vd.add_tree(tree, k, self._bin_meta)
+
+    def recheck_scores(self, reason: str = "") -> float:
+        """Replay every tree over the training rows on the device and
+        compare the sum with the maintained training score (reference
+        gbdt.py:662); called once where a quantized batched run hands
+        over to the per-iteration loop. Warns when the largest deviation
+        passes 1e-3 times the score's scale; returns the deviation."""
+        K = self.num_tree_per_iteration
+        replay = torch.from_numpy(initial_score(
+            self.train_data.metadata, self.num_data, K)).to(self.device)
+        for i, tree in enumerate(self.models):
+            delta = device_tree_outputs(tree, self.learner.bins,
+                                        self._bin_meta, self._raw)
+            if delta is not None:
+                replay[:, i % K] += delta
+        diff = float((replay - self.train_score).abs().max())
+        scale = max(float(self.train_score.abs().max()), 1.0)
+        if diff > 1e-3 * scale:
+            log.warning("batched-eval recheck (%s) found score deviation "
+                        "%.3g (replay of %d trees vs the maintained "
+                        "device score)" % (reason or "batched_to_looped",
+                                           diff, len(self.models)))
+        return diff
+
     def _host_gradient(self, v) -> torch.Tensor:
         """A callable objective's gradient or hessian on the device:
         f32 [N], or [N, K] from K * N class-major values."""
@@ -354,6 +482,7 @@ class GBDT:
         GBDT::RollbackOneIter, gbdt.cpp:438)."""
         if self.iter <= 0:
             return
+        self._flush_valid_pending()
         K = self.num_tree_per_iteration
         bins = self.learner.bins
         for k in range(K):
@@ -538,6 +667,22 @@ class GBDT:
         for i, tree in enumerate(models):
             out[:, i] = tree.predict_leaf_index(X)
         return out
+
+    def predict_contrib(self, X: np.ndarray, start_iteration: int = 0,
+                        num_iteration: int = -1) -> np.ndarray:
+        """SHAP contributions (reference gbdt.py:1028; upstream
+        Tree::PredictContrib, tree.h:139), host TreeSHAP."""
+        from ..models.shap import predict_contrib
+        return predict_contrib(
+            self._used_models(start_iteration, num_iteration), X,
+            self.max_feature_idx + 1, self.num_tree_per_iteration)
+
+    def save_model_to_cpp(self, filename: str) -> None:
+        """The model as a standalone C++ source (reference gbdt.py:1165;
+        upstream GBDT::SaveModelToIfElse), written atomically."""
+        from ..models.codegen import model_to_cpp
+        from ..utils.atomic import atomic_write
+        atomic_write(filename, model_to_cpp(self))
 
     def feature_importance(self, importance_type: str = "split",
                            num_iteration: int = -1) -> np.ndarray:

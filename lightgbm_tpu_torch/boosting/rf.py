@@ -23,6 +23,10 @@ from .gbdt import GBDT, kEpsilon
 class RF(GBDT):
     """reference: src/boosting/rf.hpp."""
 
+    # its bag refits and averaging are host work per iteration (reference:
+    # the same flag in dart.py / rf.py)
+    _supports_batched = False
+
     def __init__(self, config, train_data=None, device=None):
         has_bag = ((config.bagging_freq > 0
                     and 0.0 < config.bagging_fraction < 1.0)

@@ -11,7 +11,9 @@ Every draw is stateless: ``u = uniform(fold_in(PRNGKey(bagging_seed &
 0x7FFFFFFF), d), (N,))`` under the port's threefry (``utils/prng.py``),
 with ``d = i // bagging_freq`` for bagging and ``d = i`` for GOSS at
 iteration ``i``, so the indicator equals the reference's byte for byte
-and needs no sampler state. Every draw runs on the gradients' device.
+and needs no sampler state. Every draw runs on the gradients' device
+with no host read, so the batched loop (``GBDT.train_batch``) takes it
+as it is through :meth:`SampleStrategy.device_draw`.
 """
 from __future__ import annotations
 
@@ -54,6 +56,31 @@ class SampleStrategy:
                 ) -> Tuple[torch.Tensor, torch.Tensor,
                            Optional[torch.Tensor]]:
         """Returns (grad, hess, bag); bag is None for all rows."""
+        return grad, hess, None
+
+    def supports_device_draw(self) -> bool:
+        """True when :meth:`device_draw` gives :meth:`bagging`'s draw from
+        the iteration index alone, on the device (reference
+        ``supports_device_draw``): the eligibility bit
+        ``GBDT.can_train_batched`` reads. A subclass that overrides
+        ``bagging`` without a ``device_draw`` at the same level or below
+        declines: the inherited draw would replace its sampling in the
+        batched loop."""
+        cls = type(self)
+
+        def defining(name):
+            for c in cls.__mro__:
+                if name in c.__dict__:
+                    return c
+            return SampleStrategy
+
+        return issubclass(defining("device_draw"), defining("bagging"))
+
+    def device_draw(self, iter_idx: int, grad: torch.Tensor,
+                    hess: torch.Tensor):
+        """The batched loop's draw at iteration ``iter_idx`` (the
+        reference's ``apply_traced``); the same (grad, hess, bag) as
+        :meth:`bagging`."""
         return grad, hess, None
 
 
@@ -156,6 +183,9 @@ class BaggingStrategy(SampleStrategy):
             self._bag_draw_idx = d
         return grad, hess, self._bag
 
+    # the draw keys on the iteration index only and makes no host read
+    device_draw = bagging
+
 
 class GOSSStrategy(SampleStrategy):
     """Gradient-based one-side sampling (reference ``GOSSStrategy``;
@@ -193,6 +223,8 @@ class GOSSStrategy(SampleStrategy):
             return grad, hess, None
         return goss_draw(grad, hess, self._base_key, iter_idx, self.top_k,
                          self.other_k)
+
+    device_draw = bagging
 
 
 def create_sample_strategy(config, num_data: int, device: torch.device

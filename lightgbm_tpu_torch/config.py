@@ -349,13 +349,13 @@ class Config:
     # --- Device (config.h:1056-1070) ---
     # gpu_device_id picks the CUDA card; the fields below the reference
     # build added for the TPU are accepted by name so parameter dicts
-    # interchange. check_slice raises for those that need a later slice
-    # (batched iterations); gpu_use_dp and tpu_use_f64_hist ask for f64
-    # histogram sums (f64_histograms). tpu_fused_tree selects the
-    # learner's loop, as in the reference: the whole-tree loop (true,
-    # the default) or the per-split loop (false), which give the same
-    # trees. Only the out-of-core frontier width, tpu_frontier_splits,
-    # has no effect here.
+    # interchange. tpu_batch_iterations and tpu_eval_iterations batch
+    # iterations and evaluations (engine.train); gpu_use_dp and
+    # tpu_use_f64_hist ask for f64 histogram sums (f64_histograms).
+    # tpu_fused_tree selects the learner's loop, as in the reference:
+    # the whole-tree loop (true, the default) or the per-split loop
+    # (false), which give the same trees. Only the out-of-core frontier
+    # width, tpu_frontier_splits, has no effect here.
     gpu_platform_id: int = -1
     gpu_device_id: int = -1
     gpu_use_dp: bool = False
@@ -494,9 +494,6 @@ class Config:
         not here yet (never ignore one silently). Each message names the
         ROADMAP queue-1 item that will bring it."""
         unsupported = log.unsupported
-        if self.tpu_batch_iterations > 1 or self.tpu_eval_iterations > 1:
-            unsupported("tpu_batch_iterations / tpu_eval_iterations",
-                        "item 17")
         if self.tree_learner != "serial":
             unsupported("tree_learner=%s" % self.tree_learner, "item 22")
         if self.num_machines > 1 or self.num_gpu > 1:

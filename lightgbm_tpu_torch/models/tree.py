@@ -219,6 +219,26 @@ class Tree:
         """A renewed leaf output (reference: Tree::SetLeafOutput)."""
         self.leaf_value[leaf] = _sane(value)
 
+    def _decide(self, fval: np.ndarray, node: int) -> np.ndarray:
+        """Node ``node``'s decision over values ``fval`` of its feature,
+        True = left (upstream NumericalDecision / CategoricalDecision,
+        tree.h:335-395; the rules of :meth:`predict_leaf_index`)."""
+        dt = int(self.decision_type[node])
+        if dt & kCategoricalMask:
+            iv = np.where(np.isnan(fval), -1.0, fval)
+            return self._cat_contains(int(self.threshold_in_bin[node]), iv)
+        missing = (dt >> 2) & 3
+        default_left = bool(dt & kDefaultLeftMask)
+        isnan = np.isnan(fval)
+        v = np.where(isnan & (missing != MissingType.NAN), 0.0, fval)
+        go_left = v <= self.threshold[node]
+        if missing == MissingType.ZERO:
+            go_left = np.where(np.abs(v) <= kZeroThreshold, default_left,
+                               go_left)
+        elif missing == MissingType.NAN:
+            go_left = np.where(isnan, default_left, go_left)
+        return go_left
+
     def predict(self, X: np.ndarray) -> np.ndarray:
         leaf = self.predict_leaf_index(X)
         if self.is_linear:

@@ -75,8 +75,10 @@ class BinaryLogloss(ObjectiveFunction):
         if not self.need_train:
             z = torch.zeros_like(score)
             return z, z
-        sig = torch.tensor(self.sigmoid, dtype=torch.float32,
-                           device=score.device)
+        # a fill on the device: a tensor from a host value is a copy
+        # that waits for the card
+        sig = torch.full((), self.sigmoid, dtype=torch.float32,
+                         device=score.device)
         response = (-self.label_sign * sig
                     / (1.0 + torch.exp(self.label_sign * sig * score)))
         abs_r = response.abs()

@@ -84,9 +84,10 @@ def quantize_gh(grad: torch.Tensor, hess: torch.Tensor, ind: torch.Tensor,
     h = hess * ind
     # every divisor is a tensor on the rows' device: CUDA turns a
     # division by a host scalar into a multiply by its reciprocal,
-    # which rounds differently from the reference's f32 division
-    qmaxf = torch.tensor(float(qmax), dtype=torch.float32,
-                         device=grad.device)
+    # which rounds differently from the reference's f32 division (a
+    # fill, not a copy from the host, which would wait for the card)
+    qmaxf = torch.full((), float(qmax), dtype=torch.float32,
+                       device=grad.device)
     gs = torch.clamp(g.abs().max(), min=kTinyScale) / qmaxf
     hs = torch.clamp(h.abs().max(), min=kTinyScale) / qmaxf
     u = uniform(key, (g.shape[0], 2))

@@ -193,7 +193,8 @@ def record_is_valid(rec: SplitRecord) -> bool:
 
 def record_valid(row: torch.Tensor) -> torch.Tensor:
     """Device twin of :func:`record_is_valid` over a record row
-    (reference ``rec_valid``); a 0-d bool tensor."""
+    (reference ``rec_valid``); a 0-d bool tensor, or [n] over a [W, n]
+    column block of n rows."""
     gain = row[S.GAIN]
     return (row[S.FEATURE] >= 0) & torch.isfinite(gain) & (gain > 0.0)
 
@@ -582,19 +583,7 @@ class SerialTreeLearner(CapabilityMixin):
         final [N] int32 row->leaf partition (on the device) for the
         score update (reference: GBDT::UpdateScore uses the learner's
         partition, gbdt.cpp:475)."""
-        ind = self._ones if bag is None else bag
-        self._tree_idx += 1
-        if self._quantized:
-            # the tree's rounding key advances here, before either loop
-            gh, self._qscale = self._quantize_stage(grad, hess, ind,
-                                                    self._tree_idx)
-        else:
-            gh = torch.stack([grad * ind, hess * ind, ind, self._ones],
-                             dim=1)
-        self._set_tree_mask(self._sample_features())
-        if self._draws_thresholds():
-            self._extra_key[1].fill_(
-                (self._extra_seed + 7919 * self._tree_idx) & 0x7FFFFFFF)
+        gh = self._stage_tree(grad, hess, bag)
         if self._cegb_enabled:
             tree, state = self._grow_stepped(gh, cegb=True)
         elif self._mono_tracker is not None:
@@ -608,6 +597,25 @@ class SerialTreeLearner(CapabilityMixin):
         else:
             tree, state = self._grow_stepped(gh)
         return tree, state.leaf_of_row
+
+    def _stage_tree(self, grad: torch.Tensor, hess: torch.Tensor,
+                    bag: Optional[torch.Tensor]) -> torch.Tensor:
+        """A new tree's rows ``(grad, hess, in-bag, 1)`` (quantized under
+        the tree's rounding key, which advances here, before any loop),
+        its feature mask and its extra_trees key; no host read."""
+        ind = self._ones if bag is None else bag
+        self._tree_idx += 1
+        if self._quantized:
+            gh, self._qscale = self._quantize_stage(grad, hess, ind,
+                                                    self._tree_idx)
+        else:
+            gh = torch.stack([grad * ind, hess * ind, ind, self._ones],
+                             dim=1)
+        self._set_tree_mask(self._sample_features())
+        if self._draws_thresholds():
+            self._extra_key[1].fill_(
+                (self._extra_seed + 7919 * self._tree_idx) & 0x7FFFFFFF)
+        return gh
 
     # ------------------------------------------------------------------
     # the root, shared by both loops
@@ -1069,13 +1077,32 @@ class SerialTreeLearner(CapabilityMixin):
         tree = Tree(self.L)
         forced = (self._apply_forced(tree, buf.state)
                   if self._forced is not None else 0)
-        done, steps = 0, self.L - 1 - forced
+        self._run_steps(buf, self.L - 1 - forced, forced, read_flags=True)
+        records = buf.state.records.cpu().tolist()
+        self.grow_stats["record_reads"] += 1
+        # the forced records (gain 0) are in the tree already
+        for row in records[forced:]:
+            rec = SplitRecord.from_row(int(row[0]), row[1:], self.layout)
+            if not record_is_valid(rec):
+                break
+            apply_split_record(tree, self.dataset, rec)
+        return tree, buf.state
+
+    def _run_steps(self, buf: _FusedBuffers, steps: int, start: int,
+                   read_flags: bool) -> None:
+        """Up to ``steps`` split steps after ``start`` applied ones (graph
+        replays on CUDA, the step eagerly on the CPU). With
+        ``read_flags``, one read of the step counter per
+        :data:`FUSED_CHUNK` steps stops a tree that ended; without, all
+        ``steps`` run (those past the tree's end change nothing)."""
+        done = 0
         if (self.device.type == "cuda" and self._graph is None
                 and steps > 0):
             self._capture(buf)
             done = 1
         while done < steps:
-            k = min(FUSED_CHUNK - done % FUSED_CHUNK, steps - done)
+            k = (min(FUSED_CHUNK - done % FUSED_CHUNK, steps - done)
+                 if read_flags else steps - done)
             for _ in range(k):
                 if self._graph is not None:
                     self._replay()
@@ -1087,14 +1114,104 @@ class SerialTreeLearner(CapabilityMixin):
                 # one flag read per chunk: a step that found no valid
                 # split left the counter behind the steps run
                 self.grow_stats["flag_reads"] += 1
-                if int(buf.state.step) < forced + done:
+                if int(buf.state.step) < start + done:
                     break
-        records = buf.state.records.cpu().tolist()
+
+    # ------------------------------------------------------------------
+    # batched iterations (reference parallel/data_parallel.py train_many)
+    # ------------------------------------------------------------------
+    def supports_train_many(self) -> bool:
+        """True when T boosting iterations can run with no host read
+        (reference ``supports_train_many``, data_parallel.py:800): the
+        whole-tree loop, and no setting that needs per-split or per-tree
+        host state: CEGB, a host monotone tracker, per-node masks,
+        ``0 < feature_fraction < 1`` (a host draw per tree) or forced
+        splits (the reference keeps those on its serial learner)."""
+        return (self._fused_growth and self._forced is None
+                and not self._cegb_enabled and self._mono_tracker is None
+                and not self._needs_per_node_masks()
+                and not 0.0 < float(self.config.feature_fraction) < 1.0)
+
+    def _leaf_outputs(self, records: torch.Tensor) -> torch.Tensor:
+        """[L] f32 final leaf outputs from a tree's record buffer
+        (reference ``_leaf_outputs_from_records``): split i writes its
+        left output to its leaf and its right output to leaf i + 1, and
+        the last write to a leaf wins. Done as one scatter: each leaf
+        keeps the write with the largest (step, side) order."""
+        L, dev = self.L, self.device
+        n = records.shape[0]
+        rows = records[:, 1:]
+        valid = record_valid(rows.t()).repeat(2)
+        order = torch.arange(n, device=dev)
+        target = torch.where(valid, torch.cat([records[:, 0].long(),
+                                               order + 1]), L)
+        when = torch.cat([2 * order, 2 * order + 1])
+        last = torch.full((L + 1,), -1, dtype=torch.int64,
+                          device=dev).scatter_reduce(0, target, when, "amax")
+        target = torch.where(when == last[target], target, L)
+        value = torch.cat([rows[:, S.LEFT_OUTPUT], rows[:, S.RIGHT_OUTPUT]])
+        out = torch.zeros(L + 1, dtype=torch.float32, device=dev)
+        return out.scatter_(0, target, value)[:L]
+
+    def train_many(self, grad_fn, sample, score: torch.Tensor,
+                   iters: List[int], shrinkage: float) -> torch.Tensor:
+        """Run ``len(iters)`` boosting iterations with no host read until
+        one read of all their records (reference ``train_many``,
+        data_parallel.py:986, ``_many_impl`` / ``_many_impl_multi``).
+        ``score`` is the [N, K] training score, updated in place;
+        ``grad_fn`` the objective's gradients of it ([N] for K = 1);
+        ``sample`` a strategy whose ``device_draw`` keys on the absolute
+        iteration numbers ``iters`` (None: every row in bag). For each
+        iteration and class, as the looped path does it: the tree's
+        rows, root and L - 1 steps (replays with no flag read), its leaf
+        outputs from its own records, then ``score += f32(f64(out) *
+        shrinkage)[leaf_of_row]``, the looped update's rounding. After an
+        iteration where no class grew, the score stays as it is and the
+        later records read as invalid (the reference's ``alive`` flag
+        and -inf gains). Returns the host [T, K, L - 1, 1 + W] records:
+        the one host read of the batch."""
+        host = self._train_many_on_device(grad_fn, sample, score, iters,
+                                           shrinkage).cpu()
         self.grow_stats["record_reads"] += 1
-        # the forced records (gain 0) are in the tree already
-        for row in records[forced:]:
-            rec = SplitRecord.from_row(int(row[0]), row[1:], self.layout)
-            if not record_is_valid(rec):
-                break
-            apply_split_record(tree, self.dataset, rec)
-        return tree, buf.state
+        return host
+
+    def _train_many_on_device(self, grad_fn, sample, score: torch.Tensor,
+                              iters: List[int],
+                              shrinkage: float) -> torch.Tensor:
+        """:meth:`train_many` up to its read: the [T, K, L - 1, 1 + W]
+        records on the learner's device."""
+        if not self.supports_train_many():
+            raise LightGBMError("train_many needs the whole-tree loop "
+                                "and no per-split host state")
+        K, dev = score.shape[1], self.device
+        out = torch.empty((len(iters), K, max(self.L - 1, 1),
+                           1 + self._record_width), dtype=torch.float32,
+                          device=dev)
+        dead = torch.zeros(1 + self._record_width, dtype=torch.float32,
+                           device=dev)
+        dead[1 + S.GAIN].fill_(float("-inf"))
+        dead[1 + S.FEATURE].fill_(-1.0)
+        alive = torch.ones((), dtype=torch.bool, device=dev)
+        for t, it in enumerate(iters):
+            grad, hess = grad_fn(score[:, 0] if K == 1 else score)
+            bag = None
+            if sample is not None:
+                grad, hess, bag = sample.device_draw(it, grad, hess)
+            grew = torch.zeros((), dtype=torch.bool, device=dev)
+            for k in range(K):
+                gk = grad if K == 1 else grad[:, k].contiguous()
+                hk = hess if K == 1 else hess[:, k].contiguous()
+                buf = self._fused_buffers(self._stage_tree(gk, hk, bag))
+                self._root(buf.state)
+                self._run_steps(buf, self.L - 1, 0, read_flags=False)
+                st = buf.state
+                grew_k = record_valid(st.records[0, 1:])
+                grew |= grew_k
+                out[t, k] = torch.where(alive, st.records, dead)
+                lv = (self._leaf_outputs(st.records).double()
+                      * float(shrinkage)).float()
+                col = score[:, k]
+                col.copy_(torch.where(alive & grew_k,
+                                      col + lv[st.leaf_of_row.long()], col))
+            alive &= grew
+        return out

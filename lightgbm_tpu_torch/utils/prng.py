@@ -92,7 +92,8 @@ def fold_in(key: torch.Tensor, data: IntOrTensor) -> torch.Tensor:
     else:
         if not 0 <= int(data) <= _M32:
             raise ValueError("fold_in data %d is not a uint32" % int(data))
-        d = torch.tensor(int(data), dtype=torch.int64, device=key.device)
+        # a fill: a copy from the host would wait for the card
+        d = torch.full((), int(data), dtype=torch.int64, device=key.device)
     y0, y1 = threefry2x32(key, torch.zeros_like(d), d)
     return torch.stack([y0, y1], dim=-1)
 

@@ -83,8 +83,12 @@ def test_predict_takes_the_reference_keywords(binary_booster):
                                   host)
     np.testing.assert_array_equal(bst.predict(X, predict_on_device=False),
                                   host)
-    with pytest.raises(LightGBMError, match="item 18b"):
-        bst.predict(X, pred_contrib=True)
+    # pred_contrib (item 18b) gives the JAX package's SHAP values of the
+    # same model text
+    ref = ref_lgb.Booster(model_str=bst.model_to_string())
+    np.testing.assert_allclose(bst.predict(X[:50], pred_contrib=True),
+                               ref.predict(X[:50], pred_contrib=True),
+                               rtol=0, atol=1e-12)
     ref_params = list(inspect.signature(ref_lgb.Booster.predict).parameters)
     assert list(inspect.signature(lgb.Booster.predict).parameters) == \
         ref_params

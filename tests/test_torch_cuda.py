@@ -998,3 +998,69 @@ def test_dart_rf_and_refit_on_cuda(cuda):
         np.testing.assert_allclose(a.leaf_value[:a.num_leaves],
                                    b.leaf_value[:b.num_leaves], rtol=0,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("extra,kernel", [
+    ({}, "histogram_f32"),
+    ({"use_quantized_grad": True, "bagging_fraction": 0.7,
+      "bagging_freq": 1}, "histogram_i8")], ids=["f32", "int8-bagging"])
+def test_batched_iterations_on_cuda(cuda, extra, kernel):
+    """Six batched iterations on the card give the looped trees text for
+    text and the same training score bytes; the batch reads its records
+    once and never reads the step counter, runs with no host sync until
+    that read, and every histogram of it is a launch of the kernel
+    (device launches == roots + steps)."""
+    rng = np.random.RandomState(41)
+    X = rng.randn(30000, 12)
+    y = (X[:, 0] + 0.5 * X[:, 1] ** 2 + rng.randn(30000) * 0.3 > 0.5)
+    params = dict({"objective": "binary", "num_leaves": 31,
+                   "verbose": -1}, **extra)
+    a = lgb.Booster(params=params, train_set=lgb.Dataset(X, label=y))
+    b = lgb.Booster(params=params, train_set=lgb.Dataset(X, label=y))
+    a.update()
+    b.update()
+    assert a.inner.can_train_batched()
+    stats = dict(a.inner.learner.grow_stats)
+    H.reset_launch_counts()
+    a.inner.train_batch(6)
+    launches = H.device_launch_counts()
+    for _ in range(6):
+        b.update()
+    after = a.inner.learner.grow_stats
+    assert after["record_reads"] - stats["record_reads"] == 1
+    assert after["flag_reads"] == stats["flag_reads"]
+    assert launches[kernel] == (after["roots"] - stats["roots"]
+                                + after["steps"] - stats["steps"])
+    assert sum(launches.values()) == launches[kernel]
+    assert [t.to_string() for t in a.inner.models] == \
+        [t.to_string() for t in b.inner.models]
+    assert torch.equal(a.inner.train_score, b.inner.train_score)
+    # everything up to the record read runs with no host sync
+    inner = a.inner
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        inner.learner._train_many_on_device(
+            inner.objective.get_gradients, inner.sample_strategy,
+            inner.train_score.clone(), [7, 8], inner.shrinkage_rate)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_pred_contrib_of_a_card_model_equals_cpu(cuda):
+    """SHAP values of a card-trained model equal the CPU booster's on the
+    same text, and add up to the raw scores."""
+    rng = np.random.RandomState(43)
+    X = rng.randn(20000, 8)
+    y = (X[:, 0] - X[:, 2] + rng.randn(20000) * 0.3 > 0).astype(float)
+    bst = lgb.train({"objective": "binary", "num_leaves": 31,
+                     "verbose": -1}, lgb.Dataset(X, label=y),
+                    num_boost_round=4)
+    cpu = lgb.Booster(model_str=bst.model_to_string(),
+                      params={"device_type": "cpu"})
+    got = bst.predict(X[:64], pred_contrib=True)
+    np.testing.assert_array_equal(got, cpu.predict(X[:64],
+                                                   pred_contrib=True))
+    np.testing.assert_allclose(got.sum(axis=1),
+                               bst.predict(X[:64], raw_score=True,
+                                           predict_on_device=False),
+                               rtol=0, atol=1e-9)

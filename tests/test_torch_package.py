@@ -6,7 +6,7 @@
 - ``device_type="cuda"`` (the default) without a visible GPU raises
   instead of running on the CPU;
 - every setting outside the port raises and names its ROADMAP item, and
-  the settings of the later slices train (those of items 16 and 26
+  the settings of the later slices train (those of items 16, 17 and 26
   against the JAX package);
 - ``chip_smoke.py`` fails without a GPU and prints no result.
 """
@@ -41,6 +41,12 @@ def test_fresh_import_loads_no_jax_and_no_reference_module():
         "import sys, runpy\n"
         "import lightgbm_tpu_torch, lightgbm_tpu_torch.convert\n"
         "import lightgbm_tpu_torch.csrc\n"
+        "from lightgbm_tpu_torch import (cv, CVBooster, LGBMClassifier,\n"
+        "    LGBMRegressor, LGBMRanker, plot_importance, plot_metric,\n"
+        "    plot_split_value_histogram, plot_tree, create_tree_digraph)\n"
+        "import lightgbm_tpu_torch.io.streaming, lightgbm_tpu_torch.io.binary_io\n"
+        "import lightgbm_tpu_torch.models.shap, lightgbm_tpu_torch.models.codegen\n"
+        "import lightgbm_tpu_torch.utils.atomic\n"
         "runpy.run_path(%r, run_name='chip_smoke_imported')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
@@ -157,7 +163,7 @@ def test_monotone_forced_linear_train_save_load(params, tmp_path):
 
 @pytest.mark.parametrize("params,item", [
     ({"categorical_feature": "0", "max_bin": 300}, None),
-    ({"tpu_eval_iterations": 4}, "item 17"),
+    ({"tpu_eval_iterations": 4}, None),
     ({"num_machines": 2}, "item 22"),
     ({"gpu_use_dp": True}, None),
     ({"boosting": "dart"}, None),
@@ -165,14 +171,14 @@ def test_monotone_forced_linear_train_save_load(params, tmp_path):
     ({"boosting": "rf", "bagging_fraction": 0.8, "bagging_freq": 1}, None),
     ({"max_bin": 511}, None),
     ({"tpu_use_f64_hist": True}, None),
-    ({"tpu_batch_iterations": 4}, "item 17"),
+    ({"tpu_batch_iterations": 4}, None),
     ({"tree_learner": "data"}, "item 22"),
 ])
 def test_settings_outside_the_slice_raise(params, item):
     """A setting of an open ROADMAP item raises naming it. The settings
-    of items 16 and 26 (wide bins, f64 histograms, DART, RF), which
-    raised before the port had them, train and give the JAX package's
-    trees on the verify-skill rows (2000 x 10; column 0 holds 300
+    of items 16, 17 and 26 (wide bins, f64 histograms, DART, RF, batched
+    iterations and eval hoisting), which raised before the port had
+    them, train and give the JAX package's trees on the verify-skill rows (2000 x 10; column 0 holds 300
     categories for the categorical case; 15 leaves), at level (b): the same splits
     and leaf counts, predictions within 1e-6. ``gpu_use_dp`` asks the
     port for f64 histograms; the reference reads only
