@@ -62,19 +62,22 @@ Phases (each one fails the run if it fails):
    and on ``cpu``: tree 1 must make the same splits, through the int16
    instance on the card;
 9. multiclass at UCI Covertype's shape (581,012 rows x 54 columns, 7
-   classes, synthetic from a seed; 255 leaves, 3 rounds = 21 trees) with
+   classes, synthetic from a seed; 255 leaves, 2 rounds = 14 trees) with
    EFB at its default: the 44 one-hot columns bundle, and the kernel runs
    over the bundle columns; held-out multi_logloss falls every round,
    multi_error ends below the majority class's 0.512, the device
    validation scores equal the host walk within 1e-4, f32 launches ==
-   roots + steps over the 21 trees; 1 round at 63 leaves text-equal
+   roots + steps over the 14 trees; 1 round at 63 leaves text-equal
    through both loops; a 2-round unbundled f32 run reaches the held-out loss
    within 1e-4 (its prediction gap and structure-equal trees printed);
    on the same gradients the bundled learner's histograms of the root
    and of the root split's smaller child (unpacked, each shared zero bin
    rebuilt from the totals the learner passes) are held against the f64
    sums over the unbundled bins within the f32 kernel's tolerance, and
-   ms per split of both learners are timed in turns;
+   ms per split of both learners are timed in turns, and the first
+   split where the two learners part, on those gradients and on tree
+   0's, is printed with both winners' gains and both learners' gains
+   for each winner (a near-tie or not);
    the same rows as a scipy CSR matrix bin to the same bytes and train
    2 text-equal rounds; the LUT-node encoding of the stacked forest
    gives the compare encoding's and the host walk's leaves and bytes
@@ -95,7 +98,7 @@ Phases (each one fails the run if it fails):
    tree, renewed leaf values (l1, quantile, mape) equal; renewal ms;
 
 12. prediction through the stacked forest: train binary (255 leaves,
-   min_data_in_leaf 100, lr 0.1, 50 rounds) on phase 3's 200k rows;
+   min_data_in_leaf 100, lr 0.1, 40 rounds) on phase 3's 200k rows;
    predict the reference bench's batch (262,144 rows of
    ``make_higgs_like(seed=1)``) through ``Booster.predict`` in auto
    mode (it must dispatch the stacked path), ``predict_raw_device`` and
@@ -107,7 +110,7 @@ Phases (each one fails the run if it fails):
    byte-equal; rows/s of the host walk, the stacked ``value`` path and
    ``raw_device``, ms per 65,536-row bucket split into quantize, walk
    and sum, bytes each way, peak memory; then continue the model saved
-   after 25 rounds for 25 more through ``init_model`` (held-out AUC must
+   after 20 rounds for 20 more through ``init_model`` (held-out AUC must
    not fall) and round-trip it through pickle (same predictions).
    Phases 4, 9 and 10 hold the stacked path against the host walk on
    their own boosters and held-out rows too;
@@ -215,13 +218,32 @@ Phases (each one fails the run if it fails):
       text-equal to ``lgb.train`` on its subset;
    e. ``pred_contrib`` of 16 held-out rows of 19c's model: each row sums
       to its raw score within 1e-6 x scale; its ms;
+20. observability and checkpoints on the card (``lightgbm_tpu_torch/obs``,
+   ``ft/checkpoint.py``), on phase 4's Dataset:
+   a. sample mode (``registry.enable(sampling=True)``), f32, 3 rounds,
+      with the span trace and the event log written to temporary files:
+      the trace parses; it has ``tree::grow``, ``gbdt::gradients``,
+      ``gbdt::score_update`` and ``gbdt::eval_metrics`` spans and a
+      readiness span for each watched stage; 3 ``train_iter`` events;
+      host syncs per tree no more than phase 4's; the registry's launch
+      gauge == ``device_launch_counts()`` == roots + steps (K1), and the
+      registry's host count - captures + graph replays == the same;
+   b. fencing mode, 8-bit, 2 rounds: the per-stage table (the port's
+      per-stage device times on the card, each stage fenced), through
+      the int8 instance only (K2);
+   c. resume: f32 with a checkpoint every 2 of 4 rounds, resumed from
+      the first checkpoint: the 4 trees text-equal to phase 4's first 4;
+      then 8-bit with bagging and DART at 200k rows, cut after their
+      4-round checkpoint and resumed to 6: text and score bits equal to
+      the uninterrupted runs;
 
 then time every instance over the learners' real bins of phases 9 (the
 bundle columns at Bg), 13 and 10, and print one ``{"kernels": [...]}``
 line with the launches of each kernel on each path that runs it, as its
 device counter counted them (graph replays included;
 ``launches_by_path``; f32: phases 3, 4, 9, 10, 11, 12, 13, 14a, 14b,
-14d, 14e, 15a-e, 18, 19a, 19c, 19d; int8: phases 7, 9, 14c, 15d, 19b;
+14d, 14e, 15a-e, 18, 19a, 19c, 19d, 20a, 20c; int8: phases 7, 9, 14c,
+15d, 19b, 20b, 20c;
 int16: phase 8; f64: phase 17; the uint16 instances: phase 16, and f64
 phase 17); each instance must have been timed and launched by some
 path.
@@ -230,9 +252,9 @@ no hand kernel: the stacked walk is PyTorch ops (the reference's is
 ``jnp``), so it has no row in that line.
 
 Rounds cut to keep the script inside its time, with every check kept:
-phases 9 and 13 3 rounds (5 before), phase 12 50 rounds and a 25 + 25
-continuation (100 and 50 + 50 before), 14d, 14e and 15b's intermediate
-method 1 round (2 before).
+phases 9 and 13 2 rounds (5, then 3 before), phase 12 40 rounds and a
+20 + 20 continuation (100 and 50 + 50, then 50 and 25 + 25 before), 14d,
+14e and 15b's intermediate method 1 round (2 before).
 
 Phases 3, 4, 7-11, 13, 14a-c, 15a, 15c-e, 16-18 and 19 train through the
 default whole-tree loop (14d, 14e and 15b through the per-split loop, which
@@ -246,7 +268,8 @@ CUDA device, or without the ``lightgbm_tpu_torch`` package beside this
 file, the script exits non-zero and prints no result.
 ``--phases 1,2`` runs a subset (for development; the full run is the
 check); phase 19 brings phases 4 and 7, whose trees its batches are
-held against.
+held against, and phase 20 brings phase 4 (its Dataset, trees and host
+syncs).
 """
 from __future__ import annotations
 
@@ -295,10 +318,11 @@ CUT_LEAVES = 63
 
 #: rounds of phase 12's predict model and, from its half, of the
 #: continued run (cut from 100: the training and the host walk of 100
-#: trees took ~60 s of the script's time)
-PREDICT_ROUNDS = 50
-#: rounds of the Covertype phases 9 and 13 (cut from 5 for time)
-MULTICLASS_ROUNDS = 3
+#: trees took ~60 s of the script's time; then from 50, for phase 20)
+PREDICT_ROUNDS = 40
+#: rounds of the Covertype phases 9 and 13 (cut from 5, then from 3 for
+#: phase 20, for time)
+MULTICLASS_ROUNDS = 2
 
 FULL_ROWS = 10_500_000
 HELD_OUT_ROWS = 500_000
@@ -1185,7 +1209,7 @@ class _StageTimer(_EventTimer):
 
 
 def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
-               grad_cls=None, tag=None):
+               grad_cls=None, tag=None, extra_syncs=0):
     """Train through ``lightgbm_tpu_torch.train`` with the launch counts
     set to 0 just before and read just after; every histogram must go
     through ``kernel`` (:func:`check_device_launches`: its device
@@ -1196,8 +1220,9 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
     within ``ceil((L - 1) / FUSED_CHUNK) + 2``. CUDA events time every
     eager histogram, scan and quantize call (a graph replay runs none of
     them through Python), and, when ``grad_cls`` names the objective's
-    class, every gradient call with the device memory it needs. Returns
-    a dict of the run's numbers."""
+    class, every gradient call with the device memory it needs.
+    ``extra_syncs`` widens the sync bound by the syncs a tree is asked to
+    make on top (a fenced stage). Returns a dict of the run's numbers."""
     import torch
     from lightgbm_tpu_torch.treelearner import serial
     tag = tag or json.dumps({k: v for k, v in params.items()
@@ -1262,6 +1287,7 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
     K = bst.inner.num_tree_per_iteration
     splits = sum(t.num_leaves - 1 for t in trees)
     SPLIT_MS[tag] = 1e3 * sum(tree_seconds) / max(splits, 1)
+    TREE_SYNCS[tag] = list(tree_syncs)
     check(len(trees) == rounds * K, "expected %d trees, got %d"
           % (rounds * K, len(trees)))
     check(all(t.num_leaves > 1 for t in trees), "a tree has one leaf")
@@ -1300,7 +1326,7 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
     # read of its record (``tolist``) and the partition's ``nonzero``
     # (SerialTreeLearner._apply_forced and _split)
     sync_bound = (math.ceil((learner.L - 1) / serial.FUSED_CHUNK) + 2
-                  + math.ceil(2 * forced / len(trees)))
+                  + math.ceil(2 * forced / len(trees)) + extra_syncs)
     if fused:
         check(max(tree_syncs) <= sync_bound,
               "%s: %d host syncs in a tree, more than ceil((L-1)/%d) + 2 "
@@ -1358,6 +1384,8 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
 
 #: mean ms per split of each training run (tree seconds / splits), by tag
 SPLIT_MS = {}
+#: host syncs of each tree of each training run, by tag
+TREE_SYNCS = {}
 #: the tag of phase 4's run
 PHASE4_TAG = json.dumps({"num_leaves": 255})
 
@@ -1701,7 +1729,16 @@ def phase_covertype(lgb, hist_mod):
            unb["evals"]["multi_logloss"][1]))
     check(loss_gap <= 1e-4, "bundled and unbundled held-out multi_logloss "
           "differ by %.3g" % loss_gap)
-    time_bundled_step(bst.inner.learner, plain.inner.learner, hist_mod)
+    diff = first_split_difference(bst.inner.models[:14],
+                                  plain.inner.models)
+    if diff is not None:
+        t, i, u, v = diff
+        log("covertype bundled vs unbundled, f32 (2 rounds): the first "
+            "split that differs is split %d of tree %d (class %d of "
+            "iteration %d): bundled (feature, bin, type, gain) %s, "
+            "unbundled %s" % (i + 1, t, t % 7, t // 7, u, v))
+    time_bundled_step(bst.inner.learner, plain.inner.learner, hist_mod,
+                      tree0_gradients(lgb, ds, params))
     del plain, unb
     # the same rows as a CSR matrix
     t0 = time.perf_counter()
@@ -1817,12 +1854,14 @@ def check_bundled_histograms(bundled, unbundled, gh, hist_mod):
             for k, v in worst.items())))
 
 
-def time_bundled_step(bundled, unbundled, hist_mod, trees: int = 2):
+def time_bundled_step(bundled, unbundled, hist_mod, real, trees: int = 2):
     """The whole-tree loop of a bundled and an unbundled learner on the
     same rows and the same gradients (synthetic, from a seed), in turns
     (unbundled, bundled, bundled, unbundled): ms per split of each, on
     one card in one call. First the bundled histograms on those
-    gradients are checked (:func:`check_bundled_histograms`)."""
+    gradients are checked (:func:`check_bundled_histograms`). Then
+    :func:`efb_first_difference` on those gradients and on ``real``,
+    the (grad, hess) of the training run's tree 0."""
     import torch
     n, dev = bundled.N, bundled.device
     g = torch.Generator(device=dev)
@@ -1833,6 +1872,7 @@ def time_bundled_step(bundled, unbundled, hist_mod, trees: int = 2):
                       torch.ones_like(grad)], dim=1)
     check_bundled_histograms(bundled, unbundled, gh, hist_mod)
     ms = {"unbundled": [], "bundled": []}
+    grown = {}
     for name in ("unbundled", "bundled", "bundled", "unbundled"):
         learner = bundled if name == "bundled" else unbundled
         for _ in range(trees):
@@ -1842,10 +1882,170 @@ def time_bundled_step(bundled, unbundled, hist_mod, trees: int = 2):
             torch.cuda.synchronize()
             ms[name].append(1e3 * (time.perf_counter() - t0)
                             / max(tree.num_leaves - 1, 1))
+            grown[name] = tree
     log("whole-tree loop on the same gradients (covertype, 255 leaves; "
         "in turns): ms per split unbundled %s, bundled %s"
         % (" ".join("%.3f" % v for v in ms["unbundled"]),
            " ".join("%.3f" % v for v in ms["bundled"])))
+    efb_first_difference(bundled, unbundled, gh, grown["bundled"],
+                         grown["unbundled"], "synthetic gradients")
+    ones = torch.ones_like(real[0])
+    gh = torch.stack([real[0], real[1], ones, ones], dim=1)
+    efb_first_difference(bundled, unbundled, gh,
+                         bundled._grow_fused(gh)[0],
+                         unbundled._grow_fused(gh)[0],
+                         "tree 0's gradients")
+
+
+def tree0_gradients(lgb, ds, params):
+    """The (grad, hess) that the learner got for tree 0 (class 0 of
+    iteration 0) of a run of ``params`` on ``ds``: the run is stopped at
+    its first tree."""
+    from lightgbm_tpu_torch.treelearner import serial
+    grow = serial.SerialTreeLearner.train
+    got = []
+
+    def capture(self, grad, hess, bag=None):
+        check(bag is None, "tree 0 of the covertype run has a bag")
+        got.append((grad.clone(), hess.clone()))
+        raise _StopTrace()
+    serial.SerialTreeLearner.train = capture
+    try:
+        lgb.train(params, ds, num_boost_round=1)
+    except _StopTrace:
+        pass
+    finally:
+        serial.SerialTreeLearner.train = grow
+    return got[0]
+
+
+def _node_splits(tree):
+    """(inner feature, threshold bin, decision type, gain) of each
+    internal node, in the order the splits were made (node i is split
+    i)."""
+    return [(int(tree.split_feature_inner[i]),
+             int(tree.threshold_in_bin[i]), int(tree.decision_type[i]),
+             float(tree.split_gain[i])) for i in range(tree.num_internal)]
+
+
+def first_split_difference(bundled_trees, unbundled_trees):
+    """(tree, split, bundled split, unbundled split) of the first split
+    that differs in (feature, threshold bin, decision type), in tree
+    order and then split order, or None."""
+    for t, (a, b) in enumerate(zip(bundled_trees, unbundled_trees)):
+        sa, sb = _node_splits(a), _node_splits(b)
+        for i in range(max(len(sa), len(sb))):
+            u = sa[i] if i < len(sa) else None
+            v = sb[i] if i < len(sb) else None
+            if u is None or v is None or u[:3] != v[:3]:
+                return t, i, u, v
+    return None
+
+
+class _StopTrace(Exception):
+    pass
+
+
+def _candidate_tables(learner, gh, upto):
+    """The per-split loop of ``learner`` on the rows ``gh``, stopped
+    at split ``upto`` (0-based): each split's winner (leaf, feature,
+    threshold bin) and the candidate table it won from (every leaf's
+    [gain, feature, threshold bin], read before the split), and the
+    loop's state before split ``upto``."""
+    from lightgbm_tpu_torch.ops import split as S
+    from lightgbm_tpu_torch.treelearner import serial
+    split = serial.SerialTreeLearner._split
+    cols = [S.GAIN, S.FEATURE, S.THRESHOLD_BIN]
+    trace, last = [], []
+
+    def traced(self, state, rec, *args):
+        trace.append(((rec.leaf, rec.feature, rec.threshold_bin),
+                      state.cand[:, cols].cpu().numpy()))
+        if len(trace) > upto:
+            last.append(state)
+            raise _StopTrace()
+        return split(self, state, rec, *args)
+    serial.SerialTreeLearner._split = traced
+    try:
+        learner._grow_stepped(gh)
+    except _StopTrace:
+        pass
+    finally:
+        serial.SerialTreeLearner._split = split
+    return trace, last[0] if last else None
+
+
+def _feature_gain(learner, state, leaf: int, feature: int) -> float:
+    """The best gain of one feature in one leaf of the per-split loop's
+    ``state``: the leaf's scan with every other feature masked out (the
+    leaf's sums from its candidate row, as the loop splits it)."""
+    import torch
+    from lightgbm_tpu_torch.ops import split as S
+    row = state.cand[leaf]
+    sums = (row[S.LEFT_SUM_GRAD:S.LEFT_SUM_GRAD + 4]
+            + row[S.RIGHT_SUM_GRAD:S.RIGHT_SUM_GRAD + 4])
+    mask = torch.zeros_like(learner.feature_mask)
+    mask[feature] = True
+    info = learner._scan(state.hists[leaf], sums,
+                         S.calculate_leaf_output(sums[0], sums[1],
+                                                 learner.params),
+                         learner._qscale, mask=mask)
+    return float(info[S.GAIN])
+
+
+def efb_first_difference(bundled, unbundled, gh, t_bundled, t_unbundled,
+                         what):
+    """Why bundled and unbundled f32 trees part: the first split where
+    the bundled and the unbundled learner part on the SAME rows and
+    gradients (f32), with both winners' gains, and both candidate
+    tables at that split (each learner's per-split loop, stopped
+    there): whether the two winners are a near-tie, each learner's gap
+    between them no larger than the largest gain difference of one
+    candidate that both tables hold (the f32 rounding of the two
+    histograms). Printed, not checked: a flip past that bound would be
+    a fault of the bundled path, inside it a fact of f32 sums."""
+    diff = first_split_difference([t_bundled], [t_unbundled])
+    if diff is None:
+        log("EFB, %s (covertype, 255 leaves, f32): the bundled and the "
+            "unbundled learner grow the same tree (%d splits)"
+            % (what, t_bundled.num_internal))
+        return
+    _, k, u, v = diff
+    tables, states = {}, {}
+    for name, learner in (("bundled", bundled), ("unbundled", unbundled)):
+        tables[name], states[name] = _candidate_tables(learner, gh, k)
+    (wa, ca), (wb, cb) = tables["bundled"][k], tables["unbundled"][k]
+    same_before = all(x[0] == y[0] for x, y in zip(tables["bundled"][:k],
+                                                   tables["unbundled"][:k]))
+    live = np.isfinite(ca[:, 0]) & np.isfinite(cb[:, 0])
+    agree = live & np.all(ca[:, 1:] == cb[:, 1:], axis=1)
+    rounding = float(np.abs(ca[agree, 0].astype(np.float64)
+                            - cb[agree, 0]).max()) if agree.any() else 0.0
+    # the two winners as candidates (leaf, feature), each scanned alone
+    # by both learners: the bundled winner A, the unbundled winner B
+    gains = {name: [_feature_gain(learner, states[name], w[0], w[1])
+                    for w in (wa, wb)]
+             for name, learner in (("bundled", bundled),
+                                   ("unbundled", unbundled))}
+    (ga_b, gb_b), (ga_u, gb_u) = gains["bundled"], gains["unbundled"]
+    pair = max(abs(ga_b - ga_u), abs(gb_b - gb_u))
+    bound = max(pair, rounding)
+    gap_b, gap_u = ga_b - gb_b, gb_u - ga_u
+    near = 0.0 <= gap_b <= bound and 0.0 <= gap_u <= bound
+    log("EFB, %s (covertype, 255 leaves, f32): splits 1-%d equal "
+        "(per-split loop: %s); split %d: bundled splits leaf %d (feature "
+        "%d, bin %d, gain %.9g), unbundled leaf %d (feature %d, bin %d, "
+        "gain %.9g); each winner scanned alone in its leaf: bundled "
+        "gives A %.9g, B %.9g (gap %.3g, %.1f ulp), unbundled A %.9g, B "
+        "%.9g (gap %.3g, %.1f ulp); the same candidate's gain differs "
+        "across the two learners by up to %.3g (A, B), %.3g (the %d of "
+        "%d live leaves whose tables agree); a near-tie within the f32 "
+        "rounding of the two histograms: %s"
+        % (what, k, same_before, k + 1, wa[0], wa[1], wa[2],
+           float(ca[wa[0], 0]), wb[0], wb[1], wb[2], float(cb[wb[0], 0]),
+           ga_b, gb_b, gap_b, _ulps(ga_b, gb_b), ga_u, gb_u, gap_u,
+           _ulps(ga_u, gb_u), pair, rounding, int(agree.sum()),
+           int(live.sum()), near))
 
 
 def time_lut_encoding(bst, X, what):
@@ -4054,6 +4254,241 @@ def phase_surface(lgb, hist_mod, data, looped):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: observability and checkpoints on the card
+# ---------------------------------------------------------------------------
+#: the stages whose outputs the port watches (``obs.watch_ready``)
+WATCHED = ("gbdt::gradients", "tree::stage_gh", "tree::root_histogram",
+           "gbdt::score_update")
+
+
+def log_stage_table(registry, what):
+    """The registry's stage table, longest first: seconds, calls, p50
+    and p99 ms per call."""
+    table = registry.phases()
+    log("%s: per-stage table (s, calls, p50 ms, p99 ms): %s"
+        % (what, "; ".join(
+            "%s %.6f %d %s %s" % (k, v["seconds"], v["calls"],
+                                  v.get("p50_ms"), v.get("p99_ms"))
+            for k, v in sorted(table.items(),
+                               key=lambda kv: -kv[1]["seconds"]))))
+    return table
+
+
+def phase20_sample(lgb, hist_mod, data, tmp):
+    """20a: sample mode with the span trace and the event log on, f32,
+    3 rounds (the stage names, the readiness lane, the events, the host
+    syncs, and the registry's launch counts against the device's)."""
+    from lightgbm_tpu_torch.obs import events, trace
+    from lightgbm_tpu_torch.obs.registry import registry
+    ds, valid, _, _ = data
+    trace_path = os.path.join(tmp, "trace.json")
+    log_path = os.path.join(tmp, "events.jsonl")
+    registry.reset()
+    registry.enable(sampling=True)
+    trace.configure(trace_path)
+    events.configure(log_path)
+    try:
+        run = train_path(lgb, hist_mod, ds, valid,
+                         dict(SLICE_PARAMS, num_leaves=255),
+                         "histogram_f32", 3,
+                         tag="phase 20a sample mode f32, traced")
+        drained = registry.drain_ready(timeout=60)
+        dev = hist_mod.device_launch_counts()
+        snap = registry.snapshot()
+        table = log_stage_table(registry, "20a sample mode")
+        trace.flush()
+        events.flush()
+    finally:
+        trace.configure(None)
+        events.configure(None)
+        registry.disable()
+        registry.timer.sampling = False
+    check(drained, "20a: the readiness drainer did not empty in 60 s")
+    with open(trace_path) as f:
+        doc = json.load(f)
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    names = {e["name"] for e in spans}
+    for stage in ("tree::grow", "gbdt::gradients", "gbdt::score_update",
+                  "gbdt::eval_metrics"):
+        check(stage in names, "20a: no %s span in the trace" % stage)
+    by_id = {e["args"].get("span_id"): e for e in spans}
+    ready = {}
+    for stage in WATCHED:
+        lane = [e for e in spans if e["name"] == stage + "::ready"]
+        ready[stage] = len(lane)
+        check(lane and all(
+            by_id.get(e["args"].get("parent_span_id"), {}).get("name")
+            == stage for e in lane),
+            "20a: %s has no readiness span parented to it" % stage)
+    recs = events.read_jsonl(log_path)
+    iters = [r for r in recs if r["event"] == "train_iter"]
+    check(len(iters) == 3, "20a: %d train_iter events for 3 rounds"
+          % len(iters))
+    bst = run["booster"]
+    stats = bst.inner.learner.grow_stats
+    k1 = "histogram_f32"
+    want = stats["roots"] + stats["steps"]
+    gauge = snap["gauges"].get("kernel/device_launches/" + k1)
+    host = snap["counters"].get("kernel/launches/" + k1, 0)
+    check(gauge == dev[k1] == want,
+          "20a: registry launch gauge %s, device counter %d, roots + "
+          "steps %d" % (gauge, dev[k1], want))
+    # the host counts where Python launched: roots, eager steps and the
+    # capture (recorded, not run); the card runs the replays instead
+    check(host - stats["captures"] + stats["replays"] == want,
+          "20a: registry host launches %d - captures %d + replays %d != "
+          "roots + steps %d" % (host, stats["captures"], stats["replays"],
+                                want))
+    phase4 = TREE_SYNCS.get(PHASE4_TAG)
+    if phase4:
+        check(max(run["tree_syncs"]) <= max(phase4),
+              "20a: %d host syncs in a tree under sample mode, phase 4's "
+              "most %d" % (max(run["tree_syncs"]), max(phase4)))
+    log("20a sample mode, f32, 3 rounds: trace %d spans (%d bytes), %d "
+        "events (%s); readiness spans per watched stage %s; host syncs "
+        "per tree %s (phase 4: %s); K1 launches: registry gauge %s == "
+        "device %d == roots %d + steps %d; registry host count %d - "
+        "captures %d + replays %d; ::ready seconds %s"
+        % (len(spans), os.path.getsize(trace_path), len(recs),
+           sorted({r["event"] for r in recs}), ready, run["tree_syncs"],
+           phase4, gauge, dev[k1], stats["roots"], stats["steps"], host,
+           stats["captures"], stats["replays"],
+           {k: table[k + "::ready"]["seconds"]
+                              for k in WATCHED}))
+    return run["launches"][k1]
+
+
+def phase20_fenced(lgb, hist_mod, data):
+    """20b: fencing mode, 8-bit, 2 rounds: every watched stage
+    synchronizes its stream, so the stage table holds the port's
+    per-stage device times; two fences a tree inside the learner."""
+    from lightgbm_tpu_torch.obs.registry import registry
+    ds, valid, _, _ = data
+    registry.reset()
+    registry.enable(sampling=False)
+    registry.fences = True
+    try:
+        check(registry.fence(), "20b: fencing mode is not on")
+        run = train_path(lgb, hist_mod, ds, valid,
+                         dict(SLICE_PARAMS, num_leaves=255,
+                              use_quantized_grad=True, quant_grad_bits=8),
+                         "histogram_i8", 2,
+                         tag="phase 20b fencing mode 8-bit",
+                         extra_syncs=2)
+        log_stage_table(registry, "20b fencing mode, 8-bit, 2 rounds")
+    finally:
+        registry.fences = False
+        registry.disable()
+    return run["launches"]["histogram_i8"]
+
+
+def _resumed_pair(lgb, hist_mod, ds, params, d, kernel, rounds=4):
+    """``rounds`` rounds with a checkpoint every 2, then a run resumed
+    from the first checkpoint (the later ones removed) to the same
+    rounds. Returns both boosters and the device launches of the two
+    runs, which must all be launches of ``kernel``: the roots + steps
+    of both learners."""
+    import shutil
+    hist_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = lgb.train(params, ds, num_boost_round=rounds,
+                      checkpoint_dir=d, checkpoint_freq=2)
+    t_first = time.perf_counter() - t0
+    names = sorted(os.listdir(d))
+    check(names == ["ckpt-%08d" % i for i in range(2, rounds + 1, 2)],
+          "checkpoints written: %s" % names)
+    for name in names[1:]:
+        shutil.rmtree(os.path.join(d, name))
+    t0 = time.perf_counter()
+    again = lgb.train(params, ds, num_boost_round=rounds,
+                      checkpoint_dir=d, checkpoint_freq=2, resume=True)
+    t_again = time.perf_counter() - t0
+    dev = hist_mod.device_launch_counts()
+    s1, s2 = first.inner.learner.grow_stats, again.inner.learner.grow_stats
+    want = s1["roots"] + s1["steps"] + s2["roots"] + s2["steps"]
+    check(dev[kernel] == want and sum(dev.values()) == dev[kernel],
+          "resume %s: device launches %s, roots + steps of both runs %d"
+          % (kernel, dev, want))
+    check(s2["roots"] == rounds - 2 and s2["captures"] == 1,
+          "resume: the resumed run grew %d trees with %d captures"
+          % (s2["roots"], s2["captures"]))
+    return first, again, dev[kernel], t_first, t_again
+
+
+def phase20_resume(lgb, hist_mod, data, looped, tmp):
+    """20c: resume on the card, text-equal to the uninterrupted trees."""
+    import torch
+    ds = data[0]
+    launches = {"histogram_f32": {}, "histogram_i8": {}}
+    first, again, n, t1, t2 = _resumed_pair(
+        lgb, hist_mod, ds, dict(SLICE_PARAMS, num_leaves=255),
+        os.path.join(tmp, "ck_f32"), "histogram_f32")
+    texts = [t.to_string() for t in again.inner.models]
+    check(texts == [t.to_string() for t in first.inner.models],
+          "20c f32: the resumed trees differ from the uninterrupted run's")
+    check(bool((again.inner.train_score.view(torch.int32)
+                == first.inner.train_score.view(torch.int32)).all()),
+          "20c f32: resumed training score bits differ")
+    if "f32" in looped:
+        check(texts == [t.to_string() for t in looped["f32"][0][:4]],
+              "20c f32: the resumed trees differ from phase 4's first 4")
+    launches["histogram_f32"]["phase20c_resume_f32"] = n
+    log("20c resume, f32 at %d rows: 4 rounds with checkpoints at 2 and 4 "
+        "in %.3f s, resumed from the first to 4 in %.3f s; trees "
+        "text-equal to the uninterrupted run's%s, score bits equal; %d "
+        "launches of histogram_f32"
+        % (FULL_ROWS, t1, t2, " and phase 4's" if "f32" in looped else "",
+           n))
+    del first, again
+    X, y = make_higgs_like(SMALL_ROWS, seed=7)
+    small = lgb.Dataset(X, label=y).construct()
+    for tag, extra, kernel in (
+            ("8-bit, bagging", {"use_quantized_grad": True,
+                                "quant_grad_bits": 8,
+                                "bagging_fraction": 0.7,
+                                "bagging_freq": 1}, "histogram_i8"),
+            ("DART", {"boosting": "dart", "drop_rate": 0.3,
+                      "skip_drop": 0.0}, "histogram_f32")):
+        first, again, n, t1, t2 = _resumed_pair(
+            lgb, hist_mod, small, dict(SLICE_PARAMS, num_leaves=63, **extra),
+            os.path.join(tmp, "ck_" + kernel + tag[:4]), kernel)
+        check([t.to_string() for t in again.inner.models]
+              == [t.to_string() for t in first.inner.models],
+              "20c %s: the resumed trees differ" % tag)
+        check(bool((again.inner.train_score.view(torch.int32)
+                    == first.inner.train_score.view(torch.int32)).all()),
+              "20c %s: resumed training score bits differ" % tag)
+        key = "phase20c_resume_" + ("8bit_bagging" if kernel ==
+                                    "histogram_i8" else "dart")
+        launches[kernel][key] = n
+        log("20c resume, %s at %d rows, 63 leaves: resumed from the "
+            "2-round checkpoint to 4 (%.3f s; the run %.3f s): text and "
+            "score bits equal; %d launches of %s"
+            % (tag, SMALL_ROWS, t2, t1, n, kernel))
+    return launches
+
+
+def phase_observability(lgb, hist_mod, data, looped):
+    """Phase 20; returns the launches by kernel and path."""
+    import tempfile
+    out = {"histogram_f32": {}, "histogram_i8": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke20-") as tmp:
+        t0 = time.perf_counter()
+        out["histogram_f32"]["phase20a_sample_mode_f32"] = \
+            phase20_sample(lgb, hist_mod, data, tmp)
+        t1 = time.perf_counter()
+        out["histogram_i8"]["phase20b_fencing_8bit"] = \
+            phase20_fenced(lgb, hist_mod, data)
+        t2 = time.perf_counter()
+        for kernel, paths in phase20_resume(lgb, hist_mod, data, looped,
+                                            tmp).items():
+            out[kernel].update(paths)
+        log("phase 20 seconds: 20a %.1f, 20b %.1f, 20c %.1f"
+            % (t1 - t0, t2 - t1, time.perf_counter() - t2))
+    return out
+
+
 def time_widths(hist_mod, widths, rows_out):
     """Every instance at the new widths' root shapes (the real bins of
     phases 9 and 10) and at children of 10k, 100k and 1M rows (fewer
@@ -4098,12 +4533,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
-                            "18,19",
+                            "18,19,20",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
     if 19 in phases:
         phases |= {4, 7}
+    if 20 in phases:
+        phases.add(4)
 
     import torch
     if not torch.cuda.is_available():
@@ -4142,7 +4579,7 @@ def main(argv=None) -> int:
             run["histogram_f32"]
         lap("phase 3")
     data = (full_data(lgb, keep_head=bool(phases & {15, 16, 19}))
-            if phases & {4, 7, 14, 15, 16, 17, 18, 19} else None)
+            if phases & {4, 7, 14, 15, 16, 17, 18, 19, 20} else None)
     bins_root, f32_auc = None, None
     # phase 4's and 7's trees, AUCs and seconds per iteration (phase 19)
     looped = {}
@@ -4205,6 +4642,11 @@ def main(argv=None) -> int:
                                            looped).items():
             by_path[kernel].update(paths)
         lap("phase 19")
+    if 20 in phases:
+        for kernel, paths in phase_observability(lgb, hist_mod, data,
+                                                 looped).items():
+            by_path[kernel].update(paths)
+        lap("phase 20")
     HEAD.clear()
     del data, looped
     if 8 in phases:

@@ -16,10 +16,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from .boosting import create_boosting
-from .boosting.gbdt import GBDT
+from .boosting.gbdt import GBDT, run_instrumented_eval
 from .config import Config, resolve_device
 from .io.dataset import BinnedDataset, Metadata
 from .metric import create_metric, resolve_metric_names
+from .obs import events as obs_events
 from .utils import log
 from .utils.log import LightGBMError
 
@@ -303,6 +304,10 @@ class Booster:
 
     # ------------------------------------------------------------------
     def eval_train(self, feval=None) -> List[Tuple]:
+        return run_instrumented_eval(self.inner.iter,
+                                     lambda: self._eval_train(feval))
+
+    def _eval_train(self, feval) -> List[Tuple]:
         inner = self.inner
         if not inner.train_metrics:
             for mname in resolve_metric_names(inner.config,
@@ -321,8 +326,12 @@ class Booster:
         for i, vd in enumerate(self.inner.valid_data):
             name = (self._valid_names[i] if i < len(self._valid_names)
                     else "valid_%d" % i)
-            out.extend(self._eval(name, vd.metrics, vd.scores, vd.dataset,
-                                  feval))
+            # one evaluation of one set = one gbdt::eval_metrics scope +
+            # one ``eval`` event (boosting/gbdt.py::run_instrumented_eval)
+            out.extend(run_instrumented_eval(
+                self.inner.iter,
+                lambda vd=vd, name=name: self._eval(
+                    name, vd.metrics, vd.scores, vd.dataset, feval)))
         return out
 
     def _eval(self, name: str, metrics, score: np.ndarray,
@@ -395,10 +404,12 @@ class Booster:
     @staticmethod
     def _decline(reason: str) -> None:
         """The stacked path was asked for (or chosen) and cannot run:
-        say so, never quietly (reference: the ``perf_warning`` event of
-        ``_host_walk_warning``; the event log is ROADMAP item 23)."""
+        say so, never quietly: a warning and a ``perf_warning`` event
+        (reference: ``_host_walk_warning``)."""
         log.warning("predict on the device declined to the host walk: %s"
                     % reason)
+        obs_events.emit("perf_warning", component="serve.host_walk",
+                        message=reason)
 
     def _predict_stacked(self, X: np.ndarray, start_iteration: int,
                          num_iteration: int, kind: str,

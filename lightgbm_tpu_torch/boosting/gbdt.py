@@ -28,9 +28,18 @@ Batched iterations (``tpu_batch_iterations``; reference gbdt.py:504-700):
 ``train_many`` with one read of their records, replays them into host
 trees and defers the validation sets' tree walks to the next reader of
 their scores (eval hoisting, :meth:`GBDT._flush_valid_pending`).
+
+Telemetry (``obs/``; reference gbdt.py:96, :373-410, :493, :557-640,
+:702): the stages ``gbdt::gradients``, ``gbdt::bagging``, ``tree::grow``,
+``gbdt::score_update``, ``gbdt::eval_metrics``,
+``tree::train_batch_dispatch`` and ``tree::apply_records``, with the
+``train_iter``, ``eval``, ``train_batch`` and ``batched_eval_recheck``
+events. Checkpoints (``ft/checkpoint.py``) go through
+:meth:`GBDT.save_checkpoint` / :meth:`GBDT.load_checkpoint`.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -43,6 +52,10 @@ from ..models.linear import fit_linear_leaves, linear_values_device
 from ..models.tree import Tree, kCategoricalMask, parse_tree_blocks
 from ..objective import (ObjectiveFunction, create_objective,
                          load_objective_from_string)
+from ..obs import events as obs_events
+from ..obs import health as obs_health
+from ..obs import trace as obs_trace
+from ..obs.registry import registry as obs
 from ..ops.predict import (build_device_tree, predict_leaf_on_device,
                            tree_output_on_device)
 from ..treelearner import create_tree_learner
@@ -61,6 +74,20 @@ def eval_hoist_due(count: int, last_count: int, eval_k: int,
     stopping point, and always with hoisting off (k <= 1)."""
     return (eval_k <= 1 or final
             or (count // eval_k) > (last_count // eval_k))
+
+
+def run_instrumented_eval(iter_idx: int, compute):
+    """The one instrumentation point of metric evaluation (reference
+    gbdt.py:89): one evaluation pass is one ``gbdt::eval_metrics`` scope
+    and one ``eval`` event with its results."""
+    with obs.scope("gbdt::eval_metrics"):
+        out = compute()
+    if out and obs_events.enabled():
+        obs_events.emit("eval", iter=iter_idx,
+                        results=[{"dataset": ds, "metric": name,
+                                  "value": float(v)}
+                                 for ds, name, v, _ in out])
+    return out
 
 
 def device_tree_outputs(tree: Tree, bins: torch.Tensor, bin_meta,
@@ -255,6 +282,8 @@ class GBDT:
         self.train_metrics: List[Metric] = []
         self.valid_data: List[ValidData] = []
         self._bin_meta = bin_meta_of(train_data)
+        obs_health.record_backend_once(source="gbdt_init",
+                                       device=self.device)
 
     def add_valid_data(self, valid_data: BinnedDataset) -> None:
         """reference: GBDT::AddValidDataset (gbdt.cpp:182)."""
@@ -303,20 +332,28 @@ class GBDT:
         callable objective; without them the objective computes them.
         Returns True when training should stop (no tree of the iteration
         could split)."""
+        t_iter0 = time.perf_counter()
         K = self.num_tree_per_iteration
-        if grad is None or hess is None:
-            if self.objective is None:
-                log.fatal("No objective function provided: objective=none "
-                          "takes its gradients from a callable objective "
-                          "(train's params['objective'], or "
-                          "Booster.update(fobj=...); ROADMAP item 18a)")
-            init_scores = [self._boost_from_average(k) for k in range(K)]
-            score = self.train_score[:, 0] if K == 1 else self.train_score
-            grad, hess = self.objective.get_gradients(score)
-        else:
-            init_scores = [0.0] * K
-            grad, hess = (self._host_gradient(v) for v in (grad, hess))
-        grad, hess, bag = self.sample_strategy.bagging(self.iter, grad, hess)
+        with obs.scope("gbdt::gradients"):
+            if grad is None or hess is None:
+                if self.objective is None:
+                    log.fatal("No objective function provided: "
+                              "objective=none takes its gradients from a "
+                              "callable objective (train's "
+                              "params['objective'], or "
+                              "Booster.update(fobj=...); ROADMAP item 18a)")
+                init_scores = [self._boost_from_average(k)
+                               for k in range(K)]
+                score = (self.train_score[:, 0] if K == 1
+                         else self.train_score)
+                grad, hess = self.objective.get_gradients(score)
+            else:
+                init_scores = [0.0] * K
+                grad, hess = (self._host_gradient(v) for v in (grad, hess))
+            obs.watch_ready("gbdt::gradients", (grad, hess))
+        with obs.scope("gbdt::bagging"):
+            grad, hess, bag = self.sample_strategy.bagging(self.iter, grad,
+                                                           hess)
         should_continue = False
         new_trees = []
         for k in range(K):
@@ -325,7 +362,8 @@ class GBDT:
             hk = hess if K == 1 else hess[:, k].contiguous()
             tree: Optional[Tree] = None
             if self.class_need_train[k]:
-                tree, leaf_of_row = self.learner.train(gk, hk, bag)
+                with obs.scope("tree::grow"):
+                    tree, leaf_of_row = self.learner.train(gk, hk, bag)
             if tree is not None and tree.num_leaves > 1:
                 should_continue = True
                 if self.config.linear_tree:
@@ -361,7 +399,27 @@ class GBDT:
                 return True
         self.models.extend(new_trees)
         self.iter += 1
+        self._emit_iter_event(new_trees, t_iter0)
         return not should_continue
+
+    def _emit_iter_event(self, new_trees: List[Tree], t_start: float,
+                         batched: bool = False,
+                         seconds: Optional[float] = None) -> None:
+        """The per-iteration ``train_iter`` event (reference gbdt.py:475)
+        and the per-iteration telemetry tick (device memory gauges, the
+        metrics exporter; ``obs/trace.py::sample_iteration``): outside
+        the captured step, cheap when telemetry is off."""
+        obs_trace.sample_iteration(self.iter)
+        if not obs_events.enabled():
+            return
+        if seconds is None:
+            seconds = time.perf_counter() - t_start
+        trees = [{"num_leaves": int(t.num_leaves),
+                  "depth": int(t.leaf_depth[:max(t.num_leaves, 1)].max())}
+                 for t in new_trees if t is not None]
+        obs_events.emit("train_iter", iter=self.iter,
+                        seconds=round(seconds, 6), batched=batched,
+                        trees=trees)
 
     # ------------------------------------------------------------------
     # batched iterations (reference gbdt.py:504-700)
@@ -395,14 +453,18 @@ class GBDT:
         from ..treelearner.serial import (SplitRecord, apply_split_record,
                                           record_is_valid)
         from .sample_strategy import SampleStrategy
+        t_batch0 = time.perf_counter()
         learner = self.learner
         K = self.num_tree_per_iteration
         sample = (None if type(self.sample_strategy) is SampleStrategy
                   else self.sample_strategy)
-        recs = learner.train_many(
-            self.objective.get_gradients, sample, self.train_score,
-            list(range(self.iter, self.iter + n_iters)),
-            self.shrinkage_rate).tolist()
+        with obs.scope("tree::train_batch_dispatch"):
+            recs = learner.train_many(
+                self.objective.get_gradients, sample, self.train_score,
+                list(range(self.iter, self.iter + n_iters)),
+                self.shrinkage_rate).tolist()
+        t_dispatch = time.perf_counter() - t_batch0
+        applied, stopped = 0, False
         for t in range(n_iters):
             iter_trees = []
             for k in range(K):
@@ -423,30 +485,44 @@ class GBDT:
             if all(tree.num_leaves <= 1 for tree in iter_trees):
                 log.warning("Stopped training because there are no more "
                             "leaves that meet the split requirements")
-                return True
-            for k, tree in enumerate(iter_trees):
-                self.models.append(tree)
-                if tree.num_leaves > 1 and self.valid_data:
-                    self._valid_pending.append((tree, k))
+                stopped = True
+                break
+            with obs.scope("tree::apply_records"):
+                for k, tree in enumerate(iter_trees):
+                    self.models.append(tree)
+                    if tree.num_leaves > 1 and self.valid_data:
+                        self._valid_pending.append((tree, k))
             self.iter += 1
-        return False
+            applied += 1
+            # the batch's wall time spread over its iterations
+            self._emit_iter_event(iter_trees, 0.0, batched=True,
+                                  seconds=t_dispatch / n_iters)
+        if obs_events.enabled():
+            obs_events.emit("train_batch", n_iters=n_iters, applied=applied,
+                            stopped=stopped, seconds=round(t_dispatch, 6))
+        return stopped
 
     def _flush_valid_pending(self) -> None:
         """Walk the validation sets through the trees that
         :meth:`train_batch` deferred (reference gbdt.py:637); every
         reader of the valid scores (evaluation, rollback, a later
         ``add_valid_data``) calls it first."""
+        if not self._valid_pending:
+            return
         pending, self._valid_pending = self._valid_pending, []
-        for tree, k in pending:
-            for vd in self.valid_data:
-                vd.add_tree(tree, k, self._bin_meta)
+        with obs.scope("tree::apply_records"):
+            for tree, k in pending:
+                for vd in self.valid_data:
+                    vd.add_tree(tree, k, self._bin_meta)
 
     def recheck_scores(self, reason: str = "") -> float:
         """Replay every tree over the training rows on the device and
         compare the sum with the maintained training score (reference
         gbdt.py:662); called once where a quantized batched run hands
-        over to the per-iteration loop. Warns when the largest deviation
-        passes 1e-3 times the score's scale; returns the deviation."""
+        over to the per-iteration loop, and by a checkpoint resume. Emits
+        one ``batched_eval_recheck`` event, and warns when the largest
+        deviation passes 1e-3 times the score's scale; returns the
+        deviation."""
         K = self.num_tree_per_iteration
         replay = torch.from_numpy(initial_score(
             self.train_data.metadata, self.num_data, K)).to(self.device)
@@ -457,12 +533,31 @@ class GBDT:
                 replay[:, i % K] += delta
         diff = float((replay - self.train_score).abs().max())
         scale = max(float(self.train_score.abs().max()), 1.0)
-        if diff > 1e-3 * scale:
+        ok = diff <= 1e-3 * scale
+        obs_events.emit("batched_eval_recheck", reason=reason,
+                        iter=self.iter, trees=len(self.models),
+                        max_abs_diff=round(diff, 9), ok=ok)
+        if not ok:
             log.warning("batched-eval recheck (%s) found score deviation "
                         "%.3g (replay of %d trees vs the maintained "
                         "device score)" % (reason or "batched_to_looped",
                                            diff, len(self.models)))
         return diff
+
+    def save_checkpoint(self, directory: str,
+                        keep: Optional[int] = None) -> str:
+        """Write one atomically finalized checkpoint directory of the
+        whole resume state (``ft/checkpoint.py``); returns its path."""
+        from ..ft import checkpoint as _ckpt
+        return _ckpt.save(self, directory, keep=keep)
+
+    def load_checkpoint(self, directory: str) -> Optional[Dict]:
+        """Restore this (fresh, same-dataset) booster from the newest
+        valid checkpoint under ``directory``; returns its state dict, or
+        None when there is none. Corrupt checkpoints are skipped
+        loudly."""
+        from ..ft import checkpoint as _ckpt
+        return _ckpt.load_latest(self, directory)
 
     def _host_gradient(self, v) -> torch.Tensor:
         """A callable objective's gradient or hessian on the device:
@@ -574,6 +669,12 @@ class GBDT:
         learner's final partition (reference: GBDT::UpdateScore,
         gbdt.cpp:475; leaf values cast to f32 as at gbdt.py:722-727); a
         linear tree's f64 outputs over the raw rows, cast to f32."""
+        with obs.scope("gbdt::score_update"):
+            self._update_score_inner(tree, leaf_of_row, class_id)
+            obs.watch_ready("gbdt::score_update", self.train_score)
+
+    def _update_score_inner(self, tree: Tree, leaf_of_row: torch.Tensor,
+                            class_id: int) -> None:
         if tree.is_linear:
             self.train_score[:, class_id] += linear_values_device(
                 tree, self._raw, leaf_of_row).float()

@@ -9,7 +9,7 @@ support).
 from __future__ import annotations
 
 import collections
-from typing import Any, Callable, Dict, List, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 from .utils import log
 
@@ -109,13 +109,21 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
                    verbose: bool = True,
                    min_delta: Union[float, List[float]] = 0.0) -> Callable:
     """reference: callback.py:375 — stop when no eval metric improves
-    (by at least ``min_delta``) in ``stopping_rounds`` rounds."""
+    (by at least ``min_delta``) in ``stopping_rounds`` rounds.
+
+    The callback is checkpointable (reference callback.py:105):
+    ``get_state()`` / ``set_state()`` carry its best score and iteration
+    per metric, so a resumed run (``lgb.train(resume=True)``) continues
+    the same patience window. ``set_state`` applies after the first
+    call's set-up, which takes the comparisons and the metric layout
+    from the live evaluation list."""
     best_score: List[float] = []
     best_iter: List[int] = []
     best_score_list: List[Any] = []
     cmp_op: List[Callable] = []
     enabled = [True]
     first_metric = [""]
+    pending_state: List[Optional[dict]] = [None]
 
     def _init(env: CallbackEnv) -> None:
         enabled[0] = not any(
@@ -187,9 +195,39 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
                     log.info("Evaluated only: %s" % eval_name_splitted[-1])
             raise EarlyStopException(best_iter[i], best_score_list[i])
 
+    def _apply_pending_state() -> None:
+        s = pending_state[0]
+        pending_state[0] = None
+        if s is None:
+            return
+        if len(s.get("best_score", [])) != len(best_score):
+            log.warning("checkpointed early-stopping state covers %d "
+                        "metrics, run evaluates %d; patience re-arms "
+                        "from the resume point"
+                        % (len(s.get("best_score", [])), len(best_score)))
+            return
+        best_score[:] = [float(v) for v in s["best_score"]]
+        best_iter[:] = [int(v) for v in s["best_iter"]]
+        best_score_list[:] = [
+            None if lst is None else [tuple(item) for item in lst]
+            for lst in s["best_score_list"]]
+
+    def _get_state() -> Optional[dict]:
+        if not best_score:
+            return None  # never initialized: nothing to carry over
+        return {"best_score": [float(v) for v in best_score],
+                "best_iter": [int(v) for v in best_iter],
+                "best_score_list": [
+                    None if lst is None else [list(item) for item in lst]
+                    for lst in best_score_list]}
+
+    def _set_state(state: Optional[dict]) -> None:
+        pending_state[0] = state
+
     def _callback(env: CallbackEnv) -> None:
         if not best_score:
             _init(env)
+            _apply_pending_state()
         if not enabled[0]:
             return
         for i in range(len(env.evaluation_result_list)):
@@ -219,4 +257,6 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
             _final_iteration_check(env, eval_name_splitted, i)
 
     _callback.order = 30
+    _callback.get_state = _get_state
+    _callback.set_state = _set_state
     return _callback

@@ -8,7 +8,10 @@ in this directory (``histogram_u16.cu`` includes ``histogram.cu``), so
 an edited source builds anew and a stale library is never loaded.
 
 Nothing is compiled or loaded when this module is imported: the CPU
-tests import every module on a machine without ``nvcc``.
+tests import every module on a machine without ``nvcc``. Each build
+counts under ``kernel_build/<name>`` with a ``kernel_build`` event
+carrying its ``nvcc`` seconds, and each opening of a library under
+``kernel_load/<name>`` (``obs/compile.py``).
 """
 from __future__ import annotations
 
@@ -18,8 +21,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, List, Sequence
 
+from ..obs import compile as obs_compile
 from ..utils.log import LightGBMError
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -68,6 +73,7 @@ def build(names: Sequence[str],
         return {}
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
+    t0 = time.perf_counter()
     procs = {n: subprocess.Popen(
         [nvcc] + NVCC_FLAGS + list(extra_flags)
         + ["-o", library_path(n) + ".tmp", os.path.join(_HERE, n + ".cu")],
@@ -80,6 +86,9 @@ def build(names: Sequence[str],
             failed.append("%s.cu:\n%s" % (n, outputs[n]))
         else:
             os.replace(library_path(n) + ".tmp", library_path(n))
+            # the builds run together: each one's seconds run from the
+            # common start to its own end
+            obs_compile.record_kernel_build(n, time.perf_counter() - t0)
     if failed:
         raise LightGBMError("nvcc failed to build " + "\n".join(failed))
     return outputs
@@ -93,4 +102,5 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = ctypes.CDLL(library_path(name))
             _libs[name] = lib
+            obs_compile.record_kernel_load(name)
         return lib

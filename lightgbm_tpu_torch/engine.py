@@ -11,8 +11,12 @@ callbacks (``early_stopping`` is also armed by the
 batches of T iterations with one host read each
 (``GBDT.train_batch``); ``tpu_eval_iterations=k`` evaluates on the
 absolute every-k grid (``gbdt.eval_hoist_due``). Checkpoints
-(``checkpoint_dir``, ``checkpoint_freq``, ``resume``) are ROADMAP item
-19 and raise.
+(``checkpoint_dir``, ``checkpoint_freq``, ``resume``; reference
+engine.py:105-160, ``ft/checkpoint.py``): a checkpoint after every
+``checkpoint_freq``-th iteration's evaluation and callbacks (in a batched
+run, at the batch ends that reach a multiple), and one at the end;
+``resume=True`` continues from the newest valid one, with the
+early-stopping callback's state.
 """
 from __future__ import annotations
 
@@ -26,7 +30,6 @@ from .basic import Booster, Dataset
 from .boosting.gbdt import eval_hoist_due
 from .config import Config
 from .utils import log
-from .utils.log import unsupported
 
 _NUM_ROUND_KEYS = ("num_iterations", "num_iteration", "n_iter", "num_tree",
                    "num_trees", "num_round", "num_rounds", "nrounds",
@@ -61,10 +64,12 @@ def train(params: Dict[str, Any], train_set: Dataset,
     (grad, hess)``. ``init_model`` (a Booster or a model file) continues
     training: its trees are kept, and their outputs start the training
     scores. The returned Booster keeps its training state whatever
-    ``keep_training_booster`` says, as in the reference."""
-    if checkpoint_dir is not None or checkpoint_freq > 0 or resume:
-        unsupported("checkpoints (checkpoint_dir / checkpoint_freq / "
-                    "resume)", "item 19")
+    ``keep_training_booster`` says, as in the reference.
+
+    ``checkpoint_dir`` with ``checkpoint_freq=k`` writes a checkpoint
+    after every k-th iteration and one at the end; ``resume=True``
+    continues from the newest valid checkpoint there (from scratch when
+    there is none), bit for bit as the uninterrupted run."""
     params = dict(params or {})
     fobj = _pop_callable_objective(params)
     cfg = Config.from_params(params)
@@ -80,6 +85,20 @@ def train(params: Dict[str, Any], train_set: Dataset,
         base = Booster(params=params, model_str=_model_text(init_model))
         booster.inner.replay_init_model(base.inner.models)
 
+    ckpt_state = None
+    if checkpoint_dir and resume:
+        ckpt_state = booster.inner.load_checkpoint(checkpoint_dir)
+        if ckpt_state is None:
+            log.info("resume=True but no valid checkpoint under %s; "
+                     "training from scratch" % checkpoint_dir)
+    resume_iter = booster.inner.iter if ckpt_state is not None else 0
+
+    def maybe_checkpoint(force: bool = False) -> None:
+        it = booster.inner.iter
+        if checkpoint_dir and (force or (checkpoint_freq > 0 and it > 0
+                                         and it % checkpoint_freq == 0)):
+            booster.inner.save_checkpoint(checkpoint_dir)
+
     valid_sets = valid_sets or []
     valid_names = valid_names or []
     eval_train = False
@@ -93,6 +112,22 @@ def train(params: Dict[str, Any], train_set: Dataset,
                           else "valid_%d" % i)
 
     callbacks_before, callbacks_after = _sorted_callbacks(cfg, callbacks)
+    # the early-stopping callback's state rides in every checkpoint, so
+    # a resumed run continues its patience window
+    stateful = [cb for cb in callbacks_after
+                if hasattr(cb, "get_state") and hasattr(cb, "set_state")]
+    if ckpt_state is not None and stateful:
+        saved = (ckpt_state.get("engine") or {}).get("early_stopping")
+        for cb, st in zip(stateful, saved or []):
+            cb.set_state(st)
+
+    def engine_state():
+        states = [cb.get_state() for cb in stateful]
+        if not any(s is not None for s in states):
+            return None
+        return {"early_stopping": states}
+
+    booster.inner._engine_state_provider = engine_state
 
     def run_callbacks(cbs, i, results):
         for cb in cbs:
@@ -123,13 +158,13 @@ def train(params: Dict[str, Any], train_set: Dataset,
                  % (eval_k, eval_k))
     batch_n = int(cfg.tpu_batch_iterations)
     inner = booster.inner
-    start_i = 0
+    start_i = resume_iter
     evaluation_result_list: List = []
     if batch_n > 1 and fobj is None:
         # reference engine.py:218-300: iteration 0 looped (it boosts from
         # the average), then full batches only; evaluation and callbacks
         # at batch ends, with the batch's last iteration index
-        i = last_eval = 0
+        i = last_eval = resume_iter
         degraded = ran_batched = rechecked = False
         while i < num_boost_round and not degraded:
             run_callbacks(callbacks_before, i, None)
@@ -160,10 +195,15 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 last_eval = i
                 evaluation_result_list, stopped = evaluate(i - 1)
                 if stopped:
+                    maybe_checkpoint(force=True)
                     return booster
+            # after this boundary's evaluation and callbacks, so the
+            # callback state covers exactly the iterations done
+            maybe_checkpoint()
             if finished:
                 break
         if not degraded:
+            maybe_checkpoint(force=True)
             return _fill_best(booster, evaluation_result_list)
         start_i = i
     elif batch_n > 1:
@@ -178,8 +218,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
             evaluation_result_list, stopped = evaluate(i)
             if stopped:
                 break
+        maybe_checkpoint()
         if finished:
             break
+    maybe_checkpoint(force=True)
     return _fill_best(booster, evaluation_result_list)
 
 

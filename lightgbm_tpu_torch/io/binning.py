@@ -21,6 +21,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..obs.registry import scoped as _scoped
+
 # reference: include/LightGBM/meta.h:56
 kZeroThreshold = 1e-35
 # reference: include/LightGBM/bin.h:39
@@ -287,6 +289,7 @@ class BinMapper:
         return m
 
     # ------------------------------------------------------------------
+    @_scoped("io::find_bin")
     def find_bin(self, sample_values: np.ndarray, total_sample_cnt: int,
                  max_bin: int, min_data_in_bin: int = 3,
                  min_split_data: int = 20, pre_filter: bool = False,

@@ -23,6 +23,8 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 
 from ..config import Config
+from ..obs import events as obs_events
+from ..obs.registry import registry as obs
 from ..utils import log
 from .binning import BinMapper, BinType, MissingType
 from .efb import BundleLayout, build_layout, bundle_columns, find_groups
@@ -185,8 +187,9 @@ class BinnedDataset:
                                            self.feature_names)
             sample_bin_cols: List[np.ndarray] = []
             if mappers is None:
-                mappers, sample_bin_cols = _find_mappers(
-                    columns, n, config, cat_set)
+                with obs.scope("io::find_bins"):
+                    mappers, sample_bin_cols = _find_mappers(
+                        columns, n, config, cat_set)
             elif len(mappers) != num_total_features:
                 log.fatal("%d bin mappers for %d columns"
                           % (len(mappers), num_total_features))
@@ -208,7 +211,8 @@ class BinnedDataset:
                 self.bundle = bundle
             elif (sample_bin_cols and config.enable_bundle
                   and len(self.bin_mappers) > 1):
-                self._find_bundles(sample_bin_cols, config)
+                with obs.scope("io::efb_bundle"):
+                    self._find_bundles(sample_bin_cols, config)
 
         def binned_col(j: int) -> np.ndarray:
             return columns.binned(self.used_feature_map[j],
@@ -216,19 +220,21 @@ class BinnedDataset:
 
         # uint8 bins while every feature (or bundle) has at most 256
         # bins, else uint16 (reference io/dataset.py:261-269)
-        if self.bundle is not None:
-            zero_bins = np.asarray([m.default_bin for m in self.bin_mappers],
-                                   dtype=np.int32)
-            dtype = (np.uint8 if self.bundle.num_bundled_bins <= 256
-                     else np.uint16)
-            self.bins = bundle_columns(binned_col, self.bundle, zero_bins, n,
-                                       dtype)
-        else:
-            dtype = np.uint8 if self.max_num_bin <= 256 else np.uint16
-            bins = np.empty((n, len(self.bin_mappers)), dtype=dtype)
-            for j in range(len(self.bin_mappers)):
-                bins[:, j] = binned_col(j)
-            self.bins = bins
+        with obs.scope("io::apply_bins"):
+            if self.bundle is not None:
+                zero_bins = np.asarray(
+                    [m.default_bin for m in self.bin_mappers],
+                    dtype=np.int32)
+                dtype = (np.uint8 if self.bundle.num_bundled_bins <= 256
+                         else np.uint16)
+                self.bins = bundle_columns(binned_col, self.bundle,
+                                           zero_bins, n, dtype)
+            else:
+                dtype = np.uint8 if self.max_num_bin <= 256 else np.uint16
+                bins = np.empty((n, len(self.bin_mappers)), dtype=dtype)
+                for j in range(len(self.bin_mappers)):
+                    bins[:, j] = binned_col(j)
+                self.bins = bins
 
         if keep_raw_data:
             self.raw_data = data
@@ -239,6 +245,12 @@ class BinnedDataset:
         self.metadata.set_weights(weights)
         self.metadata.set_group(group)
         self.metadata.set_init_score(init_score)
+        obs_events.emit(
+            "dataset", num_data=n, num_features=self.num_features,
+            num_total_features=num_total_features,
+            max_num_bin=self.max_num_bin,
+            bundled=self.bundle is not None,
+            aligned_to_reference=reference is not None)
         return self
 
     def _set_constraints(self, config: Config) -> None:

@@ -29,16 +29,23 @@ same rows.
 Launches are counted twice: :data:`launch_counts` on the host, where the
 wrapper launches (a graph runs the wrapper once, at capture), and a
 device counter per instance that the kernel itself bumps, so that graph
-replays count too (:func:`device_launch_counts`).
+replays count too (:func:`device_launch_counts`). The host counts are
+metrics-registry counters (``kernel/launches/<instance>``), so they show
+in its snapshots and exports, and each read of the device counters sets
+the gauges ``kernel/device_launches/<instance>``; ``registry.reset()``
+zeroes both kinds of count.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from collections.abc import Mapping
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..obs.registry import add_reset_hook
+from ..obs.registry import registry as obs
 from ..utils.log import LightGBMError
 from .quantize import acc_dtype as quant_acc_dtype
 
@@ -63,10 +70,31 @@ def _instances():
 
 _KERNEL_OF = _instances()
 
+_LAUNCH_PREFIX = "kernel/launches/"
+
+
+class _LaunchCounts(Mapping):
+    """Instance name -> its registry counter ``kernel/launches/<name>``,
+    read live."""
+
+    _names = tuple(v[0] for v in _KERNEL_OF.values())
+
+    def __getitem__(self, name: str) -> int:
+        if name not in self._names:
+            raise KeyError(name)
+        return obs.count(_LAUNCH_PREFIX + name)
+
+    def __iter__(self):
+        return iter(self._names)
+
+    def __len__(self) -> int:
+        return len(self._names)
+
+
 #: kernel launches per instance since the last :func:`reset_launch_counts`
 #: (the wrapper adds one exactly where it launches its kernel; a graph
 #: capture counts once, its replays not at all)
-launch_counts: Dict[str, int] = {v[0]: 0 for v in _KERNEL_OF.values()}
+launch_counts = _LaunchCounts()
 #: the device counters, one uint64 per (instance, device): the kernel adds
 #: one on every launch, replays of a captured graph included
 _device_counters: Dict[Tuple[str, int], torch.Tensor] = {}
@@ -294,19 +322,29 @@ def _group_plan(Fp: int, B: int, C: int, gh_bytes: int, bin_bytes: int,
 def reset_launch_counts() -> None:
     """Zero the host counts and every device counter (an in-place fill,
     so a captured graph keeps counting into the same memory)."""
-    for k in launch_counts:
-        launch_counts[k] = 0
+    obs.clear_counters(_LAUNCH_PREFIX)
+    _zero_device_counters()
+
+
+def _zero_device_counters() -> None:
     for t in _device_counters.values():
         t.zero_()
+
+
+# registry.reset() clears the host counts with every other counter
+add_reset_hook(_zero_device_counters)
 
 
 def device_launch_counts() -> Dict[str, int]:
     """Kernel launches per instance since :func:`reset_launch_counts`, as
     the kernels counted them on their devices (graph replays included).
-    Reads the counters back: a host sync."""
+    Reads the counters back: a host sync. The counts read are also the
+    registry gauges ``kernel/device_launches/<instance>``."""
     out = dict.fromkeys(launch_counts, 0)
     for (name, _), t in _device_counters.items():
         out[name] += int(t.item())
+    for name, n in out.items():
+        obs.gauge("kernel/device_launches/" + name, n)
     return out
 
 
@@ -482,7 +520,7 @@ def histogram_cuda(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
                 plan.features_per_group, plan.groups, plan.stage_features,
                 plan.tile_rows, max_blocks, plan.min_rows,
                 plan.smem_bytes, stream)
-    launch_counts[name] += 1
+    obs.inc(_LAUNCH_PREFIX + name)
     if code != 0:
         raise LightGBMError("histogram kernel launch failed: %s (cuda "
                             "error %d)" % (_error_string(code), code))

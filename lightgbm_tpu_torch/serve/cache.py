@@ -11,9 +11,12 @@ dispatch runs eagerly, and the buckets keep the shapes a later captured
 CUDA graph per bucket would need.
 
 ``entries`` counts dispatches per ``(model_version, bucket, kind[,
-"dd"])``; ``bucket_hits`` and ``bucket_new`` count dispatches to a key
-seen before and to a new one (plain attributes: the metrics registry is
-ROADMAP item 23).
+"dd"])``. The metrics registry counts dispatches to a key seen before
+(``serve/bucket_hit``) and to a new one (``serve/bucket_compile``: the
+JAX package's compile of a new shape), and gauges the key count
+(``serve/compile_cache_size``). An optional
+:class:`~lightgbm_tpu_torch.obs.quality.QualityMonitor` adds each
+dispatched chunk to its drift window on the forest's device.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ..obs.registry import registry as obs
 from ..utils import next_pow2
 from .forest import StackedForest, f32_exact
 
@@ -52,7 +56,7 @@ class BucketedPredictor:
 
     def __init__(self, forest: StackedForest, model_version=0,
                  min_bucket: int = 16, max_bucket: int = 1 << 16,
-                 output_kind: str = "value"):
+                 output_kind: str = "value", quality=None):
         if output_kind not in _KINDS:
             raise ValueError("output_kind must be one of %s" % (_KINDS,))
         self.forest = forest
@@ -62,8 +66,9 @@ class BucketedPredictor:
         self.output_kind = output_kind
         self.entries: Dict[tuple, int] = {}
         self._lock = threading.Lock()
-        self.bucket_hits = 0
-        self.bucket_new = 0
+        # an obs.quality.QualityMonitor: each dispatched chunk also adds
+        # one scatter-add into its drift window on the device
+        self.quality = quality
 
     def swap(self, forest: StackedForest, model_version) -> None:
         """Serve ``forest`` as ``model_version`` from now on; the keys of
@@ -73,6 +78,8 @@ class BucketedPredictor:
         with self._lock:
             for k in [k for k in self.entries if k[0] != model_version]:
                 del self.entries[k]
+            size = len(self.entries)
+        obs.gauge("serve/compile_cache_size", size)
 
     def bucket_for(self, n_rows: int) -> int:
         return min(next_pow2(max(n_rows, self.min_bucket)),
@@ -119,15 +126,22 @@ class BucketedPredictor:
             key = (self.model_version, bucket, kind) + (("dd",) if dd
                                                         else ())
             with self._lock:
-                if key in self.entries:
-                    self.bucket_hits += 1
-                else:
-                    self.bucket_new += 1
+                fresh = key not in self.entries
                 self.entries[key] = self.entries.get(key, 0) + 1
+                size = len(self.entries)
+            if fresh:
+                obs.inc("serve/bucket_compile")
+                obs.gauge("serve/compile_cache_size", size)
+            else:
+                obs.inc("serve/bucket_hit")
+            if self.quality is not None:
+                self.quality.accumulate(chunk, m,
+                                        device=self.forest._device)
             outs.append(self._dispatch(kind, chunk, dd)[:m])
         return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=0)
 
     @property
     def stats(self) -> Dict:
-        return {"entries": dict(self.entries), "hits": self.bucket_hits,
-                "new": self.bucket_new}
+        return {"entries": dict(self.entries),
+                "hits": obs.count("serve/bucket_hit"),
+                "compiles": obs.count("serve/bucket_compile")}

@@ -99,6 +99,16 @@ rows as int8/int16 ``(q_grad, q_hess, in_bag, 1)`` under the tree's
 stochastic-rounding key, keeps int32 histograms (the sibling
 subtraction is exact), takes exact integer root sums and dequantizes
 them once, and hands the tree's scales to every split scan.
+
+Telemetry (``obs/``; reference serial.py:976, :1148-1259): the stages
+``io::stage_bins_device``, ``tree::stage_gh`` and
+``tree::root_histogram`` (with ``watch_ready`` on their outputs), then
+``tree::split_batches`` over the whole-tree loop's steps and its record
+read, and ``tree::apply_records`` over the replay into the host tree.
+No scope, event or ``watch_ready`` sits inside :meth:`_step`: a CUDA
+event recorded while the step is captured would land in the graph. Each
+capture counts under ``graph_capture/serial.split_step``
+(``obs/compile.py``).
 """
 from __future__ import annotations
 
@@ -111,6 +121,8 @@ import torch
 from ..io.binning import MissingType
 from ..io.dataset import BinnedDataset
 from ..models.tree import Tree
+from ..obs import compile as obs_compile
+from ..obs.registry import registry as obs
 from ..ops import split as S
 from ..ops.histogram import (build_histogram, subtract_histogram,
                              unpack_bundle_histogram)
@@ -335,7 +347,8 @@ class SerialTreeLearner(CapabilityMixin):
         bins = np.zeros((N, self.Gp if self._bundled else self.Fp),
                         dtype=dataset.bins.dtype)
         bins[:, :ncols] = dataset.bins
-        self.bins = torch.from_numpy(bins).to(device)
+        with obs.scope("io::stage_bins_device"):
+            self.bins = torch.from_numpy(bins).to(device)
         # f64 histogram sums, rounded once to f32 (tpu_use_f64_hist)
         self._f64 = config.f64_histograms
         self.Bg, self._btab = 0, None
@@ -583,7 +596,9 @@ class SerialTreeLearner(CapabilityMixin):
         final [N] int32 row->leaf partition (on the device) for the
         score update (reference: GBDT::UpdateScore uses the learner's
         partition, gbdt.cpp:475)."""
-        gh = self._stage_tree(grad, hess, bag)
+        with obs.scope("tree::stage_gh"):
+            gh = self._stage_tree(grad, hess, bag)
+            obs.watch_ready("tree::stage_gh", gh)
         if self._cegb_enabled:
             tree, state = self._grow_stepped(gh, cegb=True)
         elif self._mono_tracker is not None:
@@ -638,6 +653,11 @@ class SerialTreeLearner(CapabilityMixin):
         """Fill ``state`` in place for a new tree: the root histogram of
         ``state.gh`` over all rows and its scan in slot 0, every other
         slot empty."""
+        with obs.scope("tree::root_histogram"):
+            self._root_inner(state)
+            obs.watch_ready("tree::root_histogram", state.cand)
+
+    def _root_inner(self, state: GrowState) -> None:
         gh = state.gh
         # exact integer sums in quantized mode, dequantized once
         sums_raw = sum_gh(gh, self._padded_rows)
@@ -1052,8 +1072,10 @@ class SerialTreeLearner(CapabilityMixin):
         except RuntimeError as exc:
             raise LightGBMError("whole-tree loop: capturing the split step "
                                 "as a CUDA graph failed: %s" % exc) from exc
-        self.grow_stats["capture_ms"] += 1e3 * (time.perf_counter() - t0)
+        seconds = time.perf_counter() - t0
+        self.grow_stats["capture_ms"] += 1e3 * seconds
         self.grow_stats["captures"] += 1
+        obs_compile.record_graph_capture("serial.split_step", seconds)
         self._graph = graph
 
     def _replay(self) -> None:
@@ -1077,15 +1099,19 @@ class SerialTreeLearner(CapabilityMixin):
         tree = Tree(self.L)
         forced = (self._apply_forced(tree, buf.state)
                   if self._forced is not None else 0)
-        self._run_steps(buf, self.L - 1 - forced, forced, read_flags=True)
-        records = buf.state.records.cpu().tolist()
-        self.grow_stats["record_reads"] += 1
-        # the forced records (gain 0) are in the tree already
-        for row in records[forced:]:
-            rec = SplitRecord.from_row(int(row[0]), row[1:], self.layout)
-            if not record_is_valid(rec):
-                break
-            apply_split_record(tree, self.dataset, rec)
+        with obs.scope("tree::split_batches"):
+            self._run_steps(buf, self.L - 1 - forced, forced,
+                            read_flags=True)
+            records = buf.state.records.cpu().tolist()
+            self.grow_stats["record_reads"] += 1
+        with obs.scope("tree::apply_records"):
+            # the forced records (gain 0) are in the tree already
+            for row in records[forced:]:
+                rec = SplitRecord.from_row(int(row[0]), row[1:],
+                                           self.layout)
+                if not record_is_valid(rec):
+                    break
+                apply_split_record(tree, self.dataset, rec)
         return tree, buf.state
 
     def _run_steps(self, buf: _FusedBuffers, steps: int, start: int,

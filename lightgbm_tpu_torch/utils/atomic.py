@@ -1,17 +1,29 @@
 """Crash-consistent file writes: tmp + fsync + rename.
 
-Port of ``atomic_write`` and ``fsync_dir`` of
-``lightgbm_tpu/utils/atomic.py``: a file written through
+Port of ``lightgbm_tpu/utils/atomic.py``: a file written through
 :func:`atomic_write` is either its previous content or the complete new
 one after a crash at any point (a same-directory temporary name, fsync,
 ``os.replace`` over the final name). The model text
 (``Booster.save_model``) and the C++ export
 (``GBDT.save_model_to_cpp``) are written this way.
+:func:`sha256_file` is the content hash of the checkpoint manifests
+(``ft/checkpoint.py``).
 """
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Union
+
+
+def sha256_file(path: str) -> str:
+    """Streamed sha256 of a file: an artifact that does not hash to its
+    manifest entry is rejected by name instead of trained on."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
 
 
 def fsync_dir(dirpath: str) -> None:

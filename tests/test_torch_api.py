@@ -12,6 +12,7 @@ Also the matching cases of tests/test_python_api.py,
 tests/test_boosting.py and tests/test_model_export.py.
 """
 import inspect
+import os
 import json
 import pickle
 
@@ -119,11 +120,26 @@ def test_train_takes_the_reference_arguments_in_order():
 @pytest.mark.parametrize("kwargs", [{"checkpoint_dir": "ckpt"},
                                     {"checkpoint_freq": 5},
                                     {"resume": True}])
-def test_checkpoint_arguments_raise_naming_item_19(kwargs):
+def test_checkpoint_arguments_raise_naming_item_19(kwargs, tmp_path):
+    """Item 19 is ported: the checkpoint arguments no longer raise. Each
+    one alone trains the run it would without it, as in the JAX package
+    (a ``checkpoint_freq`` or ``resume`` without a directory does
+    nothing); a directory gets the final checkpoint in both packages."""
     X, y = _binary(n=200)
-    with pytest.raises(LightGBMError, match="item 19"):
-        lgb.train(dict(CPU, objective="binary", verbose=-1),
-                  lgb.Dataset(X, label=y), num_boost_round=1, **kwargs)
+    kwargs = {k: (str(tmp_path / v) if k == "checkpoint_dir" else v)
+              for k, v in kwargs.items()}
+    params = dict(objective="binary", verbose=-1)
+    bst = lgb.train(dict(CPU, **params), lgb.Dataset(X, label=y),
+                    num_boost_round=1, **kwargs)
+    plain = lgb.train(dict(CPU, **params), lgb.Dataset(X, label=y),
+                      num_boost_round=1)
+    assert bst.model_to_string() == plain.model_to_string()
+    if "checkpoint_dir" in kwargs:
+        ref_dir = str(tmp_path / "ref")
+        ref_lgb.train(params, ref_lgb.Dataset(X, label=y),
+                      num_boost_round=1, checkpoint_dir=ref_dir)
+        assert sorted(os.listdir(kwargs["checkpoint_dir"])) == \
+            sorted(os.listdir(ref_dir)) == ["ckpt-00000001"]
 
 
 # ----------------------------------------------------------------------

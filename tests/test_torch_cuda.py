@@ -1064,3 +1064,118 @@ def test_pred_contrib_of_a_card_model_equals_cpu(cuda):
                                bst.predict(X[:64], raw_score=True,
                                            predict_on_device=False),
                                rtol=0, atol=1e-9)
+
+
+# ----------------------------------------------------------------------
+# telemetry and checkpoints on the card (obs/, ft/checkpoint.py)
+# ----------------------------------------------------------------------
+
+def _syncs_of_one_update(booster):
+    """Host syncs of one boosting iteration, counted by the sync debug
+    mode's warnings (the registry's drainer threads included)."""
+    from lightgbm_tpu_torch.obs.registry import registry
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            booster.update()
+            assert registry.drain_ready(timeout=60)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def test_sample_mode_adds_no_host_sync_on_card(cuda):
+    """Sample mode records a CUDA event after each watched stage and a
+    drainer thread polls it: an iteration makes exactly the syncs it
+    makes with telemetry off (the loop's own record and flag reads), and
+    every watched stage lands its ``::ready`` time."""
+    from lightgbm_tpu_torch.obs.registry import registry
+    rng = np.random.RandomState(51)
+    X = rng.randn(50000, 10)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + rng.randn(50000) * 0.3 > 0)
+    booster = lgb.Booster({"objective": "binary", "num_leaves": 63,
+                           "verbose": -1}, lgb.Dataset(X, label=y))
+    booster.update()                      # warm: the capture, the kernels
+    off = _syncs_of_one_update(booster)
+    registry.reset()
+    registry.enable(sampling=True)
+    try:
+        on = _syncs_of_one_update(booster)
+        phases = registry.phases()
+    finally:
+        registry.disable()
+        registry.timer.sampling = False
+    assert on == off
+    for stage in ("gbdt::gradients", "tree::stage_gh",
+                  "tree::root_histogram", "gbdt::score_update"):
+        assert phases[stage + "::ready"]["calls"] == 1, stage
+    assert registry.gauges["device/peak_bytes_in_use"] > 0
+
+
+def test_trace_readiness_lane_on_card(cuda, tmp_path):
+    """A traced run on the card: one ``::ready`` span per watched stage
+    and tree, on the readiness lane, parented to the stage that
+    submitted it."""
+    from lightgbm_tpu_torch.obs import trace
+    from lightgbm_tpu_torch.obs.registry import registry
+    rng = np.random.RandomState(52)
+    X = rng.randn(20000, 8)
+    y = (X[:, 0] - X[:, 3] + rng.randn(20000) * 0.3 > 0)
+    path = str(tmp_path / "trace.json")
+    registry.reset()
+    registry.enable(sampling=True)
+    trace.configure(path)
+    try:
+        lgb.train({"objective": "binary", "num_leaves": 31, "verbose": -1},
+                  lgb.Dataset(X, label=y), num_boost_round=3)
+        assert registry.drain_ready(timeout=60)
+        trace.flush()
+    finally:
+        trace.configure(None)
+        registry.disable()
+        registry.timer.sampling = False
+    doc = json.load(open(path))
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    by_id = {e["args"].get("span_id"): e for e in spans}
+    for stage in ("gbdt::gradients", "tree::stage_gh",
+                  "tree::root_histogram", "gbdt::score_update"):
+        ready = [e for e in spans if e["name"] == stage + "::ready"]
+        assert 1 <= len(ready) <= 3, (stage, len(ready))
+        assert all(by_id[e["args"]["parent_span_id"]]["name"] == stage
+                   for e in ready), stage
+    caps = [e for e in spans if e["name"] == "capture::serial.split_step"]
+    assert len(caps) == 1
+
+
+@pytest.mark.parametrize("extra", [
+    {}, {"use_quantized_grad": True, "bagging_fraction": 0.7,
+         "bagging_freq": 1}], ids=["f32", "int8-bagging"])
+def test_checkpoint_resume_on_card_is_the_uninterrupted_run(cuda, extra,
+                                                            tmp_path):
+    """Cut after the 4-round checkpoint of a 6-round run and resumed: the
+    uninterrupted model text and score bits; the resumed learner
+    captures its step again."""
+    from lightgbm_tpu_torch.obs import compile as obs_compile
+    rng = np.random.RandomState(53)
+    X = rng.randn(30000, 10)
+    y = (X[:, 0] + 0.5 * X[:, 1] ** 2 + rng.randn(30000) * 0.3 > 0.5)
+    params = dict({"objective": "binary", "num_leaves": 31,
+                   "verbose": -1}, **extra)
+    full = lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=6)
+    d = str(tmp_path / "ck")
+
+    def cut(env):
+        if env.iteration == 4:
+            raise KeyboardInterrupt
+    with pytest.raises(KeyboardInterrupt):
+        lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=6,
+                  checkpoint_dir=d, checkpoint_freq=2, callbacks=[cut])
+    before = obs_compile.capture_count("serial.split_step")
+    resumed = lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=6,
+                        checkpoint_dir=d, checkpoint_freq=2, resume=True)
+    assert obs_compile.capture_count("serial.split_step") == before + 1
+    assert resumed.model_to_string() == full.model_to_string()
+    assert torch.equal(resumed.inner.train_score.view(torch.int32),
+                       full.inner.train_score.view(torch.int32))

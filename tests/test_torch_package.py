@@ -47,6 +47,11 @@ def test_fresh_import_loads_no_jax_and_no_reference_module():
         "import lightgbm_tpu_torch.io.streaming, lightgbm_tpu_torch.io.binary_io\n"
         "import lightgbm_tpu_torch.models.shap, lightgbm_tpu_torch.models.codegen\n"
         "import lightgbm_tpu_torch.utils.atomic\n"
+        "import lightgbm_tpu_torch.obs, lightgbm_tpu_torch.ft.checkpoint\n"
+        "from lightgbm_tpu_torch.obs import (compile, events, export,\n"
+        "    faults, gateway, health, openmetrics, quality, registry,\n"
+        "    trace, trace_compact)\n"
+        "import lightgbm_tpu_torch.utils.retry, lightgbm_tpu_torch.utils.timer\n"
         "runpy.run_path(%r, run_name='chip_smoke_imported')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"

@@ -28,6 +28,7 @@ import lightgbm_tpu_torch as lgb
 from lightgbm_tpu_torch.convert import trees_from_numpy
 from lightgbm_tpu_torch.models.linear import fit_linear_leaves
 from lightgbm_tpu_torch.models.tree import Tree
+from lightgbm_tpu_torch.obs.registry import registry
 from lightgbm_tpu_torch.ops import predict as P
 from lightgbm_tpu_torch.serve import (BucketedPredictor, StackedForest,
                                       round_down_f32)
@@ -269,6 +270,8 @@ def test_device_tree_walk_equals_the_reference(shared):
 # ----------------------------------------------------------------------
 def test_bucket_policy_and_chunking(shared):
     X, ref, port, host = shared
+    # the bucket counts live in the metrics registry, process-wide
+    registry.reset()
     pred = BucketedPredictor(StackedForest.from_gbdt(port),
                              model_version="v", min_bucket=16,
                              max_bucket=256)
@@ -285,7 +288,8 @@ def test_bucket_policy_and_chunking(shared):
         ("v", 256, "value"): 2, ("v", 128, "value"): 1}
     np.testing.assert_array_equal(pred.predict(X[:90]), host[:90])
     assert pred.entries[("v", 128, "value")] == 2
-    assert pred.stats["hits"] == 2 and pred.stats["new"] == 2
+    assert pred.stats["hits"] == 2 and pred.stats["compiles"] == 2
+    assert registry.gauges["serve/compile_cache_size"] == 2
     pred.swap(pred.forest, "w")
     assert pred.entries == {}
 
