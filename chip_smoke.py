@@ -153,6 +153,8 @@ Phases (each one fails the run if it fails):
 15. monotone constraints, forced splits and linear trees on phase 4's
    data (255 leaves): +1 on the 4 columns most positively correlated
    with the label in 100k training rows, -1 on the 2 most negative;
+   a-c train on the first 2,097,152 training rows binned again with the
+   constraints (all 10.5M before), d on phase 4's Dataset;
    a. the basic method, 5 rounds through the captured whole-tree step:
       launches == roots + steps, held-out predictions exactly monotone
       along a 64-point grid of each constrained column (stacked path), a
@@ -175,14 +177,17 @@ Phases (each one fails the run if it fails):
    the same tree, and the card's linear fit, run again on the CPU from
    the same inputs, within rtol 1e-9;
 
-16. wide bins: phase 4's rows binned again at max_bin 1023 (uint16
-   bins, B = 1024, 255 leaves, min_data_in_leaf 100, lr 0.1): f32 for 5
+16. wide bins: the first 2,097,152 of phase 4's rows binned again at
+   max_bin 1023 (uint16 bins, B = 1024, 255 leaves, min_data_in_leaf
+   100, lr 0.1): f32 for 5
    rounds through the uint16 f32 instance only (held-out AUC > 0.7 and
    equal to the device scores', stacked predict == host walk, a 2-round
    per-split rerun text-equal; ms per split beside phase 4's), 8-bit for
    3 rounds and 16-bit for 2 through their uint16 instances (1-round
    per-split reruns text-equal), tree 1 at 200k rows the same on cuda
-   and cpu in f32, 8-bit and 16-bit;
+   and cpu in f32, 8-bit and 16-bit (those rows binned once for the
+   three); the uint16 instances are timed over the learner's bins
+   repeated to phase 4's 10.5M rows;
 17. f64 histogram sums (``tpu_use_f64_hist``): phase 4's Dataset for 3
    rounds and phase 16's for 2, through the f64 instances; then phase
    9's Covertype rows bundled and unbundled for 2 rounds each, and
@@ -236,25 +241,60 @@ Phases (each one fails the run if it fails):
       then 8-bit with bagging and DART at 200k rows, cut after their
       4-round checkpoint and resumed to 6: text and score bits equal to
       the uninterrupted runs;
+21. serving (``serve/server.py``) with phase 12's model (binary, 255
+   leaves, 40 rounds, 28 features): ``PredictServer`` with max_batch
+   256 and max_wait_ms 2, first with 1 replica, then with 2 on the one
+   card (two dispatch workers, each on its own CUDA stream): 16 client
+   threads send single rows and, every 25th request, a 1000-row block
+   (split across dispatches) for 5 s each; every answer byte-equal to
+   ``StackedForest.predict`` of its rows, dispatches fewer than
+   requests, p50 / p99 latency and rows/s per replica count, the
+   OpenMetrics text with ``replica="0"`` and ``replica="1"`` series;
+   then 4096 rows from 4 threads against ``max_queue_rows=1024`` (1024
+   served, 3072 shed with ``Overloaded``, no Future pending), injected
+   ``serve_dispatch`` faults opening the breaker and a half-open probe
+   closing it, a canary (``canary_batches=4``) rolled back by an
+   injected fault while the old version serves byte-equal, and
+   ``stop(drain_timeout_s=0.05)`` over 513 queued requests resolving or
+   failing every Future;
+22. out-of-core (``io/shards.py``, ``treelearner/sharded.py``): the first
+   2,097,152 of phase 4's training rows spilled through
+   ``StreamingDataset(spill_dir=...)`` into 8 shards of 262,144 rows,
+   255 leaves, 3 rounds in f32 and 2 in 8-bit by the shard-sweep learner
+   (8 splits per sweep) beside the in-memory learner on the same bins:
+   8-bit trees text-equal, f32 at the level reached ((a) text, (b)
+   splits and leaf counts, or (c) held-out AUC within 1e-3, which must
+   hold), K1 and K2 device launches == shards x histogram passes (one
+   pass for each root and each speculated split of a sweep round);
+   s per iteration, sweeps and passes per tree, prefetch stall ms and
+   its share of the tree; then the spill attached again, an 8-bit run
+   cut after 1 round and resumed to 2: text-equal to the uninterrupted
+   run, its score check replayed shard by shard;
 
 then time every instance over the learners' real bins of phases 9 (the
 bundle columns at Bg), 13 and 10, and print one ``{"kernels": [...]}``
 line with the launches of each kernel on each path that runs it, as its
 device counter counted them (graph replays included;
 ``launches_by_path``; f32: phases 3, 4, 9, 10, 11, 12, 13, 14a, 14b,
-14d, 14e, 15a-e, 18, 19a, 19c, 19d, 20a, 20c; int8: phases 7, 9, 14c,
-15d, 19b, 20b, 20c;
+14d, 14e, 15a-e, 18, 19a, 19c, 19d, 20a, 20c, 22; int8: phases 7, 9,
+14c, 15d, 19b, 20b, 20c, 22;
 int16: phase 8; f64: phase 17; the uint16 instances: phase 16, and f64
 phase 17); each instance must have been timed and launched by some
 path.
-Prediction launches
+Prediction (phases 12 and 21) launches
 no hand kernel: the stacked walk is PyTorch ops (the reference's is
 ``jnp``), so it has no row in that line.
 
 Rounds cut to keep the script inside its time, with every check kept:
 phases 9 and 13 2 rounds (5, then 3 before), phase 12 40 rounds and a
 20 + 20 continuation (100 and 50 + 50, then 50 and 25 + 25 before), 14d,
-14e and 15b's intermediate method 1 round (2 before).
+14e and 15b's intermediate method 1 round (2 before). For phases 21 and
+22: phase 16's rows 2,097,152 (10.5M before; its uint16 instance
+timings keep phase 4's 10.5M-row root by repeating its bins), the
+cuda-vs-cpu tree-1 checks of phases 11, 14 and 15 at 100k rows (200k
+before), the 8-bit cuda-vs-cpu tree 1 of phases 9 and 13 at 63 leaves
+(255 before), and one binning of the small rows for both devices (and
+for phase 16's three settings) where each run binned them again.
 
 Phases 3, 4, 7-11, 13, 14a-c, 15a, 15c-e, 16-18 and 19 train through the
 default whole-tree loop (14d, 14e and 15b through the per-split loop, which
@@ -268,8 +308,9 @@ CUDA device, or without the ``lightgbm_tpu_torch`` package beside this
 file, the script exits non-zero and prints no result.
 ``--phases 1,2`` runs a subset (for development; the full run is the
 check); phase 19 brings phases 4 and 7, whose trees its batches are
-held against, and phase 20 brings phase 4 (its Dataset, trees and host
-syncs).
+held against, phase 20 brings phase 4 (its Dataset, trees and host
+syncs), phase 21 brings phase 12 (its model) and phase 22 the full-size
+rows (without their training).
 """
 from __future__ import annotations
 
@@ -327,6 +368,13 @@ MULTICLASS_ROUNDS = 2
 FULL_ROWS = 10_500_000
 HELD_OUT_ROWS = 500_000
 SMALL_ROWS = 200_000
+#: rows of the per-setting cuda-vs-cpu tree-1 checks of phases 11, 14
+#: and 15 (cut from phase 3's 200k for the budget of phases 21 and 22:
+#: each setting trains a 63-leaf tree on the CPU)
+CROSS_ROWS = 100_000
+#: leaves of the 8-bit cuda-vs-cpu tree 1 of the Covertype phases 9 and
+#: 13 at 50k rows (cut from 255: the CPU run grows all 7 classes' trees)
+CROSS_LEAVES = 63
 # the reference bench's predict batch (bench.py:153, BENCH_PREDICT_ROWS)
 PREDICT_ROWS = 1 << 18
 # UCI Covertype: 581,012 rows x 54 columns, 7 classes (phase 9)
@@ -1011,29 +1059,41 @@ def tree_splits(booster):
             for t in booster.inner.models]
 
 
-def phase_small(lgb, hist_mod, extra, kernel, auc_tol, rounds=3):
+def small_datasets(lgb, extra=None):
+    """Phase 3's 200k training rows and 50k held-out rows of
+    ``make_higgs_like(seed=7)``, binned once with ``extra``'s binning
+    parameters (one Dataset pair serves both devices and every setting
+    that bins alike)."""
+    X, y = make_higgs_like(SMALL_ROWS + 50_000, seed=7)
+    ds = lgb.Dataset(X[:SMALL_ROWS], label=y[:SMALL_ROWS],
+                     params=dict(SLICE_PARAMS, **(extra or {}))).construct()
+    valid = lgb.Dataset(X[SMALL_ROWS:], label=y[SMALL_ROWS:],
+                        reference=ds).construct()
+    return ds, valid
+
+
+def phase_small(lgb, hist_mod, extra, kernel, auc_tol, rounds=3,
+                data=None):
     """Train ``rounds`` rounds at 200k rows on cuda and on cpu; tree 1
     must make the same splits, and the cuda run must go through
     ``kernel``. The held-out AUCs must agree within ``auc_tol`` where
     that is given (f32 sums run in another order on the card, so later
-    trees may fork at near-ties)."""
-    X, y = make_higgs_like(SMALL_ROWS + 50_000, seed=7)
-    Xt, yt, Xv, yv = X[:SMALL_ROWS], y[:SMALL_ROWS], X[SMALL_ROWS:], \
-        y[SMALL_ROWS:]
+    trees may fork at near-ties). ``data`` is a pair of
+    :func:`small_datasets` binned as ``extra`` bins (made here when
+    None); both devices train on it."""
     import torch
+    ds, valid = data if data is not None else small_datasets(lgb, extra)
     res = {}
     threads = torch.get_num_threads()
     for dev in ("cuda", "cpu"):
         # the CPU run is many small ops: one intra-op thread is fastest
         torch.set_num_threads(1 if dev == "cpu" else threads)
         params = dict(SLICE_PARAMS, num_leaves=63, device_type=dev, **extra)
-        ds = lgb.Dataset(Xt, label=yt)
         evals = {}
         hist_mod.reset_launch_counts()
         t0 = time.perf_counter()
         bst = lgb.train(params, ds, num_boost_round=rounds,
-                        valid_sets=[lgb.Dataset(Xv, label=yv, reference=ds)],
-                        valid_names=["held_out"],
+                        valid_sets=[valid], valid_names=["held_out"],
                         callbacks=[lgb.record_evaluation(evals)])
         log("small slice %s on %s: %.3f s" % (json.dumps(extra), dev,
                                               time.perf_counter() - t0))
@@ -1153,9 +1213,9 @@ HEAD = {}
 def full_data(lgb, keep_head=False):
     """The full-size data of phases 4 and 7: 10.5M Higgs-shaped training
     rows binned at max_bin 255, and a 500k held-out set. With
-    ``keep_head`` the training rows and labels stay in ``HEAD`` (phase
-    15a-c bins them again with monotone constraints), and a copy of the
-    first LINEAR_ROWS (phase 15e)."""
+    ``keep_head`` a copy of the first LINEAR_ROWS training rows and
+    labels stays in ``HEAD`` (phases 15, 16, 19 and 22 bin or spill them
+    again)."""
     t0 = time.perf_counter()
     X, y = make_higgs_like(FULL_ROWS + HELD_OUT_ROWS)
     Xt, yt = X[:FULL_ROWS], y[:FULL_ROWS]
@@ -1163,7 +1223,6 @@ def full_data(lgb, keep_head=False):
     if keep_head:
         HEAD["X"] = X[:LINEAR_ROWS].copy()
         HEAD["y"] = y[:LINEAR_ROWS].copy()
-        HEAD["Xt"], HEAD["yt"] = Xt, yt
     log("full size: generated %d + %d rows x %d in %.1f s"
         % (FULL_ROWS, HELD_OUT_ROWS, X.shape[1], time.perf_counter() - t0))
     t0 = time.perf_counter()
@@ -1624,13 +1683,15 @@ def check_multiclass(bst, run, Xv, yv, what):
 
 def first_tree_cuda_vs_cpu(lgb, Xt, yt, params, what, sub=50_000,
                            categorical_feature=None):
-    """Tree 1 (class 0) at ``sub`` rows with 8-bit gradients (integer
-    histograms: the same sums in any order) on cuda and on cpu."""
+    """Tree 1 (class 0) at ``sub`` rows and ``CROSS_LEAVES`` leaves with
+    8-bit gradients (integer histograms: the same sums in any order) on
+    cuda and on cpu."""
     first = {}
     for dev_type in ("cuda", "cpu"):
         sds = lgb.Dataset(Xt[:sub], label=yt[:sub],
                           categorical_feature=categorical_feature)
         b = lgb.train(dict(params, device_type=dev_type,
+                           num_leaves=CROSS_LEAVES,
                            use_quantized_grad=True, quant_grad_bits=8),
                       sds, num_boost_round=1)
         t = b.inner.models[0]
@@ -2344,8 +2405,8 @@ def other_objective_labels(X: np.ndarray, seed: int):
 
 
 def phase_other_objectives(lgb, hist_mod):
-    """Each remaining objective at phase 3's 200k Higgs-shaped rows
-    (binned once), 63 leaves, 1 round, on cuda and on cpu: tree 1 must
+    """Each remaining objective at ``CROSS_ROWS`` Higgs-shaped rows
+    (phase 3's generator, binned once), 63 leaves, 1 round, on cuda and on cpu: tree 1 must
     have the same structure (:func:`tree_structure`), the cuda run must
     go through the f32 instance only, and for l1, quantile and mape the
     renewed leaf values of tree 1 must be equal. Host-clock ms of each
@@ -2353,7 +2414,7 @@ def phase_other_objectives(lgb, hist_mod):
     included). Returns the f32 launches."""
     import torch
     from lightgbm_tpu_torch.boosting import gbdt
-    X, _ = make_higgs_like(SMALL_ROWS, seed=7)
+    X, _ = make_higgs_like(CROSS_ROWS, seed=7)
     labels = other_objective_labels(X, seed=8)
     base = {"num_leaves": 63, "min_data_in_leaf": 100,
             "learning_rate": 0.1, "verbosity": -1}
@@ -2523,6 +2584,7 @@ def phase_predict(lgb, hist_mod):
                      "rounds" % PREDICT_ROUNDS)
     bst = run["booster"]
     PHASE12["model"] = bst.model_to_string(num_iteration=REFIT_ITERATIONS)
+    PHASE12["model_full"] = bst.model_to_string()
     launches = {"phase12_binary_%d_rounds" % PREDICT_ROUNDS:
                 run["launches"]["histogram_f32"]}
     Xp, _ = make_higgs_like(PREDICT_ROWS, seed=1)
@@ -3040,7 +3102,7 @@ def phase14_node_filters_f32_order(lgb, X, y, base):
               "cuda and cpu")
         log("14d bynode + constraints, f32 at %d rows: tree 1 the same "
             "tree on cuda and cpu, %d splits in the same order"
-            % (SMALL_ROWS, len(tr_cuda)))
+            % (CROSS_ROWS, len(tr_cuda)))
         return
     (wa, ca), (wb, cb) = tr_cuda[k], tr_cpu[k]
     live = np.isfinite(ca[:, 0]) & np.isfinite(cb[:, 0])
@@ -3060,7 +3122,7 @@ def phase14_node_filters_f32_order(lgb, X, y, base):
         "ulp); the candidate tables hold the same (feature, bin) in "
         "every leaf: %s; largest cross-device gain difference of one "
         "candidate %.3g (%.1f ulp, leaf %d)"
-        % (SMALL_ROWS, k, k + 1, a, wa[1], wa[2], b, wb[1], wb[2],
+        % (CROSS_ROWS, k, k + 1, a, wa[1], wa[2], b, wb[1], wb[2],
            ca[a, 0], ca[b, 0], gap_cuda, _ulps(ca[a, 0], ca[b, 0]),
            cb[b, 0], cb[a, 0], gap_cpu, _ulps(cb[a, 0], cb[b, 0]),
            same_cands, rounding, _ulps(ca[worst, 0], cb[worst, 0]),
@@ -3074,7 +3136,8 @@ def phase14_node_filters_f32_order(lgb, X, y, base):
 
 
 def phase14_cuda_vs_cpu(lgb):
-    """Tree 1 on cuda and on cpu at phase 3's 200k rows, 63 leaves, for
+    """Tree 1 on cuda and on cpu at ``CROSS_ROWS`` rows of phase 3's
+    generator, 63 leaves, for
     14a's, 14d's and 14e's settings and GOSS: the same tree (structure,
     as phase 11 compares). GOSS runs at learning_rate 2.0, whose warm-up
     int(1 / lr) is 0, so that tree 1 is a GOSS tree. 14d's node masks
@@ -3084,7 +3147,7 @@ def phase14_cuda_vs_cpu(lgb):
     integer histograms give both devices the same sums, and in f32 up to
     its first differing split (:func:`phase14_node_filters_f32_order`)."""
     import torch
-    X, y = make_higgs_like(SMALL_ROWS, seed=7)
+    X, y = make_higgs_like(CROSS_ROWS, seed=7)
     base = dict(SLICE_PARAMS, num_leaves=63)
     cases = (("14a ff + extra_trees",
               {"feature_fraction": 0.9, "extra_trees": True}),
@@ -3112,7 +3175,7 @@ def phase14_cuda_vs_cpu(lgb):
                  [v[:12] if isinstance(v, list) else v
                   for v in tree_splits_of(trees["cpu"])]))
         log("%s at %d rows: tree 1 the same tree on cuda and cpu (%s, %d "
-            "leaves)" % (what, SMALL_ROWS,
+            "leaves)" % (what, CROSS_ROWS,
                          "splits in the same order"
                          if tree_splits_of(trees["cuda"])
                          == tree_splits_of(trees["cpu"])
@@ -3165,17 +3228,19 @@ def higgs_constraints(rows: int = 100_000):
 
 
 def constrained(lgb, data, mc):
-    """Phase 4's training rows and held-out set as Datasets with the
-    monotone constraints ``mc``, built through the Dataset entry point
-    (the 10.5M training rows are binned again)."""
+    """The first ``LINEAR_ROWS`` of phase 4's training rows and its
+    held-out set as Datasets with the monotone constraints ``mc``, built
+    through the Dataset entry point (binned again; all 10.5M rows until
+    the budget of phases 21 and 22)."""
     _, _, Xv, yv = data
     t0 = time.perf_counter()
-    dsm = lgb.Dataset(HEAD["Xt"], label=HEAD["yt"],
+    dsm = lgb.Dataset(HEAD["X"], label=HEAD["y"],
                       params=dict(SLICE_PARAMS,
                                   monotone_constraints=mc)).construct()
     vm = lgb.Dataset(Xv, label=yv, reference=dsm).construct()
-    log("15a-c: the training rows binned again with monotone_constraints "
-        "in %.3f s" % (time.perf_counter() - t0))
+    log("15a-c: the first %d training rows binned again with "
+        "monotone_constraints in %.3f s"
+        % (len(HEAD["y"]), time.perf_counter() - t0))
     return dsm, vm
 
 
@@ -3495,7 +3560,8 @@ def phase15_linear(lgb, hist_mod, data):
 
 
 def phase15_cuda_vs_cpu(lgb, mc, path):
-    """Tree 1 on cuda and on cpu at phase 3's 200k rows (63 leaves):
+    """Tree 1 on cuda and on cpu at ``CROSS_ROWS`` rows of phase 3's
+    generator (63 leaves):
     basic monotone (f32), intermediate (8-bit), forced (f32) and linear
     (f32) must be the same tree; the linear fit of the card's tree 1,
     run again on the CPU from the same inputs, gives its coefficients
@@ -3503,7 +3569,7 @@ def phase15_cuda_vs_cpu(lgb, mc, path):
     import copy
     import torch
     from lightgbm_tpu_torch.boosting import gbdt as G
-    X, y = make_higgs_like(SMALL_ROWS, seed=7)
+    X, y = make_higgs_like(CROSS_ROWS, seed=7)
     base = dict(SLICE_PARAMS, num_leaves=63)
     cases = (("15 basic monotone, f32", {"monotone_constraints": mc}),
              ("15 intermediate, 8-bit",
@@ -3563,7 +3629,7 @@ def phase15_cuda_vs_cpu(lgb, mc, path):
                     "the same inputs rtol %.3g, against the CPU run's "
                     "own tree rtol %.3g" % (rel, cpu_rel))
         log("%s at %d rows: tree 1 the same tree on cuda and cpu (%s, %d "
-            "leaves)%s" % (what, SMALL_ROWS,
+            "leaves)%s" % (what, CROSS_ROWS,
                            "splits in the same order"
                            if tree_splits_of(trees["cuda"])
                            == tree_splits_of(trees["cpu"])
@@ -3584,8 +3650,6 @@ def phase_constraints(lgb, hist_mod, data):
     f32["phase15c_higgs_monotone_penalty"] = phase15_penalty(
         lgb, hist_mod, data, sets, mc)
     del sets
-    HEAD.pop("Xt")
-    HEAD.pop("yt")
     torch.cuda.empty_cache()
     fd, path = tempfile.mkstemp(suffix=".json")
     try:
@@ -3634,11 +3698,13 @@ REFIT_ITERATIONS = 20
 
 
 def wide_data(lgb, data):
-    """Phase 4's 10.5M training rows binned again at max_bin 1023 (uint16
-    bins), and the held-out rows aligned to them."""
+    """The first ``LINEAR_ROWS`` (2,097,152) of phase 4's training rows
+    binned again at max_bin 1023 (uint16 bins; cut from all 10.5M for
+    the budget of phases 21 and 22), and the held-out rows aligned to
+    them."""
     _, _, Xv, yv = data
     t0 = time.perf_counter()
-    ds = lgb.Dataset(HEAD["Xt"], label=HEAD["yt"],
+    ds = lgb.Dataset(HEAD["X"], label=HEAD["y"],
                      params=dict(SLICE_PARAMS,
                                  max_bin=WIDE_MAX_BIN)).construct()
     valid = lgb.Dataset(Xv, label=yv, reference=ds).construct()
@@ -3647,24 +3713,26 @@ def wide_data(lgb, data):
     check(h.bins.dtype == np.uint16 and h.max_num_bin > 256,
           "max_bin %d binned to %s with at most %d bins"
           % (WIDE_MAX_BIN, h.bins.dtype, h.max_num_bin))
-    log("phase 16 binning seconds at max_bin %d: %.3f; bins per feature "
-        "%d-%d (uint16 matrix, %d MB)"
-        % (WIDE_MAX_BIN, time.perf_counter() - t0, int(nb.min()),
-           int(nb.max()), h.bins.nbytes >> 20))
+    log("phase 16 binning seconds at max_bin %d (%d rows): %.3f; bins per "
+        "feature %d-%d (uint16 matrix, %d MB)"
+        % (WIDE_MAX_BIN, h.num_data, time.perf_counter() - t0,
+           int(nb.min()), int(nb.max()), h.bins.nbytes >> 20))
     return ds, valid, Xv, yv
 
 
 def phase_wide(lgb, hist_mod, data, errs, rows):
-    """Training at max_bin 1023 on phase 4's rows: f32 for 5 rounds (held-
+    """Training at max_bin 1023 on the first 2,097,152 of phase 4's rows
+    (:func:`wide_data`): f32 for 5 rounds (held-
     out AUC > 0.7 and equal to the device scores', stacked predict ==
     host walk, a 2-round per-split rerun text-equal), 8-bit for 3 rounds
     and 16-bit for 2 (each a 1-round per-split rerun text-equal), each
     through its uint16 instance only (device launches == roots + steps);
     ms per split and syncs per tree beside phase 4's; tree 1 at 200k
-    rows the same on cuda and cpu in f32, 8-bit and 16-bit; then the
-    uint16 instances timed over the learner's own bins (appended to
-    ``rows`` when phase 5 made them). Returns (launches by kernel and
-    path, the binned data)."""
+    rows the same on cuda and cpu in f32, 8-bit and 16-bit (one binning
+    of those rows for the three); then the uint16 instances timed over
+    the learner's own bins repeated to phase 4's 10.5M rows, the root
+    shape of the other instances (appended to ``rows`` when phase 5 made
+    them). Returns (launches by kernel and path, the binned data)."""
     import torch
     wdata = wide_data(lgb, data)
     extra = {"max_bin": WIDE_MAX_BIN}
@@ -3682,10 +3750,10 @@ def phase_wide(lgb, hist_mod, data, errs, rows):
     by_path = {"histogram_u16_f32": {
         "phase16_higgs_max_bin_1023": launches["histogram_u16_f32"]}}
     log("phase 16 against phase 4 in this call: ms per split %.3f at "
-        "max_bin 1023 (B = 1024, uint16) vs %s at max_bin 255; held-out "
-        "AUC %.6f"
-        % (SPLIT_MS[tag], "%.3f" % SPLIT_MS[PHASE4_TAG]
-           if PHASE4_TAG in SPLIT_MS else "not run", a))
+        "max_bin 1023 (B = 1024, uint16) on %d rows vs %s at max_bin 255 "
+        "on %d rows; held-out AUC %.6f"
+        % (SPLIT_MS[tag], learner.N, "%.3f" % SPLIT_MS[PHASE4_TAG]
+           if PHASE4_TAG in SPLIT_MS else "not run", FULL_ROWS, a))
     bins = learner.bins
     del bst, learner
     qtag = "phase 16 max_bin 1023 8-bit"
@@ -3707,16 +3775,22 @@ def phase_wide(lgb, hist_mod, data, errs, rows):
     by_path["histogram_u16_i16"] = {
         "phase16_higgs_max_bin_1023_16bit": q16launch["histogram_u16_i16"]}
     del q16
+    sdata = small_datasets(lgb, extra)
     small = phase_small(lgb, hist_mod, extra, "histogram_u16_f32", None,
-                        rounds=1)
+                        rounds=1, data=sdata)
     by_path["histogram_u16_f32"]["phase16_small_max_bin_1023"] = \
         small["histogram_u16_f32"]
     for p, kernel, tag in ((q8, "histogram_u16_i8", "8bit"),
                            (q16p, "histogram_u16_i16", "16bit")):
-        small = phase_small(lgb, hist_mod, p, kernel, None, rounds=1)
+        small = phase_small(lgb, hist_mod, p, kernel, None, rounds=1,
+                            data=sdata)
         by_path[kernel]["phase16_small_max_bin_1023_" + tag] = \
             small[kernel]
+    del sdata
     if rows is not None:
+        # the learner's bins repeated to the root shape of phase 4
+        bins = bins.repeat(-(-FULL_ROWS // bins.shape[0]), 1)[
+            :FULL_ROWS].contiguous()
         S = bins.shape[0]
         g = torch.Generator(device="cuda")
         g.manual_seed(16)
@@ -4489,6 +4563,452 @@ def phase_observability(lgb, hist_mod, data, looped):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the serving plane (PredictServer, replicas, registry)
+# ---------------------------------------------------------------------------
+#: seconds of closed-loop traffic per replica count
+SERVE_WINDOW_S = 5.0
+#: client threads of the traffic window, and every how many requests one
+#: is a 1000-row block (split across dispatches by max_batch 256)
+SERVE_CLIENTS = 16
+SERVE_BLOCK_EVERY = 25
+SERVE_BLOCK_ROWS = 1000
+
+
+def serve_window(srv, X, want, seconds):
+    """``SERVE_CLIENTS`` threads submit closed-loop (each waits for its
+    answer) for ``seconds``: single rows, every ``SERVE_BLOCK_EVERY``-th
+    request a ``SERVE_BLOCK_ROWS``-row block. Every answer must be
+    byte-equal to ``want`` of its rows. Returns (requests, rows, wall
+    seconds, client latencies in ms)."""
+    import threading
+    n = X.shape[0]
+    stop = time.perf_counter() + seconds
+    lat, counts, bad = [], [0, 0], []
+    lock = threading.Lock()
+
+    def client(t):
+        rng = np.random.RandomState(100 + t)
+        k = 0
+        while time.perf_counter() < stop:
+            k += 1
+            m = SERVE_BLOCK_ROWS if k % SERVE_BLOCK_EVERY == 0 else 1
+            lo = int(rng.randint(0, n - m))
+            t0 = time.perf_counter()
+            got = srv.submit(X[lo] if m == 1 else X[lo:lo + m]).result(
+                timeout=120)
+            dt = (time.perf_counter() - t0) * 1e3
+            ok = np.array_equal(np.atleast_1d(got), want[lo:lo + m])
+            with lock:
+                lat.append(dt)
+                counts[0] += 1
+                counts[1] += m
+                if not ok:
+                    bad.append((lo, m))
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=seconds + 120)
+        check(not th.is_alive(), "phase 21: a client thread hung")
+    wall = time.perf_counter() - t0
+    check(not bad, "phase 21: %d answers differ from the stacked predict "
+          "(first rows %s)" % (len(bad), bad[:3]))
+    return counts[0], counts[1], wall, lat
+
+
+def outcome(fut, timeout=120):
+    try:
+        return "ok", fut.result(timeout=timeout)
+    except Exception as e:  # noqa: BLE001 — the type is the outcome
+        return type(e).__name__, None
+
+
+def phase_serving(lgb):
+    """Phase 21: phase 12's model (binary, 255 leaves, 40 rounds, 28
+    features) behind ``PredictServer`` (max_batch 256, max_wait_ms 2) on
+    the card, with 1 and then 2 replicas (two dispatch workers on the one
+    card, each on its own CUDA stream): closed-loop traffic from 16
+    client threads for ``SERVE_WINDOW_S`` each, every answer byte-equal
+    to ``StackedForest.predict`` of its rows, fewer dispatches than
+    requests; p50 / p99 latency and rows/s per replica count, and the
+    OpenMetrics text with ``replica="0"`` and ``replica="1"`` series.
+    Then an overload burst against ``max_queue_rows=1024`` (shed typed,
+    no Future left pending), injected ``serve_dispatch`` faults opening
+    the breaker and a clean half-open probe closing it, a canary
+    (``canary_batches=4``) rolled back by an injected fault while the old
+    version serves byte-equal, and ``stop(drain_timeout_s=0.05)`` over a
+    waiting queue resolving or failing every Future."""
+    import threading
+    from lightgbm_tpu_torch.obs import faults
+    from lightgbm_tpu_torch.obs.export import render_openmetrics
+    from lightgbm_tpu_torch.obs.registry import registry
+    from lightgbm_tpu_torch.serve import (ModelRegistry, PredictServer,
+                                          StackedForest)
+    bst = lgb.Booster(model_str=PHASE12["model_full"],
+                      params={"device_type": "cuda"})
+    forest = StackedForest.from_gbdt(bst)
+    X, _ = make_higgs_like(1 << 16, seed=21)
+    want = forest.place("cuda").predict(X)
+    summary = {}
+    for replicas in (1, 2):
+        name = "phase21_replicas_%d" % replicas
+        srv = PredictServer(forest, name=name, max_batch=256, max_wait_ms=2,
+                            replicas=replicas, devices=["cuda"])
+        check(srv.replicas == replicas
+              and all(d.type == "cuda" for d in srv._devices),
+              "phase 21: %d replicas on %s" % (srv.replicas, srv._devices))
+        srv.warm(X[:256])
+        srv.warm(X[:1])
+        d0 = dict(srv.stats)
+        n_req, n_rows, wall, lat = serve_window(srv, X, want,
+                                                SERVE_WINDOW_S)
+        stats = {k: srv.stats[k] - d0[k] for k in srv.stats}
+        reps = srv.replica_stats()
+        text = render_openmetrics(registry)
+        srv.stop()
+        check(stats["requests"] == n_req and stats["rows"] == n_rows,
+              "phase 21: the server counted %d requests / %d rows, the "
+              "clients %d / %d" % (stats["requests"], stats["rows"], n_req,
+                                   n_rows))
+        check(0 < stats["dispatches"] < n_req,
+              "phase 21: %d dispatches for %d requests (no coalescing)"
+              % (stats["dispatches"], n_req))
+        if replicas == 2:
+            for k in (0, 1):
+                check('replica="%d"' % k in text and reps[k]["dispatches"]
+                      > 0, "phase 21: no replica=%d series (dispatches %s)"
+                      % (k, {r: v["dispatches"] for r, v in reps.items()}))
+        p50, p99 = np.percentile(lat, [50, 99])
+        summary[replicas] = n_rows / wall
+        log("phase 21 serving, %d replica(s) on one card, %d clients, "
+            "%.1f s: %d requests (%d rows; every %d-th a %d-row block) in "
+            "%d dispatches, all byte-equal to StackedForest.predict; "
+            "client latency p50 %.3f ms p99 %.3f ms; %.0f rows/s, %.0f "
+            "requests/s; per replica %s"
+            % (replicas, SERVE_CLIENTS, wall, n_req, n_rows,
+               SERVE_BLOCK_EVERY, SERVE_BLOCK_ROWS, stats["dispatches"],
+               p50, p99, n_rows / wall, n_req / wall,
+               json.dumps({k: {"dispatches": v["dispatches"],
+                               "rows": v["rows"],
+                               "p50_ms": round(v["p50_ms"], 3),
+                               "p99_ms": round(v["p99_ms"], 3)}
+                           for k, v in reps.items()})))
+    log("phase 21: 2 replicas on one card against 1: %.3f x the rows/s"
+        % (summary[2] / summary[1]))
+
+    # overload: a burst of 4096 rows from 4 threads against
+    # max_queue_rows 1024, the workers started after it (so the queue's
+    # bound, not the dispatch rate, decides: 1024 admitted, 3072 shed)
+    srv = PredictServer(forest, name="phase21_overload", max_batch=256,
+                        max_wait_ms=20, max_queue_rows=1024,
+                        devices=["cuda"], autostart=False)
+    srv.warm(X[:256])
+    futs = [[] for _ in range(4)]
+
+    def burst(t):
+        for i in range(1024):
+            futs[t].append((i, srv.submit(X[(t * 1024 + i) % len(X)])))
+
+    threads = [threading.Thread(target=burst, args=(t,)) for t in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    srv.start()
+    kinds = {}
+    for t in range(4):
+        for i, f in futs[t]:
+            kind, val = outcome(f)
+            kinds[kind] = kinds.get(kind, 0) + 1
+            if kind == "ok":
+                check(val == want[(t * 1024 + i) % len(X)],
+                      "phase 21 overload: a served answer differs")
+    srv.stop()
+    check(kinds == {"ok": 1024, "Overloaded": 3072},
+          "phase 21 overload: outcomes %s" % kinds)
+    log("phase 21 overload burst (4 x 1024 single rows, max_queue_rows "
+        "1024): %s; every Future resolved" % json.dumps(kinds))
+
+    # the breaker: injected dispatch faults open it, a probe closes it
+    srv = PredictServer(forest, name="phase21_breaker", max_batch=256,
+                        max_wait_ms=1, breaker_threshold=2,
+                        breaker_cooldown_ms=200, devices=["cuda"])
+    faults.configure("serve_dispatch:always")
+    try:
+        trail = [(outcome(srv.submit(X[i]))[0], srv.breaker.state)
+                 for i in range(3)]
+        time.sleep(0.25)
+    finally:
+        faults.reset()
+    probe = outcome(srv.submit(X[3]))
+    trail.append((probe[0], srv.breaker.state))
+    srv.stop()
+    check(trail == [("InjectedFault", "closed"), ("InjectedFault", "open"),
+                    ("BreakerOpen", "open"), ("ok", "closed")]
+          and probe[1] == want[3], "phase 21 breaker: %s" % trail)
+    log("phase 21 breaker: %s" % trail)
+
+    # a canary rolled back by an injected fault; v1 keeps serving
+    reg = ModelRegistry()
+    v1 = reg.load("phase21_canary", booster=bst, num_iteration=20)
+    want1 = StackedForest.from_gbdt(bst, 0, 20).place("cuda").predict(
+        X[:512])
+    srv = PredictServer(reg, name="phase21_canary", max_batch=256,
+                        max_wait_ms=1, devices=["cuda"])
+    first = srv.predict(X[:256], timeout=120)
+    v2 = reg.load("phase21_canary", booster=bst, canary_batches=4)
+    faults.configure("serve_dispatch:nth:1")
+    try:
+        caught = srv.predict(X[256:512], timeout=120)
+    finally:
+        faults.reset()
+    after = srv.predict(X[:512], timeout=120)
+    state = (reg.get("phase21_canary")[0], reg.canary_active("phase21_canary"))
+    srv.stop()
+    check(state == (v1, False) and v2 == v1 + 1
+          and np.array_equal(first, want1[:256])
+          and np.array_equal(caught, want1[256:])
+          and np.array_equal(after, want1),
+          "phase 21 canary: state %s, answers equal to v1 %s"
+          % (state, [np.array_equal(first, want1[:256]),
+                     np.array_equal(caught, want1[256:]),
+                     np.array_equal(after, want1)]))
+    log("phase 21 canary v%d (canary_batches 4) rolled back by an injected "
+        "serve_dispatch fault; v%d kept serving, byte-equal" % (v2, v1))
+
+    # the drain: stop() over a waiting queue
+    srv = PredictServer(forest, name="phase21_drain", max_batch=256,
+                        max_wait_ms=1, autostart=False, devices=["cuda"])
+    futs = [srv.submit(X[i]) for i in range(512)]
+    futs.append(srv.submit(X[:1000]))
+    srv.start()
+    srv.stop(drain_timeout_s=0.05)
+    kinds = {}
+    for i, f in enumerate(futs):
+        check(f.done(), "phase 21 drain: a Future was left pending")
+        kind, val = outcome(f, 0)
+        kinds[kind] = kinds.get(kind, 0) + 1
+        if kind == "ok":
+            check(np.array_equal(np.atleast_1d(val),
+                                 want[i:i + 1] if i < 512 else want[:1000]),
+                  "phase 21 drain: a served answer differs")
+    check(set(kinds) <= {"ok", "ShuttingDown"},
+          "phase 21 drain: outcomes %s" % kinds)
+    log("phase 21 drain (stop with 513 requests queued, 0.05 s): %s; no "
+        "Future left pending" % json.dumps(kinds))
+
+
+# ---------------------------------------------------------------------------
+# phase 22: out-of-core shards
+# ---------------------------------------------------------------------------
+#: rows per spilled shard of phase 22 (8 shards of the 2,097,152 rows)
+SHARD_ROWS = 1 << 18
+
+
+def in_memory_twin(ds):
+    """An in-memory BinnedDataset of a spill's own bins (the same rows,
+    binned once: the spill's bins are ``from_matrix``'s, held in
+    ``tests/test_torch_shards.py``)."""
+    from lightgbm_tpu_torch.io.dataset import BinnedDataset
+    mem = BinnedDataset()
+    for k in ("bin_mappers", "used_feature_map", "num_total_features",
+              "feature_names", "metadata", "max_num_bin",
+              "num_bin_per_feature", "monotone_constraints"):
+        setattr(mem, k, getattr(ds, k))
+    mem.bins = ds.assemble_bins()
+    return mem
+
+
+def first_split_gap(trees_a, trees_b) -> str:
+    """Where two lists of trees grown in the same order first part: the
+    tree, the split (in growth order) and each one's (feature, bin,
+    gain) there, with the gains' relative gap (a near-tie when it is of
+    the order of the f32 rounding of the sums)."""
+    for t, (a, b) in enumerate(zip(trees_a, trees_b)):
+        for j in range(min(a.num_internal, b.num_internal)):
+            pa = (int(a.split_feature_inner[j]), int(a.threshold_in_bin[j]))
+            pb = (int(b.split_feature_inner[j]), int(b.threshold_in_bin[j]))
+            if pa != pb:
+                ga, gb = float(a.split_gain[j]), float(b.split_gain[j])
+                return ("first difference in tree %d at split %d: sharded "
+                        "(feature %d, bin %d, gain %.6f), in-memory "
+                        "(feature %d, bin %d, gain %.6f), relative gap "
+                        "%.3g" % (t, j, pa[0], pa[1], ga, pb[0], pb[1], gb,
+                                  abs(ga - gb) / max(abs(ga), abs(gb),
+                                                     1e-30)))
+    return "no differing split (the difference is in values)"
+
+
+def sharded_run(lgb, hist_mod, train_set, params, rounds, kernel, what,
+                **kw):
+    """``lgb.train`` with the launch counts set to 0 just before and read
+    just after; returns (booster, seconds per iteration, device launches
+    of ``kernel``, registry counter deltas)."""
+    import torch
+    from lightgbm_tpu_torch.obs.registry import registry
+    before = {k: registry.count(k) for k in ("io/prefetch_stall_ms",
+                                             "io/shards_staged")}
+    hist_mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lgb.train(params, train_set, num_boost_round=rounds, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    dev = hist_mod.device_launch_counts()
+    others = {k: v for k, v in dev.items() if v and k != kernel}
+    check(not others, "%s: launched other instances %s" % (what, others))
+    delta = {k: registry.count(k) - v for k, v in before.items()}
+    return bst, secs / max(rounds, 1), dev[kernel], delta
+
+
+def phase_out_of_core(lgb, hist_mod, data):
+    """Phase 22: the first 2,097,152 of phase 4's training rows spilled
+    through ``StreamingDataset(spill_dir=...)`` into 8 shards of 262,144
+    rows, trained at 255 leaves for 3 rounds in f32 and 2 in 8-bit by the
+    shard-sweep learner (``tpu_frontier_splits`` 8), each beside the
+    in-memory learner on the same bins: 8-bit trees text-equal (integer
+    sums), f32 at the level reached ((a) text, (b) splits and leaf
+    counts, or (c) held-out AUC within 1e-3, which must hold), K1 and K2
+    device launches == shards x histogram passes (the root's and one per
+    speculated split of each sweep round); s per iteration, sweeps per
+    tree, prefetch stall ms and its share of the tree time. Then the
+    spill attached again, an 8-bit run cut after 1 round with a
+    checkpoint, and resumed to 2: its trees text-equal to the
+    uninterrupted run's, the resume's score check replaying the trees
+    shard by shard. Returns the launches by kernel and path."""
+    import shutil
+    import tempfile
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.shards import ShardedBinnedDataset
+    from lightgbm_tpu_torch.io.streaming import StreamingDataset
+    from lightgbm_tpu_torch.obs import events
+    X, y = HEAD["X"], HEAD["y"]
+    n = X.shape[0]
+    params = dict(SLICE_PARAMS, num_leaves=255, device_type="cuda")
+    out = {"histogram_f32": {}, "histogram_i8": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke22-")
+    try:
+        t0 = time.perf_counter()
+        sd = StreamingDataset(X.shape[1], params=params,
+                              chunk_rows=SHARD_ROWS,
+                              spill_dir=os.path.join(tmp, "spill"))
+        for lo in range(0, n, SHARD_ROWS):
+            sd.push_rows(X[lo:lo + SHARD_ROWS], label=y[lo:lo + SHARD_ROWS])
+        ds = sd.finalize(shard_rows=SHARD_ROWS)
+        t_spill = time.perf_counter() - t0
+        check(isinstance(ds, ShardedBinnedDataset)
+              and ds.shard_sizes == [SHARD_ROWS] * (n // SHARD_ROWS),
+              "phase 22: spilled %s" % getattr(ds, "shard_sizes", ds))
+        shards = ds.num_shards
+        mem = in_memory_twin(ds)
+        log("phase 22 spill: %d rows x %d into %d shards of %d rows in "
+            "%.1f s (%d MB of bins on disk)"
+            % (n, X.shape[1], shards, SHARD_ROWS, t_spill,
+               sum(os.path.getsize(os.path.join(tmp, "spill", f))
+                   for f in os.listdir(os.path.join(tmp, "spill"))
+                   if f.endswith(".bins.npy")) >> 20))
+        runs = {}
+        for tag, extra, rounds, kernel in (
+                ("f32", {}, 3, "histogram_f32"),
+                ("8bit", {"use_quantized_grad": True}, 2, "histogram_i8")):
+            p = dict(params, **extra)
+            sh, sh_s, sh_n, delta = sharded_run(
+                lgb, hist_mod, lgb.Dataset(ds), p, rounds, kernel,
+                "phase 22 sharded " + tag)
+            st = sh.inner.learner.grow_stats
+            check(sh_n == shards * st["hist_passes"] and sh_n > 0,
+                  "phase 22 sharded %s: %d launches of %s, shards %d x "
+                  "histogram passes %d" % (tag, sh_n, kernel, shards,
+                                           st["hist_passes"]))
+            im, im_s, im_n, _ = sharded_run(
+                lgb, hist_mod, lgb.Dataset(mem), p, rounds, kernel,
+                "phase 22 in-memory " + tag)
+            ist = im.inner.learner.grow_stats
+            check(im_n == ist["roots"] + ist["steps"],
+                  "phase 22 in-memory %s: %d launches != roots + steps"
+                  % (tag, im_n))
+            out[kernel]["phase22_sharded_" + tag] = sh_n
+            out[kernel]["phase22_in_memory_" + tag] = im_n
+            runs[tag] = (sh, im)
+            trees = max(st["roots"], 1)
+            stall = delta["io/prefetch_stall_ms"]
+            log("phase 22 %s, %d rounds: sharded %.3f s per iteration "
+                "(%.1f sweeps, %.1f histogram passes, %.1f rounds, %.1f "
+                "rejected speculations per tree; %d shard stagings), "
+                "in-memory %.3f s; launches of %s %d == %d shards x %d "
+                "passes (in-memory %d == roots + steps); prefetch stall "
+                "%d ms, %.2f%% of the trees' time"
+                % (tag, rounds, sh_s, st["sweeps"] / trees,
+                   st["hist_passes"] / trees, st["rounds"] / trees,
+                   st["rejected"] / trees, delta["io/shards_staged"], im_s,
+                   kernel, sh_n, shards, st["hist_passes"], im_n, stall,
+                   100.0 * stall / (1e3 * sh_s * rounds)))
+        q_sh, q_im = runs["8bit"]
+        check(q_sh.model_to_string() == q_im.model_to_string(),
+              "phase 22 8-bit: sharded trees differ from the in-memory "
+              "learner's")
+        f_sh, f_im = runs["f32"]
+        if f_sh.model_to_string() == f_im.model_to_string():
+            level = "(a) text-equal"
+        else:
+            same = [tree_splits_of(a) == tree_splits_of(b)
+                    and list(a.leaf_count[:a.num_leaves])
+                    == list(b.leaf_count[:b.num_leaves])
+                    for a, b in zip(f_sh.inner.models, f_im.inner.models)]
+            level = ("(b) splits and leaf counts equal" if all(same) else
+                     "(c): trees equal in splits %s; %s"
+                     % (same, first_split_gap(f_sh.inner.models,
+                                              f_im.inner.models)))
+        Xh, yh = data[2], data[3]
+        a_sh = auc(yh, f_sh.predict(Xh))
+        a_im = auc(yh, f_im.predict(Xh))
+        check(abs(a_sh - a_im) <= 1e-3,
+              "phase 22 f32: held-out AUC sharded %.6f vs in-memory %.6f"
+              % (a_sh, a_im))
+        log("phase 22 8-bit: sharded trees text-equal to the in-memory "
+            "learner's (level a); f32: level %s; held-out AUC (phase 4's "
+            "%d rows) sharded %.6f, in-memory %.6f"
+            % (level, len(yh), a_sh, a_im))
+        del runs, f_sh, f_im, mem
+
+        # attach the spill again; cut after 1 round, resume to 2
+        cfg = Config.from_params(dict(params))
+        q = dict(params, use_quantized_grad=True)
+        ck = os.path.join(tmp, "ckpt")
+        seen = []
+        events.register_event_callback(seen.append)
+        try:
+            lgb.train(q, lgb.Dataset(ShardedBinnedDataset.attach(
+                os.path.join(tmp, "spill"), cfg)), num_boost_round=1,
+                checkpoint_dir=ck, checkpoint_freq=1)
+            hist_mod.reset_launch_counts()
+            res = lgb.train(q, lgb.Dataset(ShardedBinnedDataset.attach(
+                os.path.join(tmp, "spill"), cfg)), num_boost_round=2,
+                checkpoint_dir=ck, checkpoint_freq=1, resume=True)
+        finally:
+            events.register_event_callback(None)
+        resumed = [e for e in seen if e["event"] == "checkpoint_resumed"]
+        check(res.model_to_string() == q_sh.model_to_string()
+              and [(e["iter"], e["score_replay"]) for e in resumed]
+              == [(1, "ok")],
+              "phase 22 resume: trees text-equal %s, resumes %s"
+              % (res.model_to_string() == q_sh.model_to_string(),
+                 [(e["iter"], e["score_replay"]) for e in resumed]))
+        out["histogram_i8"]["phase22_resumed_8bit"] = \
+            hist_mod.device_launch_counts()["histogram_i8"]
+        log("phase 22 attach + resume: 8-bit cut after 1 round and resumed "
+            "to 2 over the attached spill: trees text-equal to the "
+            "uninterrupted run's; score check over the shards, max |diff| "
+            "%.3g" % resumed[0]["score_replay_max_abs_diff"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def time_widths(hist_mod, widths, rows_out):
     """Every instance at the new widths' root shapes (the real bins of
     phases 9 and 10) and at children of 10k, 100k and 1M rows (fewer
@@ -4533,7 +5053,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
-                            "18,19,20",
+                            "18,19,20,21,22",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
@@ -4541,6 +5061,8 @@ def main(argv=None) -> int:
         phases |= {4, 7}
     if 20 in phases:
         phases.add(4)
+    if 21 in phases:
+        phases.add(12)
 
     import torch
     if not torch.cuda.is_available():
@@ -4578,8 +5100,8 @@ def main(argv=None) -> int:
         by_path["histogram_f32"]["phase3_small_binary"] = \
             run["histogram_f32"]
         lap("phase 3")
-    data = (full_data(lgb, keep_head=bool(phases & {15, 16, 19}))
-            if phases & {4, 7, 14, 15, 16, 17, 18, 19, 20} else None)
+    data = (full_data(lgb, keep_head=bool(phases & {15, 16, 19, 22}))
+            if phases & {4, 7, 14, 15, 16, 17, 18, 19, 20, 22} else None)
     bins_root, f32_auc = None, None
     # phase 4's and 7's trees, AUCs and seconds per iteration (phase 19)
     looped = {}
@@ -4647,6 +5169,11 @@ def main(argv=None) -> int:
                                                  looped).items():
             by_path[kernel].update(paths)
         lap("phase 20")
+    if 22 in phases:
+        for kernel, paths in phase_out_of_core(lgb, hist_mod,
+                                               data).items():
+            by_path[kernel].update(paths)
+        lap("phase 22")
     HEAD.clear()
     del data, looped
     if 8 in phases:
@@ -4689,6 +5216,9 @@ def main(argv=None) -> int:
     if 12 in phases:
         by_path["histogram_f32"].update(phase_predict(lgb, hist_mod))
         lap("phase 12")
+    if 21 in phases:
+        phase_serving(lgb)
+        lap("phase 21")
     if 17 in phases:
         by_path["histogram_f64"].update(phase_f64_covertype(lgb, hist_mod))
         lap("phase 17 (covertype)")

@@ -63,6 +63,13 @@ class Dataset:
     def construct(self) -> "Dataset":
         if self._handle is not None:
             return self
+        from .io.shards import ShardedBinnedDataset
+        if isinstance(self.data, (BinnedDataset, ShardedBinnedDataset)):
+            # an already binned dataset, e.g. a spill
+            # (StreamingDataset(spill_dir=...).finalize(),
+            # ShardedBinnedDataset.attach)
+            self._handle = self.data
+            return self
         if self.reference is not None:
             self.reference.construct()
         config = Config.from_params(self.params)

@@ -287,6 +287,12 @@ class GBDT:
 
     def add_valid_data(self, valid_data: BinnedDataset) -> None:
         """reference: GBDT::AddValidDataset (gbdt.cpp:182)."""
+        if not hasattr(valid_data, "bins"):
+            # a validation set's rows and scores stay on the device; a
+            # sharded (out-of-core) dataset has no resident matrix
+            log.fatal("sharded datasets cannot be validation sets; bin "
+                      "the validation rows in memory (they are scored "
+                      "per tree, not histogrammed)")
         # deferred walks belong to the sets registered before this one,
         # which replays the whole model below
         self._flush_valid_pending()
@@ -519,18 +525,26 @@ class GBDT:
         """Replay every tree over the training rows on the device and
         compare the sum with the maintained training score (reference
         gbdt.py:662); called once where a quantized batched run hands
-        over to the per-iteration loop, and by a checkpoint resume. Emits
+        over to the per-iteration loop, and by a checkpoint resume (over
+        a sharded dataset too, shard by shard, which the reference
+        skips). Emits
         one ``batched_eval_recheck`` event, and warns when the largest
         deviation passes 1e-3 times the score's scale; returns the
         deviation."""
         K = self.num_tree_per_iteration
         replay = torch.from_numpy(initial_score(
             self.train_data.metadata, self.num_data, K)).to(self.device)
-        for i, tree in enumerate(self.models):
-            delta = device_tree_outputs(tree, self.learner.bins,
-                                        self._bin_meta, self._raw)
-            if delta is not None:
-                replay[:, i % K] += delta
+        # block by block over the learner's rows: the resident matrix at
+        # once, or a sharded dataset's shards as they stage
+        for lo, bins in self.learner.bin_blocks():
+            block = replay[lo:lo + bins.shape[0]]
+            raw = (None if self._raw is None
+                   else self._raw[lo:lo + bins.shape[0]])
+            for i, tree in enumerate(self.models):
+                delta = device_tree_outputs(tree, bins, self._bin_meta,
+                                            raw)
+                if delta is not None:
+                    block[:, i % K] += delta
         diff = float((replay - self.train_score).abs().max())
         scale = max(float(self.train_score.abs().max()), 1.0)
         ok = diff <= 1e-3 * scale

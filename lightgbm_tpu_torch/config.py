@@ -354,8 +354,9 @@ class Config:
     # tpu_use_f64_hist ask for f64 histogram sums (f64_histograms).
     # tpu_fused_tree selects the learner's loop, as in the reference:
     # the whole-tree loop (true, the default) or the per-split loop
-    # (false), which give the same trees. Only the out-of-core frontier
-    # width, tpu_frontier_splits, has no effect here.
+    # (false), which give the same trees. tpu_frontier_splits is the
+    # out-of-core learner's splits per shard sweep
+    # (treelearner/sharded.py).
     gpu_platform_id: int = -1
     gpu_device_id: int = -1
     gpu_use_dp: bool = False

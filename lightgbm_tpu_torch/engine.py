@@ -81,6 +81,12 @@ def train(params: Dict[str, Any], train_set: Dataset,
     train_set.params = merged
     train_set.construct()
     booster = Booster(params=params, train_set=train_set)
+    # a spilled dataset carries its training-grid reference profile
+    # (obs/quality.py): the booster keeps it, so checkpoints write it
+    spill_profile = getattr(booster.inner.train_data, "quality_profile",
+                            None)
+    if spill_profile is not None:
+        booster.inner.quality_profile = spill_profile
     if init_model is not None:
         base = Booster(params=params, model_str=_model_text(init_model))
         booster.inner.replay_init_model(base.inner.models)
@@ -98,6 +104,14 @@ def train(params: Dict[str, Any], train_set: Dataset,
         if checkpoint_dir and (force or (checkpoint_freq > 0 and it > 0
                                          and it % checkpoint_freq == 0)):
             booster.inner.save_checkpoint(checkpoint_dir)
+        if force:
+            # the end of training (every return forces the last
+            # checkpoint): the sharded learner drops the sweep it started
+            # for a next tree, which holds a staged shard
+            release = getattr(booster.inner.learner, "release_prefetch",
+                              None)
+            if release is not None:
+                release()
 
     valid_sets = valid_sets or []
     valid_names = valid_names or []

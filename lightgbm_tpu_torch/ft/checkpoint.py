@@ -610,23 +610,18 @@ def load_latest(gbdt, directory: str) -> Optional[dict]:
             # compare against the stored bits — a checkpoint whose
             # score and trees disagree (corruption that preserved the
             # hashes, or a subtly different dataset) must not resume.
-            # (the port's datasets are resident; a sharded one, with no
-            # bin matrix to replay over, comes with ROADMAP item 21)
-            can_replay = hasattr(gbdt.train_data, "bins")
-            diff = 0.0
-            if can_replay:
-                diff = gbdt.recheck_scores(reason="checkpoint_resume")
-                scale = max(float(np.max(np.abs(score))), 1.0)
-                if diff > 1e-3 * scale:
-                    log.fatal("checkpoint %s: stored training scores "
-                              "deviate from the device replay of its "
-                              "own trees by %.3g — refusing to resume"
-                              % (path, diff))
+            # A sharded dataset replays shard by shard as its shards
+            # stage (the JAX package skips the check there)
+            diff = gbdt.recheck_scores(reason="checkpoint_resume")
+            scale = max(float(np.max(np.abs(score))), 1.0)
+            if diff > 1e-3 * scale:
+                log.fatal("checkpoint %s: stored training scores "
+                          "deviate from the device replay of its "
+                          "own trees by %.3g — refusing to resume"
+                          % (path, diff))
         obs.inc("ft/checkpoints_resumed")
         obs_events.emit("checkpoint_resumed", path=path, iter=gbdt.iter,
-                        trees=len(gbdt.models),
-                        score_replay=("ok" if can_replay
-                                      else "skipped_sharded"),
+                        trees=len(gbdt.models), score_replay="ok",
                         score_replay_max_abs_diff=round(float(diff), 9))
         obs_events.flush()
         log.info("resumed from checkpoint %s (iteration %d, %d trees)"

@@ -8,8 +8,12 @@ with them, and the binned dataset is made once, at ``finalize``. Chunks
 are staged on the host in a :class:`ChunkedBuffer` (no copy of earlier
 chunks on growth); ``finalize`` coalesces them and bins them with
 ``BinnedDataset.from_matrix``, so the bins are those of the same rows
-given at once. The out-of-core route (``spill_dir``,
-``spill_threshold_rows``) is ROADMAP item 21 and raises.
+given at once. With a ``spill_dir`` (optionally gated on
+``spill_threshold_rows``), ``finalize`` bins chunk by chunk into
+memory-mapped shards instead, with no f64 coalesce and the same mappers
+(the known row count lets the sharded construction draw ``from_matrix``'s
+own bin-construction sample), and returns a
+:class:`~.shards.ShardedBinnedDataset`.
 """
 from __future__ import annotations
 
@@ -65,13 +69,6 @@ class ChunkedBuffer:
         return np.concatenate(parts, axis=0)
 
 
-def _no_spill(spill_dir, spill_threshold_rows) -> None:
-    if spill_dir is not None or spill_threshold_rows is not None:
-        log.unsupported("StreamingDataset spill_dir / "
-                        "spill_threshold_rows (out-of-core shards)",
-                        "item 21")
-
-
 class StreamingDataset:
     """Push-mode dataset construction (reference:
     LGBM_DatasetInitStreaming -> PushRows*WithMetadata ->
@@ -91,7 +88,6 @@ class StreamingDataset:
                  has_group: bool = False,
                  spill_dir: Optional[str] = None,
                  spill_threshold_rows: Optional[int] = None):
-        _no_spill(spill_dir, spill_threshold_rows)
         self.config = Config.from_params(dict(params or {}))
         self.num_features = int(num_features)
         self._X = ChunkedBuffer(num_features, chunk_rows)
@@ -101,6 +97,12 @@ class StreamingDataset:
                             if has_init_score else None)
         self._group: Optional[List[int]] = [] if has_group else None
         self._finished = False
+        # out-of-core routing (io/shards.py): with a spill_dir, finalize()
+        # bins chunk by chunk into memory-mapped shards (the f64 rows are
+        # never coalesced) and returns a ShardedBinnedDataset;
+        # spill_threshold_rows gates it on size
+        self.spill_dir = spill_dir
+        self.spill_threshold_rows = spill_threshold_rows
 
     @property
     def num_pushed(self) -> int:
@@ -132,18 +134,70 @@ class StreamingDataset:
                 log.fatal("group pushed but has_group=False")
             self._group.extend(int(g) for g in np.atleast_1d(group))
 
+    def _chunk_source(self):
+        """Views of the pushed chunks as a re-iterable (X, y, w) chunk
+        source for the sharded construction (the X and metadata buffers share
+        ``chunk_rows``, so their chunks align row for row), and the row
+        count."""
+        n = len(self._X)
+        has_label = bool(len(self._label))
+        has_weight = self._weight is not None and bool(len(self._weight))
+        if has_label and len(self._label) != n:
+            log.fatal("pushed %d label values for %d rows"
+                      % (len(self._label), n))
+        if has_weight and len(self._weight) != n:
+            log.fatal("pushed %d weight values for %d rows"
+                      % (len(self._weight), n))
+
+        def source():
+            chunks = self._X._chunks
+            for i, xc in enumerate(chunks):
+                hi = (self._X._fill if i == len(chunks) - 1
+                      else self._X.chunk_rows)
+                y = self._label._chunks[i][:hi, 0] if has_label else None
+                w = self._weight._chunks[i][:hi, 0] if has_weight else None
+                yield xc[:hi], y, w
+        return source, n
+
     def finalize(self, reference: Optional[BinnedDataset] = None,
-                 spill_dir: Optional[str] = None, **kw) -> BinnedDataset:
+                 spill_dir: Optional[str] = None,
+                 shard_rows: Optional[int] = None, **kw):
         """Find the bin mappers and bin the pushed rows (reference:
         LGBM_DatasetMarkFinished -> FinishLoad): the coalesced rows
-        through ``BinnedDataset.from_matrix`` (``kw`` goes to it)."""
-        _no_spill(spill_dir, None)
+        through ``BinnedDataset.from_matrix`` (``kw`` goes to it), or,
+        with a ``spill_dir`` (here or at construction) and at least
+        ``spill_threshold_rows`` rows, through
+        ``ShardedBinnedDataset.from_chunk_source`` into shards of
+        ``shard_rows`` rows."""
         if self._finished:
             log.fatal("finalize() called twice")
         self._finished = True
         n = len(self._X)
         if n == 0:
             log.fatal("no rows pushed before finalize()")
+        spill_dir = spill_dir if spill_dir is not None else self.spill_dir
+        thr = self.spill_threshold_rows
+        if spill_dir is not None and (thr is None or n >= thr):
+            if reference is not None:
+                log.fatal("sharded finalize cannot align to a "
+                          "reference dataset")
+            if self._init_score is not None and len(self._init_score):
+                log.fatal("init_score is not supported on the sharded "
+                          "spill path")
+            if self._group:
+                log.fatal("query groups are not supported on the "
+                          "sharded spill path")
+            if kw.get("keep_raw_data"):
+                log.fatal("keep_raw_data/linear_tree needs the "
+                          "coalesced matrix; not supported on the "
+                          "sharded spill path")
+            from .shards import ShardedBinnedDataset
+            source, total = self._chunk_source()
+            return ShardedBinnedDataset.from_chunk_source(
+                source, self.config, spill_dir, shard_rows=shard_rows,
+                feature_names=kw.get("feature_names"),
+                categorical_feature=kw.get("categorical_feature"),
+                total_rows=total)
 
         def aligned(buf, what):
             if buf is None or not len(buf):

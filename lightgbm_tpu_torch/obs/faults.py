@@ -9,16 +9,18 @@ crosses:
 ================== ====================================================
 site               fires inside
 ================== ====================================================
+shard_open         ShardedBinnedDataset.shard_bins_host (memmap open)
+prefetch_device_put ShardPrefetcher worker staging (pinned copy to the
+                   card)
+spill_write        sharded construction shard spill (np.save)
 trace_finalize     streaming trace segment finalize (obs/trace.py)
 metrics_dump       OpenMetrics snapshot dump (obs/export.py)
+registry_swap      serve ModelRegistry.publish and canary promote
 checkpoint_finalize ft/checkpoint.py directory finalize (rename)
+serve_admit        PredictServer.submit admission (request intake)
+serve_dispatch     PredictServer worker dispatch (predictor.predict)
 gateway_push       SnapshotPusher metrics POST (obs/gateway.py)
 ================== ====================================================
-
-The JAX package's other sites (``shard_open``, ``prefetch_device_put``,
-``spill_write``, ``registry_swap``, ``serve_admit``, ``serve_dispatch``)
-sit in modules the port does not have yet (out-of-core shards and the
-serving plane) and come with them.
 
 A schedule is a ``;``-separated spec string (``LIGHTGBM_TPU_FAULTS``
 env var, or :func:`configure` programmatically)::
@@ -56,7 +58,9 @@ from .registry import registry
 
 _ENV = "LIGHTGBM_TPU_FAULTS"
 
-SITES = ("trace_finalize", "metrics_dump", "checkpoint_finalize",
+SITES = ("shard_open", "prefetch_device_put", "spill_write",
+         "trace_finalize", "metrics_dump", "registry_swap",
+         "checkpoint_finalize", "serve_admit", "serve_dispatch",
          "gateway_push")
 
 

@@ -166,6 +166,9 @@ class MetricsGateway:
             def log_message(self, *args):  # pushes must not spam stderr
                 pass
 
+        # the lock sanitizer wraps _lock before the serving thread exists
+        from ..utils import locktrace
+        locktrace.maybe_trace(self)
         self._httpd = ThreadingHTTPServer((host, int(port)), _Handler)
         self.host, self.port = self._httpd.server_address[:2]
         self._thread = threading.Thread(

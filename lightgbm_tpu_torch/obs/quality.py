@@ -469,6 +469,10 @@ class QualityMonitor:
 
         self._lock = threading.Lock()
         self._state: Dict = {}        # device -> [U, W] i32 window
+        # device -> CUDA event after the window's last update: replicas
+        # dispatch on streams of their own, and each update (and the
+        # drain's read) waits for the one before it
+        self._updated: Dict = {}
         self._qt_placed: Dict = {}    # device -> QuantizerTables
         self._score_edges = None
         self._score_ref = None
@@ -541,7 +545,21 @@ class QualityMonitor:
                 counts = torch.zeros((u_cnt, self._width),
                                      dtype=torch.int32, device=device)
                 self._state[device] = counts
+            if device.type == "cuda":
+                self._wait_updated(device)
             _window_accumulate(x, qt, int(n_valid), counts)
+            if device.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(device))
+                self._updated[device] = ev
+
+    def _wait_updated(self, device) -> None:
+        """Make the current stream wait for the window's last update on
+        ``device`` (call under the lock)."""
+        import torch
+        ev = self._updated.get(device)
+        if ev is not None:
+            torch.cuda.current_stream(device).wait_event(ev)
 
     def observe_scores(self, y: np.ndarray) -> None:
         """Host-side prediction-score accumulation (the scores are
@@ -586,6 +604,10 @@ class QualityMonitor:
             self._pending_rows = 0
             states = list(self._state.items())
             self._state = {}
+            for device, _ in states:
+                if device.type == "cuda":
+                    self._wait_updated(device)
+            self._updated = {}
             score_counts = self._score_counts
             if score_counts is not None:
                 self._score_counts = np.zeros_like(score_counts)

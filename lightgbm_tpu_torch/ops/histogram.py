@@ -392,7 +392,8 @@ def bin_values(bins: torch.Tensor,
 def histogram_plain(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
                     idx: Optional[torch.Tensor] = None,
                     count: Optional[torch.Tensor] = None,
-                    f64: bool = False) -> torch.Tensor:
+                    f64: bool = False,
+                    into: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version: one flat ``(f * B + bin)`` index and one
     ``index_add_``, the analogue of the reference's
     ``_segment_histogram``. Rows are summed in row order, as XLA's CPU
@@ -401,7 +402,11 @@ def histogram_plain(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
     A bin >= ``num_bins`` is skipped, as the kernel skips it. With
     ``f64`` float rows are summed in f64 and rounded to f32 once, as
     the reference does under ``tpu_use_f64_hist`` (integer rows ignore
-    it: their sums are exact)."""
+    it: their sums are exact). With ``into`` (an [F, num_bins, C]
+    accumulator of the sums' dtype, not with ``f64``) the rows are added
+    onto it in row order, in place, as the reference's sharded
+    ``_accum_hist`` seeds its scatter with the running accumulator: a
+    sweep over row blocks in order makes the same adds as one pass."""
     if count is not None:
         idx = idx[:int(count)]
     b = bin_values(bins, idx)
@@ -417,10 +422,14 @@ def histogram_plain(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
     flat = torch.where(b < num_bins, flat, F * num_bins).reshape(-1)
     vals = gh.to(acc)[:, None, :].expand(S, F, C).reshape(-1, C)
     out = torch.zeros(F * num_bins + 1, C, dtype=acc, device=bins.device)
+    if into is not None:
+        out[:-1] = into.view(F * num_bins, C)
     out.index_add_(0, flat, vals)
     out = out[:-1].view(F, num_bins, C)
     if f64 and gh.dtype == torch.float32:
         out = out.to(torch.float32)
+    if into is not None:
+        return into.copy_(out)
     return out
 
 
@@ -561,7 +570,8 @@ def _error_string(code: int) -> str:
 def build_histogram(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
                     idx: Optional[torch.Tensor] = None,
                     count: Optional[torch.Tensor] = None,
-                    f64: bool = False) -> torch.Tensor:
+                    f64: bool = False,
+                    into: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Accumulate (grad, hess, counts) per (feature, bin).
 
     bins : uint8 or uint16 [N, F] (F a multiple of 8 on CUDA)
@@ -572,12 +582,22 @@ def build_histogram(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
         there, so the caller needs no host read)
     f64 : sum f32 rows in f64 and round once to f32 (the reference's
         ``tpu_use_f64_hist``; ignored for integer rows)
+    into : optional [F, num_bins, C] accumulator (f32, or int32 for
+        integer gh) that the rows' histogram is added onto, in place and
+        returned (the sharded learner's running per-leaf sums): on the
+        CPU the plain version continues its row-order adds from it; on
+        CUDA the kernel's histogram is added to it (integer sums exact,
+        f32 sums in another order than one pass over all the rows)
     Returns [F, num_bins, C] f32 (int32 for integer gh).
     """
+    if into is not None and f64:
+        raise LightGBMError("histogram: f64 sums cannot accumulate into "
+                            "a running f32 histogram")
     if bins.device.type == "cpu":
-        return histogram_plain(bins, gh, num_bins, idx, count, f64)
+        return histogram_plain(bins, gh, num_bins, idx, count, f64, into)
     if bins.device.type == "cuda":
-        return histogram_cuda(bins, gh, num_bins, idx, count, f64)
+        out = histogram_cuda(bins, gh, num_bins, idx, count, f64)
+        return out if into is None else into.add_(out)
     raise LightGBMError("no histogram kernel for device %s" % bins.device)
 
 
@@ -586,6 +606,19 @@ def subtract_histogram(parent: torch.Tensor,
     """Sibling histogram by subtraction (reference:
     serial_tree_learner.cpp ``larger.Subtract(smaller)``)."""
     return parent - child
+
+
+def mask_gh(gh: torch.Tensor, keep) -> torch.Tensor:
+    """Dtype-preserving row mask (reference ``mask_gh``): zero the gh
+    rows where ``keep`` is False (``keep`` an [S] per-row bool tensor
+    or a scalar). A float multiply would turn integer rows into floats;
+    ``where`` against a zero of gh's own dtype keeps int8/int16 rows
+    as they are."""
+    keep = torch.as_tensor(keep, device=gh.device)
+    if keep.dim() == 1:
+        keep = keep[:, None]
+    return torch.where(keep, gh, torch.zeros((), dtype=gh.dtype,
+                                             device=gh.device))
 
 
 def unpack_bundle_histogram(bhist: torch.Tensor, gidx_g: torch.Tensor,

@@ -135,11 +135,13 @@ def pack_cat_mask(mask: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_cat_mask(words: torch.Tensor, num_bins: int) -> torch.Tensor:
-    """Inverse of :func:`pack_cat_mask` (on any device, no host read)."""
+    """Inverse of :func:`pack_cat_mask` (on any device, no host read);
+    words [..., nw] -> bool [..., num_bins]."""
     w = words.to(torch.int32)
     bits = torch.arange(CAT_WORD_BITS, dtype=torch.int32,
                         device=words.device)
-    return ((w[:, None] >> bits) & 1).view(-1)[:num_bins] > 0
+    unpacked = ((w[..., None] >> bits) & 1).reshape(*w.shape[:-1], -1)
+    return unpacked[..., :num_bins] > 0
 
 
 def cat_mask_of_row(row, num_bins: int) -> np.ndarray:
@@ -255,6 +257,26 @@ def pad_feature_meta(meta: FeatureMeta, pad: int) -> FeatureMeta:
                          is_categorical=padv(meta.is_categorical, False),
                          use_onehot=padv(meta.use_onehot, False),
                          monotone=padv(meta.monotone, 0))
+
+
+def select_frontier(gain: torch.Tensor, k: int):
+    """(leaves [k] int64, selection gains [k] f32) of the top ``k``
+    pending split candidates, slot 0 always ``argmax(gain)`` (the first
+    maximum, ties included): reference ``select_frontier``. The
+    out-of-core learner speculates these as the next ``k`` leaf-wise
+    splits in order; pinning slot 0 to the argmax makes every validated
+    round accept at least one split, whatever order ``topk`` gives
+    ties. The gains are the selection values: a slot past the live
+    candidates carries -inf even where its index repeats a live leaf,
+    which is what marks it dead."""
+    best = torch.argmax(gain).view(1)
+    if k <= 1:
+        return best, gain.index_select(0, best)
+    masked = gain.clone()
+    masked[best] = float("-inf")
+    vals, rest = torch.topk(masked, min(k - 1, gain.shape[0]))
+    return (torch.cat([best, rest]),
+            torch.cat([gain.index_select(0, best), vals]))
 
 
 def threshold_l1(s: torch.Tensor, l1: torch.Tensor) -> torch.Tensor:

@@ -17,16 +17,21 @@ JAX package's compile of a new shape), and gauges the key count
 (``serve/compile_cache_size``). An optional
 :class:`~lightgbm_tpu_torch.obs.quality.QualityMonitor` adds each
 dispatched chunk to its drift window on the forest's device.
+
+A server with several replicas passes one ``entries`` dict and one
+``entries_lock`` to every replica's predictor, so the fleet keeps one
+bucket policy (reference ``server.py:565-584``); a swap purges only the
+versions that no replica serves any more (``keep_versions``).
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from ..obs.registry import registry as obs
-from ..utils import next_pow2
+from ..utils import locktrace, next_pow2
 from .forest import StackedForest, f32_exact
 
 _KINDS = ("value", "raw", "leaf", "raw_device")
@@ -52,11 +57,17 @@ def dd_chunk_rows(forest) -> int:
 
 class BucketedPredictor:
     """Pads batches to power-of-two row buckets around a StackedForest;
-    ``swap`` replaces the forest (the bucket policy and counts stay)."""
+    ``swap`` replaces the forest (the bucket policy and counts stay).
+    Pass a shared ``entries`` dict (and its ``entries_lock``) to make
+    several predictors, one per replica, share one bucket policy.
+    ``pinned`` stages rows through pinned memory on the card (a
+    server's dispatches; see ``StackedForest._to_device``)."""
 
     def __init__(self, forest: StackedForest, model_version=0,
                  min_bucket: int = 16, max_bucket: int = 1 << 16,
-                 output_kind: str = "value", quality=None):
+                 output_kind: str = "value",
+                 entries: Optional[Dict[Tuple, int]] = None,
+                 entries_lock=None, quality=None, pinned: bool = False):
         if output_kind not in _KINDS:
             raise ValueError("output_kind must be one of %s" % (_KINDS,))
         self.forest = forest
@@ -64,20 +75,34 @@ class BucketedPredictor:
         self.min_bucket = max(int(min_bucket), 1)
         self.max_bucket = max(int(max_bucket), self.min_bucket)
         self.output_kind = output_kind
-        self.entries: Dict[tuple, int] = {}
-        self._lock = threading.Lock()
+        self.pinned = bool(pinned)
         # an obs.quality.QualityMonitor: each dispatched chunk also adds
         # one scatter-add into its drift window on the device
         self.quality = quality
+        # (model_version, bucket, kind[, "dd"]) -> dispatch count; shared
+        # by a server's replicas together with one lock, since insert,
+        # increment and purge are read-modify-writes
+        self.entries: Dict[Tuple, int] = \
+            entries if entries is not None else {}
+        self._entries_lock = (entries_lock if entries_lock is not None
+                              else threading.Lock())
+        locktrace.maybe_trace(self)
 
-    def swap(self, forest: StackedForest, model_version) -> None:
-        """Serve ``forest`` as ``model_version`` from now on; the keys of
-        other versions leave ``entries``."""
+    def swap(self, forest: StackedForest, model_version,
+             keep_versions=None) -> None:
+        """Serve ``forest`` as ``model_version`` from now on. The keys of
+        versions outside ``keep_versions`` (by default only the new
+        version) leave ``entries`` in place: a server with replicas
+        passes the versions its other replicas still serve (a canary
+        keeps replica 0 on another version than the rest), so a swap
+        never drops a sibling's keys."""
         self.forest = forest
         self.model_version = model_version
-        with self._lock:
-            for k in [k for k in self.entries if k[0] != model_version]:
-                del self.entries[k]
+        keep = set(keep_versions) if keep_versions is not None else set()
+        keep.add(model_version)
+        with self._entries_lock:
+            for k in [k for k in self.entries if k[0] not in keep]:
+                self.entries.pop(k, None)
             size = len(self.entries)
         obs.gauge("serve/compile_cache_size", size)
 
@@ -90,13 +115,15 @@ class BucketedPredictor:
         # the dd decision was made once for the whole batch and is passed
         # down, so a chunk whose rows happen to be f32-exact runs the
         # program its bucket key names
+        pinned = self.pinned
         if kind == "value":
-            return self.forest.predict(X, dd=dd)
+            return self.forest.predict(X, dd=dd, pinned=pinned)
         if kind == "raw":
-            return self.forest.predict_raw(X, dd=dd)
+            return self.forest.predict_raw(X, dd=dd, pinned=pinned)
         if kind == "leaf":
-            return self.forest.leaves(X, dd=dd)
-        return self.forest._to_host(self.forest.predict_raw_device(X, dd=dd))
+            return self.forest.leaves(X, dd=dd, pinned=pinned)
+        return self.forest._to_host(
+            self.forest.predict_raw_device(X, dd=dd, pinned=pinned))
 
     def predict(self, X, output_kind: Optional[str] = None) -> np.ndarray:
         """Predict with bucket padding. f64 batches that the f32
@@ -125,7 +152,7 @@ class BucketedPredictor:
                 chunk = np.concatenate([chunk, pad], axis=0)
             key = (self.model_version, bucket, kind) + (("dd",) if dd
                                                         else ())
-            with self._lock:
+            with self._entries_lock:
                 fresh = key not in self.entries
                 self.entries[key] = self.entries.get(key, 0) + 1
                 size = len(self.entries)

@@ -70,6 +70,8 @@ by the f32 divisor for ``predict_raw_device``).
 from __future__ import annotations
 
 import copy as _copy
+import threading
+import weakref
 from typing import List, Optional
 
 import numpy as np
@@ -133,6 +135,15 @@ def f32_exact(X: np.ndarray) -> bool:
 
 
 _KIND_NONE, _KIND_NUM, _KIND_CAT = 0, 1, 2
+
+
+def _canonical_device(device) -> torch.device:
+    """``device`` with its index filled in (``cuda`` is the current
+    card), so that one card has one key in the placement cache."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 class StackedForest:
@@ -336,6 +347,13 @@ class StackedForest:
         self._device = torch.device("cpu")
         #: bytes copied to and from the device by this placement's calls
         self.transfer_bytes = {"to_device": 0, "from_device": 0}
+        # placed copies by device, held by this forest (the base); each
+        # copy points back to it weakly, so no cycle keeps a swapped-out
+        # model's device tensors alive: one transfer per device, however
+        # many replicas or swaps ask
+        self._placed = {}
+        self._base = None
+        self._place_lock = threading.Lock()
 
     @staticmethod
     def _pack_linear(models: List[Tree], T: int, NL: int) -> LinearLeaves:
@@ -381,31 +399,53 @@ class StackedForest:
 
     # ------------------------------------------------------------------
     def place(self, device) -> "StackedForest":
-        """A copy of this forest with every tensor on ``device``."""
-        device = torch.device(device)
-        if device == self._device:
-            return self
+        """A copy of this forest with every tensor on ``device``, made
+        once per device and cached (reference ``place``: "one transfer,
+        cached per device"); the cache is the base forest's, so placing
+        any of its copies returns the same copy. A copy whose base is
+        gone keeps a cache of its own."""
+        device = _canonical_device(device)
+        base = self._base() if self._base is not None else None
+        if base is None:
+            base = self
+        if device == base._device:
+            return base
+        return base._place_new(device)
 
-        def put(tup):
-            return tup._replace(**{
-                k: v.to(device) for k, v in tup._asdict().items()
-                if isinstance(v, torch.Tensor)})
+    def _place_new(self, device: torch.device) -> "StackedForest":
+        with self._place_lock:
+            got = self._placed.get(device)
+            if got is not None:
+                return got
 
-        cp = _copy.copy(self)
-        cp._nodes = put(self._nodes)
-        cp._nodes_dd = put(self._nodes_dd)
-        cp._cat_lut = (None if self._cat_lut is None
-                       else self._cat_lut.to(device))
-        cp._cat_lut_dd = (None if self._cat_lut_dd is None
-                          else self._cat_lut_dd.to(device))
-        cp._leaf_f64 = self._leaf_f64.to(device)
-        if self._lin is not None:
-            cp._lin = put(self._lin)
-        cp._qt = put(self._qt)
-        cp._qt_dd = put(self._qt_dd)
-        cp._device = device
-        cp.transfer_bytes = {"to_device": 0, "from_device": 0}
-        return cp
+            def put(tup):
+                return tup._replace(**{
+                    k: v.to(device) for k, v in tup._asdict().items()
+                    if isinstance(v, torch.Tensor)})
+
+            cp = _copy.copy(self)
+            cp._nodes = put(self._nodes)
+            cp._nodes_dd = put(self._nodes_dd)
+            cp._cat_lut = (None if self._cat_lut is None
+                           else self._cat_lut.to(device))
+            cp._cat_lut_dd = (None if self._cat_lut_dd is None
+                              else self._cat_lut_dd.to(device))
+            cp._leaf_f64 = self._leaf_f64.to(device)
+            if self._lin is not None:
+                cp._lin = put(self._lin)
+            cp._qt = put(self._qt)
+            cp._qt_dd = put(self._qt_dd)
+            cp._device = device
+            cp.transfer_bytes = {"to_device": 0, "from_device": 0}
+            cp._placed = {}
+            cp._base = weakref.ref(self)
+            cp._place_lock = threading.Lock()
+            if device.type == "cuda":
+                # replicas dispatch on streams of their own: the copy
+                # must be whole before any of them reads it
+                torch.cuda.current_stream(device).synchronize()
+            self._placed[device] = cp
+            return cp
 
     @property
     def device(self) -> torch.device:
@@ -449,32 +489,45 @@ class StackedForest:
         lo = np.where(zs, np.int32(-1), lo)
         return hi, np.ascontiguousarray(lo)
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+    def _to_device(self, a: np.ndarray, pinned: bool = False
+                   ) -> torch.Tensor:
+        """Rows to this placement's device. ``pinned`` (a server's
+        dispatches) stages them on the card through a pinned host buffer
+        copied without blocking on the current stream (the host
+        allocator keeps the buffer until the copy has run), so a worker
+        on a stream of its own does not wait for the copy; a large
+        ``Booster.predict`` batch ran slower that way on an H100
+        (``chip_smoke.py`` phase 12, in PERF.md) and copies from
+        pageable memory."""
         self.transfer_bytes["to_device"] += a.nbytes
-        return torch.from_numpy(a).to(self._device)
+        t = torch.from_numpy(a)
+        if pinned and self._device.type == "cuda":
+            return t.pin_memory().to(self._device, non_blocking=True)
+        return t.to(self._device)
 
     def _to_host(self, t: torch.Tensor) -> np.ndarray:
         self.transfer_bytes["from_device"] += t.numel() * t.element_size()
         return t.cpu().numpy()
 
     # ------------------------------------------------------------------
-    def leaves_device(self, X, dd=None) -> torch.Tensor:
+    def leaves_device(self, X, dd=None, pinned: bool = False
+                      ) -> torch.Tensor:
         """[T, n] int32 leaf ids on this placement's device: one
         quantize and one walk of the whole forest, no host read."""
         mode, Xp = self._route(X, dd)
         if mode == "dd":
             hi, lo = self.encode_dd(Xp)
             return stacked_forest_leaves_dd(
-                self._to_device(hi), self._to_device(lo), self._qt_dd,
-                self._nodes_dd, self.trips, self._cat_lut_dd)
-        return stacked_forest_leaves(self._to_device(Xp), self._qt,
+                self._to_device(hi, pinned), self._to_device(lo, pinned),
+                self._qt_dd, self._nodes_dd, self.trips, self._cat_lut_dd)
+        return stacked_forest_leaves(self._to_device(Xp, pinned), self._qt,
                                      self._nodes, self.trips, self._cat_lut)
 
-    def leaves(self, X, dd=None) -> np.ndarray:
+    def leaves(self, X, dd=None, pinned: bool = False) -> np.ndarray:
         """[n, T] leaf index of every row in every tree."""
-        return self._to_host(self.leaves_device(X, dd)).T
+        return self._to_host(self.leaves_device(X, dd, pinned)).T
 
-    def predict_raw(self, X, dd=None) -> np.ndarray:
+    def predict_raw(self, X, dd=None, pinned: bool = False) -> np.ndarray:
         """Raw scores byte-equal to ``GBDT.predict_raw``: the f64 leaf
         values of the device's leaf ids, added per class in tree order on
         the device ([n] or [n, K]). With linear trees the leaf ids come
@@ -482,7 +535,7 @@ class StackedForest:
         linear ones over the f64 rows, as the host walk does."""
         K = self.num_classes
         if self.has_linear:
-            leaves = self.leaves(X, dd)
+            leaves = self.leaves(X, dd, pinned)
             X64 = self._check_shape(np.asarray(X, dtype=np.float64))
             lv = self._leaf_f64.cpu().numpy()
             out = np.zeros((leaves.shape[0], K), dtype=np.float64)
@@ -492,20 +545,22 @@ class StackedForest:
                                   else lv[i][leaves[:, i]])
         else:
             out = self._to_host(_sum_leaf_values_f64(
-                self.leaves_device(X, dd), self._leaf_f64, K))
+                self.leaves_device(X, dd, pinned), self._leaf_f64, K))
         if self.average_output:
             out /= max(self.num_trees // K, 1)
         return out[:, 0] if K == 1 else out
 
-    def predict(self, X, raw_score: bool = False, dd=None) -> np.ndarray:
+    def predict(self, X, raw_score: bool = False, dd=None,
+                pinned: bool = False) -> np.ndarray:
         """Transformed output, byte-equal to the host ``Booster.predict``
         (the same objective ``convert_output``)."""
-        raw = self.predict_raw(X, dd)
+        raw = self.predict_raw(X, dd, pinned)
         if raw_score or self.objective is None:
             return raw
         return self.objective.convert_output(raw)
 
-    def predict_raw_device(self, X, dd=None) -> torch.Tensor:
+    def predict_raw_device(self, X, dd=None, pinned: bool = False
+                           ) -> torch.Tensor:
         """[n, K] f32 raw scores summed on the device with Kahan
         compensation (the throughput path: within ~2 f32 ulp of the f64
         sum of the trees' f32 values, not byte-equal to it; linear leaves
@@ -514,11 +569,11 @@ class StackedForest:
         if mode == "dd":
             hi, lo = self.encode_dd(Xp)
             out = stacked_forest_raw_dd(
-                self._to_device(hi), self._to_device(lo), self._qt_dd,
-                self._nodes_dd, self.trips, self.num_classes,
+                self._to_device(hi, pinned), self._to_device(lo, pinned),
+                self._qt_dd, self._nodes_dd, self.trips, self.num_classes,
                 self._cat_lut_dd, self._lin)
         else:
-            out = stacked_forest_raw(self._to_device(Xp), self._qt,
+            out = stacked_forest_raw(self._to_device(Xp, pinned), self._qt,
                                      self._nodes, self.trips,
                                      self.num_classes, self._cat_lut,
                                      self._lin)

@@ -344,11 +344,7 @@ class SerialTreeLearner(CapabilityMixin):
         self.Gp = -(-ncols // 8) * 8
         # the dataset's bin dtype: uint8, or uint16 past 256 bins (the
         # kernel's uint16 build sums those)
-        bins = np.zeros((N, self.Gp if self._bundled else self.Fp),
-                        dtype=dataset.bins.dtype)
-        bins[:, :ncols] = dataset.bins
-        with obs.scope("io::stage_bins_device"):
-            self.bins = torch.from_numpy(bins).to(device)
+        self._stage_bins(dataset, ncols)
         # f64 histogram sums, rounded once to f32 (tpu_use_f64_hist)
         self._f64 = config.f64_histograms
         self.Bg, self._btab = 0, None
@@ -400,6 +396,23 @@ class SerialTreeLearner(CapabilityMixin):
             ("roots", "steps", "replays", "captures", "capture_ms",
              "flag_reads", "record_reads", "split_reads", "forced_reads",
              "rescans"), 0)
+
+    def _stage_bins(self, dataset: BinnedDataset, ncols: int) -> None:
+        """The binned rows on the device, their columns padded to
+        ``Gp`` (bundled) or ``Fp``; the out-of-core learner stages them
+        shard by shard instead."""
+        bins = np.zeros((self.N, self.Gp if self._bundled else self.Fp),
+                        dtype=dataset.bins.dtype)
+        bins[:, :ncols] = dataset.bins
+        with obs.scope("io::stage_bins_device"):
+            self.bins = torch.from_numpy(bins).to(self.device)
+
+    def bin_blocks(self):
+        """(first row, [n, Fp] device bins) blocks that cover the
+        training rows in order: the resident matrix as one block (the
+        out-of-core learner yields one per shard); what the boosting
+        layer replays trees over."""
+        yield 0, self.bins
 
     def reset_config(self, config) -> None:
         """New split parameters, depth limit and loop choice between trees
@@ -657,12 +670,17 @@ class SerialTreeLearner(CapabilityMixin):
             self._root_inner(state)
             obs.watch_ready("tree::root_histogram", state.cand)
 
+    def _root_histogram(self, gh: torch.Tensor,
+                        sums_raw: torch.Tensor) -> torch.Tensor:
+        """The root's [Fp, B, 4] histogram over every row."""
+        return self._leaf_histogram(gh, totals=sums_raw)
+
     def _root_inner(self, state: GrowState) -> None:
         gh = state.gh
         # exact integer sums in quantized mode, dequantized once
         sums_raw = sum_gh(gh, self._padded_rows)
         sums = dequantize_sums(sums_raw, self._qscale)
-        hist = self._leaf_histogram(gh, totals=sums_raw)
+        hist = self._root_histogram(gh, sums_raw)
         # root "parent" output: its own unsmoothed output (reference:
         # SerialTreeLearner::GetParentOutput)
         parent_out = calculate_leaf_output(sums[0], sums[1], self.params)
@@ -1021,6 +1039,24 @@ class SerialTreeLearner(CapabilityMixin):
             row[S.RIGHT_SUM_GRAD:S.RIGHT_SUM_GRAD + 4])
         hist_small = self._leaf_histogram(st.gh, buf.idx, buf.count,
                                           small_totals)
+        self._finish_split(st, leaf, new_leaf, row, hist_small, valid,
+                           buf.qscale)
+
+    def _finish_split(self, st: GrowState, leaf: torch.Tensor,
+                      new_leaf: torch.Tensor, row: torch.Tensor,
+                      hist_small: torch.Tensor, valid: torch.Tensor,
+                      qscale: Optional[torch.Tensor]) -> None:
+        """The tail of a split step after the smaller child's histogram
+        (reference ``_finish_split``): the sibling by subtraction, both
+        children's histograms, depths, scans and candidates stored, the
+        record written and the step counter advanced, every write
+        guarded by ``valid``. ``leaf`` and ``new_leaf`` are [1] int64
+        device tensors and ``row`` the split's record row; the
+        out-of-core learner calls it once per split of a sweep round."""
+        smaller_is_left = (row[S.LEFT_TOTAL_COUNT]
+                           <= row[S.RIGHT_TOTAL_COUNT])
+        i = st.step
+        L = self.L
         hist_large = subtract_histogram(
             st.hists.index_select(0, leaf).squeeze(0), hist_small)
         hist_left = torch.where(smaller_is_left, hist_small, hist_large)
@@ -1039,7 +1075,7 @@ class SerialTreeLearner(CapabilityMixin):
                 (leaf, hist_left, S.LEFT_SUM_GRAD),
                 (new_leaf, hist_right, S.RIGHT_SUM_GRAD))):
             info = self._scan(hist, row[side:side + 4], row[side + 4],
-                              buf.qscale, rand_bins=rand_bins[c],
+                              qscale, rand_bins=rand_bins[c],
                               bounds=self._child_bounds(row, c),
                               depth=depth)
             if self.max_depth > 0:
@@ -1049,7 +1085,7 @@ class SerialTreeLearner(CapabilityMixin):
             _put(st.cand, child, info, valid)
         slot = torch.clamp(i.long(), max=L - 2).view(1)
         _put(st.records, slot,
-             torch.cat([best.to(torch.float32), row]), valid)
+             torch.cat([leaf.to(torch.float32), row]), valid)
         st.step.add_(valid.to(torch.int32))
 
     def _capture(self, buf: _FusedBuffers) -> None:

@@ -1179,3 +1179,104 @@ def test_checkpoint_resume_on_card_is_the_uninterrupted_run(cuda, extra,
     assert resumed.model_to_string() == full.model_to_string()
     assert torch.equal(resumed.inner.train_score.view(torch.int32),
                        full.inner.train_score.view(torch.int32))
+
+
+# ----------------------------------------------------------------------
+# serving replicas and the out-of-core path on the card
+# ----------------------------------------------------------------------
+
+def _served_model(rows=4000, rounds=10):
+    rng = np.random.RandomState(21)
+    X = rng.randn(rows, 10).astype(np.float32)
+    y = (X[:, 0] + 0.5 * X[:, 1] > 0).astype(float)
+    bst = lgb.train({"objective": "binary", "num_leaves": 31,
+                     "verbose": -1}, lgb.Dataset(X, label=y),
+                    num_boost_round=rounds)
+    return X, bst
+
+
+def test_two_replicas_on_one_card_byte_equal_to_one(cuda):
+    """Two dispatch workers on one card, each on its own stream, give
+    one replica's bytes for single rows, blocks and split requests."""
+    from lightgbm_tpu_torch.serve import PredictServer, StackedForest
+    X, bst = _served_model()
+    forest = StackedForest.from_gbdt(bst)
+    got = {}
+    for replicas in (1, 2):
+        srv = PredictServer(forest, max_batch=64, max_wait_ms=1,
+                            replicas=replicas)
+        assert [d.type for d in srv._devices] == ["cuda"] * replicas
+        futs = [srv.submit(X[i]) for i in range(300)]
+        futs += [srv.submit(X[:150]), srv.submit(X)]
+        got[replicas] = [np.atleast_1d(f.result(timeout=120)) for f in futs]
+        stats = srv.replica_stats()
+        srv.stop()
+        if replicas == 2:
+            assert all(s["dispatches"] > 0 for s in stats.values())
+    want = forest.place("cuda").predict(X)
+    for a, b in zip(got[1], got[2]):
+        assert np.array_equal(a, b)
+    assert np.array_equal(got[2][-1], want)
+    assert np.array_equal(got[2][-1],
+                          bst.predict(X, predict_on_device=False))
+
+
+def test_shard_prefetcher_stages_through_pinned_memory(cuda, tmp_path):
+    """Shards reach the card through pinned host buffers and a copy
+    stream: their bytes are the spill's, and the copies run on a stream
+    other than the consumer's."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.shards import (ShardedBinnedDataset,
+                                              ShardPrefetcher)
+    rng = np.random.RandomState(0)
+    X = rng.randn(5000, 10)
+    y = (X[:, 0] > 0).astype(np.float32)
+
+    def src():
+        for lo in range(0, 5000, 1000):
+            yield X[lo:lo + 1000], y[lo:lo + 1000]
+    ds = ShardedBinnedDataset.from_chunk_source(
+        src, Config.from_params({"verbose": -1}), str(tmp_path / "sp"),
+        shard_rows=1200, total_rows=5000)
+    pf = ShardPrefetcher(ds, pad_cols=16, device=cuda)
+    for _ in range(2):
+        for k, bins in pf.sweep():
+            assert bins.is_cuda and bins.shape == (ds.shard_sizes[k], 16)
+            host = bins.cpu().numpy()
+            assert np.array_equal(host[:, :ds.num_features],
+                                  np.asarray(ds.shard_bins_host(k)))
+            assert (host[:, ds.num_features:] == 0).all()
+    assert all(b is not None and b.is_pinned() for b in pf._pinned)
+    assert pf._copy_stream is not None
+    assert pf._copy_stream != torch.cuda.current_stream()
+    pf.close()
+
+
+@pytest.mark.parametrize("extra", [{"use_quantized_grad": True},
+                                   {"use_quantized_grad": True,
+                                    "quant_grad_bits": 16}],
+                         ids=["8bit", "16bit"])
+def test_quantized_sharded_trees_text_equal_on_the_card(cuda, tmp_path,
+                                                        extra):
+    """Integer histograms are exact in any order: sharded trees on the
+    card are the in-memory learner's, text for text, and the kernel ran
+    once per shard and histogram pass."""
+    from lightgbm_tpu_torch.io.streaming import StreamingDataset
+    rng = np.random.RandomState(3)
+    X = rng.randn(60000, 12)
+    y = (X[:, 0] - X[:, 1] + 0.3 * rng.randn(60000) > 0).astype(float)
+    params = dict({"objective": "binary", "num_leaves": 63,
+                   "min_data_in_leaf": 20, "verbose": -1}, **extra)
+    sd = StreamingDataset(12, params=params, chunk_rows=8192,
+                          spill_dir=str(tmp_path / "sp"))
+    sd.push_rows(X, label=y)
+    ds = sd.finalize(shard_rows=16384)
+    kernel = ("histogram_i8" if extra.get("quant_grad_bits", 8) == 8
+              else "histogram_i16")
+    H.reset_launch_counts()
+    sh = lgb.train(params, lgb.Dataset(ds), num_boost_round=3)
+    n = H.device_launch_counts()[kernel]
+    st = sh.inner.learner.grow_stats
+    assert n == ds.num_shards * st["hist_passes"] > 0
+    mem = lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=3)
+    assert sh.model_to_string() == mem.model_to_string()

@@ -27,7 +27,9 @@ from lightgbm_tpu_torch.utils import retry
 from lightgbm_tpu_torch.utils.log import LightGBMError
 
 SITES = ("checkpoint_finalize", "metrics_dump", "gateway_push",
-         "trace_finalize")
+         "trace_finalize", "serve_admit", "serve_dispatch",
+         "registry_swap", "shard_open", "spill_write",
+         "prefetch_device_put")
 
 
 @pytest.fixture(autouse=True)
@@ -102,6 +104,14 @@ def test_every_kept_site_raises_and_emits(site):
                                                   "p")
     assert registry.count("ft/faults_injected/" + site) >= 1
     assert site in faults.SITES
+
+
+def test_sites_are_the_references():
+    """Every site of the JAX package has its call site in the port (the
+    serving and out-of-core ones fire through their callers in
+    tests/test_torch_serve_resilience.py and tests/test_torch_shards.py)."""
+    assert faults.SITES == ref_faults.SITES
+    assert set(SITES) == set(faults.SITES)
 
 
 def test_sites_fire_through_their_callers(tmp_path):

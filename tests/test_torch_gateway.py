@@ -29,6 +29,7 @@ from lightgbm_tpu_torch.obs.health import Watchdog, fleet_rules
 from lightgbm_tpu_torch.obs.openmetrics import (metric_value,
                                                 parse_openmetrics)
 from lightgbm_tpu_torch.obs.registry import MetricsRegistry
+from _torch_watch_env import watch_env_defaults  # noqa: F401
 
 _AGE = "lightgbm_tpu_gateway_push_age_seconds"
 

@@ -19,6 +19,7 @@ from lightgbm_tpu.obs.registry import MetricsRegistry as RefRegistry
 
 from lightgbm_tpu_torch.obs import events, health
 from lightgbm_tpu_torch.obs.registry import MetricsRegistry
+from _torch_watch_env import watch_env_defaults  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

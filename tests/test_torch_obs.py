@@ -43,6 +43,7 @@ from lightgbm_tpu_torch.obs.registry import MetricsRegistry, StageTimer
 from lightgbm_tpu_torch.obs.registry import kHistCap, registry
 from lightgbm_tpu_torch.utils import log, timer
 from lightgbm_tpu_torch.utils.log import LightGBMError
+from _torch_watch_env import watch_env_defaults  # noqa: F401
 
 CPU = {"device_type": "cpu"}
 

@@ -3,6 +3,8 @@
 - ``lightgbm_tpu_torch`` and ``chip_smoke.py`` import neither jax nor any
   module of ``lightgbm_tpu`` (checked in a fresh interpreter and by a
   source scan);
+- every public name of the JAX package's ``serve`` has a counterpart,
+  but those recorded in ``NO_COUNTERPART`` with their reason;
 - ``device_type="cuda"`` (the default) without a visible GPU raises
   instead of running on the CPU;
 - every setting outside the port raises and names its ROADMAP item, and
@@ -52,6 +54,11 @@ def test_fresh_import_loads_no_jax_and_no_reference_module():
         "    faults, gateway, health, openmetrics, quality, registry,\n"
         "    trace, trace_compact)\n"
         "import lightgbm_tpu_torch.utils.retry, lightgbm_tpu_torch.utils.timer\n"
+        "import lightgbm_tpu_torch.utils.locktrace\n"
+        "from lightgbm_tpu_torch.serve import (server, replicate,\n"
+        "    PredictServer, ModelRegistry, ReplicatedForest)\n"
+        "import lightgbm_tpu_torch.io.shards\n"
+        "import lightgbm_tpu_torch.treelearner.sharded\n"
         "runpy.run_path(%r, run_name='chip_smoke_imported')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
@@ -83,6 +90,29 @@ def test_sources_import_no_jax_and_no_reference_package():
                 if top in ("jax", "jaxlib", "lightgbm_tpu"):
                     offenders.append((os.path.relpath(path, ROOT), mod))
     assert offenders == []
+
+
+#: public names of the JAX package's modules that the port leaves
+#: without a counterpart, with the reason
+NO_COUNTERPART = {
+    ("lightgbm_tpu.serve", "compile_predict_with_plan"):
+        "builds one jit/pjit (or shard_map) program over a device mesh; "
+        "eager PyTorch compiles no program: ReplicatedForest walks one "
+        "row block per device instead",
+}
+
+
+@pytest.mark.parametrize("module", ["serve"])
+def test_reference_exports_have_counterparts(module):
+    """Every name the JAX package's ``serve`` exports exists in the
+    port's, except those recorded in NO_COUNTERPART (which must not)."""
+    import importlib
+    ref = importlib.import_module("lightgbm_tpu." + module)
+    port = importlib.import_module("lightgbm_tpu_torch." + module)
+    missing = sorted(n for n in ref.__all__ if not hasattr(port, n))
+    expected = sorted(n for (m, n) in NO_COUNTERPART
+                      if m == "lightgbm_tpu." + module)
+    assert missing == expected
 
 
 def _tiny():

@@ -27,6 +27,7 @@ import lightgbm_tpu_torch as lgb
 from lightgbm_tpu_torch.obs import quality
 from lightgbm_tpu_torch.obs.registry import MetricsRegistry
 from lightgbm_tpu_torch.serve import BucketedPredictor, StackedForest
+from _torch_watch_env import watch_env_defaults  # noqa: F401
 
 kRows = 900
 kParams = {"objective": "binary", "num_leaves": 15, "max_bin": 63,

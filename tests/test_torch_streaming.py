@@ -7,7 +7,8 @@ item 18b), on the CPU.
   init_score and query groups bin byte-equal (a) to the JAX package's
   ``StreamingDataset`` on the same chunks and to the port's
   ``from_matrix`` on the whole matrix; its misuses raise; the
-  out-of-core route (``spill_dir``) raises naming item 21;
+  out-of-core route (``spill_dir``) spills shards whose bins are the
+  in-memory ones (item 21);
 - ``save_binary`` / ``load_binary``: bins, mappers' bounds and metadata
   byte-equal after the round trip (a), a model trained on the loaded
   set text-equal to one trained on the original; the two packages'
@@ -123,20 +124,32 @@ def test_streaming_misuse_raises():
 
 @pytest.mark.parametrize("where", ["init", "finalize", "threshold"])
 def test_spill_raises_naming_item_21(where, tmp_path):
+    """Item 21 landed: the out-of-core route no longer raises. A
+    ``spill_dir`` given at construction or to ``finalize`` routes the
+    rows into a ShardedBinnedDataset whose bins are byte-equal (a) to
+    ``from_matrix``'s; ``spill_threshold_rows`` without a ``spill_dir``
+    keeps the in-memory dataset."""
+    from lightgbm_tpu_torch.io.shards import ShardedBinnedDataset
     X, y, _, _, _ = _rows(100)
+    params = {"verbosity": -1, "device_type": "cpu"}
     kw = {}
     if where == "init":
         kw["spill_dir"] = str(tmp_path)
     if where == "threshold":
         kw["spill_threshold_rows"] = 10
-    if where != "finalize":
-        with pytest.raises(LightGBMError, match="item 21"):
-            StreamingDataset(num_features=6, **kw)
-        return
-    sd = StreamingDataset(num_features=6)
+    sd = StreamingDataset(num_features=6, params=params, chunk_rows=32,
+                          **kw)
     sd.push_rows(X, label=y)
-    with pytest.raises(LightGBMError, match="item 21"):
-        sd.finalize(spill_dir=str(tmp_path))
+    ds = (sd.finalize(spill_dir=str(tmp_path), shard_rows=40)
+          if where == "finalize" else sd.finalize())
+    mem = BinnedDataset.from_matrix(X, Config.from_params(params), label=y)
+    if where == "threshold":
+        assert isinstance(ds, BinnedDataset)
+        assert np.array_equal(ds.bins, mem.bins)
+        return
+    assert isinstance(ds, ShardedBinnedDataset)
+    assert np.array_equal(ds.assemble_bins(), mem.bins)
+    np.testing.assert_array_equal(ds.metadata.label, mem.metadata.label)
 
 
 def _train_on(handle, params, rounds=4):
