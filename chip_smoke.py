@@ -270,21 +270,61 @@ Phases (each one fails the run if it fails):
    its share of the tree; then the spill attached again, an 8-bit run
    cut after 1 round and resumed to 2: text-equal to the uninterrupted
    run, its score check replayed shard by shard;
+23. several devices and processes (``parallel/``):
+   a. ``tree_learner=data`` through ``lgb.train`` on phase 4's Dataset
+      (the one card: a 1-device mesh), 2 rounds: the captured loop, K1
+      launches == roots + steps, the trees text-equal to phase 4's
+      first 2, host syncs per tree;
+   b. ``Mesh([cuda:0] * 4)`` through ``create_tree_learner(..., mesh=)``
+      on phase 4's Dataset, 2 rounds f32 and 2 at 8 bits: K1 / K2
+      launches == 4 x (roots + steps), still one captured step; 8-bit
+      trees text-equal to phase 7's; f32 at the level reached against
+      phase 4's, and where they part the first split on tree 0's
+      gradients with both learners' gains, which must be a near-tie
+      within the f32 rounding of the two histograms (and the held-out
+      AUC within 1e-3); ms per split beside phase 4's;
+   c. the first 2,097,152 training rows binned once with the mappers
+      23d's ranks build (each rank's sample, in rank order), 2 rounds
+      each: the serial learner, then on 4 logical shards the feature
+      learner (level (b) or (a), printed), voting with every feature
+      voted (top_k 28: level (b), leaf values within the f32 bound of
+      the rows their sums' rounding carries, ``chain_rows``)
+      and voting with top_k 2 (held-out AUC > 0.7); 1 round at 16 bits
+      through the int16 instance only, the 4-shard data learner's tree
+      text-equal to the serial learner's;
+   d. ``dtrain.train`` in 2 rank subprocesses over gloo on CUDA tensors
+      of the one card (this script with ``--dtrain-rank``), 1,048,576
+      rows each, 2 rounds: model text identical on both ranks and equal
+      to 23c's rows through an in-process 2-shard learner; each rank's
+      K1 counter == its roots + steps, no capture; all-reduce ms per
+      split and the eager loop's syncs per tree; a rank of a group whose
+      peer never starts exits non-zero within its 15 s collective
+      timeout. NCCL (a card per rank) needs two cards: not run;
 
 then time every instance over the learners' real bins of phases 9 (the
 bundle columns at Bg), 13 and 10, and print one ``{"kernels": [...]}``
 line with the launches of each kernel on each path that runs it, as its
 device counter counted them (graph replays included;
 ``launches_by_path``; f32: phases 3, 4, 9, 10, 11, 12, 13, 14a, 14b,
-14d, 14e, 15a-e, 18, 19a, 19c, 19d, 20a, 20c, 22; int8: phases 7, 9,
-14c, 15d, 19b, 20b, 20c, 22;
-int16: phase 8; f64: phase 17; the uint16 instances: phase 16, and f64
+14d, 14e, 15a-e, 18, 19a, 19c, 19d, 20a, 20c, 22, 23a-d (23d: each
+rank's own counter); int8: phases 7, 9, 14c, 15d, 19b, 20b, 20c, 22,
+23b; int16: phases 8, 23c; f64: phase 17; the uint16 instances: phase 16, and f64
 phase 17); each instance must have been timed and launched by some
 path.
 Prediction (phases 12 and 21) launches
 no hand kernel: the stacked walk is PyTorch ops (the reference's is
 ``jnp``), so it has no row in that line.
 
+For phase 23 (52-57 s on one H100 80GB HBM3 at 700 W), host binning
+was made faster instead of cutting a check: the greedy bin-bound search
+finds each bin's closing by a binary search over the counts' prefix
+sums (the same bounds as the loop, a search per bin instead of a
+Python step per distinct value of the 200k-row sample), and
+``value_to_bin`` runs ``torch.searchsorted`` over the host's cores
+(phase 4's binning 7.3-9.1 s on the host of an H100 80GB HBM3 at 700 W,
+from 46.4 s with the loop and NumPy's searchsorted), and phase 23
+reuses phase 4's Dataset and bins its 2,097,152 rows once for 23c and
+23d.
 Rounds cut to keep the script inside its time, with every check kept:
 phases 9 and 13 2 rounds (5, then 3 before), phase 12 40 rounds and a
 20 + 20 continuation (100 and 50 + 50, then 50 and 25 + 25 before), 14d,
@@ -309,8 +349,9 @@ file, the script exits non-zero and prints no result.
 ``--phases 1,2`` runs a subset (for development; the full run is the
 check); phase 19 brings phases 4 and 7, whose trees its batches are
 held against, phase 20 brings phase 4 (its Dataset, trees and host
-syncs), phase 21 brings phase 12 (its model) and phase 22 the full-size
-rows (without their training).
+syncs), phase 21 brings phase 12 (its model), phase 22 the full-size
+rows (without their training) and phase 23 phases 4 and 7 (their
+Dataset and trees).
 """
 from __future__ import annotations
 
@@ -1119,27 +1160,32 @@ def phase_small(lgb, hist_mod, extra, kernel, auc_tol, rounds=3,
     return launches
 
 
-def check_device_launches(hist_mod, bst, kernel, what):
+def check_device_launches(hist_mod, bst, kernel, what, per_root=1,
+                          per_step=1):
     """Every histogram of a training run went through ``kernel``: its
     device counter (graph replays included) == the learner's roots +
-    split steps, one root per tree, a step for every split (the
-    whole-tree loop may run a few past a tree's end, with no rows), and
-    no other instance launched. Returns the device counts."""
+    split steps (times the launches a root and a step make: one per
+    shard on a mesh, two children's per shard when voting), one root per
+    tree, a step for every split (the whole-tree loop may run a few past
+    a tree's end, with no rows), and no other instance launched. Returns
+    the device counts."""
     dev = hist_mod.device_launch_counts()
     stats = bst.inner.learner.grow_stats
     trees = bst.inner.models
     splits = sum(t.num_leaves - 1 for t in trees)
-    check(dev[kernel] == stats["roots"] + stats["steps"]
+    want = per_root * stats["roots"] + per_step * stats["steps"]
+    check(dev[kernel] == want
           and stats["roots"] == len(trees) and stats["steps"] >= splits,
-          "%s: %s device launches %d, roots %d + steps %d (trees %d, "
-          "splits %d)" % (what, kernel, dev[kernel], stats["roots"],
-                          stats["steps"], len(trees), splits))
+          "%s: %s device launches %d, %d x roots %d + %d x steps %d "
+          "(trees %d, splits %d)" % (what, kernel, dev[kernel], per_root,
+                                     stats["roots"], per_step,
+                                     stats["steps"], len(trees), splits))
     check(sum(dev.values()) == dev[kernel],
           "%s: another histogram instance was launched: %s" % (what, dev))
-    log("%s: %d device launches of %s == %d roots + %d steps (%d graph "
-        "replays, %d captures) for %d splits"
-        % (what, dev[kernel], kernel, stats["roots"], stats["steps"],
-           stats["replays"], stats["captures"], splits))
+    log("%s: %d device launches of %s == %d x %d roots + %d x %d steps "
+        "(%d graph replays, %d captures) for %d splits"
+        % (what, dev[kernel], kernel, per_root, stats["roots"], per_step,
+           stats["steps"], stats["replays"], stats["captures"], splits))
     return dev
 
 
@@ -1268,7 +1314,8 @@ class _StageTimer(_EventTimer):
 
 
 def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
-               grad_cls=None, tag=None, extra_syncs=0):
+               grad_cls=None, tag=None, extra_syncs=0, per_root=1,
+               per_step=1):
     """Train through ``lightgbm_tpu_torch.train`` with the launch counts
     set to 0 just before and read just after; every histogram must go
     through ``kernel`` (:func:`check_device_launches`: its device
@@ -1281,13 +1328,22 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
     them through Python), and, when ``grad_cls`` names the objective's
     class, every gradient call with the device memory it needs.
     ``extra_syncs`` widens the sync bound by the syncs a tree is asked to
-    make on top (a fenced stage). Returns a dict of the run's numbers."""
+    make on top (a fenced stage). ``per_root`` / ``per_step``: the
+    kernel launches of a root and of a step (a mesh learner's shards).
+    Returns a dict of the run's numbers."""
     import torch
+    from lightgbm_tpu_torch.parallel import data_parallel, feature_parallel
     from lightgbm_tpu_torch.treelearner import serial
     tag = tag or json.dumps({k: v for k, v in params.items()
                              if k not in SLICE_PARAMS})
     hist_timer = _EventTimer(serial.build_histogram, hist_rows)
     scan_timer = _EventTimer(serial.find_best_split)
+    # the mesh learners' own references to the kernel's wrapper and the
+    # scan are timed too
+    patched = [(m, "build_histogram", hist_timer)
+               for m in (serial, data_parallel, feature_parallel)] + [
+        (m, "find_best_split", scan_timer)
+        for m in (serial, feature_parallel)]
     quant_timer = _EventTimer(serial.SerialTreeLearner._quantize_stage)
     grad_timer = (_StageTimer(grad_cls.get_gradients) if grad_cls
                   else None)
@@ -1316,8 +1372,8 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
         iter_starts.append(time.perf_counter())
     mark.before_iteration = True
     evals = {}
-    serial.build_histogram = hist_timer.patch
-    serial.find_best_split = scan_timer.patch
+    for mod, name, timer in patched:
+        setattr(mod, name, timer.patch)
     serial.SerialTreeLearner._quantize_stage = quant_timer.patch
     serial.SerialTreeLearner.train = timed_grow
     if grad_timer:
@@ -1332,8 +1388,8 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
     finally:
-        serial.build_histogram = hist_timer.fn
-        serial.find_best_split = scan_timer.fn
+        for mod, name, timer in patched:
+            setattr(mod, name, timer.fn)
         serial.SerialTreeLearner._quantize_stage = quant_timer.fn
         serial.SerialTreeLearner.train = grow
         if grad_timer:
@@ -1350,7 +1406,8 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
     check(len(trees) == rounds * K, "expected %d trees, got %d"
           % (rounds * K, len(trees)))
     check(all(t.num_leaves > 1 for t in trees), "a tree has one leaf")
-    launches = check_device_launches(hist_mod, bst, kernel, tag)
+    launches = check_device_launches(hist_mod, bst, kernel, tag, per_root,
+                                     per_step)
     learner = bst.inner.learner
     stats = learner.grow_stats
     # the loop the config asks for: per-node masks and CEGB take the
@@ -1424,7 +1481,8 @@ def train_path(lgb, hist_mod, ds, valid, params, kernel, rounds,
     log_launch_sizes(hist_timer, kernel)
     scan_ms = scan_timer.each_ms()
     log("split scan: %d eager calls, %.3f ms each on average (CUDA "
-        "events)" % (len(scan_ms), float(np.mean(scan_ms))))
+        "events)" % (len(scan_ms), float(np.mean(scan_ms)) if scan_ms
+                     else 0.0))
     grad_ms = grad_timer.each_ms() if grad_timer else []
     if grad_timer:
         log("gradient stage (%s.get_gradients, CUDA events) ms per "
@@ -1447,6 +1505,9 @@ SPLIT_MS = {}
 TREE_SYNCS = {}
 #: the tag of phase 4's run
 PHASE4_TAG = json.dumps({"num_leaves": 255})
+#: the tag of phase 7's run
+PHASE7_TAG = json.dumps({"num_leaves": 255, "use_quantized_grad": True,
+                         "quant_grad_bits": 8})
 
 
 def check_predict(bst, data, device_auc):
@@ -2055,7 +2116,8 @@ def _feature_gain(learner, state, leaf: int, feature: int) -> float:
 
 
 def efb_first_difference(bundled, unbundled, gh, t_bundled, t_unbundled,
-                         what):
+                         what, names=("bundled", "unbundled"), label="EFB",
+                         shape="covertype, 255 leaves, f32"):
     """Why bundled and unbundled f32 trees part: the first split where
     the bundled and the unbundled learner part on the SAME rows and
     gradients (f32), with both winners' gains, and both candidate
@@ -2065,19 +2127,20 @@ def efb_first_difference(bundled, unbundled, gh, t_bundled, t_unbundled,
     candidate that both tables hold (the f32 rounding of the two
     histograms). Printed, not checked: a flip past that bound would be
     a fault of the bundled path, inside it a fact of f32 sums."""
+    na, nb = names
     diff = first_split_difference([t_bundled], [t_unbundled])
     if diff is None:
-        log("EFB, %s (covertype, 255 leaves, f32): the bundled and the "
-            "unbundled learner grow the same tree (%d splits)"
-            % (what, t_bundled.num_internal))
+        log("%s, %s (%s): the %s and the %s learner grow the same tree "
+            "(%d splits)" % (label, what, shape, na, nb,
+                             t_bundled.num_internal))
         return
     _, k, u, v = diff
     tables, states = {}, {}
-    for name, learner in (("bundled", bundled), ("unbundled", unbundled)):
+    for name, learner in ((na, bundled), (nb, unbundled)):
         tables[name], states[name] = _candidate_tables(learner, gh, k)
-    (wa, ca), (wb, cb) = tables["bundled"][k], tables["unbundled"][k]
-    same_before = all(x[0] == y[0] for x, y in zip(tables["bundled"][:k],
-                                                   tables["unbundled"][:k]))
+    (wa, ca), (wb, cb) = tables[na][k], tables[nb][k]
+    same_before = all(x[0] == y[0] for x, y in zip(tables[na][:k],
+                                                   tables[nb][:k]))
     live = np.isfinite(ca[:, 0]) & np.isfinite(cb[:, 0])
     agree = live & np.all(ca[:, 1:] == cb[:, 1:], axis=1)
     rounding = float(np.abs(ca[agree, 0].astype(np.float64)
@@ -2086,27 +2149,26 @@ def efb_first_difference(bundled, unbundled, gh, t_bundled, t_unbundled,
     # by both learners: the bundled winner A, the unbundled winner B
     gains = {name: [_feature_gain(learner, states[name], w[0], w[1])
                     for w in (wa, wb)]
-             for name, learner in (("bundled", bundled),
-                                   ("unbundled", unbundled))}
-    (ga_b, gb_b), (ga_u, gb_u) = gains["bundled"], gains["unbundled"]
+             for name, learner in ((na, bundled), (nb, unbundled))}
+    (ga_b, gb_b), (ga_u, gb_u) = gains[na], gains[nb]
     pair = max(abs(ga_b - ga_u), abs(gb_b - gb_u))
     bound = max(pair, rounding)
     gap_b, gap_u = ga_b - gb_b, gb_u - ga_u
     near = 0.0 <= gap_b <= bound and 0.0 <= gap_u <= bound
-    log("EFB, %s (covertype, 255 leaves, f32): splits 1-%d equal "
-        "(per-split loop: %s); split %d: bundled splits leaf %d (feature "
-        "%d, bin %d, gain %.9g), unbundled leaf %d (feature %d, bin %d, "
-        "gain %.9g); each winner scanned alone in its leaf: bundled "
-        "gives A %.9g, B %.9g (gap %.3g, %.1f ulp), unbundled A %.9g, B "
-        "%.9g (gap %.3g, %.1f ulp); the same candidate's gain differs "
-        "across the two learners by up to %.3g (A, B), %.3g (the %d of "
-        "%d live leaves whose tables agree); a near-tie within the f32 "
-        "rounding of the two histograms: %s"
-        % (what, k, same_before, k + 1, wa[0], wa[1], wa[2],
-           float(ca[wa[0], 0]), wb[0], wb[1], wb[2], float(cb[wb[0], 0]),
-           ga_b, gb_b, gap_b, _ulps(ga_b, gb_b), ga_u, gb_u, gap_u,
-           _ulps(ga_u, gb_u), pair, rounding, int(agree.sum()),
-           int(live.sum()), near))
+    log("%s, %s (%s): splits 1-%d equal (per-split loop: %s); split %d: "
+        "%s splits leaf %d (feature %d, bin %d, gain %.9g), %s leaf %d "
+        "(feature %d, bin %d, gain %.9g); each winner scanned alone in "
+        "its leaf: %s gives A %.9g, B %.9g (gap %.3g, %.1f ulp), %s A "
+        "%.9g, B %.9g (gap %.3g, %.1f ulp); the same candidate's gain "
+        "differs across the two learners by up to %.3g (A, B), %.3g (the "
+        "%d of %d live leaves whose tables agree); a near-tie within the "
+        "f32 rounding of the two histograms: %s"
+        % (label, what, shape, k, same_before, k + 1, na, wa[0], wa[1],
+           wa[2], float(ca[wa[0], 0]), nb, wb[0], wb[1], wb[2],
+           float(cb[wb[0], 0]), na, ga_b, gb_b, gap_b, _ulps(ga_b, gb_b),
+           nb, ga_u, gb_u, gap_u, _ulps(ga_u, gb_u), pair, rounding,
+           int(agree.sum()), int(live.sum()), near))
+    return near
 
 
 def time_lut_encoding(bst, X, what):
@@ -4823,7 +4885,8 @@ def in_memory_twin(ds):
     return mem
 
 
-def first_split_gap(trees_a, trees_b) -> str:
+def first_split_gap(trees_a, trees_b, names=("sharded", "in-memory")
+                    ) -> str:
     """Where two lists of trees grown in the same order first part: the
     tree, the split (in growth order) and each one's (feature, bin,
     gain) there, with the gains' relative gap (a near-tie when it is of
@@ -4834,10 +4897,11 @@ def first_split_gap(trees_a, trees_b) -> str:
             pb = (int(b.split_feature_inner[j]), int(b.threshold_in_bin[j]))
             if pa != pb:
                 ga, gb = float(a.split_gain[j]), float(b.split_gain[j])
-                return ("first difference in tree %d at split %d: sharded "
-                        "(feature %d, bin %d, gain %.6f), in-memory "
+                return ("first difference in tree %d at split %d: %s "
+                        "(feature %d, bin %d, gain %.6f), %s "
                         "(feature %d, bin %d, gain %.6f), relative gap "
-                        "%.3g" % (t, j, pa[0], pa[1], ga, pb[0], pb[1], gb,
+                        "%.3g" % (t, j, names[0], pa[0], pa[1], ga,
+                                  names[1], pb[0], pb[1], gb,
                                   abs(ga - gb) / max(abs(ga), abs(gb),
                                                      1e-30)))
     return "no differing split (the difference is in values)"
@@ -5009,6 +5073,510 @@ def phase_out_of_core(lgb, hist_mod, data):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the mesh learners and multi-process training
+# ---------------------------------------------------------------------------
+#: logical shards of the one card in 23b and 23c, and ranks of 23d
+MESH_SHARDS = 4
+DTRAIN_RANKS = 2
+#: the collective bound of 23d's rank whose peer never starts
+LONE_RANK_TIMEOUT_S = 15
+
+
+class learner_on:
+    """``lgb.train``'s learner built by ``create_tree_learner(...,
+    mesh=mesh)`` while the context is open (a mesh that names one card
+    several times has no ``mesh_shape`` spelling)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        from lightgbm_tpu_torch.boosting.gbdt import GBDT
+        from lightgbm_tpu_torch.treelearner import create_tree_learner
+        self._orig = GBDT._make_learner
+        mesh = self.mesh
+        GBDT._make_learner = lambda gbdt, config, train_data: \
+            create_tree_learner(config, train_data, gbdt.device, mesh=mesh)
+        return self
+
+    def __exit__(self, *exc):
+        from lightgbm_tpu_torch.boosting.gbdt import GBDT
+        GBDT._make_learner = self._orig
+
+
+def chain_rows(tree, subtracts=True):
+    """Per leaf, the rows whose f32 rounding its sums carry. A leaf's
+    sums are a scan of its parent's histogram. A learner that subtracts
+    builds the smaller child's histogram over its rows (the left one
+    when its count is at most the right's) and takes the larger one as
+    the parent's minus it, so a histogram carries the rounding of its
+    ancestors up to the nearest one built over its own rows (the root
+    at the latest): that ancestor's rows. A learner that builds both
+    children (voting) carries the parent's rows."""
+    n, ni = tree.num_leaves, tree.num_internal
+    if ni == 0:
+        return np.asarray(tree.leaf_count[:n], np.float64)
+    up = {}
+    for i in range(ni):
+        for c in (tree.left_child[i], tree.right_child[i]):
+            if c >= 0:
+                up[int(c)] = i
+
+    def count(c):
+        return tree.internal_count[c] if c >= 0 else tree.leaf_count[~c]
+
+    def built(node):
+        p = up.get(node)
+        if p is None:
+            return True
+        left, right = tree.left_child[p], tree.right_child[p]
+        return (left == node) == (count(left) <= count(right))
+    rows = []
+    for leaf in range(n):
+        node = int(tree.leaf_parent[leaf])
+        while subtracts and not built(node):
+            node = up[node]
+        rows.append(float(tree.internal_count[node]))
+    return np.asarray(rows)
+
+
+def trees_level(trees_a, trees_b, names, lr=SLICE_PARAMS["learning_rate"],
+                subtracts=(True, True)):
+    """The parity level two lists of trees reach: (a) text-equal; (b)
+    the same splits, default directions and leaf counts, and every leaf
+    value within the f32 bound of its sums, ``REL_TOL x (lr x rows /
+    sum_hess + |value|)``: the kernel's tolerance over the rows whose
+    rounding each side's sums carry (:func:`chain_rows` of each tree,
+    ``subtracts`` saying which learners take the larger child by
+    subtraction; binary-objective gradients are at most 1 in
+    magnitude); else (c), with where they first part. The largest
+    relative leaf-value and gain differences are printed beside (gains
+    are differences of large sums, so they move more), and the leaf
+    nearest its bound."""
+    if [t.to_string() for t in trees_a] == [t.to_string() for t in trees_b]:
+        return "a", "(a) text-equal"
+    structure = len(trees_a) == len(trees_b) and all(
+        tree_splits_of(a) == tree_splits_of(b)
+        and list(a.decision_type[:a.num_internal])
+        == list(b.decision_type[:b.num_internal])
+        and list(a.leaf_count[:a.num_leaves])
+        == list(b.leaf_count[:b.num_leaves])
+        for a, b in zip(trees_a, trees_b))
+    if not structure:
+        return "c", "(c): " + first_split_gap(trees_a, trees_b, names)
+
+    def rel(x, y):
+        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+        return float((np.abs(x - y) / np.maximum(np.abs(y), 1e-30)).max())
+    leaf = max(rel(a.leaf_value[:a.num_leaves], b.leaf_value[:b.num_leaves])
+               for a, b in zip(trees_a, trees_b))
+    gain = max(rel(a.split_gain[:a.num_internal],
+                   b.split_gain[:b.num_internal])
+               for a, b in zip(trees_a, trees_b))
+    worst, at = 0.0, ""
+    for t, (a, b) in enumerate(zip(trees_a, trees_b)):
+        n = b.num_leaves
+        va, vb = a.leaf_value[:n], b.leaf_value[:n]
+        rows = chain_rows(a, subtracts[0]) + chain_rows(b, subtracts[1])
+        bound = REL_TOL * (lr * rows / np.maximum(b.leaf_weight[:n], 1e-30)
+                           + np.abs(vb))
+        ratio = np.abs(va - vb) / bound
+        k = int(np.argmax(ratio))
+        if ratio[k] >= worst:
+            worst = float(ratio[k])
+            at = ("tree %d leaf %d: %d rows, %d + %d rows in its sums' "
+                  "rounding, values %.9g / %.9g, bound %.3g"
+                  % (t, k, b.leaf_count[k],
+                     chain_rows(a, subtracts[0])[k],
+                     chain_rows(b, subtracts[1])[k], va[k], vb[k], bound[k]))
+    text = ("the same splits, default directions and leaf counts; leaf "
+            "values within %.3g relative (%.3g of their f32 bound; nearest "
+            "%s), gains within %.3g relative" % (leaf, worst, at, gain))
+    return ("b" if worst <= 1.0 else "c"), \
+        ("(b) " if worst <= 1.0 else "(c) ") + text
+
+
+def phase23_one_device(lgb, hist_mod, data, looped):
+    """23a: ``tree_learner=data`` through ``lgb.train`` on phase 4's
+    Dataset (no second binning): the one card gives a 1-device mesh, the
+    loop is the captured whole-tree step, K1's device counter == roots +
+    steps, and the 2 trees are phase 4's first 2, text for text."""
+    from lightgbm_tpu_torch.parallel import DataParallelTreeLearner
+    ds, valid = data[0], data[1]
+    run = train_path(lgb, hist_mod, ds, valid,
+                     dict(SLICE_PARAMS, num_leaves=255, tree_learner="data"),
+                     "histogram_f32", 2, tag="23a tree_learner=data")
+    bst = run["booster"]
+    learner = bst.inner.learner
+    check(isinstance(learner, DataParallelTreeLearner)
+          and learner.mesh.size == 1 and run["fused"]
+          and learner.grow_stats["captures"] == 1,
+          "23a: learner %s over %s, whole-tree %s, captures %d"
+          % (type(learner).__name__, getattr(learner, "mesh", None),
+             run["fused"], learner.grow_stats["captures"]))
+    want = [t.to_string() for t in looped["f32"][0][:2]]
+    check([t.to_string() for t in bst.inner.models] == want,
+          "23a: the 1-device-mesh trees differ from phase 4's")
+    log("23a tree_learner=data on %r: the captured whole-tree loop, host "
+        "syncs per tree %s, ms per split %.3f (phase 4 %.3f); both trees "
+        "text-equal to phase 4's first 2"
+        % (learner.mesh, run["tree_syncs"], SPLIT_MS["23a tree_learner=data"],
+           SPLIT_MS[PHASE4_TAG]))
+    return {"histogram_f32": {
+        "phase23a_data_1device": run["launches"]["histogram_f32"]}}
+
+
+def phase23_shards(lgb, hist_mod, data, looped):
+    """23b: ``Mesh([cuda:0] * 4)`` through ``create_tree_learner(...,
+    mesh=)`` on phase 4's Dataset, 2 rounds f32 and 2 rounds 8-bit: K1 /
+    K2 launches == 4 x (roots + steps), the step still one captured
+    graph; 8-bit trees text-equal to phase 7's; f32 at level (b) against
+    phase 4's, else the first split where they part with both gains, and
+    the held-out AUC within 1e-3 of phase 4's; ms per split beside phase
+    4's."""
+    import torch
+    from lightgbm_tpu_torch.parallel import Mesh
+    ds, valid = data[0], data[1]
+    mesh = Mesh([torch.device("cuda", 0)] * MESH_SHARDS)
+    out = {"histogram_f32": {}, "histogram_i8": {}}
+    runs = {}
+    with learner_on(mesh):
+        for tag, extra, kernel in (
+                ("f32", {}, "histogram_f32"),
+                ("8bit", {"use_quantized_grad": True, "quant_grad_bits": 8},
+                 "histogram_i8")):
+            name = "23b data, %d shards on one card, %s" % (MESH_SHARDS, tag)
+            run = train_path(lgb, hist_mod, ds, valid,
+                             dict(SLICE_PARAMS, num_leaves=255,
+                                  tree_learner="data", **extra),
+                             kernel, 2, tag=name, per_root=MESH_SHARDS,
+                             per_step=MESH_SHARDS)
+            learner = run["booster"].inner.learner
+            check(learner.mesh.size == MESH_SHARDS and run["fused"]
+                  and learner.grow_stats["captures"] == 1,
+                  "23b %s: mesh %r, whole-tree %s, captures %d"
+                  % (tag, learner.mesh, run["fused"],
+                     learner.grow_stats["captures"]))
+            out[kernel]["phase23b_data_%dshards_%s" % (MESH_SHARDS, tag)] = \
+                run["launches"][kernel]
+            runs[tag] = (run, name)
+    q_trees = runs["8bit"][0]["booster"].inner.models
+    check([t.to_string() for t in q_trees]
+          == [t.to_string() for t in looped["8bit"][0][:2]],
+          "23b 8-bit: the 4-shard trees differ from phase 7's")
+    f_run, f_name = runs["f32"]
+    level, text = trees_level(f_run["booster"].inner.models,
+                              looped["f32"][0][:2],
+                              ("4 shards", "phase 4"))
+    if level == "c":
+        a4 = looped["f32"][1][1]
+        a = f_run["evals"]["auc"][-1]
+        check(abs(a - a4) <= 1e-3, "23b f32: held-out AUC %.6f against "
+              "phase 4's %.6f after 2 rounds" % (a, a4))
+        text += "; held-out AUC %.6f (phase 4 %.6f)" % (a, a4)
+        # where the two learners part on tree 0's own gradients
+        import torch
+        params = dict(SLICE_PARAMS, num_leaves=255)
+        g, h = tree0_gradients(lgb, ds, params)
+        ones = torch.ones_like(g)
+        gh = torch.stack([g, h, ones, ones], dim=1)
+        shards = f_run["booster"].inner.learner
+        serial = lgb.Booster(params, ds).inner.learner
+        near = efb_first_difference(
+            shards, serial, gh, shards._grow_fused(gh)[0],
+            serial._grow_fused(gh)[0], "tree 0's gradients",
+            names=("4 shards", "serial"), label="23b",
+            shape="higgs 10.5M, 255 leaves, f32")
+        check(near is not False, "23b f32: the 4-shard and the serial "
+              "learner part on tree 0's gradients past the f32 rounding "
+              "of their histograms")
+        del serial
+    log("23b %d shards on one card: 8-bit trees text-equal to phase 7's; "
+        "f32 against phase 4's: level %s; ms per split f32 %.3f, 8-bit "
+        "%.3f (phase 4 %.3f, phase 7 %s); host syncs per tree %s"
+        % (MESH_SHARDS, text, SPLIT_MS[f_name], SPLIT_MS[runs["8bit"][1]],
+           SPLIT_MS[PHASE4_TAG], "%.3f" % SPLIT_MS[PHASE7_TAG]
+           if PHASE7_TAG in SPLIT_MS else "not run",
+           f_run["tree_syncs"]))
+    return out
+
+
+def rank_sample_template(lgb, X):
+    """The Dataset whose mappers every rank of 23d builds: each rank's
+    sample (``data_random_seed + rank``, ``bin_construct_sample_cnt /
+    ranks`` of its rows, sorted), concatenated in rank order
+    (``parallel/distributed.py::distributed_binned_dataset``)."""
+    from lightgbm_tpu_torch.config import Config
+    cfg = Config.from_params(dict(SLICE_PARAMS))
+    per = max(1, cfg.bin_construct_sample_cnt // DTRAIN_RANKS)
+    half = len(X) // DTRAIN_RANKS
+    parts = []
+    for r in range(DTRAIN_RANKS):
+        local = X[r * half:(r + 1) * half].astype(np.float64)
+        take = min(per, len(local))
+        rng = np.random.RandomState(cfg.data_random_seed + r)
+        idx = (np.sort(rng.choice(len(local), take, replace=False))
+               if take < len(local) else np.arange(len(local)))
+        parts.append(local[idx])
+    sample = np.concatenate(parts)
+    return lgb.Dataset(sample, params=dict(
+        SLICE_PARAMS, bin_construct_sample_cnt=len(sample))).construct()
+
+
+def phase23_feature_voting(lgb, hist_mod, data):
+    """23c: the first 2,097,152 training rows (phase 15 / 16's), binned
+    once with the mappers 23d's ranks build; the serial learner, then on
+    ``Mesh([cuda:0] * 4)`` the feature-parallel learner (level (b)
+    against serial, text-equality printed), voting with ``top_k`` 28
+    (every feature voted; level (b)) and voting with ``top_k`` 2 (held-out
+    AUC > 0.7), 2 rounds each. Returns (launches, the Dataset, its
+    held-out set, the serial booster)."""
+    import torch
+    from lightgbm_tpu_torch.parallel import Mesh
+    X, y = HEAD["X"], HEAD["y"]
+    t0 = time.perf_counter()
+    template = rank_sample_template(lgb, X)
+    ds = lgb.Dataset(X, label=y, reference=template,
+                     params=SLICE_PARAMS).construct()
+    valid = lgb.Dataset(data[2], label=data[3], reference=ds).construct()
+    log("23c: %d rows binned with the %d ranks' mappers in %.1f s"
+        % (len(y), DTRAIN_RANKS, time.perf_counter() - t0))
+    params = dict(SLICE_PARAMS, num_leaves=255)
+    serial = train_path(lgb, hist_mod, ds, valid, params, "histogram_f32",
+                        2, tag="23c serial")
+    out = {"phase23c_serial": serial["launches"]["histogram_f32"]}
+    base = serial["booster"].inner.models
+    mesh = Mesh([torch.device("cuda", 0)] * MESH_SHARDS)
+    with learner_on(mesh):
+        feat = train_path(lgb, hist_mod, ds, valid,
+                          dict(params, tree_learner="feature"),
+                          "histogram_f32", 2, tag="23c feature",
+                          per_root=MESH_SHARDS, per_step=MESH_SHARDS)
+        level, ftext = trees_level(feat["booster"].inner.models, base,
+                                   ("feature", "serial"))
+        if level not in "ab":
+            DEFERRED.append("23c feature-parallel against serial: %s"
+                            % ftext)
+        q16 = dict(params, use_quantized_grad=True, quant_grad_bits=16)
+        shard16 = train_path(lgb, hist_mod, ds, valid,
+                             dict(q16, tree_learner="data"),
+                             "histogram_i16", 1, tag="23c data 16-bit",
+                             per_root=MESH_SHARDS, per_step=MESH_SHARDS)
+        votes = {}
+        for k in (28, 2):
+            votes[k] = train_path(
+                lgb, hist_mod, ds, valid,
+                dict(params, tree_learner="voting", top_k=k),
+                "histogram_f32", 2, tag="23c voting top_k %d" % k,
+                per_root=MESH_SHARDS, per_step=2 * MESH_SHARDS)
+            out["phase23c_voting_top%d" % k] = \
+                votes[k]["launches"]["histogram_f32"]
+    out["phase23c_feature"] = feat["launches"]["histogram_f32"]
+    serial16 = train_path(lgb, hist_mod, ds, valid, q16, "histogram_i16",
+                          1, tag="23c serial 16-bit")
+    check([t.to_string() for t in shard16["booster"].inner.models]
+          == [t.to_string() for t in serial16["booster"].inner.models],
+          "23c 16-bit: the 4-shard data learner's tree differs from the "
+          "serial learner's")
+    i16 = {"phase23c_data_16bit_%dshards" % MESH_SHARDS:
+           shard16["launches"]["histogram_i16"],
+           "phase23c_serial_16bit": serial16["launches"]["histogram_i16"]}
+    vlevel, vtext = trees_level(votes[28]["booster"].inner.models, base,
+                                ("voting", "serial"),
+                                subtracts=(False, True))
+    if vlevel not in "ab":
+        DEFERRED.append("23c voting, every feature voted, against serial: "
+                        "%s" % vtext)
+    a2 = votes[2]["evals"]["auc"][-1]
+    check(a2 > 0.7, "23c voting top_k 2: held-out AUC %.6f" % a2)
+    log("23c %d shards on one card, %d rows: feature-parallel against "
+        "serial %s; voting (top_k 28, every feature) %s; voting top_k 2 "
+        "held-out AUC %.6f (serial %.6f); the 16-bit data learner's tree "
+        "text-equal to serial's; ms per split serial %.3f, feature %.3f, "
+        "voting %.3f / %.3f, 16-bit data %.3f (serial %.3f)"
+        % (MESH_SHARDS, len(y), ftext, vtext, a2,
+           serial["evals"]["auc"][-1], SPLIT_MS["23c serial"],
+           SPLIT_MS["23c feature"], SPLIT_MS["23c voting top_k 28"],
+           SPLIT_MS["23c voting top_k 2"], SPLIT_MS["23c data 16-bit"],
+           SPLIT_MS["23c serial 16-bit"]))
+    return {"histogram_f32": out, "histogram_i16": i16}, ds, valid
+
+
+def _rank_cmd(rank, directory):
+    return [sys.executable, os.path.abspath(__file__), "--dtrain-rank",
+            str(rank), "--dtrain-dir", directory]
+
+
+def phase23_dtrain(lgb, hist_mod, ds, valid):
+    """23d: ``dtrain.train`` in 2 subprocesses over gloo on CUDA tensors
+    of the one card (NCCL refuses two ranks on one card), 23c's rows
+    split 1,048,576 each, 2 rounds f32 at 255 leaves: both ranks' model
+    text identical and equal to 23c's rows through an in-process
+    2-shard data learner on the same mappers; each rank's K1 counter ==
+    its roots + steps, the eager loop (no capture); the all-reduce ms
+    per split and the syncs per tree printed. A third rank of another
+    2-rank group, whose peer never starts, must exit non-zero within its
+    collective timeout (``LIGHTGBM_TPU_DTRAIN_TIMEOUT_S`` =
+    ``LONE_RANK_TIMEOUT_S``). The NCCL path (one card per rank) needs two
+    cards and is not run."""
+    import shutil
+    import tempfile
+    import torch
+    from lightgbm_tpu_torch.parallel import Mesh
+    X, y = HEAD["X"], HEAD["y"]
+    half = len(y) // DTRAIN_RANKS
+    tmp = tempfile.mkdtemp(prefix="chip_smoke23-")
+    procs = []
+    try:
+        for r in range(DTRAIN_RANKS):
+            np.save(os.path.join(tmp, "x%d.npy" % r),
+                    X[r * half:(r + 1) * half])
+            np.save(os.path.join(tmp, "y%d.npy" % r),
+                    y[r * half:(r + 1) * half])
+        lone_dir = os.path.join(tmp, "lone")
+        os.makedirs(lone_dir)
+        for f in ("x0.npy", "y0.npy"):
+            os.link(os.path.join(tmp, f), os.path.join(lone_dir, f))
+        env = dict(os.environ)
+        env["LIGHTGBM_TPU_DTRAIN_TIMEOUT_S"] = str(LONE_RANK_TIMEOUT_S)
+        t_lone = time.perf_counter()
+        lone = subprocess.Popen(_rank_cmd(0, lone_dir), env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        procs.append(lone)
+        env = dict(os.environ)
+        env["LIGHTGBM_TPU_DTRAIN_TIMEOUT_S"] = "300"
+        ranks = [subprocess.Popen(_rank_cmd(r, tmp), env=env,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(DTRAIN_RANKS)]
+        procs += ranks
+        lone_out, _ = lone.communicate(timeout=LONE_RANK_TIMEOUT_S + 120)
+        t_lone = time.perf_counter() - t_lone
+        logs = [p.communicate(timeout=600)[0] for p in ranks]
+        for r, (p, text) in enumerate(zip(ranks, logs)):
+            check(p.returncode == 0, "23d rank %d exited %s:\n%s"
+                  % (r, p.returncode, text[-4000:]))
+        check(lone.returncode not in (0, None)
+              and t_lone < LONE_RANK_TIMEOUT_S + 120,
+              "23d: a rank whose peer never started exited %s after "
+              "%.1f s:\n%s" % (lone.returncode, t_lone, lone_out[-2000:]))
+        res = []
+        for r in range(DTRAIN_RANKS):
+            with open(os.path.join(tmp, "rank%d.json" % r)) as fh:
+                res.append(json.load(fh))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(res[0]["text"] == res[1]["text"],
+          "23d: the two ranks' model texts differ")
+    out = {}
+    for r, rr in enumerate(res):
+        check(rr["launches"]["histogram_f32"] == rr["roots"] + rr["steps"]
+              and sum(rr["launches"].values())
+              == rr["launches"]["histogram_f32"] and rr["captures"] == 0,
+              "23d rank %d: K1 launches %s, roots %d + steps %d, captures "
+              "%d" % (r, rr["launches"], rr["roots"], rr["steps"],
+                      rr["captures"]))
+        out["phase23d_dtrain_rank%d" % r] = rr["launches"]["histogram_f32"]
+    with learner_on(Mesh([torch.device("cuda", 0)] * DTRAIN_RANKS)):
+        inproc = train_path(lgb, hist_mod, ds, valid,
+                            dict(SLICE_PARAMS, num_leaves=255,
+                                 tree_learner="data"),
+                            "histogram_f32", 2, tag="23d in-process",
+                            per_root=DTRAIN_RANKS, per_step=DTRAIN_RANKS)
+    out["phase23d_in_process_2shards"] = \
+        inproc["launches"]["histogram_f32"]
+    mine = inproc["booster"].model_to_string().split("end of trees")[0]
+    theirs = res[0]["text"].split("end of trees")[0]
+    check(mine == theirs, "23d: the ranks' trees differ from the "
+          "in-process 2-shard learner's")
+    r0 = res[0]
+    trees = max(r0["roots"], 1)
+    log("23d %d ranks over gloo on one card, %d rows each: model text "
+        "identical on both ranks and equal to the in-process %d-shard "
+        "learner's; the eager loop: %.1f host reads (step counter and "
+        "records) and %.1f all-reduces (each a stream sync) per tree; "
+        "all-reduce %.3f ms each, %.3f ms per split (%d all-reduces, %d "
+        "splits); %.2f s for 2 rounds on rank 0 (in-process %.3f ms per "
+        "split); a rank whose peer never started exited %d after %.1f s "
+        "(timeout %d s)"
+        % (DTRAIN_RANKS, half, DTRAIN_RANKS,
+           (r0["flag_reads"] + r0["record_reads"]) / trees,
+           r0["allreduces"] / trees,
+           r0["allreduce_ms"] / max(r0["allreduces"], 1),
+           r0["allreduce_ms"] / max(r0["splits"], 1), r0["allreduces"],
+           r0["splits"], r0["seconds"], SPLIT_MS["23d in-process"],
+           lone.returncode, t_lone, LONE_RANK_TIMEOUT_S))
+    return {"histogram_f32": out}
+
+
+def dtrain_rank(rank: int, directory: str) -> int:
+    """One rank of 23d (``--dtrain-rank``): its rows from ``directory``,
+    the group from a ``file://`` store there, ``dtrain.train`` on the
+    card, its model text and counts to ``rank<r>.json``."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as hist_mod
+    from lightgbm_tpu_torch.parallel import distributed, dtrain
+    X = np.load(os.path.join(directory, "x%d.npy" % rank))
+    y = np.load(os.path.join(directory, "y%d.npy" % rank))
+    distributed.initialize("file://" + os.path.join(directory, "rendezvous"),
+                           DTRAIN_RANKS, rank, backend="gloo")
+    made = []
+    make = dtrain._DistributedGBDT._make_learner
+
+    def keep(gbdt, config, train_data):
+        made.append(make(gbdt, config, train_data))
+        return made[-1]
+    dtrain._DistributedGBDT._make_learner = keep
+    hist_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    bst = dtrain.train(dict(SLICE_PARAMS, num_leaves=255), X, y,
+                       num_boost_round=2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    st, cs = made[0].grow_stats, made[0].comm_stats
+    with open(os.path.join(directory, "rank%d.json" % rank), "w") as fh:
+        json.dump({"text": bst.model_to_string(),
+                   "launches": hist_mod.device_launch_counts(),
+                   "roots": st["roots"], "steps": st["steps"],
+                   "captures": st["captures"],
+                   "flag_reads": st["flag_reads"],
+                   "record_reads": st["record_reads"],
+                   "allreduces": cs["allreduces"],
+                   "allreduce_ms": cs["allreduce_ms"],
+                   "splits": sum(t.num_leaves - 1
+                                 for t in bst.inner.models),
+                   "seconds": seconds}, fh)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+#: failed checks of phase 23 that let its later parts run first
+DEFERRED = []
+
+
+def phase_parallel(lgb, hist_mod, data, looped):
+    """Phase 23: returns the launches of each run by kernel and path."""
+    runs = {"histogram_f32": {}, "histogram_i8": {}}
+    for part in (phase23_one_device(lgb, hist_mod, data, looped),
+                 phase23_shards(lgb, hist_mod, data, looped)):
+        for kernel, paths in part.items():
+            runs[kernel].update(paths)
+    part, ds, valid = phase23_feature_voting(lgb, hist_mod, data)
+    runs["histogram_i16"] = {}
+    for kernel, paths in part.items():
+        runs[kernel].update(paths)
+    runs["histogram_f32"].update(
+        phase23_dtrain(lgb, hist_mod, ds, valid)["histogram_f32"])
+    check(not DEFERRED, "; ".join(DEFERRED))
+    return runs
+
+
 def time_widths(hist_mod, widths, rows_out):
     """Every instance at the new widths' root shapes (the real bins of
     phases 9 and 10) and at children of 10k, 100k and 1M rows (fewer
@@ -5053,11 +5621,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
-                            "18,19,20,21,22",
+                            "18,19,20,21,22,23",
                     help="comma-separated subset of phases to run")
+    ap.add_argument("--dtrain-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dtrain-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
-    if 19 in phases:
+    if phases & {19, 23}:
         phases |= {4, 7}
     if 20 in phases:
         phases.add(4)
@@ -5074,6 +5645,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, here)
+    if args.dtrain_rank is not None:
+        # one rank of phase 23d, started by the phase itself
+        return dtrain_rank(args.dtrain_rank, args.dtrain_dir)
     from lightgbm_tpu_torch import csrc
     from lightgbm_tpu_torch.ops import histogram as hist_mod
 
@@ -5100,8 +5674,9 @@ def main(argv=None) -> int:
         by_path["histogram_f32"]["phase3_small_binary"] = \
             run["histogram_f32"]
         lap("phase 3")
-    data = (full_data(lgb, keep_head=bool(phases & {15, 16, 19, 22}))
-            if phases & {4, 7, 14, 15, 16, 17, 18, 19, 20, 22} else None)
+    data = (full_data(lgb, keep_head=bool(phases & {15, 16, 19, 22, 23}))
+            if phases & {4, 7, 14, 15, 16, 17, 18, 19, 20, 22, 23}
+            else None)
     bins_root, f32_auc = None, None
     # phase 4's and 7's trees, AUCs and seconds per iteration (phase 19)
     looped = {}
@@ -5174,6 +5749,11 @@ def main(argv=None) -> int:
                                                data).items():
             by_path[kernel].update(paths)
         lap("phase 22")
+    if 23 in phases:
+        for kernel, paths in phase_parallel(lgb, hist_mod, data,
+                                            looped).items():
+            by_path[kernel].update(paths)
+        lap("phase 23")
     HEAD.clear()
     del data, looped
     if 8 in phases:

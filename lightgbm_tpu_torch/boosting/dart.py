@@ -71,8 +71,8 @@ class DART(GBDT):
         for it in iters:
             for k in range(K):
                 tree = self.models[it * K + k]
-                delta = device_tree_outputs(tree, bins, self._bin_meta,
-                                            self._raw)
+                delta = device_tree_outputs(tree, bins,
+                                            self._train_bin_meta, self._raw)
                 if delta is not None:
                     self.train_score[:, k] += delta * float(np.float32(sign))
                 for vd in self.valid_data:

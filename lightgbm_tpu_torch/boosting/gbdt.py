@@ -134,15 +134,19 @@ class BinMeta(NamedTuple):
     bundle: object
 
 
-def bin_meta_of(dataset: BinnedDataset) -> BinMeta:
+def bin_meta_of(dataset: BinnedDataset, bundled: bool = True) -> BinMeta:
+    """The walks' view of ``dataset``'s rows: bundled as the dataset
+    stores them, or, with ``bundled=False``, per feature (the rows of a
+    learner that unbundles)."""
     m = dataset.bin_mappers
     i32 = lambda v: np.asarray(v, dtype=np.int32)  # noqa: E731
-    width = (dataset.bundle.num_bundled_bins if dataset.bundle is not None
+    bundle = dataset.bundle if bundled else None
+    width = (bundle.num_bundled_bins if bundle is not None
              else dataset.max_num_bin)
     return BinMeta(i32([b.num_bin - 1 for b in m]),
                    i32([b.default_bin for b in m]),
                    i32([b.missing_type for b in m]),
-                   next_pow2(max(int(width), 2)), dataset.bundle)
+                   next_pow2(max(int(width), 2)), bundle)
 
 
 class ValidData:
@@ -269,7 +273,7 @@ class GBDT:
                 log.fatal("linear_tree requires raw data; construct the "
                           "Dataset with keep_raw_data=True")
             self._raw = raw_rows_on(train_data, self.device)
-        self.learner = create_tree_learner(config, train_data, self.device)
+        self.learner = self._make_learner(config, train_data)
         self.sample_strategy = create_sample_strategy(
             config, train_data.num_data, self.device)
         self.sample_strategy.reset_metadata(train_data.metadata)
@@ -282,8 +286,16 @@ class GBDT:
         self.train_metrics: List[Metric] = []
         self.valid_data: List[ValidData] = []
         self._bin_meta = bin_meta_of(train_data)
+        # the learner's own rows (``learner.bins``), per feature where it
+        # unbundles a bundled dataset
+        self._train_bin_meta = bin_meta_of(
+            train_data, getattr(self.learner, "_bundled", True))
         obs_health.record_backend_once(source="gbdt_init",
                                        device=self.device)
+
+    def _make_learner(self, config: Config, train_data: BinnedDataset):
+        """The tree learner (the multi-process trainer brings its own)."""
+        return create_tree_learner(config, train_data, self.device)
 
     def add_valid_data(self, valid_data: BinnedDataset) -> None:
         """reference: GBDT::AddValidDataset (gbdt.cpp:182)."""
@@ -541,8 +553,8 @@ class GBDT:
             raw = (None if self._raw is None
                    else self._raw[lo:lo + bins.shape[0]])
             for i, tree in enumerate(self.models):
-                delta = device_tree_outputs(tree, bins, self._bin_meta,
-                                            raw)
+                delta = device_tree_outputs(tree, bins,
+                                            self._train_bin_meta, raw)
                 if delta is not None:
                     block[:, i % K] += delta
         diff = float((replay - self.train_score).abs().max())
@@ -596,7 +608,7 @@ class GBDT:
         bins = self.learner.bins
         for k in range(K):
             tree = self.models[-K + k]
-            delta = device_tree_outputs(tree, bins, self._bin_meta,
+            delta = device_tree_outputs(tree, bins, self._train_bin_meta,
                                         self._raw)
             if delta is not None:
                 self.train_score[:, k].sub_(delta)
@@ -617,7 +629,7 @@ class GBDT:
         bins = self.learner.bins
         K = self.num_tree_per_iteration
         for i, tree in enumerate(self.models):
-            delta = device_tree_outputs(tree, bins, self._bin_meta,
+            delta = device_tree_outputs(tree, bins, self._train_bin_meta,
                                         self._raw)
             if delta is not None:
                 self.train_score[:, i % K] += delta

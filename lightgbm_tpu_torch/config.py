@@ -435,6 +435,12 @@ class Config:
         if self.boosting == "goss":
             self.boosting = "gbdt"
             self.data_sample_strategy = "goss"
+        # upstream LightGBM's value aliases (config.cpp GetTreeLearnerType)
+        self.tree_learner = {
+            "feature_parallel": "feature", "data_parallel": "data",
+            "voting_parallel": "voting",
+        }.get(str(self.tree_learner).strip().lower(),
+              str(self.tree_learner).strip().lower())
         if self.tree_learner not in ("serial", "feature", "data", "voting"):
             log.fatal("Unknown tree learner: %s" % self.tree_learner)
         self.device_type = str(self.device_type).strip().lower()
@@ -495,10 +501,12 @@ class Config:
         not here yet (never ignore one silently). Each message names the
         ROADMAP queue-1 item that will bring it."""
         unsupported = log.unsupported
-        if self.tree_learner != "serial":
-            unsupported("tree_learner=%s" % self.tree_learner, "item 22")
+        # the mesh learners train in one process over ``mesh_shape``'s
+        # devices, and ``parallel.dtrain`` over a torch.distributed
+        # group; in the JAX package only the CLI reads num_machines
+        # (application.py:178,257)
         if self.num_machines > 1 or self.num_gpu > 1:
-            unsupported("num_machines / num_gpu > 1", "item 22")
+            unsupported("num_machines / num_gpu > 1", "item 25")
 
     @property
     def f64_histograms(self) -> bool:

@@ -7,10 +7,13 @@ include/LightGBM/bin.h:61 ``BinMapper``; src/io/bin.cpp:78
 load time on the host; the resulting uint8 bin matrix (uint16 past 256
 bins) is what lives in device memory.
 
-The greedy bin search is the NumPy loop of the reference; the reference
-dispatches columns with more than 512 distinct values to a native
-``GreedyFindBin``, which its own tests hold bit-identical to this loop.
-``value_to_bin`` is one ``np.searchsorted`` per column. A categorical
+The greedy bin search gives the reference's loop's bounds, each bin
+closing found by a binary search instead of a step per distinct value;
+the reference dispatches columns with more than 512 distinct values to
+a native ``GreedyFindBin``, which its own tests hold bit-identical to
+its loop.
+``value_to_bin`` is one ``torch.searchsorted`` per column (NumPy's
+comparisons, on every core). A categorical
 feature maps its category values to bins sorted by count (bin.cpp:424;
 bin 0 holds NaN, negative and rare or unseen values).
 """
@@ -20,6 +23,7 @@ import math
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..obs.registry import scoped as _scoped
 
@@ -55,8 +59,10 @@ def _greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
                      max_bin: int, total_cnt: int,
                      min_data_in_bin: int) -> List[float]:
     """Greedy equal-count bin boundary search
-    (reference: src/io/bin.cpp:78-152). A Python loop over distinct
-    values: about 80 ms per continuous feature at a 200k sample."""
+    (reference: src/io/bin.cpp:78-152): the reference's loop over
+    distinct values, its bin closings found by binary search over the
+    counts' prefix sums (a search per bin instead of a Python step per
+    distinct value)."""
     assert max_bin > 0
     num_distinct = len(distinct_values)
     bin_upper_bound: List[float] = []
@@ -87,22 +93,48 @@ def _greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
     lower_bounds = [math.inf] * max_bin
     bin_cnt = 0
     lower_bounds[0] = float(distinct_values[0])
-    cur_cnt_inbin = 0
-    for i in range(num_distinct - 1):
+    # The reference walks every distinct value i, adding its count to the
+    # open bin, and closes the bin at i when i is big, when the bin holds
+    # mean_bin_size or more, or when i + 1 is big and the bin holds half
+    # of it (at least 1). Only the closings change state, so each one is
+    # found directly: with the counts' prefix sums ``csum`` and the open
+    # bin starting after ``base = csum[start - 1]``, "the bin holds m or
+    # more" is ``csum[i] >= base + ceil(m)`` (integer counts), the first
+    # such i a binary search. The rest counts at a closing are the
+    # non-big counts' prefix sum there. The same closings as the loop.
+    csum = np.cumsum(np.asarray(counts, dtype=np.int64))
+    rest_before = np.cumsum(np.where(is_big, 0, np.asarray(counts,
+                                                          dtype=np.int64)))
+    rest0 = rest_sample_cnt
+    last = num_distinct - 2
+    big_at = np.flatnonzero(is_big[:last + 1])
+    big_next = np.flatnonzero(is_big[1:last + 2])
+    start, base = 0, 0
+
+    def first_at_least(thr: int) -> int:
+        return max(start, int(np.searchsorted(csum, base + thr)))
+
+    def first_of(cands: np.ndarray, lo: int) -> int:
+        k = int(np.searchsorted(cands, lo))
+        return int(cands[k]) if k < len(cands) else last + 1
+
+    while start <= last:
+        i = min(first_of(big_at, start),
+                first_at_least(math.ceil(mean_bin_size)),
+                first_of(big_next, first_at_least(
+                    math.ceil(max(1.0, mean_bin_size * 0.5)))))
+        if i > last:
+            break
+        upper_bounds[bin_cnt] = float(distinct_values[i])
+        bin_cnt += 1
+        lower_bounds[bin_cnt] = float(distinct_values[i + 1])
+        if bin_cnt >= max_bin - 1:
+            break
         if not is_big[i]:
-            rest_sample_cnt -= int(counts[i])
-        cur_cnt_inbin += int(counts[i])
-        if (is_big[i] or cur_cnt_inbin >= mean_bin_size or
-                (is_big[i + 1] and cur_cnt_inbin >= max(1.0, mean_bin_size * 0.5))):
-            upper_bounds[bin_cnt] = float(distinct_values[i])
-            bin_cnt += 1
-            lower_bounds[bin_cnt] = float(distinct_values[i + 1])
-            if bin_cnt >= max_bin - 1:
-                break
-            cur_cnt_inbin = 0
-            if not is_big[i]:
-                rest_bin_cnt -= 1
-                mean_bin_size = rest_sample_cnt / max(rest_bin_cnt, 1)
+            rest_bin_cnt -= 1
+            mean_bin_size = (rest0 - int(rest_before[i])) / max(rest_bin_cnt,
+                                                                1)
+        base, start = int(csum[i]), i + 1
     bin_cnt += 1
     for i in range(bin_cnt - 1):
         val = _next_after_up((upper_bounds[i] + lower_bounds[i + 1]) / 2.0)
@@ -451,20 +483,28 @@ class BinMapper:
         """Vectorized ValueToBin (reference: include/LightGBM/bin.h:492).
         A categorical value maps through ``categorical_2_bin`` (its
         integer part); NaN, negative and unseen values go to bin 0."""
-        v = np.asarray(value, dtype=np.float64)
-        scalar = v.ndim == 0
-        v = np.atleast_1d(v)
+        v = np.atleast_1d(np.asarray(value))
+        scalar = np.ndim(value) == 0
         if self.bin_type == BinType.CATEGORICAL:
-            out = self._categorical_to_bin(v)
+            out = self._categorical_to_bin(v.astype(np.float64))
             return out[0] if scalar else out
-        nan_mask = np.isnan(v)
+        # torch's searchsorted: the same comparisons in f64 as NumPy's,
+        # on every core of the host (a column's f32 values widen
+        # exactly)
+        if not (v.dtype in (np.float32, np.float64) and v.flags.writeable
+                and all(st > 0 for st in v.strides)):
+            v = np.array(v, dtype=np.float64)
+        t = torch.from_numpy(v).to(torch.float64).contiguous()
+        nan_mask = torch.isnan(t)
         if self.missing_type != MissingType.NAN:
-            v = np.where(nan_mask, 0.0, v)
+            t = t.masked_fill(nan_mask, 0.0)
         n_search = self.num_bin - (1 if self.missing_type == MissingType.NAN else 0)
-        out = np.searchsorted(self.bin_upper_bound[:max(n_search - 1, 0)],
-                              v, side="left").astype(np.int32)
+        bounds = torch.from_numpy(np.ascontiguousarray(
+            self.bin_upper_bound[:max(n_search - 1, 0)], dtype=np.float64))
+        out = torch.searchsorted(bounds, t, side="left").to(torch.int32)
         if self.missing_type == MissingType.NAN:
-            out = np.where(nan_mask, self.num_bin - 1, out)
+            out.masked_fill_(nan_mask, self.num_bin - 1)
+        out = out.numpy()
         return out[0] if scalar else out
 
     def _categorical_to_bin(self, v: np.ndarray) -> np.ndarray:

@@ -40,9 +40,9 @@ environment so spawned ranks inherit it) into every push, so a
 gateway metrics dump joins a trace-segment directory on one key.
 
 The rank of a push is the caller's, else the trace layer's process
-index (``RANK`` from the environment; obs/trace.py). The JAX package
-reads ``jax.process_index``; the port's multi-process training comes
-with its ROADMAP item 22, which will pin the rank the same way.
+index (obs/trace.py): the ``torch.distributed`` rank, which
+``parallel.dtrain.train`` also pins, else ``RANK`` from the
+environment (the JAX package reads ``jax.process_index``).
 """
 from __future__ import annotations
 

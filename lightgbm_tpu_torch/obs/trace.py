@@ -23,8 +23,9 @@ Enable with ``LIGHTGBM_TPU_TRACE=/path/to/trace.json`` (or
 :func:`configure`). The file is a standard Chrome-trace JSON object —
 open it at https://ui.perfetto.dev or chrome://tracing. A run of several
 processes writes one file per rank (the rank is folded into the path);
-the rank is the caller's (:func:`set_process_index`) or the ``RANK``
-environment variable of ``torch.distributed``'s launchers, else 0.
+the rank is the caller's (:func:`set_process_index`), the
+``torch.distributed`` group's, or the ``RANK`` environment variable of
+its launchers, else 0.
 
 Timestamps are wall-anchored but perf_counter-derived: one (wall, perf)
 origin pair is sampled at import and every event timestamp is
@@ -168,17 +169,22 @@ def trace_id() -> str:
 
 def process_index() -> int:
     """The rank used as the Chrome-trace pid (one lane group per rank
-    after merge): the ``RANK`` environment variable that
-    ``torch.distributed``'s launchers set, else 0;
-    :func:`set_process_index` overrides."""
+    after merge): the ``torch.distributed`` rank once a process group is
+    initialized, else the ``RANK`` environment variable that its
+    launchers set, else 0; :func:`set_process_index` overrides. Only a
+    group's rank is kept: a rank read before the group starts is read
+    again."""
     global _process_index
-    if _process_index is None:
-        try:
-            idx = int(os.environ.get("RANK", "0"))
-        except ValueError:
-            idx = 0
-        _process_index = idx
-    return _process_index
+    if _process_index is not None:
+        return _process_index
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        _process_index = dist.get_rank()
+        return _process_index
+    try:
+        return int(os.environ.get("RANK", "0"))
+    except ValueError:
+        return 0
 
 
 def set_process_index(idx: int) -> None:

@@ -420,8 +420,8 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
                     min_output: Optional[torch.Tensor] = None,
                     max_output: Optional[torch.Tensor] = None,
                     leaf_depth: Optional[torch.Tensor] = None,
-                    bound_arrays: Optional[tuple] = None
-                    ) -> torch.Tensor:
+                    bound_arrays: Optional[tuple] = None,
+                    with_variant: bool = False):
     """Scan one leaf histogram for its best (feature, threshold).
 
     hist : f32 [F, B, 4] sums of (grad, hess, in-bag count, total count);
@@ -448,6 +448,10 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
         the leaf-wide pair: a threshold's left child is clamped by the
         running extrema over bins [0, t], its right child over [t + 1,
         B), and a threshold whose interval inverts is rejected
+
+    with_variant : also return the winner's variant (0-d int64: 0 the
+        NaN bin right, 1 left, 2.. the categorical modes), which with
+        its feature and bin orders the flat argmax across feature blocks
 
     Returns one f32 record row (see the column constants); an invalid
     record has gain -inf and feature -1.
@@ -656,19 +660,20 @@ def find_best_split(hist: torch.Tensor, sum_grad: torch.Tensor,
         row = torch.cat([row, is_cat_winner.float().view(1),
                          pack_cat_mask(cat_mask)])
     if not has_monotone:
-        return row
+        return (row, variant) if with_variant else row
     # the children's bounds (upstream BasicLeafConstraints::Update): the
     # mid-point of the two outputs caps the monotone side
     mc_w = _at(meta.monotone, feature)
     if has_categorical:
         mc_w = torch.where(is_cat_winner, 0, mc_w)
     mid = (out_left + out_right) / 2.0
-    return torch.cat([row, torch.stack([
+    row = torch.cat([row, torch.stack([
         torch.where(mc_w < 0, torch.maximum(min_output, mid), min_output),
         torch.where(mc_w > 0, torch.minimum(max_output, mid), max_output),
         torch.where(mc_w > 0, torch.maximum(min_output, mid), min_output),
         torch.where(mc_w < 0, torch.minimum(max_output, mid),
                     max_output)])])
+    return (row, variant) if with_variant else row
 
 
 def _categorical_scan(g, h, c, tc, sum_grad, sum_hess, sum_count,

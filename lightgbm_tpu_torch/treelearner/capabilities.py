@@ -57,6 +57,10 @@ class CapabilityMixin:
     ``_extra_trees`` and ``_has_mono`` before
     :meth:`_init_capabilities`."""
 
+    #: the voting learner keeps no per-leaf histogram store, so the
+    #: rescans of the intermediate and advanced methods cannot run there
+    _supports_intermediate = True
+
     def _init_capabilities(self, config) -> None:
         self._ff_rng = np.random.RandomState(config.feature_fraction_seed)
         self._resolve_constraints()
@@ -216,6 +220,11 @@ class CapabilityMixin:
             log.warning("CEGB takes precedence over "
                         "monotone_constraints_method=%s; monotone "
                         "constraints run in basic mode" % method)
+            return
+        if not self._supports_intermediate:
+            log.warning("monotone_constraints_method=%s degrades to "
+                        "'basic' under the voting-parallel learner (no "
+                        "per-leaf histogram store to rescan)" % method)
             return
         if self._extra_trees:
             log.warning("extra_trees is ignored under "

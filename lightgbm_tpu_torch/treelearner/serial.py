@@ -318,6 +318,10 @@ class _FusedBuffers(NamedTuple):
 class SerialTreeLearner(CapabilityMixin):
     """Leaf-wise grower over a device-resident binned dataset."""
 
+    #: the device holds EFB bundle columns when the dataset has them (the
+    #: feature- and voting-parallel learners unbundle instead)
+    _supports_bundles = True
+
     def __init__(self, config, dataset: BinnedDataset,
                  device: torch.device):
         self.config = config
@@ -336,10 +340,12 @@ class SerialTreeLearner(CapabilityMixin):
         # features padded to a multiple of 8: the kernel reads 8
         # features of a row with one 8-byte load; pad features have
         # num_bin 1 and never win a split
-        self.Fp = -(-F // 8) * 8
+        self.Fp = self._padded_features(F)
         # EFB: the device holds the bundle columns (padded to a multiple
         # of 8 too) and the kernel sums them at Bg bins
-        self._bundled = dataset.bundle is not None
+        self._bundled = dataset.bundle is not None and self._supports_bundles
+        #: per-leaf histogram slots (the voting learner keeps one)
+        self._hist_slots = self.L
         ncols = dataset.bundle.num_groups if self._bundled else F
         self.Gp = -(-ncols // 8) * 8
         # the dataset's bin dtype: uint8, or uint16 past 256 bins (the
@@ -397,13 +403,21 @@ class SerialTreeLearner(CapabilityMixin):
              "flag_reads", "record_reads", "split_reads", "forced_reads",
              "rescans"), 0)
 
+    @staticmethod
+    def _padded_features(F: int) -> int:
+        return -(-F // 8) * 8
+
     def _stage_bins(self, dataset: BinnedDataset, ncols: int) -> None:
         """The binned rows on the device, their columns padded to
-        ``Gp`` (bundled) or ``Fp``; the out-of-core learner stages them
-        shard by shard instead."""
+        ``Gp`` (bundled) or ``Fp``: the bundle columns, or per-feature
+        columns (unbundled from a bundled dataset where the learner does
+        not take bundles); the out-of-core learner stages them shard by
+        shard instead."""
         bins = np.zeros((self.N, self.Gp if self._bundled else self.Fp),
                         dtype=dataset.bins.dtype)
-        bins[:, :ncols] = dataset.bins
+        bins[:, :ncols] = (dataset.bins if self._bundled
+                           or dataset.bundle is None
+                           else dataset.feature_bins())
         with obs.scope("io::stage_bins_device"):
             self.bins = torch.from_numpy(bins).to(self.device)
 
@@ -474,11 +488,21 @@ class SerialTreeLearner(CapabilityMixin):
         instead, as the reference recomputes them (``serial.py:500``):
         the sums of bundle column 0's bins, where every row sits in one
         bin."""
+        return self._unpack(build_histogram(self.bins, gh, self._width(),
+                                            idx, count, f64=self._f64),
+                            gh, totals)
+
+    def _width(self) -> int:
+        """Bins per histogram row the kernel sums: Bg bundled, else B."""
+        return self.Bg if self._bundled else self.B
+
+    def _unpack(self, bhist: torch.Tensor, gh: torch.Tensor,
+                totals: Optional[torch.Tensor]) -> torch.Tensor:
+        """The kernel's histogram as the scan's per-feature [Fp, B, 4]
+        one: as it is, or unpacked from the bundle columns (after the
+        cross-shard sum, on the mesh learners)."""
         if not self._bundled:
-            return build_histogram(self.bins, gh, self.B, idx, count,
-                                   f64=self._f64)
-        bhist = build_histogram(self.bins, gh, self.Bg, idx, count,
-                                f64=self._f64)
+            return bhist
         if not gh.dtype.is_floating_point:
             totals = bhist[0].sum(dim=0, dtype=bhist.dtype)
         bt = self._btab
@@ -654,8 +678,8 @@ class SerialTreeLearner(CapabilityMixin):
         return GrowState(
             leaf_of_row=torch.empty(self.N, dtype=torch.int32, device=dev),
             gh=gh,
-            hists=torch.empty((L, self.Fp, self.B, 4), dtype=acc,
-                              device=dev),
+            hists=torch.empty((self._hist_slots, self.Fp, self.B, 4),
+                              dtype=acc, device=dev),
             cand=torch.empty((L, W), dtype=torch.float32, device=dev),
             leaf_depth=torch.empty(L, dtype=torch.int32, device=dev),
             step=torch.empty((), dtype=torch.int32, device=dev),
@@ -670,6 +694,10 @@ class SerialTreeLearner(CapabilityMixin):
             self._root_inner(state)
             obs.watch_ready("tree::root_histogram", state.cand)
 
+    def _root_sums(self, gh: torch.Tensor) -> torch.Tensor:
+        """The root's channel sums over every row."""
+        return sum_gh(gh, self._padded_rows)
+
     def _root_histogram(self, gh: torch.Tensor,
                         sums_raw: torch.Tensor) -> torch.Tensor:
         """The root's [Fp, B, 4] histogram over every row."""
@@ -678,7 +706,7 @@ class SerialTreeLearner(CapabilityMixin):
     def _root_inner(self, state: GrowState) -> None:
         gh = state.gh
         # exact integer sums in quantized mode, dequantized once
-        sums_raw = sum_gh(gh, self._padded_rows)
+        sums_raw = self._root_sums(gh)
         sums = dequantize_sums(sums_raw, self._qscale)
         hist = self._root_histogram(gh, sums_raw)
         # root "parent" output: its own unsmoothed output (reference:
@@ -951,19 +979,8 @@ class SerialTreeLearner(CapabilityMixin):
         pens = (self._cegb_penalties(rec, row, on_leaf, gl) if cegb
                 else (None, None))
         state.leaf_of_row.masked_fill_(on_leaf & ~gl, new_leaf)
-
-        smaller_is_left = rec.left_total_count <= rec.right_total_count
-        small_id = leaf if smaller_is_left else new_leaf
-        idx = torch.nonzero(state.leaf_of_row == small_id).view(-1).to(
-            torch.int32)
-        side = S.LEFT_SUM_GRAD if smaller_is_left else S.RIGHT_SUM_GRAD
-        hist_small = self._leaf_histogram(state.gh, idx,
-                                          totals=row[side:side + 4])
-        hist_large = subtract_histogram(state.hists[leaf], hist_small)
-        hist_left, hist_right = ((hist_small, hist_large) if smaller_is_left
-                                 else (hist_large, hist_small))
-        state.hists[leaf] = hist_left
-        state.hists[new_leaf] = hist_right
+        hist_left, hist_right, masks = self._split_histograms(
+            state, rec, row, new_leaf, masks)
 
         allowed = self._splittable(child_depth)
         rand_bins = self._child_rand_bins(new_leaf)
@@ -976,6 +993,27 @@ class SerialTreeLearner(CapabilityMixin):
                               self._child_bounds(row, c), depth)
             self._store(state.cand, child, info, allowed)
 
+    def _split_histograms(self, state: GrowState, rec: SplitRecord,
+                          row: torch.Tensor, new_leaf: int, masks: tuple):
+        """The per-split loop's children histograms, after the partition:
+        the smaller child's from its rows (``torch.nonzero``, a host
+        sync), the sibling by subtraction, both stored. Returns them with
+        the children's scan masks (each None for the tree mask)."""
+        leaf = rec.leaf
+        smaller_is_left = rec.left_total_count <= rec.right_total_count
+        small_id = leaf if smaller_is_left else new_leaf
+        idx = torch.nonzero(state.leaf_of_row == small_id).view(-1).to(
+            torch.int32)
+        side = S.LEFT_SUM_GRAD if smaller_is_left else S.RIGHT_SUM_GRAD
+        hist_small = self._leaf_histogram(state.gh, idx,
+                                          totals=row[side:side + 4])
+        hist_large = subtract_histogram(state.hists[leaf], hist_small)
+        hist_left, hist_right = ((hist_small, hist_large) if smaller_is_left
+                                 else (hist_large, hist_small))
+        state.hists[leaf] = hist_left
+        state.hists[new_leaf] = hist_right
+        return hist_left, hist_right, masks
+
     # ------------------------------------------------------------------
     # the whole-tree loop (tpu_fused_tree=true, the default)
     # ------------------------------------------------------------------
@@ -985,11 +1023,9 @@ class SerialTreeLearner(CapabilityMixin):
         if self._fused is None:
             dev = self.device
             state = self._new_state(torch.empty_like(gh))
+            idx, rows, count = self._row_list_buffers()
             self._fused = _FusedBuffers(
-                state=state,
-                idx=torch.zeros(self.N + 1, dtype=torch.int32, device=dev),
-                rows=torch.arange(self.N, dtype=torch.int32, device=dev),
-                count=torch.zeros(1, dtype=torch.int32, device=dev),
+                state=state, idx=idx, rows=rows, count=count,
                 qscale=(torch.empty(2, dtype=torch.float32, device=dev)
                         if self._quantized else None))
         buf = self._fused
@@ -1004,43 +1040,62 @@ class SerialTreeLearner(CapabilityMixin):
             buf.qscale.copy_(self._qscale)
         return buf
 
+    def _row_list_buffers(self):
+        """The whole-tree loop's row list (with a trash slot), the row
+        ids it is filled from and the list's length on the device."""
+        dev = self.device
+        return (torch.zeros(self.N + 1, dtype=torch.int32, device=dev),
+                torch.arange(self.N, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev))
+
     def _step(self, buf: _FusedBuffers) -> None:
         """One split of the whole tree, on the device with no host read:
         the reference's ``_split_body`` + ``_finish_split``. Every write
         is guarded by the step's validity (a valid best record, and
         fewer than L - 1 splits so far), so a step after the tree's end
         changes nothing."""
-        st, L = buf.state, self.L
-        i = st.step
-        best = torch.argmax(st.cand[:, S.GAIN]).view(1)   # first maximum
-        row = st.cand.index_select(0, best).view(-1)      # a copy
-        valid = record_valid(row) & (i < L - 1)
-        leaf = best
-        new_leaf = torch.clamp(i.long() + 1, max=L - 1).view(1)
-
-        # partition (reference _split_body :473-486)
-        gl = self._go_left(row)
-        move = (st.leaf_of_row == leaf) & ~gl & valid
-        st.leaf_of_row.copy_(torch.where(move, new_leaf.to(torch.int32),
-                                         st.leaf_of_row))
-
-        # the smaller child's rows, ascending (torch.nonzero's list), into
-        # the fixed row list; the others go to its trash slot N
+        st = buf.state
+        row, valid, leaf, new_leaf = self._step_partition(st)
         smaller_is_left = (row[S.LEFT_TOTAL_COUNT]
                            <= row[S.RIGHT_TOTAL_COUNT])
         small_id = torch.where(smaller_is_left, leaf, new_leaf)
-        is_small = (st.leaf_of_row == small_id) & valid
-        pos = torch.cumsum(is_small, 0, dtype=torch.int32)
-        buf.count.copy_(pos[-1:])
-        dest = torch.where(is_small, pos - 1, self.N)
-        buf.idx.scatter_(0, dest.long(), buf.rows)
         small_totals = torch.where(
             smaller_is_left, row[S.LEFT_SUM_GRAD:S.LEFT_SUM_GRAD + 4],
             row[S.RIGHT_SUM_GRAD:S.RIGHT_SUM_GRAD + 4])
-        hist_small = self._leaf_histogram(st.gh, buf.idx, buf.count,
-                                          small_totals)
+        hist_small = self._child_histogram(buf, small_id, valid,
+                                           small_totals)
         self._finish_split(st, leaf, new_leaf, row, hist_small, valid,
                            buf.qscale)
+
+    def _step_partition(self, st: GrowState):
+        """The head of a split step: the best candidate (first maximum)
+        and its validity, the leaf and the new leaf ([1] int64), and the
+        partition (reference _split_body :473-486), with no host read."""
+        i, L = st.step, self.L
+        best = torch.argmax(st.cand[:, S.GAIN]).view(1)   # first maximum
+        row = st.cand.index_select(0, best).view(-1)      # a copy
+        valid = record_valid(row) & (i < L - 1)
+        new_leaf = torch.clamp(i.long() + 1, max=L - 1).view(1)
+        gl = self._go_left(row)
+        move = (st.leaf_of_row == best) & ~gl & valid
+        st.leaf_of_row.copy_(torch.where(move, new_leaf.to(torch.int32),
+                                         st.leaf_of_row))
+        return row, valid, best, new_leaf
+
+    def _child_histogram(self, buf: _FusedBuffers, child: torch.Tensor,
+                         valid: torch.Tensor,
+                         totals: torch.Tensor) -> torch.Tensor:
+        """The histogram of leaf ``child``'s rows (none unless ``valid``):
+        its rows, ascending (torch.nonzero's list), go into the fixed row
+        list, the others to its trash slot N, and the kernel's
+        device-count entry sums them."""
+        st = buf.state
+        is_child = (st.leaf_of_row == child) & valid
+        pos = torch.cumsum(is_child, 0, dtype=torch.int32)
+        buf.count.copy_(pos[-1:])
+        dest = torch.where(is_child, pos - 1, self.N)
+        buf.idx.scatter_(0, dest.long(), buf.rows)
+        return self._leaf_histogram(st.gh, buf.idx, buf.count, totals)
 
     def _finish_split(self, st: GrowState, leaf: torch.Tensor,
                       new_leaf: torch.Tensor, row: torch.Tensor,
@@ -1055,15 +1110,25 @@ class SerialTreeLearner(CapabilityMixin):
         out-of-core learner calls it once per split of a sweep round."""
         smaller_is_left = (row[S.LEFT_TOTAL_COUNT]
                            <= row[S.RIGHT_TOTAL_COUNT])
-        i = st.step
-        L = self.L
         hist_large = subtract_histogram(
             st.hists.index_select(0, leaf).squeeze(0), hist_small)
         hist_left = torch.where(smaller_is_left, hist_small, hist_large)
         hist_right = torch.where(smaller_is_left, hist_large, hist_small)
         _put(st.hists, leaf, hist_left, valid)
         _put(st.hists, new_leaf, hist_right, valid)
+        self._finish_children(st, leaf, new_leaf, row, hist_left,
+                              hist_right, valid, qscale)
 
+    def _finish_children(self, st: GrowState, leaf: torch.Tensor,
+                         new_leaf: torch.Tensor, row: torch.Tensor,
+                         hist_left: torch.Tensor, hist_right: torch.Tensor,
+                         valid: torch.Tensor,
+                         qscale: Optional[torch.Tensor],
+                         masks: tuple = (None, None)) -> None:
+        """Both children's depths, scans (under ``masks``, each None for
+        the tree mask) and candidates, the record and the step counter,
+        every write guarded by ``valid``."""
+        i, L = st.step, self.L
         # depth gating and both children's scans (reference
         # _finish_split)
         child_depth = st.leaf_depth.index_select(0, leaf) + 1
@@ -1075,7 +1140,7 @@ class SerialTreeLearner(CapabilityMixin):
                 (leaf, hist_left, S.LEFT_SUM_GRAD),
                 (new_leaf, hist_right, S.RIGHT_SUM_GRAD))):
             info = self._scan(hist, row[side:side + 4], row[side + 4],
-                              qscale, rand_bins=rand_bins[c],
+                              qscale, mask=masks[c], rand_bins=rand_bins[c],
                               bounds=self._child_bounds(row, c),
                               depth=depth)
             if self.max_depth > 0:
@@ -1113,6 +1178,12 @@ class SerialTreeLearner(CapabilityMixin):
         self.grow_stats["captures"] += 1
         obs_compile.record_graph_capture("serial.split_step", seconds)
         self._graph = graph
+
+    def _captures_steps(self) -> bool:
+        """Whether the step is captured as a CUDA graph on the card (the
+        mesh learners run it eagerly where a step crosses devices or
+        processes)."""
+        return True
 
     def _replay(self) -> None:
         try:
@@ -1159,7 +1230,7 @@ class SerialTreeLearner(CapabilityMixin):
         ``steps`` run (those past the tree's end change nothing)."""
         done = 0
         if (self.device.type == "cuda" and self._graph is None
-                and steps > 0):
+                and steps > 0 and self._captures_steps()):
             self._capture(buf)
             done = 1
         while done < steps:

@@ -171,3 +171,30 @@ def test_retry_call_matches_reference_backoff():
         out[name] = (len(calls), dict(reg.counters))
     assert out["port"] == out["ref"]
     assert out["port"][1]["ft/retry_exhausted"] == 1
+
+
+def test_dead_peer_is_fatal_health_event():
+    """tests/test_faults.py::test_dead_peer_is_fatal_health_event on the
+    port's ``parallel.dtrain.run_collective``, with no sockets: a
+    collective that never completes ends as a fatal, flushed
+    ``dtrain_peer_timeout`` health event and a ``LightGBMError`` naming
+    the peer rank, within its timeout."""
+    import threading
+    import time
+
+    from lightgbm_tpu_torch.parallel.dtrain import run_collective
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+    seen = []
+    events.register_event_callback(
+        lambda rec: seen.append(rec) if rec["event"] == "health"
+        else None)
+    t0 = time.perf_counter()
+    try:
+        with pytest.raises(LightGBMError, match="peer rank"):
+            run_collective(lambda: threading.Event().wait(),
+                           what="allreduce_sum", timeout=0.2)
+    finally:
+        events.register_event_callback(None)
+    assert 0.15 < time.perf_counter() - t0 < 10
+    assert seen and seen[0]["rule"] == "dtrain_peer_timeout" \
+        and seen[0]["severity"] == "fatal" and seen[0]["rank"] == -1

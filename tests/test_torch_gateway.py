@@ -8,9 +8,15 @@ equal (level a), leaving out the push ages, which are wall-clock. The
 port's pusher also feeds the reference's gateway, so the wire format is
 one. A push under the ``gateway_push`` fault spec retries, gives up and
 counts, and training would go on. The reference's multi-process case
-(``tests/test_gateway.py``, subprocess ranks) waits for the port's
-multi-device training (ROADMAP item 22).
+(``tests/test_gateway.py:420-445``, subprocess ranks) runs as two
+``parallel.dtrain`` ranks over gloo on the CPU: each rank's pusher,
+wired only through the environment, labels its pushes with its process
+group rank, and the gateway's one scrape serves both ranks' stage
+tables.
 """
+import os
+import subprocess
+import sys
 import urllib.request
 
 import numpy as np
@@ -27,7 +33,8 @@ from lightgbm_tpu_torch.obs import events, faults
 from lightgbm_tpu_torch.obs.gateway import MetricsGateway, SnapshotPusher
 from lightgbm_tpu_torch.obs.health import Watchdog, fleet_rules
 from lightgbm_tpu_torch.obs.openmetrics import (metric_value,
-                                                parse_openmetrics)
+                                                parse_openmetrics,
+                                                sum_metric)
 from lightgbm_tpu_torch.obs.registry import MetricsRegistry
 from _torch_watch_env import watch_env_defaults  # noqa: F401
 
@@ -35,7 +42,11 @@ _AGE = "lightgbm_tpu_gateway_push_age_seconds"
 
 
 @pytest.fixture(autouse=True)
-def _clean():
+def _clean(monkeypatch):
+    # Both packages cache a run id read from the environment; another
+    # test that set and removed LIGHTGBM_TPU_RUN_ID leaves them holding
+    # different ids. Pinned here, both read this one.
+    monkeypatch.setenv("LIGHTGBM_TPU_RUN_ID", "gateway-test-run")
     faults.reset()
     ref_faults.reset()
     yield
@@ -116,5 +127,75 @@ def test_failed_push_retries_then_counts_and_returns():
         kinds = [r["event"] for r in seen]
         assert "fault_injected" in kinds and "retry_exhausted" in kinds
         assert gw.healthz()["num_sources"] == 0
+    finally:
+        gw.close()
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_RANK_CHILD = r"""
+import sys
+import numpy as np, torch
+torch.set_num_threads(1)
+from lightgbm_tpu_torch.parallel import distributed, dtrain
+rank, init = int(sys.argv[1]), sys.argv[2]
+distributed.initialize("file://" + init, 2, rank, backend="gloo")
+rng = np.random.RandomState(rank)
+X = rng.randn(400, 6)
+y = (X[:, 0] + 0.3 * rng.randn(400) > 0).astype(float)
+dtrain.train({"objective": "binary", "num_leaves": 7, "verbosity": -1,
+              "min_data_in_leaf": 5, "max_bin": 63, "device_type": "cpu"},
+             X, y, num_boost_round=2)
+torch.distributed.destroy_process_group()
+print("RANK_PUSH_OK")
+"""
+
+
+def test_two_dtrain_ranks_push_one_aggregate(tmp_path, monkeypatch):
+    """Two ``dtrain`` ranks (gloo, CPU) wired to the parent's gateway
+    through the environment alone; the parent's one scrape serves both
+    ranks' stage tables under their process-group ranks."""
+    reg = MetricsRegistry()
+    gw = MetricsGateway(port=0, host="127.0.0.1", reg=reg,
+                        watchdog=Watchdog(reg, rules=fleet_rules()),
+                        stale_after_s=300)
+    try:
+        for name in [k for k in os.environ
+                     if k.startswith(("LIGHTGBM_TPU_", "RANK"))]:
+            monkeypatch.delenv(name)
+        monkeypatch.setenv("LIGHTGBM_TPU_METRICS_GATEWAY", gw.url)
+        monkeypatch.setenv("LIGHTGBM_TPU_METRICS_PUSH_INTERVAL", "0.2")
+        monkeypatch.setenv("LIGHTGBM_TPU_RUN_ID", "fleet-e2e")
+        monkeypatch.setenv("LIGHTGBM_TPU_TIMETAG", "1")
+        monkeypatch.setenv("LIGHTGBM_TPU_DTRAIN_TIMEOUT_S", "60")
+        monkeypatch.setenv("PYTHONPATH",
+                           REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                              ""))
+        init = str(tmp_path / "rendezvous")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _RANK_CHILD, str(r), init],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=REPO) for r in range(2)]
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=120)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs.append(p.communicate()[0])
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0 and "RANK_PUSH_OK" in out, (
+                "rank %d:\n%s" % (r, out[-3000:]))
+        with urllib.request.urlopen(gw.url + "/metrics", timeout=10) as r:
+            parsed = parse_openmetrics(r.read().decode())
+        for rank in ("0", "1"):
+            assert sum_metric(parsed, "lightgbm_tpu_stage_seconds_total",
+                              rank=rank, stage="tree::grow") > 0.0, \
+                "rank %s stage table missing from the aggregate" % rank
+        assert metric_value(parsed, "lightgbm_tpu_run_info",
+                            run_id="fleet-e2e") == 1.0
+        hz = gw.healthz()
+        assert hz["num_sources"] == 2
+        assert hz["run_ids"] == ["fleet-e2e"]
     finally:
         gw.close()

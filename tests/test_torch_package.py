@@ -102,10 +102,11 @@ NO_COUNTERPART = {
 }
 
 
-@pytest.mark.parametrize("module", ["serve"])
+@pytest.mark.parametrize("module", ["serve", "parallel"])
 def test_reference_exports_have_counterparts(module):
-    """Every name the JAX package's ``serve`` exports exists in the
-    port's, except those recorded in NO_COUNTERPART (which must not)."""
+    """Every name the JAX package's ``serve`` and ``parallel`` export
+    exists in the port's, except those recorded in NO_COUNTERPART (which
+    must not)."""
     import importlib
     ref = importlib.import_module("lightgbm_tpu." + module)
     port = importlib.import_module("lightgbm_tpu_torch." + module)
@@ -199,7 +200,7 @@ def test_monotone_forced_linear_train_save_load(params, tmp_path):
 @pytest.mark.parametrize("params,item", [
     ({"categorical_feature": "0", "max_bin": 300}, None),
     ({"tpu_eval_iterations": 4}, None),
-    ({"num_machines": 2}, "item 22"),
+    ({"num_machines": 2}, "item 25"),
     ({"gpu_use_dp": True}, None),
     ({"boosting": "dart"}, None),
     ({"objective": "none"}, "item 18"),
@@ -207,7 +208,7 @@ def test_monotone_forced_linear_train_save_load(params, tmp_path):
     ({"max_bin": 511}, None),
     ({"tpu_use_f64_hist": True}, None),
     ({"tpu_batch_iterations": 4}, None),
-    ({"tree_learner": "data"}, "item 22"),
+    ({"tree_learner": "data", "mesh_shape": "data=8"}, None),
 ])
 def test_settings_outside_the_slice_raise(params, item):
     """A setting of an open ROADMAP item raises naming it. The settings
@@ -215,7 +216,9 @@ def test_settings_outside_the_slice_raise(params, item):
     iterations and eval hoisting), which raised before the port had
     them, train and give the JAX package's trees on the verify-skill rows (2000 x 10; column 0 holds 300
     categories for the categorical case; 15 leaves), at level (b): the same splits
-    and leaf counts, predictions within 1e-6. ``gpu_use_dp`` asks the
+    and leaf counts, predictions within 1e-6. So does ``tree_learner=data``
+    (item 22), on 8 shards in both packages (the JAX package's 8 forced
+    host devices). ``gpu_use_dp`` asks the
     port for f64 histograms; the reference reads only
     ``tpu_use_f64_hist``, so it is held to that (under x64, which the
     reference's f64 path needs)."""
