@@ -300,14 +300,59 @@ Phases (each one fails the run if it fails):
       split and the eager loop's syncs per tree; a rank of a group whose
       peer never starts exits non-zero within its 15 s collective
       timeout. NCCL (a card per rank) needs two cards: not run;
+24. the closed refresh loop (``loop/controller.py``) on the card:
+   a. ``RefreshController`` over windows of 2,097,152 Higgs-shaped rows
+      (``make_higgs_like``, seed 100 + cycle) spilled into 8 shards of
+      262,144 rows, binary, 255 leaves, max_bin 255, f32, 2 base rounds
+      and 1 per refresh, 4 cycles under ``refresh_schedule(4)`` (a
+      poisoned canary, a retried ``prefetch_device_put``, a lost gateway
+      push), the gateway on, 2 pumps of 64-row blocks from a pool of 4,
+      ``LIGHTGBM_TPU_WATCH_REFRESH_P99_MS=1000`` (the JAX package's
+      refresh bench, ``bench.py:1050``; restored after): the report ok,
+      outcomes bootstrap / rolled_back / promoted / promoted, 1 rollback,
+      every leg fired, no untyped failure, no stranded future, K1 ==
+      shards x passes over the loop's learners, a capture in every
+      refresh; then, with no server running, the newest checkpoint (5
+      rounds, each refresh's graph captured while the server and the
+      pumps used the card) text-equal to one uninterrupted ``lgb.train``
+      on the attached spill, its refit on window 3 the stable version's
+      text, the stable version's answers on 4096 rows byte-equal to
+      ``StackedForest.predict`` of that text; s per cycle, capture ms,
+      rows/s served, p50 / p99, peak memory;
+   b. the JAX bench's drift stage (``bench.py:1052-1072``): a no-shift
+      control (3 cadence cycles of 20,000 rows from one draw) keeps PSI
+      under ``LIGHTGBM_TPU_WATCH_PSI`` with no ``feature_drift``; 4
+      cycles with ``refresh_trigger="drift"`` and the covariate shift
+      after 2048 rows cross it, fire ``feature_drift`` and start a
+      drift-triggered refresh;
+25. the CLI (``python -m lightgbm_tpu_torch.application``, each run a
+   process of its own) and the C ABI on the card:
+   a. a 1,048,576 x 28 Higgs-shaped TSV (label in column 0): ``task=train``
+      (255 leaves, 5 trees) text-equal (trees and importances) to
+      ``lgb.train`` here on the same parsed rows, the CLI's own K1 (its
+      ``cli_train_done`` event) == roots + steps, ``task=predict`` ==
+      ``Booster.predict`` within 1e-9; the CLI process's seconds in and
+      outside its task, parse and train seconds;
+   b. the four ``examples/*/train.conf`` through the CLI (four processes
+      at once): test-set predictions == ``lgb.train``'s within 1e-9, each
+      CLI's own K1 == roots + steps, its roots and steps the API run's;
+   c. 25a's model in the port's ``_capi.so``: ``LGBM_BoosterPredictForMat``
+      on 262,144 rows == the host walk within rtol 1e-12, rows/s beside
+      the stacked predict's; ``examples/c_api/main.c`` compiled with the
+      port's ``capi.cpp`` predicts 1000 rows == ``Booster.predict``;
+   d. two CLI ranks over gloo on the one card (``pre_partition=false``,
+      a shared machine list, 262,144 rows): rank 0's trees == the
+      in-process 2-shard learner's on the same rank-strided rows; each
+      rank's K1 (its ``dtrain_done`` event) == roots + steps;
 
 then time every instance over the learners' real bins of phases 9 (the
 bundle columns at Bg), 13 and 10, and print one ``{"kernels": [...]}``
 line with the launches of each kernel on each path that runs it, as its
 device counter counted them (graph replays included;
 ``launches_by_path``; f32: phases 3, 4, 9, 10, 11, 12, 13, 14a, 14b,
-14d, 14e, 15a-e, 18, 19a, 19c, 19d, 20a, 20c, 22, 23a-d (23d: each
-rank's own counter); int8: phases 7, 9, 14c, 15d, 19b, 20b, 20c, 22,
+14d, 14e, 15a-e, 18, 19a, 19c, 19d, 20a, 20c, 22, 23a-d, 24a-b, 25a-b,
+25d (23d, 25d: each rank's own counter; 25a-b: each CLI process's own
+counter, beside the in-process runs'); int8: phases 7, 9, 14c, 15d, 19b, 20b, 20c, 22,
 23b; int16: phases 8, 23c; f64: phase 17; the uint16 instances: phase 16, and f64
 phase 17); each instance must have been timed and launched by some
 path.
@@ -351,7 +396,7 @@ check); phase 19 brings phases 4 and 7, whose trees its batches are
 held against, phase 20 brings phase 4 (its Dataset, trees and host
 syncs), phase 21 brings phase 12 (its model), phase 22 the full-size
 rows (without their training) and phase 23 phases 4 and 7 (their
-Dataset and trees).
+Dataset and trees); phases 24 and 25 make their own rows.
 """
 from __future__ import annotations
 
@@ -389,8 +434,8 @@ REL_TOL = 1e-5
 
 #: rounds of each per-split (``tpu_fused_tree=false``) rerun that must
 #: give its whole-tree run's trees: one tree holds the two loops to the
-#: same splits, and the script stays inside its time (14c keeps 3, its
-#: first GOSS tree; phase 16, the wide bins' own path, 2)
+#: same splits, and the script stays inside its time (phase 16, the
+#: wide bins' own path, keeps 2)
 RERUN_ROUNDS = 1
 #: leaves of the Covertype phases' whole-tree / per-split pairs and of the
 #: advanced monotone tree (with a basic one beside it): the per-split
@@ -2974,16 +3019,16 @@ def phase14_goss(lgb, hist_mod, data):
 
 def phase14_goss_quantized(lgb, hist_mod, data):
     """14c: GOSS with 8-bit gradients, lr 0.5 (warm-up 2), 4 rounds:
-    every histogram through the int8 instance; a 3-round per-split rerun
-    (tree 3 a GOSS tree) is text-equal."""
+    every histogram through the int8 instance. (Its 3-round per-split
+    rerun was cut for the script's time: whole-tree == per-split stays
+    held on the card for 8-bit by phase 7's rerun, and for GOSS on the
+    CPU by ``tests/test_torch_sampling.py``.)"""
     extra = {"data_sample_strategy": "goss", "learning_rate": 0.5,
              "use_quantized_grad": True, "quant_grad_bits": 8}
     bst, launches, aucs, _, _ = train_full(lgb, hist_mod, data, extra,
                                            "histogram_i8", rounds=4,
                                            tag="14c goss 8-bit")
     a = check_predict(bst, data, aucs)
-    check_rerun(lgb, hist_mod, data, extra, "histogram_i8", bst,
-                "GOSS 8-bit", rounds=3)
     log("14c GOSS + 8-bit (lr 0.5, 4 rounds, trees 3-4 GOSS): held-out "
         "AUC %.6f; ms per split %.3f" % (a, SPLIT_MS["14c goss 8-bit"]))
     return launches["histogram_i8"]
@@ -5577,6 +5622,790 @@ def phase_parallel(lgb, hist_mod, data, looped):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the closed refresh loop on the card
+# ---------------------------------------------------------------------------
+#: rows of a 24a window (phase 22's spill shape: 8 shards of SHARD_ROWS)
+LOOP_ROWS = 1 << 21
+LOOP_CYCLES = 4
+#: the serve p99 SLO of the refresh loop's watchdog rule in phase 24: the
+#: JAX package's own refresh bench setting (bench.py:1050)
+LOOP_SLO_ENV = "LIGHTGBM_TPU_WATCH_REFRESH_P99_MS"
+LOOP_SLO_MS = "1000"
+#: 24b, the JAX bench's drift settings (bench.py:1052-1072): 20k-row
+#: windows, 31 leaves, pools of 64 blocks x 64 rows, drift windows of 1 s
+#: with at least 4096 rows
+DRIFT_ROWS = 20_000
+DRIFT_PARAMS = {"objective": "binary", "num_leaves": 31, "max_bin": 255,
+                "verbosity": -1, "min_data_in_leaf": 20,
+                "bin_construct_sample_cnt": 20_000}
+DRIFT_KW = dict(traffic_rows=64, traffic_pool=64, drift_min_window_rows=4096,
+                drift_window_s=1.0, drift_max_windows=6, base_rounds=6,
+                extra_rounds=2, traffic_threads=2)
+DRIFT_SHIFT_ROWS = 2048
+DRIFT_CONTROL_CYCLES = 3
+
+
+class collect_learners:
+    """Every learner ``GBDT`` builds while the context is open (each
+    ``lgb.train`` call builds one), in order."""
+
+    def __enter__(self):
+        from lightgbm_tpu_torch.boosting.gbdt import GBDT
+        self.learners = []
+        self._orig = GBDT._make_learner
+        orig, made = self._orig, self.learners
+
+        def keep(gbdt, config, train_data):
+            made.append(orig(gbdt, config, train_data))
+            return made[-1]
+        GBDT._make_learner = keep
+        return self
+
+    def __exit__(self, *exc):
+        from lightgbm_tpu_torch.boosting.gbdt import GBDT
+        GBDT._make_learner = self._orig
+
+
+def published_texts(ctl):
+    """Record each model text a RefreshController publishes (the
+    bootstrap booster's, then each refresh's refit text)."""
+    texts = []
+    load = ctl.registry.load
+
+    def recording(name="default", booster=None, model_str=None, **kw):
+        texts.append(model_str if model_str is not None
+                     else booster.model_to_string())
+        return load(name, booster=booster, model_str=model_str, **kw)
+    ctl.registry.load = recording
+    return texts
+
+
+def run_loop(hist_mod, ctl, cycles, what):
+    """``ctl.run(cycles)`` with the launch counts set to 0 just before
+    and read just after, and every learner, graph capture and refresh
+    record kept. Checks K1's device counter == the sum over the loop's
+    learners of shards x histogram passes, and no other instance.
+    Returns (report, wall s, learners, capture ms by cycle, device
+    launches of K1, peak bytes, serve p50 and p99 ms over the run)."""
+    import torch
+    from lightgbm_tpu_torch.obs import events
+    from lightgbm_tpu_torch.obs.registry import registry
+    seen = []
+    lat0 = registry.observed("serve/latency_ms")
+    hist_mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events.register_event_callback(seen.append)
+    try:
+        with collect_learners() as made:
+            t0 = time.perf_counter()
+            rep = ctl.run(cycles=cycles)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        events.register_event_callback(None)
+    peak = torch.cuda.max_memory_allocated()
+    dev = hist_mod.device_launch_counts()
+    learners = made.learners
+    want = sum(lr.dataset.num_shards * lr.grow_stats["hist_passes"]
+               for lr in learners)
+    check(all(hasattr(lr.dataset, "num_shards") for lr in learners)
+          and dev["histogram_f32"] == want > 0
+          and sum(dev.values()) == dev["histogram_f32"],
+          "%s: K1 device launches %d, shards x passes over the %d "
+          "learners %d; all launches %s" % (what, dev["histogram_f32"],
+                                             len(learners), want, dev))
+    capture_ms, cycle = {}, 0
+    for e in seen:
+        if e["event"] == "refresh_cycle":
+            cycle = e["cycle"] + 1
+        elif e["event"] == "graph_capture":
+            capture_ms.setdefault(cycle, []).append(
+                1e3 * e["capture_seconds"])
+    lat = {q: registry.percentile("serve/latency_ms", q, since=lat0)
+           for q in (50.0, 99.0)}
+    return (rep, wall, learners, capture_ms, dev["histogram_f32"], peak,
+            (lat[50.0], lat[99.0]))
+
+
+def check_report(rep, what, outcomes):
+    traffic = rep["traffic"]
+    check(rep["ok"] and [c["outcome"] for c in rep["cycles"]] == outcomes
+          and not traffic["untyped"] and rep["stranded_futures"] == 0,
+          "%s: ok %s, outcomes %s (want %s), untyped %s, stranded %d, "
+          "problems %s" % (what, rep["ok"],
+                           [c["outcome"] for c in rep["cycles"]], outcomes,
+                           traffic["untyped"], rep["stranded_futures"],
+                           rep["problems"]))
+
+
+def phase24_rotation(lgb, hist_mod, card):
+    """24a: ``RefreshController`` over windows of LOOP_ROWS Higgs-shaped
+    rows (``make_higgs_like``, seed 100 + cycle) spilled into 8 shards of
+    SHARD_ROWS, binary, 255 leaves, max_bin 255, f32; 2 base rounds and 1
+    per refresh, 4 cycles under ``refresh_schedule(4)`` (a poisoned
+    canary, a retried train fault, a lost gateway push), the gateway on,
+    2 pumps of 64-row blocks from a pool of 4. Checks the report, the
+    outcomes, one rollback, every leg fired, no untyped failure or
+    stranded future, K1 == shards x passes over the loop's learners, a
+    captured round finish in every refresh; then, with no server
+    running, the newest checkpoint's text equals one uninterrupted
+    ``lgb.train`` of 5 rounds on the re-attached spill, its refit on
+    window 3 the stable version's text, and the stable version's answers
+    on 4096 rows ``StackedForest.predict`` of that text byte for byte.
+    Returns the launches of K1 by path."""
+    import shutil
+    import tempfile
+    import torch
+    from lightgbm_tpu_torch.ft import checkpoint as ckpt_mod
+    from lightgbm_tpu_torch.io.shards import ShardedBinnedDataset
+    from lightgbm_tpu_torch.loop import RefreshController, refresh_schedule
+    from lightgbm_tpu_torch.serve import PredictServer, StackedForest
+    windows = {}
+
+    def data_fn(cycle):
+        if cycle not in windows:
+            windows[cycle] = make_higgs_like(LOOP_ROWS, seed=100 + cycle)
+        return windows[cycle]
+
+    params = dict(SLICE_PARAMS, num_leaves=255)
+    schedule = refresh_schedule(LOOP_CYCLES)
+    rounds = 2 + (LOOP_CYCLES - 1)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke24-")
+    try:
+        ctl = RefreshController(params, data_fn, num_features=28,
+                                work_dir=tmp, base_rounds=2, extra_rounds=1,
+                                traffic_threads=2, traffic_rows=64,
+                                traffic_pool=4, schedule=schedule,
+                                use_gateway=True, shard_rows=SHARD_ROWS)
+        texts = published_texts(ctl)
+        rep, wall, learners, capture_ms, k1, peak, p50_99 = run_loop(
+            hist_mod, ctl, LOOP_CYCLES, "24a")
+        check_report(rep, "24a", ["bootstrap", "rolled_back", "promoted",
+                                  "promoted"])
+        check(rep["refresh_rollbacks"] == rep["expected_rollbacks"] == 1
+              and all(c["injected"] >= 1 for c in rep["cycles"][1:]),
+              "24a: rollbacks %d (expected %d), injected by cycle %s"
+              % (rep["refresh_rollbacks"], rep["expected_rollbacks"],
+                 [c["injected"] for c in rep["cycles"]]))
+        check(len(learners) == LOOP_CYCLES
+              and all(lr.grow_stats["captures"] >= 1 for lr in learners),
+              "24a: %d learners, captures %s" % (
+                  len(learners), [lr.grow_stats["captures"]
+                                  for lr in learners]))
+        stable, forest = ctl.registry.get(ctl.name)
+        check(stable == rep["cycles"][-1]["stable_version"]
+              == rep["cycles"][-1]["version"],
+              "24a: the stable version %d is not the last refresh's" %
+              stable)
+        secs = [c["seconds"] for c in rep["cycles"]]
+        log("24a closed loop, %d cycles over %d-row windows (%d shards of "
+            "%d rows, 255 leaves, 2 + 1 rounds a cycle; %s=%s ms): "
+            "outcomes %s, rollbacks %d, faults injected %d, stranded %d, "
+            "untyped failures 0; s per cycle %s (refresh mean %.3f); "
+            "capture ms by refresh %s; served %d rows in %d requests "
+            "(%d shed, typed %s), %.0f rows/s over the loop's %.1f s; "
+            "serve p50 %.3f ms, p99 %.3f ms (worst cycle p99 %.3f); peak "
+            "device memory %.2f GB; K1 launches %d == shards x passes of "
+            "%d learners; %s"
+            % (LOOP_CYCLES, LOOP_ROWS, LOOP_ROWS // SHARD_ROWS, SHARD_ROWS,
+               LOOP_SLO_ENV, os.environ.get(LOOP_SLO_ENV),
+               [c["outcome"] for c in rep["cycles"]],
+               rep["refresh_rollbacks"], rep["faults_injected"],
+               rep["stranded_futures"], secs, rep["refresh_cycle_seconds"],
+               {c: [round(v, 3) for v in ms]
+                for c, ms in sorted(capture_ms.items())},
+               rep["traffic"]["rows_ok"], rep["traffic"]["requests"],
+               rep["traffic"]["shed"], rep["traffic"]["typed"],
+               rep["traffic"]["rows_ok"] / wall, wall, *p50_99,
+               rep["serve_p99_during_refresh_ms"], peak / 1e9, k1,
+               len(learners), card))
+
+        # capture under traffic: the same training with no server
+        _, newest = ckpt_mod.list_checkpoints(os.path.join(tmp, "ckpt"))[0]
+        with open(os.path.join(newest, "model.txt")) as fh:
+            loop_text = fh.read()
+        hist_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        alone = lgb.train(dict(params), lgb.Dataset(
+            ShardedBinnedDataset.attach(os.path.join(tmp, "spill"))),
+            num_boost_round=rounds)
+        torch.cuda.synchronize()
+        t_alone = time.perf_counter() - t0
+        k1_alone = hist_mod.device_launch_counts()["histogram_f32"]
+        check(loop_text == alone.model_to_string()
+              and len(alone.inner.models) == rounds,
+              "24a: the loop's newest checkpoint (%d trees) differs from "
+              "the uninterrupted training on the attached spill"
+              % loop_text.count("Tree="))
+        X3, y3 = data_fn(LOOP_CYCLES - 1)
+        refit = alone.refit(np.asarray(X3, dtype=np.float64),
+                            np.asarray(y3, dtype=np.float64))
+        check(refit.model_to_string() == texts[-1],
+              "24a: the refit of the uninterrupted model on window %d "
+              "differs from the stable version's text" % (LOOP_CYCLES - 1))
+        block = np.ascontiguousarray(X3[:4096])
+        want = StackedForest.from_gbdt(lgb.Booster(
+            model_str=texts[-1])).place("cuda").predict(block)
+        srv = PredictServer(ctl.registry, name=ctl.name, max_batch=256,
+                            max_wait_ms=2, devices=["cuda"])
+        try:
+            got = srv.predict(block, timeout=120)
+        finally:
+            srv.stop()
+        check(np.array_equal(np.asarray(got), np.asarray(want))
+              and np.array_equal(np.asarray(forest.place("cuda").predict(
+                  block)), np.asarray(want)),
+              "24a: the stable version's answers differ from "
+              "StackedForest.predict of its text")
+        log("24a capture under traffic: the newest checkpoint (%d rounds, "
+            "each refresh's learner captured while the server and 2 pumps "
+            "used the card) text-equal to one uninterrupted lgb.train on "
+            "the attached spill with no server (%.2f s, K1 %d); its refit "
+            "on window %d text-equal to the stable v%d; v%d's answers on "
+            "4096 rows byte-equal to StackedForest.predict of its text; %s"
+            % (rounds, t_alone, k1_alone, LOOP_CYCLES - 1, stable, stable,
+               card))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"phase24a_closed_loop": k1,
+            "phase24a_uninterrupted_5_rounds": k1_alone}
+
+
+def phase24_drift(lgb, hist_mod, card):
+    """24b: the JAX bench's drift stage on the card: a no-shift control
+    (3 cycles, cadence, windows sliced from one draw: PSI must stay below
+    ``LIGHTGBM_TPU_WATCH_PSI`` and ``feature_drift`` must not fire), then
+    4 cycles with ``refresh_trigger="drift"`` and the covariate shift
+    after 2048 served rows under the default schedule (PSI at or above
+    the threshold, ``feature_drift`` fired, at least one drift-triggered
+    refresh). Returns the launches of K1 by path."""
+    import shutil
+    import tempfile
+    from lightgbm_tpu_torch.loop import RefreshController
+    from lightgbm_tpu_torch.obs.registry import registry
+    thr = float(os.environ.get("LIGHTGBM_TPU_WATCH_PSI", "0.25"))
+    Xc, yc = make_higgs_like(DRIFT_ROWS * DRIFT_CONTROL_CYCLES, seed=7)
+
+    def control_fn(cycle):
+        lo = cycle * DRIFT_ROWS
+        return Xc[lo:lo + DRIFT_ROWS], yc[lo:lo + DRIFT_ROWS]
+
+    def drift_fn(cycle):
+        return make_higgs_like(DRIFT_ROWS, seed=7 + cycle)
+
+    out, reps = {}, {}
+    for tag, fn, cycles, kw in (
+            ("control", control_fn, DRIFT_CONTROL_CYCLES,
+             dict(schedule={})),
+            ("drift", drift_fn, LOOP_CYCLES,
+             dict(refresh_trigger="drift",
+                  shift_after_rows=DRIFT_SHIFT_ROWS))):
+        fired0 = registry.count("health/feature_drift")
+        tmp = tempfile.mkdtemp(prefix="chip_smoke24b-")
+        try:
+            ctl = RefreshController(dict(DRIFT_PARAMS), fn, num_features=28,
+                                    work_dir=tmp, **DRIFT_KW, **kw)
+            rep, wall, learners, _, k1, _, _ = run_loop(
+                hist_mod, ctl, cycles, "24b " + tag)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        fired = registry.count("health/feature_drift") - fired0
+        reps[tag] = rep
+        out["phase24b_" + tag] = k1
+        check(rep["ok"], "24b %s: problems %s" % (tag, rep["problems"]))
+        if tag == "control":
+            check(rep["drift_psi_max"] < thr and fired == 0,
+                  "24b control: PSI %.4f (threshold %.2f), feature_drift "
+                  "fired %d times on an unshifted stream"
+                  % (rep["drift_psi_max"], thr, fired))
+        else:
+            check(rep["drift_psi_max"] >= thr and fired >= 1
+                  and rep["drift_triggered_refreshes"] >= 1,
+                  "24b drift: PSI %.4f (threshold %.2f), feature_drift "
+                  "fired %d, drift-triggered refreshes %d"
+                  % (rep["drift_psi_max"], thr, fired,
+                     rep["drift_triggered_refreshes"]))
+        log("24b %s, %d cycles of %d rows (31 leaves): outcomes %s; "
+            "drift PSI max %.4f (threshold %.2f) in %d windows, detected "
+            "in window %s, %d drift-triggered refreshes, feature_drift "
+            "fired %d; refresh %.3f s a cycle, serve p99 %.3f ms; %d rows "
+            "served in %.1f s; K1 launches %d; %s"
+            % (tag, cycles, DRIFT_ROWS,
+               [c["outcome"] for c in rep["cycles"]], rep["drift_psi_max"],
+               thr, rep["drift_windows"], rep["drift_detect_windows"],
+               rep["drift_triggered_refreshes"], fired,
+               rep["refresh_cycle_seconds"],
+               rep["serve_p99_during_refresh_ms"],
+               rep["traffic"]["rows_ok"], wall, k1, card))
+    return out
+
+
+def phase_refresh_loop(lgb, hist_mod, card):
+    """Phase 24 under the refresh SLO of the JAX package's refresh bench
+    (``LOOP_SLO_ENV`` set, then restored). Returns K1's launches by
+    path."""
+    old = os.environ.get(LOOP_SLO_ENV)
+    os.environ[LOOP_SLO_ENV] = LOOP_SLO_MS
+    log("phase 24: %s=%s (bench.py:1050)" % (LOOP_SLO_ENV, LOOP_SLO_MS))
+    try:
+        out = phase24_rotation(lgb, hist_mod, card)
+        out.update(phase24_drift(lgb, hist_mod, card))
+    finally:
+        if old is None:
+            os.environ.pop(LOOP_SLO_ENV, None)
+        else:
+            os.environ[LOOP_SLO_ENV] = old
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the CLI and the C ABI on the card
+# ---------------------------------------------------------------------------
+CLI_ROWS = 1 << 20
+CLI_TREES = 5
+CAPI_ROWS = 1 << 18
+CLI_RANK_ROWS = 1 << 18
+CLI_RANK_ROUNDS = 2
+CLI_EXAMPLES = (("binary_classification", "binary."),
+                ("regression", "regression."),
+                ("multiclass_classification", "multiclass."),
+                ("lambdarank", "rank."))
+#: rows of a block the TSV writer's processes format at once
+TSV_BLOCK = 1 << 16
+
+
+def _format_rows(block: np.ndarray) -> str:
+    import io
+    buf = io.StringIO()
+    np.savetxt(buf, block, delimiter="\t", fmt="%.9g")
+    return buf.getvalue()
+
+
+def write_tsv(path: str, y: np.ndarray, X: np.ndarray) -> None:
+    """The label in column 0, then the features, ``%.9g`` (f32 values
+    round-trip), formatted by one process per core in blocks."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    data = np.column_stack([y.astype(np.float64), X.astype(np.float64)])
+    blocks = [data[lo:lo + TSV_BLOCK]
+              for lo in range(0, data.shape[0], TSV_BLOCK)]
+    workers = max(min(8, os.cpu_count() or 1, len(blocks)), 1)
+    with ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn")) as pool, \
+            open(path, "w") as fh:
+        for text in pool.map(_format_rows, blocks):
+            fh.write(text)
+
+
+def cli(args, what, env=None, timeout=900):
+    """``python -m lightgbm_tpu_torch.application`` with ``args`` in a
+    subprocess from the checkout's root; fails the run on a non-zero
+    exit. Returns its wall seconds and output."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    run_env = dict(os.environ if env is None else env)
+    run_env["PYTHONPATH"] = here + os.pathsep + run_env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "lightgbm_tpu_torch.application"] + list(args),
+                          cwd=here, env=run_env, capture_output=True,
+                          text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, "%s: the CLI exited %d:\n%s\n%s"
+          % (what, proc.returncode, proc.stdout[-3000:], proc.stderr[-3000:]))
+    return secs, proc.stdout + proc.stderr
+
+
+def cli_train_summary(path, what, trees):
+    """The one ``cli_train_done`` event that a CLI ``task=train`` wrote
+    to its event log ``path``: checks its tree count and that its own K1
+    launches (counted from the task's start) == roots + steps. Returns
+    the event."""
+    with open(path) as fh:
+        done = [json.loads(ln) for ln in fh if '"cli_train_done"' in ln]
+    check(len(done) == 1, "%s: %d cli_train_done events in the CLI's "
+          "event log" % (what, len(done)))
+    d = done[0]
+    k1 = d["launches"].get("histogram_f32", 0)
+    check(d["trees"] == trees and k1 == d["roots"] + d["steps"] > 0,
+          "%s: the CLI's own K1 launches %d, roots %d + steps %d, trees %d "
+          "(want %d); launches %s" % (what, k1, d["roots"], d["steps"],
+                                      d["trees"], trees, d["launches"]))
+    return d
+
+
+def _kv(params):
+    return ["%s=%s" % kv for kv in params.items()]
+
+
+def phase25_train_predict(lgb, hist_mod, tmp, card):
+    """25a: a CLI_ROWS x 28 Higgs-shaped TSV, label in column 0; the CLI's
+    ``task=train`` (255 leaves, CLI_TREES trees, on the card) gives the
+    model text (trees and importances) of ``lgb.train`` run here on the
+    card over the same parsed rows; the CLI's own K1 launches (its
+    ``cli_train_done`` event) and the in-process run's each == roots +
+    steps; the CLI's ``task=predict`` equals ``Booster.predict`` within
+    1e-9. Returns (model path, parsed rows, K1 launches of the CLI, of
+    the in-process run)."""
+    import torch
+    from lightgbm_tpu_torch.application import _load_tabular
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.native import parse_dense
+    X, y = make_higgs_like(CLI_ROWS, seed=25)
+    path = os.path.join(tmp, "higgs.tsv")
+    t0 = time.perf_counter()
+    write_tsv(path, y, X)
+    t_write = time.perf_counter() - t0
+    params = dict(SLICE_PARAMS, num_leaves=255)
+    model = os.path.join(tmp, "higgs_model.txt")
+    event_log = os.path.join(tmp, "higgs_train_events.jsonl")
+    t_cli, _ = cli(["task=train", "data=" + path, "output_model=" + model,
+                    "num_trees=%d" % CLI_TREES] + _kv(params), "25a train",
+                   env=dict(os.environ, LIGHTGBM_TPU_EVENT_LOG=event_log))
+    done = cli_train_summary(event_log, "25a train", CLI_TREES)
+    k1_cli = done["launches"]["histogram_f32"]
+    t0 = time.perf_counter()
+    Xp, yp, _, _ = _load_tabular(path, Config.from_params({}))
+    t_parse = time.perf_counter() - t0
+    hist_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    bst = lgb.train(dict(params), lgb.Dataset(Xp, label=yp),
+                    num_boost_round=CLI_TREES)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    dev = check_device_launches(hist_mod, bst, "histogram_f32",
+                                "25a lgb.train on the parsed rows")
+    with open(model) as fh:
+        cli_text = fh.read()
+    check(cli_text.split("parameters:")[0]
+          == bst.model_to_string().split("parameters:")[0],
+          "25a: the CLI's model differs from lgb.train's on the same rows")
+    preds = os.path.join(tmp, "higgs_preds.tsv")
+    t_pred, _ = cli(["task=predict", "data=" + path, "input_model=" + model,
+                     "output_result=" + preds, "verbosity=-1"],
+                    "25a predict")
+    got = parse_dense(preds, "\t", 0)[:, 0]
+    want = bst.predict(Xp)
+    err = float(np.max(np.abs(got - want)))
+    check(got.shape == want.shape and err <= 1e-9,
+          "25a: the CLI's predictions differ from Booster.predict by %.3g"
+          % err)
+    log("25a CLI on the card, %d x 28 TSV (%d MB, written in %.1f s): "
+        "task=train %.2f s in its process (its task: load %.2f s, train "
+        "%.2f s of %d trees, its own K1 %d == roots %d + steps %d; outside "
+        "its task, i.e. interpreter, imports, card context, save, exit: "
+        "%.2f s) == "
+        "lgb.train's text (here: parse %.2f s, train %.2f s, K1 %d); "
+        "task=predict %.2f s in its process, max |diff| %.3g vs "
+        "Booster.predict; %s"
+        % (CLI_ROWS, os.path.getsize(path) >> 20, t_write, t_cli,
+           done["load_seconds"], done["train_seconds"], CLI_TREES, k1_cli,
+           done["roots"], done["steps"],
+           t_cli - done["load_seconds"] - done["train_seconds"], t_parse,
+           t_train,
+           dev["histogram_f32"], t_pred, err, card))
+    return model, Xp, k1_cli, dev["histogram_f32"]
+
+
+def phase25_examples(lgb, hist_mod, tmp, card):
+    """25b: the four ``examples/*/train.conf`` trained through the CLI on
+    the card (four processes at once), each test-set prediction equal to
+    ``lgb.train``'s on the same conf within 1e-9 (the JAX package's
+    ``tests/test_consistency.py``); each CLI's own K1 launches (its
+    ``cli_train_done`` event) == roots + steps, with the API run's trees,
+    roots and steps. Returns K1's launches of the CLI runs and of the
+    API runs."""
+    from lightgbm_tpu_torch.application import (_load_tabular, _sidecar,
+                                                parse_args)
+    from lightgbm_tpu_torch.config import Config
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    runs = []
+    t0 = time.perf_counter()
+    for directory, prefix in CLI_EXAMPLES:
+        d = os.path.join(here, "examples", directory)
+        model = os.path.join(tmp, directory + ".txt")
+        event_log = os.path.join(tmp, directory + "_events.jsonl")
+        argv = ["config=" + os.path.join(d, "train.conf"),
+                "data=" + os.path.join(d, prefix + "train"),
+                "valid_data=" + os.path.join(d, prefix + "test"),
+                "output_model=" + model, "verbosity=-1"]
+        runs.append((directory, prefix, d, model, event_log, argv,
+                     subprocess.Popen(
+            [sys.executable, "-m", "lightgbm_tpu_torch.application"] + argv,
+            cwd=here, env=dict(env, LIGHTGBM_TPU_EVENT_LOG=event_log),
+            stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    try:
+        logs = [r[-1].communicate(timeout=600)[0] for r in runs]
+    finally:
+        for r in runs:
+            if r[-1].poll() is None:
+                r[-1].kill()
+                r[-1].wait()
+    t_cli = time.perf_counter() - t0
+    launches, launches_cli, gaps = 0, 0, {}
+    for (directory, prefix, d, model, event_log, argv, proc), text in zip(
+            runs, logs):
+        check(proc.returncode == 0, "25b %s: the CLI exited %d:\n%s"
+              % (directory, proc.returncode, text[-3000:]))
+        params = parse_args(argv)
+        cfg = Config.from_params(params)
+        api_params = {k: v for k, v in params.items()
+                      if k not in ("config", "task", "data", "valid",
+                                   "valid_data", "output_model",
+                                   "num_trees", "num_iterations")}
+        X, y, w, g = _load_tabular(os.path.join(d, prefix + "train"), cfg)
+        g = g if g is not None else _sidecar(
+            os.path.join(d, prefix + "train"), "query")
+        hist_mod.reset_launch_counts()
+        api = lgb.train(api_params, lgb.Dataset(X, label=y, weight=w,
+                                                group=g,
+                                                params=api_params),
+                        num_boost_round=int(cfg.num_iterations))
+        dev = hist_mod.device_launch_counts()
+        st = api.inner.learner.grow_stats
+        check(dev["histogram_f32"] == st["roots"] + st["steps"],
+              "25b %s: K1 %d != roots + steps" % (directory,
+                                                  dev["histogram_f32"]))
+        launches += dev["histogram_f32"]
+        done = cli_train_summary(event_log, "25b " + directory,
+                                 len(api.inner.models))
+        check((done["roots"], done["steps"]) == (st["roots"], st["steps"]),
+              "25b %s: the CLI's roots %d, steps %d; the API's %d, %d"
+              % (directory, done["roots"], done["steps"], st["roots"],
+                 st["steps"]))
+        launches_cli += done["launches"]["histogram_f32"]
+        Xt, _, _, _ = _load_tabular(os.path.join(d, prefix + "test"), cfg)
+        mine = lgb.Booster(model_file=model).predict(Xt)
+        theirs = api.predict(Xt)
+        gaps[directory] = float(np.max(np.abs(mine - theirs)
+                                       / np.maximum(np.abs(theirs), 1e-3)))
+        check(np.allclose(mine, theirs, rtol=1e-9, atol=1e-12),
+              "25b %s: CLI and API test-set predictions differ (max "
+              "relative %.3g)" % (directory, gaps[directory]))
+    log("25b the four examples/*/train.conf through the CLI on the card "
+        "(4 processes, %.1f s): test-set predictions == lgb.train's within "
+        "1e-9 (max relative gaps %s); the CLIs' own K1 %d, the API runs' "
+        "K1 %d, each == roots + steps; %s"
+        % (t_cli, gaps, launches_cli, launches, card))
+    return launches_cli, launches
+
+
+def compile_c_example(out_path: str):
+    """Start ``g++`` on ``examples/c_api/main.c`` with the port's
+    ``capi.cpp`` (its include of ``capi.h`` pointed at the port's copy,
+    the same file as the JAX package's); returns the process."""
+    from lightgbm_tpu_torch import native
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "examples", "c_api", "main.c")) as fh:
+        text = fh.read()
+    include = '#include "../../lightgbm_tpu/native/capi.h"'
+    check(include in text, "25c: main.c's capi.h include changed")
+    src = out_path + ".c"
+    with open(src, "w") as fh:
+        fh.write(text.replace(include, '#include "capi.h"'))
+    return subprocess.Popen(
+        ["g++", "-O2", "-std=c++17", "-I",
+         os.path.dirname(native.source_path("capi.h")), "-o", out_path, src,
+         native.source_path("capi.cpp"), "-lm"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def phase25_capi(lgb, tmp, model, Xp, gxx, card):
+    """25c: 25a's model in the port's ``_capi.so`` (built from
+    ``lightgbm_tpu_torch/native/capi.cpp``):
+    ``LGBM_BoosterPredictForMat`` on CAPI_ROWS rows == the port's host
+    walk within rtol 1e-12; rows/s of both beside the stacked predict's
+    on the card; then ``examples/c_api/main.c``, compiled with the port's
+    ``capi.cpp`` (``gxx``, started at the phase's start), predicts 1000
+    rows from a CSV equal to ``Booster.predict`` within 1e-10."""
+    from lightgbm_tpu_torch.native.capi import NativeBooster
+    X = np.ascontiguousarray(Xp[:CAPI_ROWS])
+    nb = NativeBooster(model_file=model)
+    bst = lgb.Booster(model_file=model)
+    native, t_native = timed(lambda: nb.predict(X)[:, 0])
+    host, t_host = timed(lambda: bst.predict(X, predict_on_device=False))
+    bst.predict(X[:4096])
+    stacked, t_stacked = timed(lambda: bst.predict(X))
+    check(np.allclose(native, host, rtol=1e-12, atol=0),
+          "25c: the C API's predictions differ from the host walk (max "
+          "relative %.3g)" % float(np.max(np.abs(native - host)
+                                          / np.abs(host))))
+    check(np.array_equal(stacked, host),
+          "25c: the stacked predict differs from the host walk")
+    out, _ = gxx.communicate(timeout=600)
+    check(gxx.returncode == 0, "25c: g++ failed on main.c:\n%s" % out)
+    feats = os.path.join(tmp, "features.csv")
+    np.savetxt(feats, X[:1000], delimiter=",", fmt="%.17g")
+    run = subprocess.run([gxx.args[gxx.args.index("-o") + 1], model, feats],
+                         capture_output=True, text=True, timeout=300)
+    check(run.returncode == 0, "25c: main.c exited %d:\n%s"
+          % (run.returncode, run.stderr[-2000:]))
+    preds_c = np.array([float(v) for v in run.stdout.split()])
+    check(np.allclose(preds_c, bst.predict(X[:1000]), rtol=1e-10, atol=0),
+          "25c: main.c's predictions differ from Booster.predict")
+    log("25c C ABI (the port's capi.cpp): LGBM_BoosterPredictForMat on "
+        "%d rows == the host walk within rtol 1e-12 (max relative %.3g): "
+        "%.0f rows/s; host walk %.0f rows/s; stacked predict on the card "
+        "%.0f rows/s (byte-equal to the host walk); examples/c_api/main.c "
+        "built with the port's capi.cpp: 1000 rows == Booster.predict "
+        "within 1e-10 (%s); %s"
+        % (CAPI_ROWS, float(np.max(np.abs(native - host) / np.abs(host))),
+           CAPI_ROWS / t_native, CAPI_ROWS / t_host, CAPI_ROWS / t_stacked,
+           run.stderr.strip().splitlines()[0] if run.stderr.strip()
+           else "", card))
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase25_ranks(lgb, hist_mod, tmp, card):
+    """25d: two CLI ranks (``num_machines=2``, a shared machine list,
+    ``pre_partition=false``) on the one card over a CLI_RANK_ROWS-row
+    TSV: the layout rule picks gloo (two ranks share one card); each
+    rank's ``dtrain_done`` event (its event log) has K1 launches ==
+    roots + steps and no capture; rank 0's model text (trees) equals the
+    in-process 2-shard data learner of 23d (``learner_on``) over the same
+    two rank-strided row sets, with every row sampled for the mappers.
+    Returns K1's launches by path."""
+    import torch
+    from lightgbm_tpu_torch.application import _load_tabular
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.parallel import Mesh
+    X, y = make_higgs_like(CLI_RANK_ROWS, seed=26)
+    path = os.path.join(tmp, "ranks.tsv")
+    write_tsv(path, y, X)
+    ports = [_free_port(), _free_port()]
+    mlist = os.path.join(tmp, "mlist.txt")
+    with open(mlist, "w") as fh:
+        fh.write("".join("127.0.0.1 %d\n" % p for p in ports))
+    model = os.path.join(tmp, "ranks_model.txt")
+    # verbosity 1: each rank logs its backend and why (the CLI keeps the
+    # first value of a key, so SLICE_PARAMS' -1 stays out)
+    params = {k: v for k, v in SLICE_PARAMS.items() if k != "verbosity"}
+    params.update(num_leaves=255, bin_construct_sample_cnt=CLI_RANK_ROWS,
+                  tree_learner="data")
+    argv = _kv(params) + [
+        "task=train", "data=" + path, "num_trees=%d" % CLI_RANK_ROUNDS,
+        "num_machines=2", "machine_list_file=" + mlist,
+        "pre_partition=false", "output_model=" + model, "verbosity=1"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, events = [], []
+    t0 = time.perf_counter()
+    try:
+        for r, port in enumerate(ports):
+            env = dict(os.environ)
+            env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+            env["LIGHTGBM_TPU_DTRAIN_TIMEOUT_S"] = "300"
+            env["LIGHTGBM_TPU_EVENT_LOG"] = os.path.join(
+                tmp, "events%d.jsonl" % r)
+            events.append(env["LIGHTGBM_TPU_EVENT_LOG"])
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "lightgbm_tpu_torch.application"]
+                + argv + ["local_listen_port=%d" % port], cwd=here, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    t_ranks = time.perf_counter() - t0
+    out = {}
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, "25d rank %d exited %s:\n%s"
+              % (r, p.returncode, text[-4000:]))
+        check("rank %d of 2 over gloo (2 ranks on this host share" % r
+              in text, "25d rank %d: no gloo layout line:\n%s"
+              % (r, text[-2000:]))
+        with open(events[r]) as fh:
+            done = [json.loads(ln) for ln in fh if '"dtrain_done"' in ln]
+        check(len(done) == 1, "25d rank %d: %d dtrain_done events"
+              % (r, len(done)))
+        d = done[0]
+        k1 = d["launches"]["histogram_f32"]
+        check(k1 == d["roots"] + d["steps"]
+              and sum(d["launches"].values()) == k1 and d["captures"] == 0
+              and d["roots"] == d["trees"] == CLI_RANK_ROUNDS,
+              "25d rank %d: K1 %d, roots %d + steps %d, captures %d, "
+              "launches %s" % (r, k1, d["roots"], d["steps"], d["captures"],
+                               d["launches"]))
+        out["phase25d_cli_rank%d" % r] = k1
+    Xf, yf, _, _ = _load_tabular(path, Config.from_params({}))
+    order = np.concatenate([np.arange(0, CLI_RANK_ROWS, 2),
+                            np.arange(1, CLI_RANK_ROWS, 2)])
+    ip = dict(SLICE_PARAMS, num_leaves=255,
+              bin_construct_sample_cnt=CLI_RANK_ROWS)
+    ds = lgb.Dataset(Xf[order], label=yf[order], params=ip).construct()
+    valid = lgb.Dataset(Xf[:4096], label=yf[:4096], reference=ds).construct()
+    with learner_on(Mesh([torch.device("cuda", 0)] * 2)):
+        inproc = train_path(lgb, hist_mod, ds, valid,
+                            dict(ip, tree_learner="data"), "histogram_f32",
+                            CLI_RANK_ROUNDS, tag="25d in-process", per_root=2,
+                            per_step=2)
+    out["phase25d_in_process_2shards"] = inproc["launches"]["histogram_f32"]
+    with open(model) as fh:
+        theirs = fh.read().split("end of trees")[0]
+    mine = inproc["booster"].model_to_string().split("end of trees")[0]
+    check(mine == theirs, "25d: rank 0's trees differ from the in-process "
+          "2-shard learner's")
+    log("25d two CLI ranks (pre_partition=false, a shared machine list) "
+        "over gloo on one card, %d rows: %.1f s for both processes "
+        "(start, parse, binning, %d rounds); rank 0's trees == the "
+        "in-process 2-shard learner's; each rank's K1 == roots + steps "
+        "(%s), no capture; %s"
+        % (CLI_RANK_ROWS, t_ranks, CLI_RANK_ROUNDS,
+           {k: v for k, v in out.items() if "rank" in k}, card))
+    return out
+
+
+def phase_cli(lgb, hist_mod, card):
+    """Phase 25: the native libraries built (``g++``; main.c with the
+    port's capi.cpp started beside them), then 25a-d. Returns K1's
+    launches by path."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.native import capi
+    tmp = tempfile.mkdtemp(prefix="chip_smoke25-")
+    gxx = None
+    try:
+        t0 = time.perf_counter()
+        gxx = compile_c_example(os.path.join(tmp, "c_api_example"))
+        with ThreadPoolExecutor(2) as pool:
+            for f in [pool.submit(native.parser_lib),
+                      pool.submit(capi.load_lib)]:
+                f.result()
+        log("phase 25: native parser and C API built with g++ in %.1f s"
+            % (time.perf_counter() - t0))
+        model, Xp, k1_cli, k1_api = phase25_train_predict(
+            lgb, hist_mod, tmp, card)
+        out = {"phase25a_cli": k1_cli,
+               "phase25a_lgb_train_same_rows": k1_api}
+        (out["phase25b_examples_cli"],
+         out["phase25b_examples_api"]) = phase25_examples(lgb, hist_mod,
+                                                          tmp, card)
+        phase25_capi(lgb, tmp, model, Xp, gxx, card)
+        del Xp
+        out.update(phase25_ranks(lgb, hist_mod, tmp, card))
+    finally:
+        if gxx is not None and gxx.poll() is None:
+            gxx.kill()
+            gxx.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def time_widths(hist_mod, widths, rows_out):
     """Every instance at the new widths' root shapes (the real bins of
     phases 9 and 10) and at children of 10k, 100k and 1M rows (fewer
@@ -5621,7 +6450,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
-                            "18,19,20,21,22,23",
+                            "18,19,20,21,22,23,24,25",
                     help="comma-separated subset of phases to run")
     ap.add_argument("--dtrain-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
@@ -5805,6 +6634,13 @@ def main(argv=None) -> int:
     if 18 in phases:
         phase_refit(lgb)
         lap("phase 18 (refit)")
+    if 24 in phases:
+        by_path["histogram_f32"].update(phase_refresh_loop(lgb, hist_mod,
+                                                           card))
+        lap("phase 24")
+    if 25 in phases:
+        by_path["histogram_f32"].update(phase_cli(lgb, hist_mod, card))
+        lap("phase 25")
     if rows is not None:
         for row in rows:
             row["launches_by_path"] = by_path[row["name"]]

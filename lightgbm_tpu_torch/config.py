@@ -15,8 +15,8 @@ What differs for the PyTorch/CUDA port:
   ``cuda`` or ``pallas`` (the hand-written kernel replacing the Pallas
   one) — the kernel runs on CUDA tensors and its plain version on CPU
   tensors. Any other value raises.
-- :meth:`Config.check_slice` raises for every setting this port does not
-  run yet, naming the ROADMAP item that brings it.
+- :meth:`Config.check_slice` raises for a setting ``lgb.train`` does not
+  run (``num_machines`` / ``num_gpu`` > 1), naming what runs it.
 - f64 histograms (:attr:`Config.f64_histograms`): the reference drops
   ``tpu_use_f64_hist`` with a warning unless JAX runs with
   ``jax_enable_x64``; torch always has f64, so the port does what the
@@ -40,6 +40,12 @@ _ALIASES: Dict[str, str] = {}
 def _alias(canonical: str, *names: str) -> None:
     for n in names:
         _ALIASES[n] = canonical
+
+
+def drop_param(params: Dict[str, Any], name: str) -> Dict[str, Any]:
+    """``params`` without any spelling (``name`` or an alias of it) of
+    the parameter ``name``."""
+    return {k: v for k, v in params.items() if _ALIASES.get(k, k) != name}
 
 
 _alias("config", "config_file")
@@ -497,16 +503,22 @@ class Config:
                         "row-major device layout")
 
     def check_slice(self) -> None:
-        """Raise for every setting that needs a part of the port that is
-        not here yet (never ignore one silently). Each message names the
-        ROADMAP queue-1 item that will bring it."""
-        unsupported = log.unsupported
-        # the mesh learners train in one process over ``mesh_shape``'s
-        # devices, and ``parallel.dtrain`` over a torch.distributed
-        # group; in the JAX package only the CLI reads num_machines
-        # (application.py:178,257)
-        if self.num_machines > 1 or self.num_gpu > 1:
-            unsupported("num_machines / num_gpu > 1", "item 25")
+        """Raise for a setting that ``lgb.train`` does not run, naming
+        what runs it instead (never ignore one silently)."""
+        # in the JAX package only the CLI reads num_machines
+        # (application.py:178,257) and nothing reads num_gpu
+        if self.num_machines > 1:
+            log.fatal("num_machines=%d: lgb.train trains in one process; "
+                      "train over several machines with the CLI (python -m "
+                      "lightgbm_tpu_torch.application task=train "
+                      "num_machines=N machine_list_filename=...) or with "
+                      "parallel.dtrain.train in each rank of a "
+                      "torch.distributed group" % self.num_machines)
+        if self.num_gpu > 1:
+            log.fatal("num_gpu=%d: train over several cards in one process "
+                      "with tree_learner=data|feature|voting and mesh_shape "
+                      "(e.g. mesh_shape=data=%d)"
+                      % (self.num_gpu, self.num_gpu))
 
     @property
     def f64_histograms(self) -> bool:

@@ -157,7 +157,7 @@ def default_rules() -> List[WatchRule]:
       (``retry_exhausted`` — some I/O site gave up after its bounded
       attempts, utils/retry.py) fire on ANY new occurrence;
     - ``refresh_slo`` — the continuous-refresh contract
-      (the refresh loop of ROADMAP item 24), armed ONLY while the
+      (the refresh loop, ``loop/controller.py``), armed ONLY while the
       ``refresh/active`` gauge is truthy (the refresh controller sets
       it around its loop and evaluates once at arm time to baseline
       the counters): serving p99 during a refresh

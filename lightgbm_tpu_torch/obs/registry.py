@@ -460,6 +460,12 @@ class MetricsRegistry:
             for k in [k for k in self.counters if k.startswith(prefix)]:
                 del self.counters[k]
 
+    def clear_gauges(self, prefix: str) -> None:
+        """Drop every gauge whose name starts with ``prefix`` (levels a
+        finished component left, e.g. a drift monitor's last window)."""
+        for k in [k for k in list(self.gauges) if k.startswith(prefix)]:
+            self.gauges.pop(k, None)
+
     def gauge(self, name: str, value: float) -> None:
         self.gauges[name] = value
 
@@ -473,11 +479,23 @@ class MetricsRegistry:
             if len(vals) > kHistCap:
                 del vals[:len(vals) - kHistCap]
 
-    def percentile(self, name: str, q: float) -> float:
-        """Linear-interpolated percentile over the reservoir (numpy's
-        default method); 0.0 when nothing was observed."""
+    def observed(self, name: str) -> int:
+        """How many samples ``name`` has seen (a ``since`` baseline)."""
         with self._lock:
-            vals = sorted(self.hist_values.get(name, ()))
+            return self.hist_counts.get(name, 0)
+
+    def percentile(self, name: str, q: float, since: int = 0) -> float:
+        """Linear-interpolated percentile over the reservoir (numpy's
+        default method); 0.0 when nothing was observed. ``since`` (an
+        earlier ``observed(name)``) keeps only the samples observed
+        after it: the reservoir holds the newest ones, so they are its
+        tail."""
+        with self._lock:
+            vals = self.hist_values.get(name, [])
+            new = self.hist_counts.get(name, 0) - since
+            if new < len(vals):
+                vals = vals[len(vals) - max(new, 0):]
+            vals = sorted(vals)
         return self._percentile_of(vals, q)
 
     @staticmethod

@@ -3,10 +3,11 @@
 Port of ``lightgbm_tpu/ops/refit.py``, which is ``jnp`` (no Pallas): the
 leaf of every row in every tree comes from one walk of the stacked
 forest (``serve.StackedForest.leaves_device``), and each tree's per-leaf
-gradient and hessian sums are ``index_add_`` reductions in f32, the
-counterpart of the reference's ``jax.ops.segment_sum`` (also f32: the
-reference runs with x64 off). One tree per call; the scores stay on the
-device between trees.
+gradient and hessian sums are f32 segment sums (``index_add_``; on the
+card ``index_put_`` with ``accumulate``, whose sorted adds give the same
+bits every run), the counterpart of the reference's
+``jax.ops.segment_sum`` (also f32: the reference runs with x64 off). One
+tree per call; the scores stay on the device between trees.
 """
 from __future__ import annotations
 
@@ -42,8 +43,13 @@ def refit_tree_step(score: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     hk = h if h.dim() == 1 else h[:, k]
 
     def segment_sum(v):
-        return torch.zeros(num_leaves, dtype=v.dtype,
-                           device=v.device).index_add_(0, ids, v)
+        out = torch.zeros(num_leaves, dtype=v.dtype, device=v.device)
+        if v.is_cuda:
+            # sorts the rows by leaf and adds each leaf's run in order:
+            # the same bits on every run (index_add_ on the card adds
+            # with atomics, in an order that varies between runs)
+            return out.index_put_((ids,), v, accumulate=True)
+        return out.index_add_(0, ids, v)
 
     sg, sh = segment_sum(gk), segment_sum(hk)
     cnt = segment_sum(torch.ones_like(gk))

@@ -41,7 +41,7 @@ import torch.distributed as dist
 
 from ..basic import Booster
 from ..boosting.gbdt import GBDT, kEpsilon
-from ..config import Config
+from ..config import Config, drop_param
 from ..metric import create_metric
 from ..obs import events as obs_events
 from ..obs import health as obs_health
@@ -219,13 +219,21 @@ def train(params: Dict, local_X: np.ndarray, local_y: np.ndarray,
     if not dist.is_initialized():
         log.fatal("dtrain.train needs an initialized process group "
                   "(parallel.distributed.initialize)")
+    # the process group is the set of machines; num_machines is read by
+    # the CLI (application.py), which calls this function in each rank
+    params = drop_param(params, "num_machines")
     config = Config.from_params(params)
     if config.boosting != "gbdt":
-        log.unsupported("boosting=%s in distributed training"
-                        % config.boosting, "item 25")
+        # the JAX package's dtrain boosts gbdt whatever boosting says
+        log.fatal("boosting=%s: distributed training boosts gbdt trees "
+                  "only; train DART or RF in one process, over several "
+                  "cards with tree_learner and mesh_shape"
+                  % config.boosting)
     if config.is_unbalance:
-        log.unsupported("is_unbalance in distributed training (its class "
-                        "weights come from one rank's counts)", "item 25")
+        log.fatal("is_unbalance in distributed training: its class weights "
+                  "would come from each rank's own label counts, so the "
+                  "ranks would boost different gradients; set "
+                  "scale_pos_weight from the global counts instead")
     rank = D.rank()
     device = D.rank_device(config)
     # the rank of every trace event and gateway push of this process
@@ -257,6 +265,16 @@ def train(params: Dict, local_X: np.ndarray, local_y: np.ndarray,
         if (config.metric and config.is_provide_training_metric
                 and (it + 1) % max(config.metric_freq, 1) == 0):
             _log_metrics(gbdt, config, ds, it + 1)
+    if obs_events.enabled():
+        # the rank's summary, for callers that see only its event log
+        # (the CLI's ranks): what its learner ran
+        from ..ops.histogram import device_launch_counts
+        st, cs = gbdt.learner.grow_stats, gbdt.learner.comm_stats
+        obs_events.emit("dtrain_done", rank=rank, trees=len(gbdt.models),
+                        roots=st["roots"], steps=st["steps"],
+                        captures=st["captures"],
+                        allreduces=cs["allreduces"],
+                        launches=device_launch_counts())
     return Booster(params=dict(params), model_str=gbdt.save_model_to_string())
 
 

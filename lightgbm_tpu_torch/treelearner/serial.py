@@ -1168,7 +1168,11 @@ class SerialTreeLearner(CapabilityMixin):
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph):
+            # thread_local: a server or another learner may use the
+            # card from its own thread meanwhile (the refresh loop);
+            # "global" would make their syncs fail this capture
+            with torch.cuda.graph(graph,
+                                  capture_error_mode="thread_local"):
                 self._step(buf)
         except RuntimeError as exc:
             raise LightGBMError("whole-tree loop: capturing the split step "

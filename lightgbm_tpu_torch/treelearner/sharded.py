@@ -444,7 +444,11 @@ class ShardedTreeLearner(SerialTreeLearner):
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph):
+            # thread_local: a server or another learner may use the
+            # card from its own thread meanwhile (the refresh loop);
+            # "global" would make their syncs fail this capture
+            with torch.cuda.graph(graph,
+                                  capture_error_mode="thread_local"):
                 self._finish_all(rb)
         except RuntimeError as exc:
             raise LightGBMError("sharded learner: capturing the round's "

@@ -101,10 +101,3 @@ def fatal(msg: str, *args) -> None:
     except Exception:
         pass
     raise LightGBMError(msg)
-
-
-def unsupported(what: str, item: str) -> None:
-    """Raise for a setting this port does not run yet, naming the
-    ROADMAP item that brings it (never ignore it silently)."""
-    fatal("%s is not supported by lightgbm_tpu_torch yet (ROADMAP %s)"
-          % (what, item))

@@ -1280,3 +1280,107 @@ def test_quantized_sharded_trees_text_equal_on_the_card(cuda, tmp_path,
     assert n == ds.num_shards * st["hist_passes"] > 0
     mem = lgb.train(params, lgb.Dataset(X, label=y), num_boost_round=3)
     assert sh.model_to_string() == mem.model_to_string()
+
+
+def test_cli_train_and_predict_on_the_card(cuda, tmp_path):
+    """``python -m lightgbm_tpu_torch.application`` trains on the card
+    by default: its model text (trees and importances) equals
+    ``lgb.train`` on the card over the same parsed rows, its own K1
+    launches (its ``cli_train_done`` event) == roots + steps, and its
+    ``predict`` task equals ``Booster.predict`` within 1e-9."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from lightgbm_tpu_torch.application import _load_tabular
+    from lightgbm_tpu_torch.config import Config
+    rng = np.random.RandomState(4)
+    X = rng.randn(30000, 10)
+    y = (X[:, 0] - X[:, 1] + 0.3 * rng.randn(30000) > 0).astype(float)
+    data = str(tmp_path / "train.tsv")
+    np.savetxt(data, np.column_stack([y, X]), delimiter="\t", fmt="%.9g")
+    model, preds = str(tmp_path / "m.txt"), str(tmp_path / "p.tsv")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    event_log = str(tmp_path / "events.jsonl")
+    env = dict(os.environ, PYTHONPATH=root)
+    for argv, extra in ((["task=train", "objective=binary", "num_leaves=63",
+                          "num_trees=5", "data=" + data,
+                          "output_model=" + model],
+                         {"LIGHTGBM_TPU_EVENT_LOG": event_log}),
+                        (["task=predict", "data=" + data,
+                          "input_model=" + model,
+                          "output_result=" + preds], {})):
+        subprocess.run([sys.executable, "-m",
+                        "lightgbm_tpu_torch.application", "verbosity=-1"]
+                       + argv, check=True, env=dict(env, **extra),
+                       cwd=root, timeout=600)
+    with open(event_log) as fh:
+        done = [json.loads(ln) for ln in fh if '"cli_train_done"' in ln]
+    assert len(done) == 1 and done[0]["trees"] == 5
+    assert done[0]["launches"]["histogram_f32"] == \
+        done[0]["roots"] + done[0]["steps"] > 0
+    Xf, yf, _, _ = _load_tabular(data, Config.from_params({}))
+    bst = lgb.train({"objective": "binary", "num_leaves": 63,
+                     "verbosity": -1}, lgb.Dataset(Xf, label=yf),
+                    num_boost_round=5)
+    with open(model) as fh:
+        # the trees and importances; the parameters differ (task, data)
+        assert fh.read().split("parameters:")[0] == \
+            bst.model_to_string().split("parameters:")[0]
+    np.testing.assert_allclose(np.loadtxt(preds), bst.predict(Xf),
+                               rtol=0, atol=1e-9)
+
+
+def test_one_refresh_cycle_on_the_card(cuda, tmp_path, monkeypatch):
+    """Bootstrap + one clean refresh on the card under live traffic: the
+    refresh captures the sharded learner's graph while the server's
+    worker and the pumps use the card, and the checkpointed model is
+    the uninterrupted training's on the re-attached spill, text for
+    text."""
+    from lightgbm_tpu_torch.ft import checkpoint as ckpt_mod
+    from lightgbm_tpu_torch.io.shards import ShardedBinnedDataset
+    from lightgbm_tpu_torch.loop import RefreshController
+    monkeypatch.setenv("LIGHTGBM_TPU_WATCH_REFRESH_P99_MS", "5000")
+    params = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+              "min_data_in_leaf": 20}
+
+    def data_fn(cycle):
+        rng = np.random.default_rng(60 + cycle)
+        X = rng.normal(size=(40000, 10))
+        return X, (X[:, 0] + 0.5 * X[:, 1] > 0.2).astype(np.float64)
+
+    ctl = RefreshController(params, data_fn, num_features=10,
+                            work_dir=str(tmp_path), base_rounds=2,
+                            extra_rounds=1, traffic_rows=64,
+                            traffic_pool=4, shard_rows=10000, schedule={},
+                            use_gateway=False)
+    rep = ctl.run(cycles=2)
+    assert rep["ok"], rep["problems"]
+    assert [c["outcome"] for c in rep["cycles"]] == ["bootstrap",
+                                                     "promoted"]
+    assert rep["traffic"]["rows_ok"] > 0
+    newest = ckpt_mod.list_checkpoints(str(tmp_path / "ckpt"))[0]
+    with open(newest[1] + "/model.txt") as fh:
+        loop_text = fh.read()
+    spill = ShardedBinnedDataset.attach(str(tmp_path / "spill"))
+    alone = lgb.train(params, lgb.Dataset(spill), num_boost_round=3)
+    assert loop_text == alone.model_to_string()
+
+
+def test_refit_on_the_card_gives_the_same_bits_every_run(cuda):
+    """The refit's per-leaf sums on the card add each leaf's rows in a
+    sorted order (``ops/refit.py``): two refits of one model on one
+    window give the same text, as a refresh loop's stable version must
+    be reproducible from its checkpoint."""
+    rng = np.random.RandomState(9)
+    X = rng.randn(200000, 10)
+    y = (X[:, 0] - X[:, 1] + 0.3 * rng.randn(200000) > 0).astype(float)
+    bst = lgb.train({"objective": "binary", "num_leaves": 63,
+                     "verbose": -1}, lgb.Dataset(X, label=y),
+                    num_boost_round=3)
+    text = bst.model_to_string()
+    Xr = rng.randn(200000, 10)
+    yr = (Xr[:, 0] + 0.3 * rng.randn(200000) > 0).astype(float)
+    a = lgb.Booster(model_str=text).refit(Xr, yr).model_to_string()
+    b = lgb.Booster(model_str=text).refit(Xr, yr).model_to_string()
+    assert a == b and a != text

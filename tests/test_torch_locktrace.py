@@ -11,7 +11,8 @@ against the JAX package's, on the CPU.
   unset, and wraps the named locks of the serving classes and the
   metrics gateway when it is set;
 - a warmed ``PredictServer`` through an overload burst, with two
-  replicas, is clean (no inversion, no hold overrun).
+  replicas, is clean (no inversion, no hold overrun), and so is one
+  refresh cycle of the closed loop (``loop/controller.py``).
 """
 import threading
 import time
@@ -199,4 +200,37 @@ def test_warmed_server_overload_window_is_clean(traced):
         srv.stop()
     rep = locktrace.report()
     assert rep["acquires"] > 256
+    locktrace.assert_clean()
+
+
+def test_one_refresh_cycle_is_clean(traced, tmp_path, monkeypatch):
+    """Bootstrap + one clean refresh under live traffic (reference
+    ``TestRefreshWindow.test_one_refresh_cycle_is_clean``): train,
+    publish, canary, promote, with every serve and registry lock traced
+    end to end."""
+    import numpy as np
+    from lightgbm_tpu_torch.loop import RefreshController
+    monkeypatch.setenv("LIGHTGBM_TPU_WATCH_REFRESH_P99_MS", "5000")
+    locktrace.tracer().max_hold_s = 2.0
+    kF = 10
+
+    def data_fn(cycle, rows=600):
+        rng = np.random.default_rng(50 + cycle)
+        Xc = rng.normal(size=(rows, kF))
+        yc = (Xc[:, 0] + 0.5 * Xc[:, 1] > 0.2).astype(np.float64)
+        return Xc, yc
+
+    ctl = RefreshController(
+        {"objective": "binary", "num_leaves": 7, "max_bin": 31,
+         "verbosity": -1, "min_data_in_leaf": 10,
+         "bin_construct_sample_cnt": 800, "device_type": "cpu"},
+        data_fn, num_features=kF, work_dir=str(tmp_path),
+        base_rounds=2, extra_rounds=1, traffic_threads=2,
+        traffic_rows=32, drain_timeout_s=15, schedule={},
+        use_gateway=False)
+    rep = ctl.run(cycles=2)
+    assert rep["ok"], rep["problems"]
+    assert rep["refresh_rollbacks"] == 0
+    trace = locktrace.report()
+    assert trace["acquires"] > 0
     locktrace.assert_clean()

@@ -363,3 +363,31 @@ def test_forced_predict_decline_emits_the_references_event():
                            for r in seen if r["event"] == "perf_warning")
     assert out["port"] == out["ref"] == [("perf_warning",
                                           "serve.host_walk")]
+
+
+def test_clear_gauges_and_percentile_since():
+    """A new measurement window drops the gauges an earlier component
+    left under a prefix, and nothing else; ``percentile(since=)`` reads
+    only the samples observed after an ``observed()`` baseline, also
+    once the reservoir has dropped older ones."""
+    reg = MetricsRegistry()
+    reg.gauge("quality/psi_max", 0.4)
+    reg.gauge("quality/psi/feature/3", 0.4)
+    reg.gauge("serve/models", 1)
+    reg.clear_gauges("quality/")
+    assert reg.gauges == {"serve/models": 1}
+    for v in (1.0, 2.0, 300.0):
+        reg.observe("serve/latency_ms", v)
+    base = reg.observed("serve/latency_ms")
+    assert base == 3
+    assert reg.percentile("serve/latency_ms", 99.0, since=base) == 0.0
+    reg.observe("serve/latency_ms", 7.0)
+    assert reg.percentile("serve/latency_ms", 99.0, since=base) == 7.0
+    assert reg.percentile("serve/latency_ms", 99.0) > 7.0
+    for v in range(kHistCap + 10):
+        reg.observe("serve/latency_ms", float(v % 5))
+    # the window outgrew the reservoir: all of it is newer than base
+    assert reg.percentile("serve/latency_ms", 100.0, since=base) == 4.0
+    base = reg.observed("serve/latency_ms")
+    reg.observe("serve/latency_ms", 9.0)
+    assert reg.percentile("serve/latency_ms", 0.0, since=base) == 9.0
